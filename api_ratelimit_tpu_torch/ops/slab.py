@@ -1,0 +1,345 @@
+"""Port of api_ratelimit_tpu/ops/slab.py: the after-mode fixed-window slab step.
+
+The counter store is a W-way set-associative row table in device memory,
+`int32[n_slots, ROW_WIDTH]` holding the reference's uint32 rows bit for bit
+(torch's uint32 support is partial, so rows travel as int32 and every
+unsigned compare or add is written out). A key lives only in set
+`fp_lo & (n_sets - 1)`; a full set evicts its least-valuable way in place
+(dead, then window-ended, then lowest-count live, rotation tiebreak).
+
+This slice ports the production after-mode path for fixed-window rules only
+(the reference's `slab_step_after(multi_algo=False, sketch=None,
+victim=False)`, the HOTKEYS_ENABLED=false arm):
+
+    way scan (kernel) -> eviction class -> packed-key stable sort
+    -> INCRBY apply (kernel) -> one row scatter -> unsort -> saturating cast
+
+The two kernels live in ops/slab_kernels.py (CUDA C++ in csrc/), which also
+defines the row layout; the glue between them stays plain torch ops, as XLA
+owned it on the TPU. Unlike the reference's donated, immutable state, the
+step updates `state.table` in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .hashing import set_index
+from .slab_kernels import (  # noqa: F401  (the row layout is re-exported)
+    _M32,
+    ALGO_DIV_MASK,
+    ALGO_SHIFT,
+    COL_AUX,
+    COL_COUNT,
+    COL_DIVIDER,
+    COL_EXPIRE,
+    COL_FP_HI,
+    COL_FP_LO,
+    COL_PREV,
+    COL_WINDOW,
+    ROW_WIDTH,
+    SCORE_TIER_SHIFT,
+    TIER_DEAD,
+    TIER_LIVE,
+    TIER_WINDOW_ENDED,
+    _u32,
+    _wrap32,
+    slab_apply,
+    way_scan,
+)
+
+(
+    ALGO_FIXED_WINDOW,
+    ALGO_SLIDING_WINDOW,
+    ALGO_GCRA,
+    ALGO_CONCURRENCY,
+    ALGO_CONC_RELEASE,
+) = range(5)
+ALGO_NAMES = {
+    ALGO_FIXED_WINDOW: "fixed_window",
+    ALGO_SLIDING_WINDOW: "sliding_window",
+    ALGO_GCRA: "gcra",
+    ALGO_CONCURRENCY: "concurrency",
+}
+GCRA_TAT_CAP_MS = 1 << 30
+GCRA_DIV_CAP_S = 1_000_000
+
+# One warp-strided scan of 128 ways per set on the card (the kernel's
+# shape); a cache-line-scale set on hosts, as in the reference.
+DEFAULT_WAYS = 128
+DEFAULT_WAYS_HOST = 4
+
+(
+    HEALTH_EVICT_EXPIRED,
+    HEALTH_EVICT_WINDOW,
+    HEALTH_EVICT_LIVE,
+    HEALTH_DROPS,
+    HEALTH_ALGO_RESETS,
+) = range(5)
+HEALTH_WIDTH = 5
+
+EVICT_NONE, EVICT_EXPIRED, EVICT_WINDOW, EVICT_LIVE = range(4)
+
+# packed launch operand rows (uint32[7, b]); row 6 carries the scalars
+ROW_FP_LO, ROW_FP_HI, ROW_HITS, ROW_LIMIT, ROW_DIVIDER, ROW_JITTER, ROW_SCALARS = range(7)
+PACKED_IN_ROWS = 7
+OUT_CODE, OUT_REMAINING, OUT_DURATION, OUT_THROTTLE, OUT_NEAR, OUT_OVER, OUT_BEFORE, OUT_AFTER, OUT_ORDER = range(9)
+PACKED_OUT_ROWS = 9
+
+# saturating readback widths (numpy dtype -> torch dtype)
+_TORCH_UNSIGNED = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.uint32): torch.uint32,
+}
+
+
+def default_ways(platform: str) -> int:
+    """Platform-matched set associativity for SLAB_WAYS=0 (auto): the
+    kernel's 128 on the card, 4 on hosts."""
+    return DEFAULT_WAYS if platform == "cuda" else DEFAULT_WAYS_HOST
+
+
+def validate_ways(n_slots: int, ways: int) -> int:
+    """Ways must be a power of two; a slab smaller than one set runs fully
+    associative (ways = n_slots)."""
+    ways = int(ways)
+    if ways <= 0 or ways & (ways - 1):
+        raise ValueError(f"ways must be a positive power of two, got {ways}")
+    return min(ways, n_slots)
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default and never
+    falls back: without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class SlabState:
+    """The row table, `int32[n_slots, ROW_WIDTH]` (uint32 bits). `table` is
+    a view of the first n_slots rows of `rows`, whose one extra row is
+    scratch: the step's scatter sends the writes that must not land there,
+    so it needs no mask compaction and no host sync."""
+
+    __slots__ = ("rows", "table")
+
+    def __init__(self, n_slots: int, device: torch.device):
+        self.rows = torch.zeros(
+            (n_slots + 1, ROW_WIDTH), dtype=torch.int32, device=device
+        )
+        self.table = self.rows[:n_slots]
+
+    @property
+    def n_slots(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+
+def make_slab(n_slots: int, device="cuda") -> SlabState:
+    if n_slots <= 0 or n_slots & (n_slots - 1):
+        raise ValueError(f"n_slots must be a power of two, got {n_slots}")
+    return SlabState(n_slots, resolve_device(device))
+
+
+def _choose_ways(state: SlabState, fp_lo, fp_hi, hits, now: int, ways: int):
+    """The W-wide set scan; returns (int64[b] chosen slot = set * W + way,
+    n_slots for padding; int64[b] eviction class; bool[b] matched;
+    int32[b, ROW_WIDTH] the chosen way's stored row)."""
+    n = state.n_slots
+    way, match_any, picked = way_scan(state.table, fp_lo, fp_hi, now, ways)
+    set_idx = set_index(fp_lo, n // ways).long()
+    chosen = set_idx * ways + way.long()
+
+    p_expire = picked[:, COL_EXPIRE]
+    p_window = picked[:, COL_WINDOW].long()
+    p_div = (picked[:, COL_DIVIDER] & ALGO_DIV_MASK).long()
+    p_live = p_expire > now
+    p_window_ended = p_live & (p_div > 0) & (_wrap32(p_window + p_div) <= now)
+    valid = hits != 0
+    evict_class = torch.where(
+        match_any | ~valid,
+        EVICT_NONE,
+        torch.where(
+            p_live,
+            torch.where(p_window_ended, EVICT_WINDOW, EVICT_LIVE),
+            torch.where(p_expire > 0, EVICT_EXPIRED, EVICT_NONE),
+        ),
+    )
+    return (
+        torch.where(valid, chosen, n),
+        evict_class,
+        match_any & valid,
+        picked,
+    )
+
+
+def _sort_key(chosen, matched, fp_hi, n: int) -> torch.Tensor:
+    """The packed key of the reference (slot, then the matched bit, then
+    the top fp_hi bits), held in int64: it fills all 32 bits, so an int32
+    sort would misorder keys above 2^31."""
+    slot_bits = n.bit_length()
+    fp_bits = max(0, min(16, 32 - slot_bits - 1))
+    key = ((chosen << 1) | matched.long()) & _M32
+    if not fp_bits:
+        return key
+    return ((key << fp_bits) & _M32) | (_u32(fp_hi) >> (32 - fp_bits))
+
+
+def _unsort(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """out[order[i]] = values[i]."""
+    out = torch.empty_like(values)
+    out[order] = values
+    return out
+
+
+def _unpack(packed: np.ndarray):
+    """Host operand uint32[7, b] -> (int32 rows as a numpy view, now)."""
+    packed = np.ascontiguousarray(packed, dtype=np.uint32)
+    if packed.ndim != 2 or packed.shape[0] != PACKED_IN_ROWS:
+        raise ValueError(f"packed operand must be (7, b), got {packed.shape}")
+    now = int(packed[ROW_SCALARS, 0].view(np.int32))
+    return packed.view(np.int32), now
+
+
+def _finish_update(
+    state, order, s_slot, same_prev, evict_class, s_fp_lo, s_fp_hi, s_hits,
+    s_div, s_after, cur_window, expire,
+):
+    """One row write per slot (the slot's last sorted item) and the health
+    vector: the eviction mix of winning writes plus contention drops."""
+    n = state.n_slots
+    true1 = torch.ones(1, dtype=torch.bool, device=s_slot.device)
+    is_last = torch.cat([s_slot[1:] != s_slot[:-1], true1])
+    s_valid = s_hits != 0
+    win = s_valid & is_last
+    seg_end = torch.cat([~same_prev, true1])
+    s_class = evict_class[order]
+    health = torch.stack(
+        [
+            (win & (s_class == cls)).sum()
+            for cls in (EVICT_EXPIRED, EVICT_WINDOW, EVICT_LIVE)
+        ]
+        + [
+            (s_valid & seg_end & ~is_last).sum(),
+            torch.zeros((), dtype=torch.int64, device=s_slot.device),
+        ]
+    )
+    zeros = torch.zeros_like(s_fp_lo)
+    new_rows = torch.stack(
+        [s_fp_lo, s_fp_hi, s_after, cur_window, expire, s_div, zeros, zeros],
+        dim=1,
+    )
+    # the reference's scatter mode="drop": only winning writes land; the
+    # rest go to the scratch row n (winning slots are unique, so no two
+    # writes that land share a row)
+    write_idx = torch.where(win & (s_slot < n), s_slot, n)
+    state.rows.index_put_((write_idx,), new_rows)
+    return health
+
+
+def slab_step_after(
+    state: SlabState,
+    packed: np.ndarray,
+    ways: int = DEFAULT_WAYS,
+    out_dtype=np.uint32,
+):
+    """One launch: stateful update only. `packed` is the host operand
+    uint32[7, b] (fp_lo, fp_hi, hits, limit, divider, jitter, scalars with
+    `now` in [6, 0]). Returns (post-increment counters in arrival order,
+    saturating-cast to out_dtype, as a device tensor of that width; int64[5]
+    health vector on the device). The table updates in place. Rows with a
+    non-fixed algorithm id are the caller's to refuse (backends/cuda.py):
+    this is the fixed-window body."""
+    rows, now = _unpack(packed)
+    dev = state.device
+    op = torch.from_numpy(rows[:ROW_JITTER + 1]).to(dev)
+    fp_lo, fp_hi, hits, _limit, div, jit = op
+    n = state.n_slots
+
+    chosen, evict_class, matched, picked = _choose_ways(
+        state, fp_lo, fp_hi, hits, now, ways
+    )
+    key = _sort_key(chosen, matched, fp_hi, n)
+    order = torch.sort(key, stable=True).indices
+    s_slot = chosen[order]
+    s_fp_lo = fp_lo[order]
+    s_fp_hi = fp_hi[order]
+    s_hits = hits[order]
+    s_div = div[order]
+    s_jit = jit[order]
+    same_prev = (
+        (s_slot[1:] == s_slot[:-1])
+        & (s_fp_lo[1:] == s_fp_lo[:-1])
+        & (s_fp_hi[1:] == s_fp_hi[:-1])
+    )
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    seg_start = torch.cat([true1, ~same_prev])
+    st_rows = picked[order]
+
+    _before, s_after, cur_window, expire = slab_apply(
+        s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now
+    )
+    health = _finish_update(
+        state, order, s_slot, same_prev, evict_class, s_fp_lo, s_fp_hi,
+        s_hits, s_div, s_after, cur_window, expire,
+    )
+    after = _u32(_unsort(s_after, order))
+    out_dtype = np.dtype(out_dtype)
+    cap = int(np.iinfo(out_dtype).max)
+    out = torch.clamp(after, max=cap).to(_TORCH_UNSIGNED[out_dtype])
+    return out, health
+
+
+def slab_export_copy(state: SlabState) -> np.ndarray:
+    """Host copy of the row table as uint32[n_slots, ROW_WIDTH]."""
+    return state.table.cpu().numpy().view(np.uint32).copy()
+
+
+def slab_import_rows(rows, device="cuda") -> SlabState:
+    """Upload a (n_slots, ROW_WIDTH) uint32 host table (for example a JAX
+    state's `np.asarray(state.table)`) as fresh slab state."""
+    rows = np.asarray(rows, dtype=np.uint32)
+    if rows.ndim != 2 or rows.shape[1] != ROW_WIDTH:
+        raise ValueError(
+            f"slab rows must be (n_slots, {ROW_WIDTH}), got {rows.shape}"
+        )
+    n_slots = rows.shape[0]
+    if n_slots & (n_slots - 1):
+        raise ValueError(f"n_slots must be a power of two, got {n_slots}")
+    state = SlabState(n_slots, resolve_device(device))
+    state.table.copy_(torch.from_numpy(rows.view(np.int32).copy()))
+    return state
+
+
+def live_slot_count(table: torch.Tensor, now: int) -> int:
+    """Count of live (unexpired) rows — THE liveness definition."""
+    return int((table[:, COL_EXPIRE] > int(now)).sum())
+
+
+def find_row_host(table, fp_lo: int, fp_hi: int, ways: int) -> int:
+    """Row index of live (fp_lo, fp_hi) in a HOST uint32 copy of a table,
+    or -1; the set split is set_index, as on the device."""
+    table = np.asarray(table)
+    n_slots = table.shape[0]
+    ways = min(int(ways), n_slots)
+    n_sets = n_slots // ways
+    base = int(set_index(np.uint32(fp_lo), n_sets)) * ways
+    rows = table[base : base + ways]
+    hit = np.flatnonzero(
+        (rows[:, COL_FP_LO] == np.uint32(fp_lo))
+        & (rows[:, COL_FP_HI] == np.uint32(fp_hi))
+        & (rows[:, COL_EXPIRE] != 0)
+    )
+    return base + int(hit[0]) if hit.size else -1

@@ -1,0 +1,111 @@
+"""Port of api_ratelimit_tpu/server/http_server.py: the main HTTP listener.
+
+POST /json is the HTTP/JSON mirror of the v3 ShouldRateLimit RPC
+(server_impl.go:62-104): 200 for OK, 429 for OVER_LIMIT, 500 for UNKNOWN or
+a backend/service error, 400 for a malformed request. GET /healthcheck
+answers 200 "OK". The body codec is server/proto_adapter.py (standard-library
+JSON in place of protobuf's json_format). The debug port, gRPC, deadlines and
+tracing wait for later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..limiter.cache import CacheError
+from ..models.response import Code
+from ..service.ratelimit import RateLimitService, ServiceError
+from . import proto_adapter
+
+logger = logging.getLogger("ratelimit.server.http")
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    service: RateLimitService  # set on the per-server subclass
+
+    def log_message(self, format, *args):  # noqa: A002 (stdlib signature)
+        logger.debug("http: " + format, *args)
+
+    def _write(self, status: int, body: bytes, content_type: str = "text/plain"):
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):  # noqa: N802
+        if self.path.split("?", 1)[0] == "/healthcheck":
+            self._write(200, b"OK")
+        else:
+            self._write(404, b"404 page not found\n")
+
+    def do_POST(self):  # noqa: N802
+        if self.path.split("?", 1)[0] != "/json":
+            self._write(404, b"404 page not found\n")
+            return
+        # a malformed Content-Length is a 400, and a negative one must not
+        # turn into an unbounded read
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+        except (TypeError, ValueError):
+            self._write(400, b"Bad Request: invalid Content-Length\n")
+            return
+        body = self.rfile.read(length) if length > 0 else b""
+        if not body:
+            self._write(400, b"Bad Request: empty body\n")
+            return
+        try:
+            request = proto_adapter.decode_request(body)
+        except proto_adapter.RequestDecodeError as e:
+            self._write(400, f"Bad Request: {e}\n".encode())
+            return
+        except ServiceError as e:
+            self._write(500, f"Internal Server Error: {e}\n".encode())
+            return
+        try:
+            overall, statuses, headers = self.service.should_rate_limit(request)
+        except (CacheError, ServiceError) as e:
+            self._write(500, f"Internal Server Error: {e}\n".encode())
+            return
+        out = proto_adapter.encode_response(overall, statuses, headers)
+        if overall == Code.OK:
+            status = 200
+        elif overall == Code.OVER_LIMIT:
+            status = 429
+        else:
+            status = 500
+        self._write(status, out, content_type="application/json")
+
+
+class HttpServer:
+    """The main listener: /json and /healthcheck over one service.
+    serve_background() runs it in a daemon thread; shutdown() stops it."""
+
+    def __init__(self, service: RateLimitService, host: str = "127.0.0.1", port: int = 0):
+        handler = type("JsonHandler", (_Handler,), {"service": service})
+        self._server = ThreadingHTTPServer((host, port), handler)
+        self._server.daemon_threads = True
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    def serve_background(self) -> None:
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            kwargs={"poll_interval": 0.1},
+            name="http-json",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
