@@ -8,12 +8,16 @@ post-increment counter, saturating-cast to the narrowest dtype the batch's
 limits allow, and the host derives code, remaining, throttle and the stats
 split with the same BaseRateLimiter oracle every backend shares.
 
-This slice runs the reference's direct mode (TPU_BATCH_WINDOW=0) with
-HOTKEYS_ENABLED=false: every submit is one serialized launch under the
-state lock. The micro-batcher, dispatch loop, sketch, victim tier, leases,
-mesh engine and persistence wait for later slices. The kernels cover
-fixed-window rules only: a launch carrying any other algorithm id raises
-CacheError instead of being served with the wrong semantics.
+The port runs the reference's direct mode (TPU_BATCH_WINDOW=0): every
+submit is one serialized launch under the state lock. With hotkey_lanes > 0
+(HOTKEYS_ENABLED, the production default) every launch also updates the
+heavy-hitter sketch (ops/sketch.py), which the stats cadence drains
+(HotkeyStats); the cache's compiled-matcher path (do_limit_resolved)
+records the witness keys that /debug/hotkeys resolves fingerprints to. The
+micro-batcher, dispatch loop, victim tier, leases, mesh engine and
+persistence wait for later slices. The kernels cover fixed-window rules
+only: a launch carrying any other algorithm id raises CacheError instead of
+being served with the wrong semantics.
 """
 
 from __future__ import annotations
@@ -29,11 +33,19 @@ from ..assertx import assert_
 from ..limiter.base_limiter import BaseRateLimiter, LimitInfo
 from ..limiter.cache import CacheError
 from ..limiter.cache_key import generate_cache_key
-from ..models.config import ALGORITHM_IDS, RateLimit
+from ..models.config import ALGO_ID_FIXED_WINDOW, ALGORITHM_IDS, RateLimit
 from ..models.descriptors import RateLimitRequest
 from ..models.response import DoLimitResponse
 from ..models.units import unit_to_divider
 from ..ops.hashing import fingerprint_many, split_fingerprints
+from ..ops.sketch import (
+    make_sketch,
+    sketch_decay,
+    sketch_export_copy,
+    sketch_import_planes,
+    sketch_topk,
+    sketch_ways,
+)
 from ..ops.slab import (
     ALGO_SHIFT,
     HEALTH_ALGO_RESETS,
@@ -97,10 +109,17 @@ class SlabDeviceEngine:
         ways: int = 0,
         buckets: Sequence[int] = (128, 1024, 8192, 65536),
         device="cuda",
+        hotkey_lanes: int = 0,
+        hotkey_k: int = 16,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
-        raises without a card; "cpu" runs the kernels' plain versions."""
+        raises without a card; "cpu" runs the kernels' plain versions.
+
+        hotkey_lanes: lanes of the heavy-hitter sketch (HOTKEY_LANES). 0
+        disables it (the HOTKEYS_ENABLED=false arm): no sketch enters the
+        launch, which is then exactly the sketch-free step. hotkey_k is the
+        top-K size each drain reports (HOTKEY_K)."""
         self._time_source = time_source
         self._device = resolve_device(device)
         if not ways:
@@ -114,10 +133,62 @@ class SlabDeviceEngine:
         self._decisions_total = 0
         self._pending_health: list = []
         self._state_lock = threading.Lock()
+        # heavy-hitter sketch: planes beside the slab, updated by every
+        # launch, drained and halved on the stats cadence (drain_hotkeys)
+        self._hotkey_k = max(1, int(hotkey_k))
+        self._sketch: torch.Tensor | None = None
+        self._sketch_ways = 0
+        self._last_topk: list[tuple[int, int, int]] = []
+        self._hotkey_drains = 0
+        if int(hotkey_lanes) > 0:
+            self._sketch_ways = sketch_ways(self._ways, hotkey_lanes)
+            self._sketch = make_sketch(hotkey_lanes, self._device)
 
     @property
     def ways(self) -> int:
         return self._ways
+
+    # -- heavy-hitter sketch drain (stats cadence; ops/sketch.py) --
+
+    @property
+    def hotkeys_enabled(self) -> bool:
+        return self._sketch is not None
+
+    def drain_hotkeys(self) -> list[tuple[int, int, int]]:
+        """Pull the sketch planes to the host, rank the top-K, halve the
+        counts and upload them again, under the state lock. Called on the
+        stats cadence by HotkeyStats, never per launch. The reference's
+        hot_fps set and drain listeners feed its mesh hot tier and journey
+        flags; they come with those consumers."""
+        if self._sketch is None:
+            return []
+        with self._state_lock:
+            planes = sketch_export_copy(self._sketch)
+            top = sketch_topk(planes, self._hotkey_k)
+            self._sketch = sketch_import_planes(sketch_decay(planes), self._device)
+        self._last_topk = top
+        self._hotkey_drains += 1
+        return top
+
+    def hotkeys_snapshot(self) -> dict:
+        """The last drained top-K as a debug document (/debug/hotkeys
+        without key resolution; the cache layer adds witness keys)."""
+        return {
+            "enabled": self._sketch is not None,
+            "k": self._hotkey_k,
+            "lanes": 0 if self._sketch is None else int(self._sketch.shape[1]),
+            "drains": self._hotkey_drains,
+            "top": [
+                {"fp": f"{(hi << 32) | lo:016x}", "count": cnt}
+                for lo, hi, cnt in self._last_topk
+            ],
+        }
+
+    def export_sketch(self) -> np.ndarray | None:
+        """Host copy of the sketch planes, uint32[3, lanes], under the
+        state lock (None with the sketch off)."""
+        with self._state_lock:
+            return None if self._sketch is None else sketch_export_copy(self._sketch)
 
     def _drain_health_locked(self) -> None:
         pending, self._pending_health = self._pending_health, []
@@ -209,9 +280,14 @@ class SlabDeviceEngine:
         dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
         try:
             with self._state_lock:
-                after_dev, health = slab_step_after(
-                    self._state, packed, ways=self._ways, out_dtype=dtype
+                outs = slab_step_after(
+                    self._state, packed, ways=self._ways, out_dtype=dtype,
+                    sketch=self._sketch, sketch_ways=self._sketch_ways,
                 )
+                if self._sketch is not None:
+                    after_dev, health, self._sketch = outs
+                else:
+                    after_dev, health = outs
                 self._pending_health.append(health)
                 self._decisions_total += n
                 if len(self._pending_health) > 4096:
@@ -219,6 +295,89 @@ class SlabDeviceEngine:
             return after_dev[:n].cpu().numpy().astype(np.uint32)
         except (RuntimeError, ValueError) as e:
             raise CacheError(f"cuda backend failure: {e}") from e
+
+
+class SlabHealthStats:
+    """StatGenerator exporting the slab's health on every stats flush:
+
+        ratelimit.slab.evictions.expired  reclaims of expired (TTL-dead) ways
+        ratelimit.slab.evictions.window   evictions of live ways whose fixed
+                                          window had ended
+        ratelimit.slab.evictions.live     evictions of live in-window ways,
+                                          the only lossy tier
+        ratelimit.slab.drops       cumulative in-batch contention drops
+        ratelimit.slab.algo_resets rows reset because their rule's algorithm
+                                   changed (0 while the port serves
+                                   fixed_window only)
+        ratelimit.slab.decisions   cumulative decisions submitted on-device
+        ratelimit.slab.loss_ppm    (evictions.live + drops) per million
+                                   decisions since the last flush
+        ratelimit.slab.live_slots  currently live (unexpired) slots
+        ratelimit.slab.occupancy   live fraction x 1e6
+
+    The reference's `watermark` gauge waits for SLAB_WATERMARK_HIGH, which
+    the port has no setting for yet."""
+
+    def __init__(self, engine, scope):
+        self._engine = engine
+        self._last = {"evictions_live": 0, "drops": 0, "decisions": 0}
+        # dotted literals, as in the reference (its metrics lint treats
+        # each literal as one family name)
+        self._gauges = {
+            "evictions_expired": scope.gauge("evictions.expired"),
+            "evictions_window": scope.gauge("evictions.window"),
+            "evictions_live": scope.gauge("evictions.live"),
+            "drops": scope.gauge("drops"),
+            "algo_resets": scope.gauge("algo_resets"),
+            "decisions": scope.gauge("decisions"),
+            "loss_ppm": scope.gauge("loss_ppm"),
+            "live_slots": scope.gauge("live_slots"),
+            "occupancy": scope.gauge("occupancy"),
+        }
+
+    def generate_stats(self) -> None:
+        snap = self._engine.health_snapshot()
+        for k in (
+            "evictions_expired",
+            "evictions_window",
+            "evictions_live",
+            "drops",
+            "algo_resets",
+            "decisions",
+        ):
+            self._gauges[k].set(snap[k])
+        delta = {k: snap[k] - v for k, v in self._last.items()}
+        self._last = {k: snap[k] for k in self._last}
+        self._gauges["loss_ppm"].set(_loss_ppm(delta))
+        self._gauges["live_slots"].set(snap["live_slots"])
+        self._gauges["occupancy"].set(int(snap["occupancy"] * 1_000_000))
+
+
+class HotkeyStats:
+    """StatGenerator draining the heavy-hitter sketch on every stats flush
+    (SlabDeviceEngine.drain_hotkeys: this generator is the drain cadence):
+
+        ratelimit.hotkeys.tracked    occupied top-K entries the last drain
+                                     reported (<= HOTKEY_K)
+        ratelimit.hotkeys.top_count  the hottest key's estimate at drain time
+        ratelimit.hotkeys.drains     cumulative drains
+
+    The ranked entries ship via GET /debug/hotkeys."""
+
+    def __init__(self, engine, scope):
+        self._engine = engine
+        self._g_tracked = scope.gauge("tracked")
+        self._g_top = scope.gauge("top_count")
+        self._c_drains = scope.counter("drains")
+        self._drains_seen = 0
+
+    def generate_stats(self) -> None:
+        top = self._engine.drain_hotkeys()
+        self._g_tracked.set(len(top))
+        self._g_top.set(top[0][2] if top else 0)
+        drains = self._engine._hotkey_drains
+        self._c_drains.add(drains - self._drains_seen)
+        self._drains_seen = drains
 
 
 class CudaRateLimitCache:
@@ -231,6 +390,8 @@ class CudaRateLimitCache:
         ways: int = 0,
         buckets: Sequence[int] = (128, 1024, 8192, 65536),
         device="cuda",
+        hotkey_lanes: int = 0,
+        hotkey_k: int = 16,
     ):
         self._base = base_limiter
         self._engine_core = SlabDeviceEngine(
@@ -239,14 +400,35 @@ class CudaRateLimitCache:
             ways=ways,
             buckets=buckets,
             device=device,
+            hotkey_lanes=hotkey_lanes,
+            hotkey_k=hotkey_k,
         )
-        # (domain, entries, divider) -> fingerprint, clear-on-full
+        # (domain, entries, divider) -> fingerprint, clear-on-full (the
+        # do_limit path only; resolved records carry their fingerprint)
         self._fp_cache: dict = {}
         self._fp_cache_max = 1 << 17
+        # per-thread reusable uint32[6, n] staging block of do_limit_resolved
+        self._scratch = threading.local()
+        # hotkeys witness: combined fp -> descriptor key prefix, recorded by
+        # do_limit_resolved so /debug/hotkeys can name a drained
+        # fingerprint; clear-on-full, None with the sketch off
+        self._witness: dict | None = {} if self._engine_core.hotkeys_enabled else None
+        self._witness_max = 1 << 15
 
     @property
     def engine(self):
         return self._engine_core
+
+    def hotkeys_debug(self) -> dict:
+        """The /debug/hotkeys document: the engine's last drained top-K,
+        each fingerprint resolved to its descriptor key where the witness
+        saw one composed (None otherwise)."""
+        doc = self._engine_core.hotkeys_snapshot()
+        witness = self._witness
+        if witness is not None:
+            for entry in doc["top"]:
+                entry["key"] = witness.get(int(entry["fp"], 16))
+        return doc
 
     def do_limit(
         self,
@@ -343,6 +525,112 @@ class CudaRateLimitCache:
                 )
             )
         assert_(len(response.descriptor_statuses) == n)
+        return response
+
+    def _scratch_block(self, n: int) -> np.ndarray:
+        """This thread's reusable uint32[6, >=n] staging block."""
+        block = getattr(self._scratch, "block", None)
+        if block is None or block.shape[1] < n:
+            block = self._scratch.block = np.empty((6, max(64, n)), dtype=np.uint32)
+        return block
+
+    def do_limit_resolved(self, request, resolved) -> DoLimitResponse:
+        """The compiled-matcher path: one ResolvedLimit record per
+        descriptor (config/compiled.py) instead of (limits, string keys,
+        _Item objects). Per descriptor: the hit counter, the witness entry,
+        the optional over-limit local-cache probe (key = precomputed prefix
+        + window) and six uint32 column writes into this thread's scratch
+        block; the request then submits as one row block. The same
+        BaseRateLimiter oracle builds every status, so the decisions equal
+        do_limit's."""
+        base = self._base
+        hits_addend = max(1, request.hits_addend)
+        time_source = base.time_source
+        now = time_source.unix_now()
+        local_cache = base.local_cache
+        n = len(resolved)
+        block = self._scratch_block(n)
+        pending_count = 0
+        keys = [None] * n if local_cache is not None else None
+        over_local: list[bool] | None = None
+        witness = self._witness
+        for i in range(n):
+            rec = resolved[i]
+            if rec is None:
+                continue
+            rec.stats.total_hits.add(hits_addend)
+            if witness is not None:
+                wfp = (rec.fp_hi << 32) | rec.fp_lo
+                if wfp not in witness:
+                    if len(witness) >= self._witness_max:
+                        witness.clear()
+                    witness[wfp] = rec.key_prefix
+            divider = rec.divider
+            if local_cache is not None:
+                key = rec.key_prefix + str((now // divider) * divider)
+                keys[i] = key
+                # shadow rules and non-fixed algorithms never consult the
+                # over-limit cache (base_limiter.is_over_limit_with_local_cache)
+                if (
+                    not rec.shadow_mode
+                    and rec.algorithm == ALGO_ID_FIXED_WINDOW
+                    and local_cache.contains(key)
+                ):
+                    if over_local is None:
+                        over_local = [False] * n
+                    over_local[i] = True
+                    continue
+            block[:, pending_count] = (
+                rec.fp_lo,
+                rec.fp_hi,
+                hits_addend,
+                rec.requests_per_unit,
+                # window length + algorithm id in one word (== divider for
+                # fixed_window); the engine refuses other algorithms
+                rec.wire_divider,
+                base.expiration_seconds(divider) - divider,
+            )
+            pending_count += 1
+
+        afters = (
+            self._engine_core.submit_rows(block[:, :pending_count]).tolist()
+            if pending_count
+            else ()
+        )
+
+        response = DoLimitResponse()
+        statuses = response.descriptor_statuses
+        get_status = base.get_response_descriptor_status
+        pos = 0
+        for i in range(n):
+            rec = resolved[i]
+            if rec is None:
+                statuses.append(get_status("", None, False, hits_addend, response))
+                continue
+            limit = rec.limit
+            if over_local is not None and over_local[i]:
+                statuses.append(
+                    get_status(
+                        keys[i], LimitInfo(limit, -hits_addend, 0), True,
+                        hits_addend, response,
+                    )
+                )
+                continue
+            after = afters[pos]
+            pos += 1
+            info = LimitInfo(limit, after - hits_addend, after)
+            if local_cache is not None:
+                key = keys[i]
+                if not rec.shadow_mode and after > rec.requests_per_unit:
+                    # the decision may have landed in a later window than
+                    # the key was stamped with: re-stamp at the current clock
+                    now2 = time_source.unix_now()
+                    key = rec.key_prefix + str((now2 // rec.divider) * rec.divider)
+            else:
+                # without a local cache the key only marks "checked"
+                key = rec.key_prefix
+            statuses.append(get_status(key, info, False, hits_addend, response))
+        assert_(len(statuses) == n)
         return response
 
     def flush(self) -> None:

@@ -25,9 +25,10 @@ Semantics match the reference loader (src/config/config_impl.go):
 The port splits loading in two: `parse_config_files` turns YAML text into
 mappings (PyYAML is imported only there), and `build_config` builds the
 RateLimitConfig from parsed mappings, so a caller holding a mapping needs no
-YAML parser. The reference's compiled flat matcher (config/compiled.py) is
-not ported yet: get_limit is the trie walk, which the reference keeps as its
-matcher's fallback and differential oracle.
+YAML parser. `get_limit` is the trie walk (the reference's get_limit_tree);
+`compiled` is the memoized matcher built over the finished tree
+(config/compiled.py), which the service's host fast path resolves through
+and which falls back to the walk on a memo miss.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ..models.config import (
 from ..models.descriptors import Descriptor
 from ..models.response import RateLimitValue
 from ..models.units import Unit, unit_from_string
+from .compiled import CompiledMatcher, descriptor_dotted_key
 
 _VALID_KEYS = frozenset(
     {
@@ -157,7 +159,8 @@ def _validate_keys(file: ConfigFile, node, allowed=_ROOT_KEYS, ctx="the file roo
 
 
 class RateLimitConfig:
-    """An immutable rule tree over one or more parsed config documents."""
+    """An immutable rule tree over one or more parsed config documents, with
+    its compiled matcher as `compiled`."""
 
     def __init__(
         self,
@@ -170,6 +173,9 @@ class RateLimitConfig:
         self._concurrency_ttl_s = int(concurrency_ttl_s)
         for doc in docs:
             self._load_doc(doc)
+        self.compiled = CompiledMatcher(
+            self.get_limit, self._new_rate_limit, self._domains
+        )
 
     # -- loading --
 
@@ -321,16 +327,6 @@ class RateLimitConfig:
 
     # -- lookup --
 
-    @staticmethod
-    def _descriptor_to_key(descriptor: Descriptor) -> str:
-        parts = []
-        for entry in descriptor.entries:
-            part = entry.key
-            if entry.value != "":
-                part += f"_{entry.value}"
-            parts.append(part)
-        return ".".join(parts)
-
     def get_limit(self, domain: str, descriptor: Descriptor) -> RateLimit | None:
         """Resolve the applicable rule, or None when unchecked: the trie walk
         of config_impl.go:293-319."""
@@ -341,7 +337,7 @@ class RateLimitConfig:
         if descriptor.limit is not None:
             # Request-level override: ad-hoc rule, no fork extras, stats keyed
             # by the request's dotted path (config_impl.go:281-290).
-            full_key = f"{domain}.{self._descriptor_to_key(descriptor)}"
+            full_key = f"{domain}.{descriptor_dotted_key(descriptor)}"
             return self._new_rate_limit(
                 descriptor.limit.requests_per_unit,
                 Unit(descriptor.limit.unit),

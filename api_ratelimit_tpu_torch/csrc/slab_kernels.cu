@@ -4,8 +4,10 @@
 // PyTorch version of each kernel (the CPU tests and chip_smoke.py hold the
 // two to each other bit for bit).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libslab_kernels.so slab_kernels.cu
+// Build (ops/slab_kernels.py build(), one object per csrc/*.cu, one library):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+//        -c -o slab_kernels.o slab_kernels.cu
+//   nvcc -shared -o libkernels.so slab_kernels.o sketch_kernels.o
 //
 // Layout (api_ratelimit_tpu_torch/ops/slab_kernels.py): the table is int32[n_slots, 8]
 // (the uint32 rows of the reference, same bits), viewed as n_sets sets of W

@@ -7,17 +7,18 @@ unsigned compare or add is written out). A key lives only in set
 `fp_lo & (n_sets - 1)`; a full set evicts its least-valuable way in place
 (dead, then window-ended, then lowest-count live, rotation tiebreak).
 
-This slice ports the production after-mode path for fixed-window rules only
-(the reference's `slab_step_after(multi_algo=False, sketch=None,
-victim=False)`, the HOTKEYS_ENABLED=false arm):
+The port covers the production after-mode path for fixed-window rules (the
+reference's `slab_step_after(multi_algo=False, victim=False)`), with the
+heavy-hitter sketch on or off:
 
     way scan (kernel) -> eviction class -> packed-key stable sort
     -> INCRBY apply (kernel) -> one row scatter -> unsort -> saturating cast
+    [-> segment weights -> sketch update (sketch scan kernel, ops/sketch.py)]
 
-The two kernels live in ops/slab_kernels.py (CUDA C++ in csrc/), which also
-defines the row layout; the glue between them stays plain torch ops, as XLA
-owned it on the TPU. Unlike the reference's donated, immutable state, the
-step updates `state.table` in place.
+The slab's two kernels live in ops/slab_kernels.py (CUDA C++ in csrc/),
+which also defines the row layout; the glue between the kernels stays plain
+torch ops, as XLA owned it on the TPU. Unlike the reference's donated,
+immutable state, the step updates `state.table` in place.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from .hashing import set_index
+from .sketch import sketch_update
 from .slab_kernels import (  # noqa: F401  (the row layout is re-exported)
     _M32,
     ALGO_DIV_MASK,
@@ -45,6 +47,7 @@ from .slab_kernels import (  # noqa: F401  (the row layout is re-exported)
     TIER_WINDOW_ENDED,
     _u32,
     _wrap32,
+    resolve_device,
     slab_apply,
     way_scan,
 )
@@ -108,20 +111,6 @@ def validate_ways(n_slots: int, ways: int) -> int:
     if ways <= 0 or ways & (ways - 1):
         raise ValueError(f"ways must be a positive power of two, got {ways}")
     return min(ways, n_slots)
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on. CUDA is the default and never
-    falls back: without a card it raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' to run the plain PyTorch versions"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class SlabState:
@@ -249,11 +238,29 @@ def _finish_update(
     return health
 
 
+def _segment_weights(s_hits, seg_start, same_prev):
+    """The sketch candidates of a slot-sorted batch: one per distinct-key
+    segment (its last row; padding segments carry hits 0 there and drop
+    out), weighted by the segment's total hits in uint32 wraparound -
+    the reference's cumsum/cummax forward fill. Returns (int32 weight
+    bits, bool cand)."""
+    hits = _u32(s_hits)
+    incl = torch.cumsum(hits, dim=0) & _M32
+    excl = (incl - hits) & _M32
+    seg_base = torch.cummax(torch.where(seg_start, excl, 0), dim=0).values
+    weight = _wrap32((incl - seg_base) & _M32).to(torch.int32)
+    true1 = torch.ones(1, dtype=torch.bool, device=s_hits.device)
+    seg_last = torch.cat([~same_prev, true1])
+    return weight, seg_last & (s_hits != 0)
+
+
 def slab_step_after(
     state: SlabState,
     packed: np.ndarray,
     ways: int = DEFAULT_WAYS,
     out_dtype=np.uint32,
+    sketch: torch.Tensor | None = None,
+    sketch_ways: int = 0,
 ):
     """One launch: stateful update only. `packed` is the host operand
     uint32[7, b] (fp_lo, fp_hi, hits, limit, divider, jitter, scalars with
@@ -261,7 +268,11 @@ def slab_step_after(
     saturating-cast to out_dtype, as a device tensor of that width; int64[5]
     health vector on the device). The table updates in place. Rows with a
     non-fixed algorithm id are the caller's to refuse (backends/cuda.py):
-    this is the fixed-window body."""
+    this is the fixed-window body.
+
+    A non-None `sketch` (hotkey planes, ops/sketch.py; the HOTKEYS_ENABLED
+    arm) appends the updated planes as a third element, with `sketch_ways`
+    its set associativity. None runs exactly the sketch-free step."""
     rows, now = _unpack(packed)
     dev = state.device
     op = torch.from_numpy(rows[:ROW_JITTER + 1]).to(dev)
@@ -299,7 +310,11 @@ def slab_step_after(
     out_dtype = np.dtype(out_dtype)
     cap = int(np.iinfo(out_dtype).max)
     out = torch.clamp(after, max=cap).to(_TORCH_UNSIGNED[out_dtype])
-    return out, health
+    if sketch is None:
+        return out, health
+    weight, cand = _segment_weights(s_hits, seg_start, same_prev)
+    new_sketch = sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways)
+    return out, health, new_sketch
 
 
 def slab_export_copy(state: SlabState) -> np.ndarray:

@@ -1,19 +1,23 @@
-"""Port of api_ratelimit_tpu/ops/pallas_slab.py: the slab step's two kernels.
+"""Port of api_ratelimit_tpu/ops/pallas_slab.py: the slab step's two kernels,
+and the build of the port's one kernel library.
 
-Each kernel is CUDA C++ for sm_90a in csrc/slab_kernels.cu, built with nvcc
-into build/libslab_kernels-<hash of source and flags>.so on first use and bound with ctypes (a plain C
-interface; pointers and the stream pass as c_void_p, and the returned
-cudaError_t is checked after every launch). Beside each kernel sits its plain
-PyTorch version, the same function written with torch ops:
+Every kernel is CUDA C++ for sm_90a under csrc/. All csrc/*.cu sources build
+on first use into one library, build/libkernels-<hash of the sources and
+flags>.so: one nvcc per source, all started together, then one link. It is
+bound with ctypes (a plain C interface; pointers and the stream pass as
+c_void_p, and the returned cudaError_t is checked after every launch).
+Beside each kernel sits its plain PyTorch version, the same function written
+with torch ops. This module holds the slab step's two:
 
     way_scan    <- pallas_way_scan (plus the set gather and picked-row
                    select that surrounded it in ops/slab.py _choose_ways)
     slab_apply  <- pallas_slab_apply(decide=False)
 
-A wrapper runs the plain version only because the tensors it was given lie
-on the CPU; for CUDA tensors it launches the kernel or raises. Each wrapper
-counts its launches in LAUNCHES, so a run can show that it went through the
-kernel. Nothing here imports or builds anything CUDA at import time.
+(the sketch scan's wrapper is ops/sketch_kernels.py). A wrapper runs the
+plain version only because the tensors it was given lie on the CPU; for
+CUDA tensors it launches the kernel or raises. Each wrapper counts its
+launches in LAUNCHES, so a run can show that it went through the kernel.
+Nothing here imports or builds anything CUDA at import time.
 
 The row layout the kernels read is defined here (ops/slab.py re-exports
 it); csrc/slab_kernels.cu mirrors the same constants.
@@ -56,16 +60,30 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) & _M32) - (1 << 31)
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default and never
+    falls back: without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "slab_kernels.cu")
+CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> launches made through its wrapper
-LAUNCHES = {"way_scan": 0, "slab_apply": 0}
+LAUNCHES = {"way_scan": 0, "slab_apply": 0, "sketch_scan": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -84,20 +102,58 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> list[str]:
+    """Every CUDA source of the library, in a fixed order."""
+    return sorted(
+        os.path.join(CSRC_DIR, name)
+        for name in os.listdir(CSRC_DIR)
+        if name.endswith(".cu")
+    )
+
+
 def library_path() -> str:
-    """The built library's path, keyed on a hash of the source and the nvcc
-    flags, so an edit to either builds a new library."""
+    """The built library's path, keyed on a hash of every source and the
+    nvcc flags, so an edit to any of them builds a new library."""
     digest = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
+    for src in sources():
+        digest.update(os.path.basename(src).encode() + b"\0")
+        with open(src, "rb") as f:
+            digest.update(f.read())
     digest.update("\0".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libslab_kernels-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libkernels-{digest.hexdigest()[:16]}.so")
+
+
+def _run_nvcc_all(nvcc: str, srcs: list[str], tmp: str) -> list[str]:
+    """Compile each source to an object with its own nvcc, all started
+    together; returns the object paths. Raises with the compiler's output
+    if any of them fails."""
+    procs = []
+    for src in srcs:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    failed, objs, ptxas = [], [], []
+    for src, obj, proc in procs:
+        _out, err = proc.communicate()
+        ptxas.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        objs.append(obj)
+    if failed:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    BUILD_LOG["ptxas"] = "".join(ptxas)
+    return objs
 
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/slab_kernels.cu (unless a library built from the same
-    source and flags exists) and load it. BUILD_LOG records the seconds and
-    ptxas's register/shared-memory report."""
+    """Compile csrc/*.cu into one library (unless a library built from the
+    same sources and flags exists) and load it. BUILD_LOG records the
+    seconds and ptxas's register/shared-memory report."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -106,25 +162,33 @@ def build() -> ctypes.CDLL:
         if not os.path.exists(library):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{library}.{os.getpid()}.tmp"
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+            objs = _run_nvcc_all(nvcc, sources(), tmp)
+            try:
+                proc = subprocess.run(
+                    [nvcc, "-shared", "-o", tmp, *objs],
+                    capture_output=True,
+                    text=True,
                 )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc link failed ({proc.returncode}):\n{proc.stderr}"
+                    )
+            finally:
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             os.replace(tmp, library)
             BUILD_LOG["seconds"] = time.perf_counter() - t0
-            BUILD_LOG["ptxas"] = proc.stderr
         lib = ctypes.CDLL(library)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.rl_way_scan.restype = ci
         lib.rl_slab_apply.argtypes = [vp] * 7 + [ci, ci] + [vp] * 5
         lib.rl_slab_apply.restype = ci
+        lib.rl_sketch_scan.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+        lib.rl_sketch_scan.restype = ci
         _lib = lib
         return lib
 

@@ -1,18 +1,25 @@
-"""Port of api_ratelimit_tpu/server/http_server.py: the main HTTP listener.
+"""Port of api_ratelimit_tpu/server/http_server.py: the HTTP listeners.
 
-POST /json is the HTTP/JSON mirror of the v3 ShouldRateLimit RPC
+Main port: POST /json is the HTTP/JSON mirror of the v3 ShouldRateLimit RPC
 (server_impl.go:62-104): 200 for OK, 429 for OVER_LIMIT, 500 for UNKNOWN or
 a backend/service error, 400 for a malformed request. GET /healthcheck
 answers 200 "OK". The body codec is server/proto_adapter.py (standard-library
-JSON in place of protobuf's json_format). The debug port, gRPC, deadlines and
-tracing wait for later slices.
+JSON in place of protobuf's json_format).
+
+Debug port (new_debug_server, server_impl.go:217-250): GET / (endpoint
+index), GET /stats (Store.debug_snapshot), and whatever the caller mounts
+with add_debug_endpoint, as the reference's runner mounts /debug/hotkeys.
+/metrics, /debug/pprof, /debug/profile, /debug/journeys and /debug/traces,
+gRPC, deadlines and tracing wait for later slices.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable
 
 from ..limiter.cache import CacheError
 from ..models.response import Code
@@ -80,15 +87,15 @@ class _Handler(BaseHTTPRequestHandler):
         self._write(status, out, content_type="application/json")
 
 
-class HttpServer:
-    """The main listener: /json and /healthcheck over one service.
-    serve_background() runs it in a daemon thread; shutdown() stops it."""
+class _Listener:
+    """One stdlib ThreadingHTTPServer; serve_background() runs it in a
+    daemon thread, shutdown() stops it."""
 
-    def __init__(self, service: RateLimitService, host: str = "127.0.0.1", port: int = 0):
-        handler = type("JsonHandler", (_Handler,), {"service": service})
+    def __init__(self, handler: type, host: str, port: int, name: str):
         self._server = ThreadingHTTPServer((host, port), handler)
         self._server.daemon_threads = True
         self._thread: threading.Thread | None = None
+        self._name = name
 
     @property
     def port(self) -> int:
@@ -98,7 +105,7 @@ class HttpServer:
         self._thread = threading.Thread(
             target=self._server.serve_forever,
             kwargs={"poll_interval": 0.1},
-            name="http-json",
+            name=f"http-{self._name}",
             daemon=True,
         )
         self._thread.start()
@@ -109,3 +116,68 @@ class HttpServer:
         if self._thread is not None:
             self._thread.join(timeout=2.0)
             self._thread = None
+
+
+class HttpServer(_Listener):
+    """The main listener: /json and /healthcheck over one service."""
+
+    def __init__(self, service: RateLimitService, host: str = "127.0.0.1", port: int = 0):
+        handler = type("JsonHandler", (_Handler,), {"service": service})
+        super().__init__(handler, host, port, "json")
+
+
+class _DebugHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    routes: dict[str, Callable[[], tuple[bytes, str]]]  # per-server subclass
+
+    def log_message(self, format, *args):  # noqa: A002 (stdlib signature)
+        logger.debug("http debug: " + format, *args)
+
+    def do_GET(self):  # noqa: N802
+        route = self.routes.get(self.path.split("?", 1)[0])
+        if route is None:
+            body, content_type, status = b"404 page not found\n", "text/plain", 404
+        else:
+            (body, content_type), status = route(), 200
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+class DebugServer(_Listener):
+    """The debug listener: GET routes, each a function returning its body."""
+
+    def __init__(self, host: str, port: int):
+        self._routes: dict[str, Callable[[], tuple[bytes, str]]] = {}
+        handler = type("DebugHandler", (_DebugHandler,), {"routes": self._routes})
+        super().__init__(handler, host, port, "debug")
+
+    def add_debug_endpoint(self, path: str, fn: Callable[[], str]) -> None:
+        """Serve GET `path` as text/plain from fn() (AddDebugHttpEndpoint,
+        src/server/server.go:20-24; the reference's runner mounts
+        /debug/hotkeys this way)."""
+        self._routes[path] = lambda: (fn().encode(), "text/plain")
+
+    def endpoints(self) -> list[str]:
+        return sorted(self._routes)
+
+
+def new_debug_server(stats_store, host: str = "127.0.0.1", port: int = 0) -> DebugServer:
+    """The debug-port subset this port has: GET / lists the endpoints and
+    GET /stats dumps stats_store.debug_snapshot() (which runs the stat
+    generators first, as every export does)."""
+    server = DebugServer(host, port)
+
+    def stats():
+        body = json.dumps(stats_store.debug_snapshot(), indent=2).encode()
+        return body, "application/json"
+
+    def index():
+        lines = ["/debug endpoints:"] + [f"  {e}" for e in server.endpoints()]
+        return ("\n".join(lines) + "\n").encode(), "text/plain"
+
+    server._routes["/stats"] = stats
+    server._routes["/"] = index
+    return server

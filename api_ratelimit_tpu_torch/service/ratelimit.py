@@ -6,10 +6,12 @@ headers, as in the reference (src/service/ratelimit.go). The worker raises
 typed exceptions; should_rate_limit counts them (`redis_error` /
 `service_error`) and re-raises for the transport to map.
 
-Not ported yet, and therefore absent rather than stubbed: admission control
-and shedding, the failure-mode fallback ladder, leases, deadlines, request
-journeys and tracing spans, and the compiled-matcher fast path (rules
-resolve through the config trie, the reference's host_fast_path=False arm).
+With host_fast_path (the default, HOST_FAST_PATH) each descriptor resolves
+through the config's compiled matcher into a ResolvedLimit record and the
+cache's do_limit_resolved; host_fast_path=False keeps the trie walk and
+do_limit. Not ported yet, and therefore absent rather than stubbed:
+admission control and shedding, the failure-mode fallback ladder, leases,
+deadlines, request journeys and tracing spans.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..limiter.cache import CacheError, RateLimitCache
 from ..models.config import ConfigError, RateLimit
 from ..models.descriptors import RateLimitRequest
 from ..models.response import Code, DoLimitResponse, HeaderValue
+from ..stats.store import HOST_STAGE_BUCKETS_MS
 from ..utils.sampler import BurstSampler, RandomSampler, Sampler
 from ..utils.timeutil import TimeSource
 
@@ -53,7 +56,8 @@ class RuntimeLoader(Protocol):
 
 class _ServiceStats:
     """config_load_success/error + call.should_rate_limit.{redis,service}_error
-    (ratelimit.go:32-56), plus the end-to-end request latency histogram."""
+    (ratelimit.go:32-56), plus the end-to-end request latency histogram and
+    the compiled-matcher resolve time per request (host.matcher_ms)."""
 
     def __init__(self, scope):
         self.config_load_success = scope.counter("config_load_success")
@@ -63,6 +67,9 @@ class _ServiceStats:
         self.service_error = call_scope.counter("service_error")
         self.sleep_shed = call_scope.counter("sleep_shed")
         self.latency = call_scope.histogram("latency_ms")
+        self.matcher = scope.scope("host").histogram(
+            "matcher_ms", boundaries=HOST_STAGE_BUCKETS_MS
+        )
 
 
 class RateLimitService:
@@ -76,11 +83,19 @@ class RateLimitService:
         max_sleeping_routines: int = 0,
         config_loader: Callable[[list[ConfigFile]], RateLimitConfig] | None = None,
         report_detail_sampler: Sampler | None = None,
+        host_fast_path: bool = True,
     ):
         """config_loader turns the runtime's files into a RateLimitConfig;
-        the default parses them as YAML (config/loader.py load_config)."""
+        the default parses them as YAML (config/loader.py load_config).
+
+        host_fast_path: resolve descriptors through the config's compiled
+        matcher and answer through cache.do_limit_resolved when the cache
+        has one (HOST_FAST_PATH); False keeps the trie walk and do_limit."""
         self._runtime = runtime
         self._cache = cache
+        self._do_limit_resolved = (
+            getattr(cache, "do_limit_resolved", None) if host_fast_path else None
+        )
         self._stats = _ServiceStats(stats_scope)
         # per-rule stats live under <scope>.rate_limit.<domain>.<composite>
         self._rl_stats_scope = stats_scope.scope("rate_limit")
@@ -168,24 +183,45 @@ class RateLimitService:
         sleep_on_throttle = False
         report_details = False
         debug = logger.isEnabledFor(logging.DEBUG)
-        limits: list[RateLimit | None] = []
-        for descriptor in request.descriptors:
-            limit = config.get_limit(request.domain, descriptor)
-            if debug:
-                if limit is None:
+        if self._do_limit_resolved is not None:
+            # one memoized matcher lookup per descriptor yields the full
+            # precomputed record
+            t0 = time.perf_counter()
+            resolve = config.compiled.resolve
+            domain = request.domain
+            resolved = [resolve(domain, d) for d in request.descriptors]
+            self._stats.matcher.record((time.perf_counter() - t0) * 1e3)
+            for record in resolved:
+                if record is not None:
+                    sleep_on_throttle = sleep_on_throttle or record.sleep_on_throttle
+                    report_details = report_details or record.report_details
+                    if debug:
+                        logger.debug(
+                            "applying limit: %d requests per %s",
+                            record.requests_per_unit,
+                            record.limit.unit.name,
+                        )
+                elif debug:
                     logger.debug("descriptor does not match any limit")
-                else:
-                    logger.debug(
-                        "applying limit: %d requests per %s",
-                        limit.requests_per_unit,
-                        limit.unit.name,
-                    )
-            limits.append(limit)
-            if limit is not None:
-                sleep_on_throttle = sleep_on_throttle or limit.sleep_on_throttle
-                report_details = report_details or limit.report_details
-
-        do_limit_response = self._cache.do_limit(request, limits)
+            do_limit_response = self._do_limit_resolved(request, resolved)
+        else:
+            limits: list[RateLimit | None] = []
+            for descriptor in request.descriptors:
+                limit = config.get_limit(request.domain, descriptor)
+                if debug:
+                    if limit is None:
+                        logger.debug("descriptor does not match any limit")
+                    else:
+                        logger.debug(
+                            "applying limit: %d requests per %s",
+                            limit.requests_per_unit,
+                            limit.unit.name,
+                        )
+                limits.append(limit)
+                if limit is not None:
+                    sleep_on_throttle = sleep_on_throttle or limit.sleep_on_throttle
+                    report_details = report_details or limit.report_details
+            do_limit_response = self._cache.do_limit(request, limits)
         assert_(
             len(request.descriptors)
             == len(do_limit_response.descriptor_statuses)

@@ -4,23 +4,38 @@
 
 Phases, each of which must pass (nothing is caught):
 
-1. build   nvcc-compiles api_ratelimit_tpu_torch/csrc/slab_kernels.cu.
+1. build   nvcc-compiles every api_ratelimit_tpu_torch/csrc/*.cu source (one
+           nvcc per source, all started together) into one library.
 2. parity  each kernel against its plain PyTorch version on the card,
-           bit-exact, at every bucket (128 ... 65536) and W in {4, 128},
-           on adversarial inputs (segments across the apply kernel's
-           1024-item chunks, window rollovers, all eviction tiers, one-set
-           contention, padding lanes, counts >= 2^31).
-3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, Zipf(1.1) over
+           bit-exact, at every bucket (128 ... 65536): the way scan and the
+           apply at W in {4, 128} on adversarial inputs (segments across the
+           apply kernel's 1024-item chunks, window rollovers, all eviction
+           tiers, one-set contention, padding lanes, counts >= 2^31); the
+           sketch scan at sketch W in {4, 128} and lanes in {128, 1024} on
+           adversarial planes (empty lanes, count ties, counts >= 2^31,
+           fp-0 padding queries).
+3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, with the
+           production sketch (HOTKEY_LANES=128, HOTKEY_K=16), Zipf(1.1) over
            2^20 keys: 32 launches at the 65536 bucket plus the smaller
            buckets, the clock crossing window edges, against an engine
-           whose kernels are swapped for their plain versions; afters,
-           table bytes and health must be identical.
-4. serve   the port's HTTP server (device="cuda", default 2^22 slots) with a
-           two-rule config built from a mapping answers /json requests that
-           cross a limit: 200 then 429, bodies equal to the same stream
-           served on the CPU. Both kernels' launch counters must rise here.
-5. report  per-kernel times (CUDA events), bounds and launches as one JSON
-           line, the card's name and power limit, then the ok line.
+           whose three kernels are swapped for their plain versions;
+           afters, table bytes, health, sketch planes and every drained
+           top-K must be identical, and a sketch-off engine (slice 1's
+           step) must give the same afters and table. Prints the 65536-item
+           submit_rows medians with the sketch on and off.
+4. serve   two servers (device="cuda", 2^22 slots) with a two-rule config
+           built from a mapping answer /json requests that cross a limit:
+           200 then 429, bodies equal to the same stream served on the CPU.
+           First slice 1's arm (sketch off, trie walk into do_limit): the
+           slab kernels' launch counters must rise and the sketch scan's
+           stay 0. Then the default-settings server (hotkeys on, host fast
+           path), with the same bodies: all three counters must rise. A
+           stats flush drains the sketch, and GET /debug/hotkeys on the
+           debug server must equal the CPU server's document and name the
+           hot descriptor.
+5. report  per-kernel median device times (torch.profiler) and CUDA-event
+           call times, bounds and launches as one JSON line, the card's
+           name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -31,9 +46,11 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -42,10 +59,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 BUCKETS = (128, 1024, 8192, 65536)
 N_SLOTS = 1 << 22  # the TPU_SLAB_SLOTS default: 128 MiB of rows
 NOW0 = 1_700_000_000
-SOURCE = "api_ratelimit_tpu_torch/csrc/slab_kernels.cu"
+HOTKEY_LANES, HOTKEY_K = 128, 16  # the settings defaults
+SOURCES = {
+    "way_scan": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
+    "slab_apply": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
+    "sketch_scan": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
+}
 REPLACES = {
     "way_scan": "api_ratelimit_tpu/ops/pallas_slab.py:312",
     "slab_apply": "api_ratelimit_tpu/ops/pallas_slab.py:371",
+    "sketch_scan": "api_ratelimit_tpu/ops/sketch.py:148",
 }
 
 
@@ -136,8 +159,42 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Median milliseconds of one call, by CUDA events, after a warm-up."""
+def device_activities(prof) -> list:
+    """(name, microseconds) of every kernel and copy the card ran inside a
+    torch.profiler trace, in order of their start."""
+    from torch.autograd import DeviceType
+
+    events = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Median device time of one call: per call, the summed durations of
+    the kernels and copies it ran on the card (torch.profiler over `iters`
+    synchronized calls after a warm-up; each call runs the same activities,
+    so the trace splits into calls in start order). The host time of the
+    Python wrapper around a launch is not in it: call_ms measures that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+    acts = device_activities(prof)
+    check(bool(acts) and len(acts) % iters == 0, f"{len(acts)} device activities do not split into {iters} calls")
+    per = len(acts) // iters
+    return float(np.median([sum(us for _name, us in acts[i * per : (i + 1) * per]) for i in range(iters)])) / 1e3
+
+
+def call_ms(fn, iters: int = 20) -> float:
+    """Median milliseconds of one call by a CUDA-event pair around it,
+    after a warm-up: the device time plus whatever host time of the call
+    (the Python wrapper, launch overhead) keeps the card waiting."""
     fn()
     torch.cuda.synchronize()
     samples = []
@@ -152,25 +209,64 @@ def time_ms(fn, iters: int = 20) -> float:
 
 
 @contextlib.contextmanager
-def plain_kernels(K, S):
-    """Route the slab step (ops/slab.py, which calls the wrappers by the
-    names it imported) through the plain versions even for CUDA tensors:
-    the reference engine of the engine phase. Fails unless the block
-    launched no kernel, so the reference can never be the kernels."""
-    saved = S.way_scan, S.slab_apply
+def plain_kernels(M):
+    """Route the slab step (ops/slab.py) and the sketch update
+    (ops/sketch.py), which call the wrappers by the names they imported,
+    through the plain versions even for CUDA tensors: the reference engine
+    of the engine phase. Fails unless the block launched no kernel, so the
+    reference can never be the kernels."""
+    K, S, SKK, SKT = M.K, M.S, M.SKK, M.SKT
+    saved = S.way_scan, S.slab_apply, SKT.sketch_scan
     before = dict(K.LAUNCHES)
     S.way_scan, S.slab_apply = K.way_scan_plain, K.slab_apply_plain
+    SKT.sketch_scan = SKK.sketch_scan_plain
     try:
         yield
     finally:
-        S.way_scan, S.slab_apply = saved
+        S.way_scan, S.slab_apply, SKT.sketch_scan = saved
     check(K.LAUNCHES == before, f"the plain engine launched kernels: {before} -> {K.LAUNCHES}")
 
 
-def phase_parity(K, dev) -> dict:
+def sketch_planes(rng, lanes: int, ways: int) -> np.ndarray:
+    """Adversarial sketch planes: empty lanes (count 0, fp 0/0), stale tags
+    under count 0, an occupied 0/0 tag, count ties, counts >= 2^31
+    (unoccupied when read signed) and random occupied rows."""
+    p = np.zeros((3, lanes), np.uint32)
+    # each lane's fp_lo names its own set, so resident keys can match
+    n_sets = lanes // ways
+    own_set = (np.arange(lanes) // ways).astype(np.uint64)
+    p[0] = (rng.integers(0, 1 << 32, lanes, dtype=np.uint64) & ~np.uint64(n_sets - 1)) | own_set
+    p[1] = rng.integers(0, 1 << 32, lanes, dtype=np.uint64)
+    kind = rng.integers(0, 5, lanes)
+    p[2] = np.select(
+        [kind == 0, kind == 1, kind == 2, kind == 3],
+        [0, rng.integers(1, 4, lanes), rng.integers(1 << 31, 1 << 32, lanes, dtype=np.uint64), 7],
+        rng.integers(1, 1000, lanes),
+    )
+    empty = (kind == 0) & (rng.random(lanes) < 0.5)
+    p[0][empty] = 0
+    p[1][empty] = 0
+    p[:2, lanes // 3] = 0
+    p[2, lanes // 3] = 5
+    return p
+
+
+def sketch_queries(rng, planes: np.ndarray, b: int):
+    """Half resident fingerprints, half misses, fp-0 padding at the tail."""
+    pick = rng.integers(0, planes.shape[1], b)
+    lo, hi = planes[0, pick].copy(), planes[1, pick].copy()
+    miss = rng.random(b) < 0.5
+    lo[miss] = rng.integers(0, 1 << 32, int(miss.sum()), dtype=np.uint64)
+    lo[-b // 8 :] = 0
+    hi[-b // 8 :] = 0
+    return lo, hi
+
+
+def phase_parity(M, dev) -> dict:
+    K, SKK = M.K, M.SKK
     rng = np.random.default_rng(1)
     n_slots = N_SLOTS
-    err = {"way_scan": 0, "slab_apply": 0}
+    err = {"way_scan": 0, "slab_apply": 0, "sketch_scan": 0}
     for ways in (4, 128):
         for b in BUCKETS:
             table, lo, hi = scan_inputs(rng, b, n_slots, ways, NOW0, dev)
@@ -189,7 +285,20 @@ def phase_parity(K, dev) -> dict:
         e = max_abs_err(got, want)
         check(e == 0, f"slab_apply differs from its plain version at b={b}")
         err["slab_apply"] = max(err["slab_apply"], e)
-    log(f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128)")
+    for lanes in (128, 1024):
+        for ways in (4, 128):
+            for b in BUCKETS:
+                planes = sketch_planes(rng, lanes, ways)
+                lo, hi = sketch_queries(rng, planes, b)
+                args = (i32(planes, dev), i32(lo, dev), i32(hi, dev), ways)
+                got = SKK.sketch_scan(*args)
+                want = SKK.sketch_scan_plain(*args)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                check(e == 0, f"sketch_scan differs from its plain version at b={b} W={ways} lanes={lanes}")
+                check(bool(want[1].any()) and not bool(want[1].all()), "sketch parity batch lacks matches or misses")
+                err["sketch_scan"] = max(err["sketch_scan"], e)
+    log(f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan also at lanes in (128, 1024)")
     return err
 
 
@@ -210,47 +319,116 @@ def key_block(keys: np.ndarray) -> np.ndarray:
     return block
 
 
-def phase_engine(K, S, cuda_mod, utils, dev):
+def phase_engine(M, dev):
+    """The kernel engine and the plain-kernel engine both carry the
+    production sketch; a third, sketch-off engine (slice 1's step) shares
+    their traffic and is timed against the kernel engine, alternating which
+    goes first."""
+    K, cuda_mod, utils = M.K, M.cuda_mod, M.utils
     rng = np.random.default_rng(2)
-    clock_k, clock_p = utils.FakeTimeSource(NOW0), utils.FakeTimeSource(NOW0)
-    eng_k = cuda_mod.SlabDeviceEngine(clock_k, n_slots=N_SLOTS, device=dev)
-    eng_p = cuda_mod.SlabDeviceEngine(clock_p, n_slots=N_SLOTS, device=dev)
+    clocks = [utils.FakeTimeSource(NOW0) for _ in range(3)]
+    hot = {"hotkey_lanes": HOTKEY_LANES, "hotkey_k": HOTKEY_K}
+    eng_k = cuda_mod.SlabDeviceEngine(clocks[0], n_slots=N_SLOTS, device=dev, **hot)
+    eng_p = cuda_mod.SlabDeviceEngine(clocks[1], n_slots=N_SLOTS, device=dev, **hot)
+    eng_off = cuda_mod.SlabDeviceEngine(clocks[2], n_slots=N_SLOTS, device=dev)
     check(eng_k.ways == 128, "engine did not default to 128 ways on cuda")
+    check(eng_k.hotkeys_enabled and not eng_off.hotkeys_enabled, "sketch gate is off where it should be on")
     top = BUCKETS[-1]
     sizes = [top] * 32 + [b - b // 8 for b in BUCKETS[:-1]]
-    launch_ms = {"kernel": [], "plain": []}
+    launch_ms = {"sketch_on": [], "sketch_off": [], "plain": []}
+    drained = []
     for i, n in enumerate(sizes):
         step = 61 if i % 8 == 7 else 1  # cross minute windows too
-        clock_k.advance(step)
-        clock_p.advance(step)
+        for clock in clocks:
+            clock.advance(step)
         block = key_block(zipf_keys(rng, n))
-        torch.cuda.synchronize()
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        got = eng_k.submit_rows(block)
+        timed = {}
+        for name in (("sketch_on", "sketch_off") if i % 2 == 0 else ("sketch_off", "sketch_on")):
+            eng = eng_k if name == "sketch_on" else eng_off
+            torch.cuda.synchronize()
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            timed[name] = eng.submit_rows(block)
+            t1 = time.perf_counter()
+            ran = {k: K.LAUNCHES[k] > before[k] for k in before}
+            want_ran = {"way_scan": True, "slab_apply": True, "sketch_scan": name == "sketch_on"}
+            check(ran == want_ran, f"{name} engine launched {ran} at launch {i}, expected {want_ran}")
+            if n == top:
+                launch_ms[name].append((t1 - t0) * 1e3)
         t1 = time.perf_counter()
-        check(all(K.LAUNCHES[k] > before[k] for k in before), f"the kernel engine skipped a kernel at launch {i}")
-        with plain_kernels(K, S):
+        with plain_kernels(M):
             want = eng_p.submit_rows(block)
         t2 = time.perf_counter()
         if n == top:
-            launch_ms["kernel"].append((t1 - t0) * 1e3)
             launch_ms["plain"].append((t2 - t1) * 1e3)
-        check(np.array_equal(got, want), f"engine afters differ at launch {i}")
-    check(np.array_equal(eng_k.export_tables()[0], eng_p.export_tables()[0]), "engine tables differ")
-    hk, hp = eng_k.health_snapshot(), eng_p.health_snapshot()
-    check(hk == hp, f"engine health differs: {hk} vs {hp}")
+        check(np.array_equal(timed["sketch_on"], want), f"engine afters differ at launch {i}")
+        check(np.array_equal(timed["sketch_off"], want), f"sketch-off engine afters differ at launch {i}")
+        check(np.array_equal(eng_k.export_sketch(), eng_p.export_sketch()), f"sketch planes differ at launch {i}")
+        if i % 8 == 3:
+            got_top = eng_k.drain_hotkeys()
+            want_top = eng_p.drain_hotkeys()
+            # one insert per sketch set per launch: at 128 lanes in one set
+            # the sketch holds at most one new key per launch
+            check(got_top == want_top and 0 < len(got_top) <= min(i + 1, HOTKEY_K), f"drained top-K differs at launch {i}")
+            check(np.array_equal(eng_k.export_sketch(), eng_p.export_sketch()), "post-decay planes differ")
+            drained.append(got_top[0][2])
+    table = eng_k.export_tables()[0]
+    check(np.array_equal(table, eng_p.export_tables()[0]), "engine tables differ")
+    check(np.array_equal(table, eng_off.export_tables()[0]), "the sketch changed the slab")
+    hk, hp, ho = eng_k.health_snapshot(), eng_p.health_snapshot(), eng_off.health_snapshot()
+    check(hk == hp == ho, f"engine health differs: {hk} vs {hp} vs {ho}")
     check(hk["decisions"] == sum(sizes), "decision count is off")
+    block = key_block(zipf_keys(rng, top))
+    profiles = {name: profile_submit(eng, block) for name, eng in (("sketch_on", eng_k), ("sketch_off", eng_off))}
     out = {
         "n_slots": N_SLOTS,
         "ways": eng_k.ways,
+        "hotkey_lanes": HOTKEY_LANES,
         "launches": len(sizes),
-        "step_ms_median_kernel": float(np.median(launch_ms["kernel"])),
+        "step_ms_median_sketch_on": float(np.median(launch_ms["sketch_on"])),
+        "step_ms_median_sketch_off": float(np.median(launch_ms["sketch_off"])),
         "step_ms_median_plain": float(np.median(launch_ms["plain"])),
+        # device time of one profiled submit over the unprofiled median step
+        "device_busy_share_sketch_on": profiles["sketch_on"]["device_ms"] / float(np.median(launch_ms["sketch_on"])),
+        "device_busy_share_sketch_off": profiles["sketch_off"]["device_ms"] / float(np.median(launch_ms["sketch_off"])),
+        "drained_top_counts": drained,
         "health": hk,
     }
     log("engine:", json.dumps(out))
+    log("profile:", json.dumps(profiles))
     return eng_k
+
+
+def profile_submit(engine, block: np.ndarray) -> dict:
+    """torch.profiler over one warm submit_rows: host wall time (synchronized,
+    profiler overhead included), the summed device time of its kernels and
+    copies, the device's busy share of that wall time, the count of device
+    activities, and the kernels and host ops that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.submit_rows(block)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.submit_rows(block)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = device_activities(prof)
+    check(bool(acts), "the profiler recorded no device activity")
+    by_name: dict = {}
+    for name, us in acts:
+        ms, n = by_name.get(name[:60], (0.0, 0))
+        by_name[name[:60]] = (ms + us / 1e3, n + 1)
+    busy_ms = sum(us for _name, us in acts) / 1e3
+    by_host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_activities": len(acts),
+        "top_device_ms": sorted(([k, ms, n] for k, (ms, n) in by_name.items()), key=lambda r: -r[1])[:10],
+        "top_host_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in by_host],
+    }
 
 
 RULES = {
@@ -276,40 +454,63 @@ class _Runtime:
         pass
 
 
-def serve(device: str, bodies):
-    """Start the port's server on an ephemeral port, POST `bodies`, stop it.
-    Returns [(status, body bytes)]."""
-    from api_ratelimit_tpu_torch.backends.cuda import CudaRateLimitCache
+def http_call(port: int, method: str, path: str, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        headers = {"Content-Type": "application/json"} if body is not None else {}
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def serve(device: str, bodies, defaults: bool = True):
+    """Start the port's server (W=128) and its debug server on ephemeral
+    ports, POST `bodies`, flush the stats (the flush drains the sketch),
+    GET /debug/hotkeys and /stats, stop both. defaults: the production
+    settings (hotkeys on, host fast path); else slice 1's arm (sketch off,
+    the trie walk into do_limit). Returns ([(status, body bytes)], hotkeys
+    document bytes, stats document)."""
+    from api_ratelimit_tpu_torch.backends.cuda import CudaRateLimitCache, HotkeyStats, SlabHealthStats
     from api_ratelimit_tpu_torch.config import ConfigDoc, build_config
     from api_ratelimit_tpu_torch.limiter import BaseRateLimiter
-    from api_ratelimit_tpu_torch.server.http_server import HttpServer
+    from api_ratelimit_tpu_torch.server.http_server import HttpServer, new_debug_server
     from api_ratelimit_tpu_torch.service import RateLimitService
     from api_ratelimit_tpu_torch.stats import Store
     from api_ratelimit_tpu_torch.utils import FakeTimeSource
 
     clock = FakeTimeSource(NOW0)
     store = Store()
-    rules_scope = store.scope("ratelimit").scope("rate_limit")
-    cache = CudaRateLimitCache(BaseRateLimiter(clock), n_slots=N_SLOTS, device=device)
-    service = RateLimitService(
-        _Runtime(), cache, store.scope("ratelimit"), clock,
-        config_loader=lambda _files: build_config([ConfigDoc("smoke", RULES)], rules_scope),
+    root = store.scope("ratelimit")
+    rules_scope = root.scope("rate_limit")
+    cache = CudaRateLimitCache(
+        BaseRateLimiter(clock), n_slots=N_SLOTS, ways=128, device=device,
+        hotkey_lanes=HOTKEY_LANES if defaults else 0, hotkey_k=HOTKEY_K,
     )
+    service = RateLimitService(
+        _Runtime(), cache, root, clock,
+        config_loader=lambda _files: build_config([ConfigDoc("smoke", RULES)], rules_scope),
+        host_fast_path=defaults,
+    )
+    store.add_stat_generator(SlabHealthStats(cache.engine, root.scope("slab")))
+    store.add_stat_generator(HotkeyStats(cache.engine, root.scope("hotkeys")))
     server = HttpServer(service)
+    debug = new_debug_server(store)
+    debug.add_debug_endpoint("/debug/hotkeys", lambda: json.dumps(cache.hotkeys_debug(), indent=2))
     server.serve_background()
-    out = []
+    debug.serve_background()
     try:
-        for body in bodies:
-            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
-            try:
-                conn.request("POST", "/json", body=body, headers={"Content-Type": "application/json"})
-                resp = conn.getresponse()
-                out.append((resp.status, resp.read()))
-            finally:
-                conn.close()
+        out = [http_call(server.port, "POST", "/json", body) for body in bodies]
+        store.flush()
+        status, hotkeys = http_call(debug.port, "GET", "/debug/hotkeys")
+        check(status == 200, f"/debug/hotkeys answered {status}")
+        status, stats = http_call(debug.port, "GET", "/stats")
+        check(status == 200, f"/stats answered {status}")
     finally:
         server.shutdown()
-    return out
+        debug.shutdown()
+    return out, hotkeys, json.loads(stats)
 
 
 def phase_serve(K) -> dict:
@@ -317,14 +518,34 @@ def phase_serve(K) -> dict:
         return json.dumps({"domain": "smoke", "descriptors": [{"entries": [{"key": k, "value": v}]} for k, v in descs]}).encode()
 
     bodies = [req(("user", "alice"), ("path", "/login")) for _ in range(5)] + [req(("user", "bob"))]
+    bodies += [req(("path", "/login")) for _ in range(10)]
+    want_statuses = [200, 200, 200, 429, 429, 200] + [200] * 10
+
+    # slice 1's arm (sketch off, trie walk into do_limit): both slab
+    # kernels launch, the sketch scan never does
     K.reset_launch_counts()
-    got = serve("cuda", bodies)
+    got1, _, stats1 = serve("cuda", bodies, defaults=False)
+    launches1 = dict(K.LAUNCHES)
+    want1, _, _ = serve("cpu", bodies, defaults=False)
+    check(
+        launches1["way_scan"] > 0 and launches1["slab_apply"] > 0 and launches1["sketch_scan"] == 0,
+        f"slice 1's arm launched {launches1}",
+    )
+    check([s for s, _ in got1] == want_statuses, f"unexpected slice-1 statuses {[s for s, _ in got1]}")
+    check(got1 == want1, "card and CPU responses of slice 1's arm differ")
+    check(stats1["ratelimit.slab.decisions"] == 21, f"unexpected slice-1 /stats {stats1}")
+
+    # the production defaults: the main path, the source of the kernels
+    # line's launch counts
+    K.reset_launch_counts()
+    got, hot_doc, stats = serve("cuda", bodies)
     launches = dict(K.LAUNCHES)
-    want = serve("cpu", bodies)
-    check(launches["way_scan"] > 0 and launches["slab_apply"] > 0, f"main path skipped a kernel: {launches}")
+    want, want_doc, _ = serve("cpu", bodies)
+    check(all(launches[k] > 0 for k in ("way_scan", "slab_apply", "sketch_scan")), f"main path skipped a kernel: {launches}")
     statuses = [s for s, _ in got]
-    check(statuses == [200, 200, 200, 429, 429, 200], f"unexpected statuses {statuses}")
+    check(statuses == want_statuses, f"unexpected statuses {statuses}")
     check(got == want, "card and CPU responses differ")
+    check(got == got1, "the fast path and slice 1's trie arm answer differently")
     first, fourth = json.loads(got[0][1]), json.loads(got[3][1])
     reset = f"{60 - NOW0 % 60}s"
     check(
@@ -332,47 +553,70 @@ def phase_serve(K) -> dict:
         f"unexpected first body {first}",
     )
     check(fourth["overallCode"] == "OVER_LIMIT" and fourth["statuses"][1]["limitRemaining"] == 96, f"unexpected fourth body {fourth}")
-    log(f"serve: statuses {statuses}, launches {launches}")
+    check(hot_doc == want_doc, f"card and CPU /debug/hotkeys differ:\n{hot_doc!r}\n{want_doc!r}")
+    doc = json.loads(hot_doc)
+    check(doc["enabled"] and doc["drains"] == 1 and doc["lanes"] == HOTKEY_LANES, f"unexpected hotkeys document {doc}")
+    # one insert per sketch set per launch: the first launch's two new keys
+    # contend, so the loser's first hit is not counted
+    head = doc["top"][0]
+    check(head["key"] == "smoke_path_/login_" and head["count"] in (14, 15), f"hot descriptor not first: {doc['top']}")
+    check(stats["ratelimit.hotkeys.drains"] == 2 and stats["ratelimit.slab.decisions"] == 21, f"unexpected /stats {stats}")
+    log(f"serve: statuses {statuses}, slice-1 arm launches {launches1}, default launches {launches}, /debug/hotkeys top {doc['top'][:3]}")
     return launches
 
 
-def kernel_report(K, engine, dev, launches: dict, errs: dict) -> list:
+def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
     """Times at the main path's largest shape: b = 65536, W = 128, over the
-    engine phase's populated 2^22-slot table."""
+    engine phase's populated 2^22-slot table and 128-lane sketch. ms,
+    plain_ms and library_ms are median device times (device_ms); call_ms
+    and plain_call_ms are CUDA-event medians around one call (call_ms)."""
+    K, SKK = M.K, M.SKK
     rng = np.random.default_rng(3)
     b, ways = BUCKETS[-1], 128
     table = engine._state.table
     lo, hi = (i32(a, dev) for a in fingerprints(zipf_keys(rng, b)))
     now = NOW0 + 200
-    scan_ms = time_ms(lambda: K.way_scan(table, lo, hi, now, ways))
-    scan_plain_ms = time_ms(lambda: K.way_scan_plain(table, lo, hi, now, ways), iters=5)
-    # each distinct set is read once (Zipf traffic repeats sets), plus the
-    # per-item queries and outputs
+    planes = engine._sketch
+    ops = apply_inputs(rng, b, now, dev)
+    # name -> (kernel call, plain call, plain iterations, library call)
+    calls = {
+        "way_scan": (
+            lambda: K.way_scan(table, lo, hi, now, ways), lambda: K.way_scan_plain(table, lo, hi, now, ways), 5, None,
+        ),
+        "slab_apply": (
+            lambda: K.slab_apply(*ops, now), lambda: K.slab_apply_plain(*ops, now), 20,
+            lambda: torch.cumsum(ops[2], dim=0),
+        ),
+        "sketch_scan": (
+            lambda: SKK.sketch_scan(planes, lo, hi, ways), lambda: SKK.sketch_scan_plain(planes, lo, hi, ways), 20, None,
+        ),
+    }
+    # way scan: each distinct set is read once (Zipf traffic repeats
+    # sets), plus the per-item queries and outputs; sketch scan: the 8-byte
+    # query in and 13 bytes out per item, the planes read once
     n_sets = table.shape[0] // ways
     sets_read = int(torch.unique(lo & (n_sets - 1)).numel())
-    scan_bytes = sets_read * ways * 32 + b * (8 + 4 + 1 + 32)
-    ops = apply_inputs(rng, b, now, dev)
-    apply_ms = time_ms(lambda: K.slab_apply(*ops, now))
-    apply_plain_ms = time_ms(lambda: K.slab_apply_plain(*ops, now))
-    cumsum_ms = time_ms(lambda: torch.cumsum(ops[2], dim=0))
-    apply_bytes = b * (5 * 4 + 1 + 5 * 4 + 4 * 4)
+    nbytes = {
+        "way_scan": sets_read * ways * 32 + b * (8 + 4 + 1 + 32),
+        "slab_apply": b * (5 * 4 + 1 + 5 * 4 + 4 * 4),
+        "sketch_scan": b * (8 + 13) + planes.numel() * 4,
+    }
     rows = []
-    for name, ms, plain_ms, nbytes, lib_ms in (
-        ("way_scan", scan_ms, scan_plain_ms, scan_bytes, None),
-        ("slab_apply", apply_ms, apply_plain_ms, apply_bytes, cumsum_ms),
-    ):
+    for name, (kernel, plain, plain_iters, library) in calls.items():
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ms": device_ms(kernel),
+            "plain_ms": device_ms(plain, iters=plain_iters),
+            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": lib_ms,
+            "library_ms": None if library is None else device_ms(library),
+            "call_ms": call_ms(kernel),
+            "plain_call_ms": call_ms(plain, iters=plain_iters),
         })
     return rows
 
@@ -383,20 +627,24 @@ def main() -> int:
         return 2
     from api_ratelimit_tpu_torch import utils
     from api_ratelimit_tpu_torch.backends import cuda as cuda_mod
+    from api_ratelimit_tpu_torch.ops import sketch as SKT
+    from api_ratelimit_tpu_torch.ops import sketch_kernels as SKK
     from api_ratelimit_tpu_torch.ops import slab as S
     from api_ratelimit_tpu_torch.ops import slab_kernels as K
 
+    M = types.SimpleNamespace(K=K, S=S, SKK=SKK, SKT=SKT, cuda_mod=cuda_mod, utils=utils)
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     K.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {K.BUILD_LOG.get('seconds', 0.0):.1f} s)")
+    srcs = [os.path.basename(p) for p in K.sources()]
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {K.BUILD_LOG.get('seconds', 0.0):.1f} s) from {srcs}")
     log(K.BUILD_LOG.get("ptxas", "").strip())
 
-    errs = phase_parity(K, dev)
-    engine = phase_engine(K, S, cuda_mod, utils, dev)
+    errs = phase_parity(M, dev)
+    engine = phase_engine(M, dev)
     launches = phase_serve(K)
-    kernels = kernel_report(K, engine, dev, launches, errs)
+    kernels = kernel_report(M, engine, dev, launches, errs)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -205,6 +205,9 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'api_ratelimit_tpu', 'xxhash', 'grpc', 'yaml') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
+        "new = ('ops.sketch', 'ops.sketch_kernels', 'config.compiled', 'server.http_server')\n"
+        "missing = [m for m in new if 'api_ratelimit_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules if m.startswith('api_ratelimit_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -15,6 +15,7 @@ from api_ratelimit_tpu.ops import slab as J  # noqa: E402
 from api_ratelimit_tpu.ops.pallas_slab import pallas_slab_apply, pallas_way_scan  # noqa: E402
 from api_ratelimit_tpu.testing.oracle import SetSlabOracle  # noqa: E402
 from api_ratelimit_tpu_torch.ops import slab as T  # noqa: E402
+from api_ratelimit_tpu_torch.ops import sketch_kernels as SK  # noqa: E402
 from api_ratelimit_tpu_torch.ops import slab_kernels as K  # noqa: E402
 
 NOW0 = 1_000_000
@@ -223,4 +224,10 @@ def test_wrappers_validate_and_count_no_cpu_launch():
     K.way_scan(table, q, q, 0, 4)
     with pytest.raises(ValueError):
         K.slab_apply(q, q, q, q, q, q, table[:8], 0)  # seg_start must be bool
-    assert K.LAUNCHES == {"way_scan": 0, "slab_apply": 0}
+    planes = torch.zeros((3, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        SK.sketch_scan(planes, q, q, 32)  # ways > lanes
+    with pytest.raises(ValueError):
+        SK.sketch_scan(planes[:2].contiguous(), q, q, 4)
+    SK.sketch_scan(planes, q, q, 4)
+    assert K.LAUNCHES == {"way_scan": 0, "slab_apply": 0, "sketch_scan": 0}
