@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels of the slab step: the W-way set scan and the
-// after-mode INCRBY apply. Plain C interface, loaded with ctypes by
+// INCRBY apply (after mode, and with the decision fused in, full or lean).
+// Plain C interface, loaded with ctypes by
 // api_ratelimit_tpu_torch/ops/slab_kernels.py, which also holds the plain
 // PyTorch version of each kernel (the CPU tests and chip_smoke.py hold the
 // two to each other bit for bit).
@@ -18,6 +19,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "decide.cuh"
+
 namespace {
 
 constexpr int kRowWidth = 8;
@@ -30,9 +33,7 @@ constexpr int kAlgoDivMask = (1 << 28) - 1;
 constexpr int kScoreTierShift = 28;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ int add_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
+using rl::add_wrap;
 
 // ---------------------------------------------------------------------------
 // Way scan. Replaces api_ratelimit_tpu/ops/pallas_slab.py pallas_way_scan
@@ -123,24 +124,34 @@ way_scan_kernel(const int4* __restrict__ table, const int* __restrict__ fp_lo,
 }
 
 // ---------------------------------------------------------------------------
-// INCRBY apply, after mode. Replaces api_ratelimit_tpu/ops/pallas_slab.py
-// pallas_slab_apply(decide=False) (_slab_apply_kernel).
+// INCRBY apply. Replaces api_ratelimit_tpu/ops/pallas_slab.py
+// pallas_slab_apply (_slab_apply_kernel) in its three forms:
+//   slab_apply_kernel<false, false>  decide=False (after mode), 4 outputs
+//   slab_apply_kernel<true, false>   decide=True, 10 outputs
+//   slab_apply_kernel<true, true>    decide=True, lean=True, 5 outputs
 //
 // Over the slot-sorted batch: the segmented exclusive prefix of hits
 // (in-batch duplicate serialization), the window rollover against the
 // stored row with the hits>0 gate, then before, after, cur_window and
-// expire = now + div + jitter, in uint32 wrap-around arithmetic.
+// expire = now + div + jitter, in uint32 wrap-around arithmetic. With
+// kDecide the fixed-window decision of decide.cuh follows per item (limit
+// and near_ratio in): all six fields, or with kLean only the code (the
+// decided mode reads nothing else, so the other five are neither computed
+// nor stored).
 //
-// Bound on this card: ~60 B per item moved (11 input planes, 4 outputs),
-// ~3.9 MB and ~1.2 us at 65536 items: far below one launch's overhead, so
-// the kernel is bound by launch and latency, not bytes. The TPU kernel
-// carried its scan totals across a sequential grid in SMEM; CUDA blocks
-// have no order, so this first design is ONE block that walks the batch in
-// chunks of its 1024 threads, carrying the running sum and the running
-// segment-base max from chunk to chunk in shared memory, exactly like the
-// sequential grid. Each chunk is two block-wide inclusive scans (warp
-// shuffles, then a scan of the 32 warp totals). A multi-block two-pass
-// scan is later work.
+// Bound on this card: bytes, ~57 B per item in after mode (5 int32 planes,
+// the seg_start byte and 5 stored-row words in, 4 out), 85 B decided, 65 B
+// lean; at the H100 SXM's published 3.35 TB/s (700 W) ~1.1 us for 65536
+// items, ~0.027 ms decided at 2^20. The
+// TPU kernel carried its scan totals across a sequential grid in SMEM;
+// CUDA blocks have no order, so this first design is ONE block that walks
+// the batch in chunks of its 1024 threads, carrying the running sum and
+// the running segment-base max from chunk to chunk in shared memory,
+// exactly like the sequential grid. Each chunk is two block-wide inclusive
+// scans (warp shuffles, then a scan of the 32 warp totals). One block on
+// one of 132 SMs leaves the kernel bound by the chunk loop's latency, far
+// above its byte bound; the decision tail is elementwise after before and
+// after and adds no barrier. A multi-block two-pass scan is later work.
 // ---------------------------------------------------------------------------
 
 constexpr int kApplyThreads = 1024;
@@ -186,14 +197,25 @@ __device__ unsigned block_inclusive_scan(unsigned v, Op op, unsigned identity,
   return v;
 }
 
+// The output planes come in the reference's order, each its own
+// __restrict__ pointer, so the compiler may hoist every load of a chunk
+// above its stores. The decision planes are null where the instantiation
+// does not store them.
+template <bool kDecide, bool kLean>
 __global__ void __launch_bounds__(kApplyThreads)
 slab_apply_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
-                  const int* __restrict__ hits, const int* __restrict__ div,
-                  const int* __restrict__ jitter,
+                  const int* __restrict__ hits, const int* __restrict__ limit,
+                  const int* __restrict__ div, const int* __restrict__ jitter,
                   const unsigned char* __restrict__ seg_start,
                   const int* __restrict__ st_rows, int b, int now,
-                  int* __restrict__ before_out, int* __restrict__ after_out,
-                  int* __restrict__ window_out, int* __restrict__ expire_out) {
+                  float near_ratio, int* __restrict__ before_out,
+                  int* __restrict__ after_out, int* __restrict__ window_out,
+                  int* __restrict__ expire_out, int* __restrict__ code_out,
+                  int* __restrict__ remaining_out,
+                  int* __restrict__ duration_out,
+                  int* __restrict__ throttle_out, int* __restrict__ near_out,
+                  int* __restrict__ over_out) {
+  static_assert(kDecide || !kLean, "lean is a form of the decided apply");
   __shared__ unsigned warp_buf[32];
   __shared__ unsigned carry[2];  // running sum, running segment-base max
   if (threadIdx.x == 0) {
@@ -221,10 +243,7 @@ slab_apply_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
     if (in) {
       const int d = div[i];
       const int safe_div = d < 1 ? 1 : d;
-      int q = now / safe_div;
-      if (now < 0 && q * safe_div != now) q -= 1;  // floor, not truncation
-      const int cur_window = static_cast<int>(static_cast<unsigned>(q) *
-                                              static_cast<unsigned>(safe_div));
+      const int cur_window = rl::window_start(now, safe_div);
       const int* st = st_rows + static_cast<long long>(i) * kRowWidth;
       const bool live = st[kColExpire] > now;
       const bool fp_match =
@@ -234,10 +253,27 @@ slab_apply_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
                                 ? static_cast<unsigned>(st[kColCount])
                                 : 0u;
       const unsigned before = base + prior;
+      const unsigned after = before + h;
       before_out[i] = static_cast<int>(before);
-      after_out[i] = static_cast<int>(before + h);
+      after_out[i] = static_cast<int>(after);
       window_out[i] = cur_window;
       expire_out[i] = add_wrap(add_wrap(now, safe_div), jitter[i]);
+      if constexpr (kDecide) {
+        const unsigned lim = static_cast<unsigned>(limit[i]);
+        if constexpr (kLean) {
+          code_out[i] = rl::decide_code(after, h, lim);
+        } else {
+          const rl::Decision r =
+              rl::decide_one(before, after, h, lim,
+                             add_wrap(cur_window, safe_div), now, near_ratio);
+          code_out[i] = r.code;
+          remaining_out[i] = static_cast<int>(r.remaining);
+          duration_out[i] = r.duration;
+          throttle_out[i] = static_cast<int>(r.throttle);
+          near_out[i] = static_cast<int>(r.near_delta);
+          over_out[i] = static_cast<int>(r.over_delta);
+        }
+      }
     }
     __syncthreads();
   }
@@ -269,15 +305,55 @@ int rl_slab_apply(const void* fp_lo, const void* fp_hi, const void* hits,
                   const void* st_rows, int b, int now, void* before_out,
                   void* after_out, void* window_out, void* expire_out,
                   void* stream) {
-  slab_apply_kernel<<<1, kApplyThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  slab_apply_kernel<false, false><<<1, kApplyThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(fp_lo), static_cast<const int*>(fp_hi),
-      static_cast<const int*>(hits), static_cast<const int*>(div),
+      static_cast<const int*>(hits), nullptr, static_cast<const int*>(div),
       static_cast<const int*>(jitter),
       static_cast<const unsigned char*>(seg_start),
-      static_cast<const int*>(st_rows), b, now,
+      static_cast<const int*>(st_rows), b, now, 0.0f,
       static_cast<int*>(before_out), static_cast<int*>(after_out),
-      static_cast<int*>(window_out), static_cast<int*>(expire_out));
+      static_cast<int*>(window_out), static_cast<int*>(expire_out), nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decided apply: outs[0..9] are before, after, window, expire, code,
+// remaining, duration, throttle, near_delta, over_delta; with lean != 0
+// only the first five are written (the rest may be null).
+int rl_slab_apply_decide(const void* fp_lo, const void* fp_hi,
+                         const void* hits, const void* limit, const void* div,
+                         const void* jitter, const void* seg_start,
+                         const void* st_rows, int b, int now, float near_ratio,
+                         int lean, void* before_out, void* after_out,
+                         void* window_out, void* expire_out, void* code_out,
+                         void* remaining_out, void* duration_out,
+                         void* throttle_out, void* near_out, void* over_out,
+                         void* stream) {
+  int* const out[10] = {
+      static_cast<int*>(before_out),   static_cast<int*>(after_out),
+      static_cast<int*>(window_out),   static_cast<int*>(expire_out),
+      static_cast<int*>(code_out),     static_cast<int*>(remaining_out),
+      static_cast<int*>(duration_out), static_cast<int*>(throttle_out),
+      static_cast<int*>(near_out),     static_cast<int*>(over_out)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lo = static_cast<const int*>(fp_lo);
+  const int* hi = static_cast<const int*>(fp_hi);
+  const int* h = static_cast<const int*>(hits);
+  const int* lim = static_cast<const int*>(limit);
+  const int* d = static_cast<const int*>(div);
+  const int* jit = static_cast<const int*>(jitter);
+  const unsigned char* seg = static_cast<const unsigned char*>(seg_start);
+  const int* st = static_cast<const int*>(st_rows);
+  if (lean) {
+    slab_apply_kernel<true, true><<<1, kApplyThreads, 0, s>>>(
+        lo, hi, h, lim, d, jit, seg, st, b, now, near_ratio, out[0], out[1],
+        out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
+  } else {
+    slab_apply_kernel<true, false><<<1, kApplyThreads, 0, s>>>(
+        lo, hi, h, lim, d, jit, seg, st, b, now, near_ratio, out[0], out[1],
+        out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Port of api_ratelimit_tpu/ops/slab.py: the after-mode fixed-window slab step.
+"""Port of api_ratelimit_tpu/ops/slab.py: the fixed-window slab step.
 
 The counter store is a W-way set-associative row table in device memory,
 `int32[n_slots, ROW_WIDTH]` holding the reference's uint32 rows bit for bit
@@ -7,25 +7,41 @@ unsigned compare or add is written out). A key lives only in set
 `fp_lo & (n_sets - 1)`; a full set evicts its least-valuable way in place
 (dead, then window-ended, then lowest-count live, rotation tiebreak).
 
-The port covers the production after-mode path for fixed-window rules (the
-reference's `slab_step_after(multi_algo=False, victim=False)`), with the
-heavy-hitter sketch on or off:
+The port covers the reference's fixed-window steps (`multi_algo=False`,
+`victim=False`), with the heavy-hitter sketch on or off:
 
     way scan (kernel) -> eviction class -> packed-key stable sort
-    -> INCRBY apply (kernel) -> one row scatter -> unsort -> saturating cast
+    -> INCRBY apply (kernel) -> one row scatter
     [-> segment weights -> sketch update (sketch scan kernel, ops/sketch.py)]
 
-The slab's two kernels live in ops/slab_kernels.py (CUDA C++ in csrc/),
-which also defines the row layout; the glue between the kernels stays plain
-torch ops, as XLA owned it on the TPU. Unlike the reference's donated,
-immutable state, the step updates `state.table` in place.
+and then, per entry point:
+
+    slab_step_after         after mode (production): unsort the counters,
+                            saturating cast; the host decides
+    slab_step_packed        the apply fuses the decision (kernel): one
+                            uint32[9, b] block in sorted order + permutation
+    slab_step_decided       the apply fuses only the code (lean kernel):
+                            uint8 codes in arrival order
+    slab_update_and_decide  the full decision, unsorted (SlabResult)
+
+On CUDA tables the decided steps run the fused INCRBY+decide kernel, as the
+reference's use_pallas=True does on the TPU; on CPU tables the apply's plain
+version runs ops/decide.py decide_plain, as the reference's XLA twin does.
+
+The slab's kernels live in ops/slab_kernels.py (CUDA C++ in csrc/), which
+also defines the row layout; the glue between the kernels stays plain torch
+ops, as XLA owned it on the TPU. Unlike the reference's donated, immutable
+state, the step updates `state.table` in place.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .decide import DecideResult
 from .hashing import set_index
 from .sketch import sketch_update
 from .slab_kernels import (  # noqa: F401  (the row layout is re-exported)
@@ -96,6 +112,28 @@ _TORCH_UNSIGNED = {
     np.dtype(np.uint16): torch.uint16,
     np.dtype(np.uint32): torch.uint32,
 }
+
+
+class SlabBatch(NamedTuple):
+    """One launch's items on the device, int32[b] each (uint32 bits where
+    the reference is unsigned). hits == 0 marks padding."""
+
+    fp_lo: torch.Tensor
+    fp_hi: torch.Tensor
+    hits: torch.Tensor
+    limit: torch.Tensor  # requests_per_unit
+    divider: torch.Tensor  # seconds per window
+    jitter: torch.Tensor  # expiry jitter seconds
+
+
+class SlabResult(NamedTuple):
+    """slab_update_and_decide's result, in arrival order: int32[b] before
+    and after (uint32 bits), the DecideResult, int64[5] health."""
+
+    before: torch.Tensor
+    after: torch.Tensor
+    decision: DecideResult
+    health: torch.Tensor
 
 
 def default_ways(platform: str) -> int:
@@ -193,38 +231,68 @@ def _unsort(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _unpack(packed: np.ndarray):
-    """Host operand uint32[7, b] -> (int32 rows as a numpy view, now)."""
+def _host_operand(packed) -> np.ndarray:
+    """The launch operand as a contiguous host uint32[7, b]."""
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
     if packed.ndim != 2 or packed.shape[0] != PACKED_IN_ROWS:
         raise ValueError(f"packed operand must be (7, b), got {packed.shape}")
-    now = int(packed[ROW_SCALARS, 0].view(np.int32))
-    return packed.view(np.int32), now
+    return packed
+
+
+def _fixed_window_only(packed) -> np.ndarray:
+    """The operand, refused when a divider word carries algorithm bits:
+    the decided entry points have no engine in front of them to refuse a
+    sibling algorithm's rows, and their body is fixed-window only. A host
+    check: it costs no device sync."""
+    packed = _host_operand(packed)
+    if np.any(packed[ROW_DIVIDER] & np.uint32(7 << ALGO_SHIFT)):
+        raise ValueError(
+            "a divider word carries algorithm bits: the decided steps are "
+            "fixed-window only"
+        )
+    return packed
+
+
+def _unpack(packed, device) -> tuple[SlabBatch, int, float]:
+    """Host operand uint32[7, b] -> (the batch on `device`, now, near_ratio):
+    `now` is [6, 0] as int32 and near_ratio the float32 bitcast of [6, 1]."""
+    packed = _host_operand(packed)
+    rows = packed.view(np.int32)
+    now = int(rows[ROW_SCALARS, 0])
+    ratio = packed[ROW_SCALARS, 1:2].view(np.float32)  # empty when b == 1
+    near_ratio = float(ratio[0]) if ratio.size else 0.0
+    batch = SlabBatch(*torch.from_numpy(rows[: ROW_JITTER + 1]).to(device))
+    return batch, now, near_ratio
 
 
 def _finish_update(
     state, order, s_slot, same_prev, evict_class, s_fp_lo, s_fp_hi, s_hits,
-    s_div, s_after, cur_window, expire,
+    s_div, s_after, cur_window, expire, count_health=True,
 ):
     """One row write per slot (the slot's last sorted item) and the health
-    vector: the eviction mix of winning writes plus contention drops."""
+    vector: the eviction mix of winning writes plus contention drops
+    (zeros when count_health is False)."""
     n = state.n_slots
-    true1 = torch.ones(1, dtype=torch.bool, device=s_slot.device)
+    dev = s_slot.device
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
     is_last = torch.cat([s_slot[1:] != s_slot[:-1], true1])
     s_valid = s_hits != 0
     win = s_valid & is_last
-    seg_end = torch.cat([~same_prev, true1])
-    s_class = evict_class[order]
-    health = torch.stack(
-        [
-            (win & (s_class == cls)).sum()
-            for cls in (EVICT_EXPIRED, EVICT_WINDOW, EVICT_LIVE)
-        ]
-        + [
-            (s_valid & seg_end & ~is_last).sum(),
-            torch.zeros((), dtype=torch.int64, device=s_slot.device),
-        ]
-    )
+    if count_health:
+        seg_end = torch.cat([~same_prev, true1])
+        s_class = evict_class[order]
+        health = torch.stack(
+            [
+                (win & (s_class == cls)).sum()
+                for cls in (EVICT_EXPIRED, EVICT_WINDOW, EVICT_LIVE)
+            ]
+            + [
+                (s_valid & seg_end & ~is_last).sum(),
+                torch.zeros((), dtype=torch.int64, device=dev),
+            ]
+        )
+    else:
+        health = torch.zeros(HEALTH_WIDTH, dtype=torch.int64, device=dev)
     zeros = torch.zeros_like(s_fp_lo)
     new_rows = torch.stack(
         [s_fp_lo, s_fp_hi, s_after, cur_window, expire, s_div, zeros, zeros],
@@ -254,6 +322,70 @@ def _segment_weights(s_hits, seg_start, same_prev):
     return weight, seg_last & (s_hits != 0)
 
 
+def _slab_update_sorted(
+    state: SlabState,
+    batch: SlabBatch,
+    now: int,
+    ways: int,
+    count_health: bool = True,
+    near_ratio: float = 0.8,
+    decide: bool = False,
+    lean: bool = False,
+    sketch: torch.Tensor | None = None,
+    sketch_ways: int = 0,
+):
+    """The stateful core of every step: set scan, serialize duplicates,
+    window rollover, increment, one row scatter, in place. Returns, in
+    slot-sorted order, (s_before, s_after, (s_hits, s_limit, s_div), order,
+    health, decision), and the updated sketch planes as a seventh element
+    when `sketch` is given.
+
+    decide=True runs the apply with the decision fused in, at `near_ratio`:
+    `decision` is then its DecideResult (lean=True: the code alone, the
+    other five fields None) and s_limit the sorted limits; with decide=False
+    both are None. count_health=False skips the health reductions (zeros
+    come back)."""
+    n = state.n_slots
+    chosen, evict_class, matched, picked = _choose_ways(
+        state, batch.fp_lo, batch.fp_hi, batch.hits, now, ways
+    )
+    key = _sort_key(chosen, matched, batch.fp_hi, n)
+    order = torch.sort(key, stable=True).indices
+    s_slot = chosen[order]
+    s_fp_lo = batch.fp_lo[order]
+    s_fp_hi = batch.fp_hi[order]
+    s_hits = batch.hits[order]
+    s_div = batch.divider[order]
+    s_jit = batch.jitter[order]
+    s_limit = batch.limit[order] if decide else None
+    same_prev = (
+        (s_slot[1:] == s_slot[:-1])
+        & (s_fp_lo[1:] == s_fp_lo[:-1])
+        & (s_fp_hi[1:] == s_fp_hi[:-1])
+    )
+    true1 = torch.ones(1, dtype=torch.bool, device=state.device)
+    seg_start = torch.cat([true1, ~same_prev])
+    st_rows = picked[order]
+
+    outs = slab_apply(
+        s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now,
+        s_limit=s_limit, near_ratio=near_ratio, decide=decide, lean=lean,
+    )
+    s_before, s_after, cur_window, expire = outs[:4]
+    decision = None
+    if decide:
+        decision = DecideResult(outs[4], *[None] * 5) if lean else DecideResult(*outs[4:])
+    health = _finish_update(
+        state, order, s_slot, same_prev, evict_class, s_fp_lo, s_fp_hi,
+        s_hits, s_div, s_after, cur_window, expire, count_health,
+    )
+    result = (s_before, s_after, (s_hits, s_limit, s_div), order, health, decision)
+    if sketch is None:
+        return result
+    weight, cand = _segment_weights(s_hits, seg_start, same_prev)
+    return (*result, sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways))
+
+
 def slab_step_after(
     state: SlabState,
     packed: np.ndarray,
@@ -273,48 +405,100 @@ def slab_step_after(
     A non-None `sketch` (hotkey planes, ops/sketch.py; the HOTKEYS_ENABLED
     arm) appends the updated planes as a third element, with `sketch_ways`
     its set associativity. None runs exactly the sketch-free step."""
-    rows, now = _unpack(packed)
-    dev = state.device
-    op = torch.from_numpy(rows[:ROW_JITTER + 1]).to(dev)
-    fp_lo, fp_hi, hits, _limit, div, jit = op
-    n = state.n_slots
-
-    chosen, evict_class, matched, picked = _choose_ways(
-        state, fp_lo, fp_hi, hits, now, ways
-    )
-    key = _sort_key(chosen, matched, fp_hi, n)
-    order = torch.sort(key, stable=True).indices
-    s_slot = chosen[order]
-    s_fp_lo = fp_lo[order]
-    s_fp_hi = fp_hi[order]
-    s_hits = hits[order]
-    s_div = div[order]
-    s_jit = jit[order]
-    same_prev = (
-        (s_slot[1:] == s_slot[:-1])
-        & (s_fp_lo[1:] == s_fp_lo[:-1])
-        & (s_fp_hi[1:] == s_fp_hi[:-1])
-    )
-    true1 = torch.ones(1, dtype=torch.bool, device=dev)
-    seg_start = torch.cat([true1, ~same_prev])
-    st_rows = picked[order]
-
-    _before, s_after, cur_window, expire = slab_apply(
-        s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now
-    )
-    health = _finish_update(
-        state, order, s_slot, same_prev, evict_class, s_fp_lo, s_fp_hi,
-        s_hits, s_div, s_after, cur_window, expire,
+    batch, now, _near_ratio = _unpack(packed, state.device)
+    _before, s_after, _inputs, order, health, _none, *new_sketch = _slab_update_sorted(
+        state, batch, now, ways, sketch=sketch, sketch_ways=sketch_ways
     )
     after = _u32(_unsort(s_after, order))
     out_dtype = np.dtype(out_dtype)
     cap = int(np.iinfo(out_dtype).max)
     out = torch.clamp(after, max=cap).to(_TORCH_UNSIGNED[out_dtype])
-    if sketch is None:
-        return out, health
-    weight, cand = _segment_weights(s_hits, seg_start, same_prev)
-    new_sketch = sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways)
-    return out, health, new_sketch
+    return (out, health, *new_sketch)
+
+
+def _slab_step_sorted(
+    state: SlabState,
+    batch: SlabBatch,
+    now: int,
+    near_ratio: float,
+    ways: int,
+    count_health: bool = True,
+    lean: bool = False,
+    sketch: torch.Tensor | None = None,
+    sketch_ways: int = 0,
+):
+    """The step with the decision on the device: (s_before, s_after,
+    DecideResult, order, health), all in slot-sorted order, plus the
+    updated sketch planes when `sketch` is given. On a CUDA table the
+    apply kernel computes the decision (lean=True: the code alone, the
+    other fields None); on a CPU table its plain version runs
+    decide_plain."""
+    s_before, s_after, _inputs, order, health, decision, *new_sketch = _slab_update_sorted(
+        state, batch, now, ways, count_health, near_ratio=near_ratio,
+        decide=True, lean=lean, sketch=sketch, sketch_ways=sketch_ways,
+    )
+    return (s_before, s_after, decision, order, health, *new_sketch)
+
+
+def slab_step_packed(
+    state: SlabState,
+    packed: np.ndarray,
+    ways: int = DEFAULT_WAYS,
+    sketch: torch.Tensor | None = None,
+    sketch_ways: int = 0,
+):
+    """One launch with the full decision on the device: `packed` is the
+    host operand uint32[7, b], near_ratio the float32 in [6, 1]. Returns
+    (uint32[9, b] device block in slot-sorted order, rows OUT_CODE ...
+    OUT_AFTER and the permutation in OUT_ORDER; int64[5] health), plus the
+    updated sketch planes when `sketch` is given. Raises ValueError for an
+    operand with algorithm bits (fixed-window only)."""
+    batch, now, near_ratio = _unpack(_fixed_window_only(packed), state.device)
+    s_before, s_after, d, order, health, *new_sketch = _slab_step_sorted(
+        state, batch, now, near_ratio, ways, sketch=sketch, sketch_ways=sketch_ways
+    )
+    out = torch.stack([*d, s_before, s_after, order.to(torch.int32)]).view(torch.uint32)
+    return (out, health, *new_sketch)
+
+
+def slab_step_decided(
+    state: SlabState,
+    packed: np.ndarray,
+    ways: int = DEFAULT_WAYS,
+    count_health: bool = True,
+    sketch: torch.Tensor | None = None,
+    sketch_ways: int = 0,
+):
+    """One launch of the decided mode: only the code per item comes back.
+    Returns (uint8[b] codes in arrival order, 1=OK and 2=OVER_LIMIT;
+    int64[5] health, zeros when count_health is False), plus the updated
+    sketch planes when `sketch` is given. On the card the apply runs lean:
+    it computes and stores the code and no other decision field. Raises
+    ValueError for an operand with algorithm bits (fixed-window only)."""
+    batch, now, near_ratio = _unpack(_fixed_window_only(packed), state.device)
+    _before, _after, d, order, health, *new_sketch = _slab_step_sorted(
+        state, batch, now, near_ratio, ways, count_health, lean=True,
+        sketch=sketch, sketch_ways=sketch_ways,
+    )
+    return (_unsort(d.code, order).to(torch.uint8), health, *new_sketch)
+
+
+def slab_update_and_decide(
+    state: SlabState, packed: np.ndarray, ways: int = DEFAULT_WAYS
+) -> SlabResult:
+    """One launch with the full decision, every field in arrival order.
+    Raises ValueError for an operand with algorithm bits (fixed-window
+    only)."""
+    batch, now, near_ratio = _unpack(_fixed_window_only(packed), state.device)
+    s_before, s_after, d, order, health = _slab_step_sorted(
+        state, batch, now, near_ratio, ways
+    )
+    return SlabResult(
+        before=_unsort(s_before, order),
+        after=_unsort(s_after, order),
+        decision=DecideResult(*(_unsort(f, order) for f in d)),
+        health=health,
+    )
 
 
 def slab_export_copy(state: SlabState) -> np.ndarray:

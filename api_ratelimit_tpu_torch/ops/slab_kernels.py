@@ -11,9 +11,12 @@ with torch ops. This module holds the slab step's two:
 
     way_scan    <- pallas_way_scan (plus the set gather and picked-row
                    select that surrounded it in ops/slab.py _choose_ways)
-    slab_apply  <- pallas_slab_apply(decide=False)
+    slab_apply  <- pallas_slab_apply(decide=False), and with decide=True
+                   (lean=True) the fused INCRBY+decide forms
 
-(the sketch scan's wrapper is ops/sketch_kernels.py). A wrapper runs the
+(the sketch scan's wrapper is ops/sketch_kernels.py, the standalone
+decide's ops/decide.py, whose decision math the fused apply shares through
+csrc/decide.cuh). A wrapper runs the
 plain version only because the tensors it was given lie on the CPU; for
 CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in LAUNCHES, so a run can show that it went through the kernel.
@@ -33,6 +36,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 from .hashing import set_index
@@ -82,8 +86,16 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> launches made through its wrapper
-LAUNCHES = {"way_scan": 0, "slab_apply": 0, "sketch_scan": 0}
+# kernel name -> launches made through its wrapper; the apply counts each
+# of its three forms under its own name
+LAUNCHES = {
+    "way_scan": 0,
+    "slab_apply": 0,
+    "sketch_scan": 0,
+    "slab_apply_decide": 0,
+    "slab_apply_lean": 0,
+    "decide": 0,
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -112,10 +124,16 @@ def sources() -> list[str]:
 
 
 def library_path() -> str:
-    """The built library's path, keyed on a hash of every source and the
-    nvcc flags, so an edit to any of them builds a new library."""
+    """The built library's path, keyed on a hash of every source, every
+    header they include (csrc/*.cuh) and the nvcc flags, so an edit to any
+    of them builds a new library."""
+    headers = sorted(
+        os.path.join(CSRC_DIR, name)
+        for name in os.listdir(CSRC_DIR)
+        if name.endswith(".cuh")
+    )
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers:
         digest.update(os.path.basename(src).encode() + b"\0")
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -182,13 +200,17 @@ def build() -> ctypes.CDLL:
             os.replace(tmp, library)
             BUILD_LOG["seconds"] = time.perf_counter() - t0
         lib = ctypes.CDLL(library)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.rl_way_scan.restype = ci
         lib.rl_slab_apply.argtypes = [vp] * 7 + [ci, ci] + [vp] * 5
         lib.rl_slab_apply.restype = ci
+        lib.rl_slab_apply_decide.argtypes = [vp] * 8 + [ci, ci, cf, ci] + [vp] * 11
+        lib.rl_slab_apply_decide.restype = ci
         lib.rl_sketch_scan.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.rl_sketch_scan.restype = ci
+        lib.rl_decide.argtypes = [vp] * 5 + [ci, ci, cf] + [vp] * 7
+        lib.rl_decide.restype = ci
         _lib = lib
         return lib
 
@@ -321,10 +343,20 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int):
 # --- INCRBY apply --------------------------------------------------------------
 
 
-def slab_apply_plain(s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int):
-    """Plain version of the after-mode INCRBY apply over a slot-sorted
-    batch. Returns int32[b] (before, after, cur_window, expire); before and
-    after hold uint32 bits."""
+def f32(value) -> float:
+    """`value` rounded to float32 (kernels take near_ratio as a C float)."""
+    return float(np.float32(value))
+
+
+def slab_apply_plain(
+    s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int,
+    s_limit=None, near_ratio=0.8, decide=False, lean=False,
+):
+    """Plain version of the INCRBY apply over a slot-sorted batch. Returns
+    int32[b] (before, after, cur_window, expire); before and after hold
+    uint32 bits. decide=True appends the six DecideResult fields of the
+    decision (ops/decide.py decide_plain) against `s_limit`; lean=True
+    appends the code alone."""
     hits = _u32(s_hits)
     incl = torch.cumsum(hits, dim=0) & 0xFFFFFFFF
     excl = (incl - hits) & 0xFFFFFFFF
@@ -350,43 +382,75 @@ def slab_apply_plain(s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows,
     after = (before + hits) & 0xFFFFFFFF
     expire = _wrap32(now + safe_div + s_jit.long())
     as_i32 = lambda x: _wrap32(x).to(torch.int32)  # noqa: E731
-    return as_i32(before), as_i32(after), cur_window.to(torch.int32), expire.to(torch.int32)
+    outs = (as_i32(before), as_i32(after), cur_window.to(torch.int32), expire.to(torch.int32))
+    if not decide:
+        return outs
+    # decide.py imports this module's build and launch counts
+    from .decide import decide_plain
+
+    d = decide_plain(outs[0], outs[1], s_hits, s_limit, s_div, now, near_ratio)
+    return (*outs, d.code) if lean else (*outs, *d)
 
 
-def slab_apply(s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int):
-    """The after-mode INCRBY over a slot-sorted batch: segmented exclusive
-    prefix of hits, window rollover against the stored row (int32[b, 8]),
-    before/after counters, the new window and expire."""
+def slab_apply(
+    s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int,
+    s_limit=None, near_ratio=0.8, decide=False, lean=False,
+):
+    """The INCRBY over a slot-sorted batch: segmented exclusive prefix of
+    hits, window rollover against the stored row (int32[b, 8]),
+    before/after counters, the new window and expire. decide=True fuses
+    the fixed-window decision against `s_limit` (int32[b], uint32 bits) at
+    `near_ratio` and appends code, remaining, duration, throttle, near and
+    over deltas; lean=True appends only the code. Each form counts its
+    launches under its own name (slab_apply, slab_apply_decide,
+    slab_apply_lean)."""
     device = s_hits.device
-    for name, t in (
+    named = [
         ("s_fp_lo", s_fp_lo), ("s_fp_hi", s_fp_hi), ("s_hits", s_hits),
         ("s_div", s_div), ("s_jit", s_jit),
-    ):
+    ]
+    if lean and not decide:
+        raise ValueError("lean=True is a form of decide=True")
+    if decide:
+        if s_limit is None:
+            raise ValueError("decide=True needs s_limit")
+        named.append(("s_limit", s_limit))
+    for name, t in named:
         _require(t, name, torch.int32, 1, device)
     _require(seg_start, "seg_start", torch.bool, 1, device)
     _require(st_rows, "st_rows", torch.int32, 2, device)
     b = s_hits.shape[0]
-    if any(t.shape[0] != b for t in (s_fp_lo, s_fp_hi, s_div, s_jit, seg_start, st_rows)):
+    if any(t.shape[0] != b for _name, t in named) or seg_start.shape[0] != b or st_rows.shape[0] != b:
         raise ValueError("slab_apply inputs must share the batch length")
     if st_rows.shape[1] != ROW_WIDTH:
         raise ValueError(f"st_rows must be (b, {ROW_WIDTH})")
     now = _check_int32("now", now)
+    near_ratio = f32(near_ratio)
     if device.type == "cpu":
         return slab_apply_plain(
-            s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now
+            s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now,
+            s_limit, near_ratio, decide, lean,
         )
     if device.type != "cuda":
         raise ValueError(f"slab_apply: unsupported device {device}")
-    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(4)]
+    n_out = (5 if lean else 10) if decide else 4
+    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(n_out)]
     if b == 0:
         return tuple(outs)
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rl_slab_apply(
-        s_fp_lo.data_ptr(), s_fp_hi.data_ptr(), s_hits.data_ptr(),
-        s_div.data_ptr(), s_jit.data_ptr(), seg_start.data_ptr(),
-        st_rows.data_ptr(), b, now, *(o.data_ptr() for o in outs), stream,
-    )
-    _check("slab_apply", err)
-    LAUNCHES["slab_apply"] += 1
+    head = (s_fp_lo.data_ptr(), s_fp_hi.data_ptr(), s_hits.data_ptr())
+    tail = (s_div.data_ptr(), s_jit.data_ptr(), seg_start.data_ptr(), st_rows.data_ptr())
+    ptrs = [o.data_ptr() for o in outs]
+    if not decide:
+        err = lib.rl_slab_apply(*head, *tail, b, now, *ptrs, stream)
+        name = "slab_apply"
+    else:
+        ptrs += [None] * (10 - n_out)  # lean stores no other decision plane
+        err = lib.rl_slab_apply_decide(
+            *head, s_limit.data_ptr(), *tail, b, now, near_ratio, int(lean), *ptrs, stream
+        )
+        name = "slab_apply_lean" if lean else "slab_apply_decide"
+    _check(name, err)
+    LAUNCHES[name] += 1
     return tuple(outs)

@@ -13,7 +13,11 @@ Phases, each of which must pass (nothing is caught):
            tiers, one-set contention, padding lanes, counts >= 2^31); the
            sketch scan at sketch W in {4, 128} and lanes in {128, 1024} on
            adversarial planes (empty lanes, count ties, counts >= 2^31,
-           fp-0 padding queries).
+           fp-0 padding queries); the decided apply (full and lean) and the
+           standalone decide at near_ratio in {0.0, 0.8, 1.0}, with limits
+           that put items under the near threshold, between it and the
+           limit, crossing the limit, all over, at the f32 edge below 2^32,
+           on counts >= 2^31 and padding.
 3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, with the
            production sketch (HOTKEY_LANES=128, HOTKEY_K=16), Zipf(1.1) over
            2^20 keys: 32 launches at the 65536 bucket plus the smaller
@@ -33,8 +37,27 @@ Phases, each of which must pass (nothing is caught):
            stats flush drains the sketch, and GET /debug/hotkeys on the
            debug server must equal the CPU server's document and name the
            hot descriptor.
-5. report  per-kernel median device times (torch.profiler) and CUDA-event
-           call times, bounds and launches as one JSON line, the card's
+5. decided the engine benchmark's decided tier (bench.py bench_engine_zipf)
+           on the port: a 2^23-slot table (256 MiB), W=128, 33 host operands
+           of 2^20 items from its 10M-key Zipf(1.1) stream (seed 0, its
+           murmur3 fingerprints), 1 hit, limit 100, divider 1, one `now`,
+           near_ratio 0.8. A warm-up launch, then 32 timed launches of
+           slab_step_decided, each over-limit mask packed to 1 bit on the
+           card and read back at the end: decisions/s on the host clock
+           (H2D of every operand included). The 33 x 2^20 codes against the
+           exact oracle: false_over must be 0 and false_ok at most drops +
+           100 x live evictions. Beside it, a second table through the plain
+           versions for the first 4 blocks: codes, health and table bytes
+           identical. Then slab_step_packed on one 65536 block against the
+           plain versions (all 9 rows, health, table), its decision rows
+           against the standalone decide kernel, and slab_update_and_decide
+           against the plain versions. Launch counters: the decided step
+           runs way_scan and slab_apply_lean once per launch and no other
+           apply; the packed step slab_apply_decide once. One profiled step
+           gives the device-busy share and the top device items.
+6. report  per-kernel median device times (torch.profiler) and CUDA-event
+           call times, bounds and launches as one JSON line (the three
+           decision kernels at the decided phase's b = 2^20), the card's
            name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
@@ -64,12 +87,27 @@ SOURCES = {
     "way_scan": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "slab_apply": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "sketch_scan": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
+    "slab_apply_decide": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
+    "slab_apply_lean": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
+    "decide": "api_ratelimit_tpu_torch/csrc/decide_kernels.cu",
 }
 REPLACES = {
     "way_scan": "api_ratelimit_tpu/ops/pallas_slab.py:312",
     "slab_apply": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "sketch_scan": "api_ratelimit_tpu/ops/sketch.py:148",
+    "slab_apply_decide": "api_ratelimit_tpu/ops/pallas_slab.py:371",
+    "slab_apply_lean": "api_ratelimit_tpu/ops/pallas_slab.py:371",
+    "decide": "api_ratelimit_tpu/ops/pallas_decide.py:120",
 }
+NEAR_RATIOS = (0.0, 0.8, 1.0)
+# the decided phase: bench.py bench_engine_zipf's shapes on the card
+DECIDED_SLOTS = 1 << 23  # 256 MiB of rows
+DECIDED_BATCH = 1 << 20
+DECIDED_KEYS = 10_000_000
+DECIDED_BLOCKS = 33  # one warm-up launch + 32 timed
+DECIDED_LIMIT = 100
+DECIDED_WAYS = 128
+PLAIN_TWIN_BLOCKS = 4  # the plain way scan gathers (2^20, 128, 8) int32 sets: 4 GiB
 
 
 def check(cond, message: str) -> None:
@@ -134,7 +172,8 @@ def apply_inputs(rng, b: int, now: int, dev):
     wrap), stored rows that match in and out of the current window, and
     hits == 0 padding at the tail."""
     runs = rng.integers(1, 3000 if b > 1024 else 40, b)
-    keys = np.repeat(np.arange(b), runs)[:b]
+    n_runs = int(np.searchsorted(np.cumsum(runs), b)) + 1  # the runs that fill b items
+    keys = np.repeat(np.arange(n_runs), runs[:n_runs])[:b]
     lo, hi = fingerprints(keys)
     hits = np.where(rng.random(b) < 0.05, rng.integers(0, 1 << 31, b), rng.integers(1, 4, b)).astype(np.uint32)
     hits[-b // 16 :] = 0
@@ -150,6 +189,36 @@ def apply_inputs(rng, b: int, now: int, dev):
     )
 
 
+def decide_limits(rng, before: np.ndarray, after: np.ndarray) -> np.ndarray:
+    """uint32 limits that put the items of an apply batch on every branch
+    of the decision: under the near threshold, between it and the limit,
+    crossing it within the item, all over (before >= limit), and every
+    97th at the f32 edge, within 128 of 2^32, where the threshold's
+    float-to-unsigned convert saturates."""
+    b = before.size
+    before, after = before.astype(np.uint64), after.astype(np.uint64)
+    branch = rng.integers(0, 4, b)
+    limit = np.select(
+        [branch == 0, branch == 1, branch == 2],
+        [after * 2 + 10, after + rng.integers(0, 4, b).astype(np.uint64), (before + after) // 2],
+        before - np.minimum(before, rng.integers(0, 4, b).astype(np.uint64)),
+    )
+    limit = np.minimum(limit, (1 << 32) - 256)
+    limit[::97] = (1 << 32) - rng.integers(1, 128, limit[::97].size).astype(np.uint64)
+    return limit.astype(np.uint32)
+
+
+def decide_inputs(M, rng, b: int, now: int, dev):
+    """apply_inputs plus limits from decide_limits over the plain apply's
+    before/after: (apply operands, int32 limits, (before, after, hits,
+    limits, dividers) for the standalone decide)."""
+    ops = apply_inputs(rng, b, now, dev)
+    before, after = M.K.slab_apply_plain(*ops, now)[:2]
+    host = lambda t: t.cpu().numpy().view(np.uint32)  # noqa: E731
+    limit = i32(decide_limits(rng, host(before), host(after)), dev)
+    return ops, limit, (before, after, ops[2], limit, ops[3])
+
+
 def max_abs_err(got, want) -> int:
     err = 0
     for g, w in zip(got, want):
@@ -159,36 +228,58 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+PRIMER = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def prime_trace() -> None:
+    """Open a trace with a few empty kernels and wait for them. The tracer
+    has dropped the first activities of a trace on the card (the operand's
+    H2D copy and the way scan of a profiled step; 1-2 of 20 launches in
+    device_ms), so those are the primer's; device_activities leaves them
+    out."""
+    for _ in range(8):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def device_activities(prof) -> list:
     """(name, microseconds) of every kernel and copy the card ran inside a
-    torch.profiler trace, in order of their start."""
+    torch.profiler trace, in order of their start, without the primer's."""
     from torch.autograd import DeviceType
 
     events = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA and PRIMER not in e.name),
         key=lambda e: e.time_range.start,
     )
     return [(e.name, e.time_range.elapsed_us()) for e in events]
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Median device time of one call: per call, the summed durations of
-    the kernels and copies it ran on the card (torch.profiler over `iters`
-    synchronized calls after a warm-up; each call runs the same activities,
-    so the trace splits into calls in start order). The host time of the
-    Python wrapper around a launch is not in it: call_ms measures that."""
+    """Device time of one call: the kernels and copies it runs on the card,
+    each at its median duration over `iters` synchronized calls after a
+    warm-up (torch.profiler), summed. Every call runs the same activities,
+    so an activity name seen n times in the trace runs round(n / iters)
+    times a call, and a trace that drops a record (prime_trace) still gives
+    the median. The host time of the Python wrapper around a launch is not
+    in it: call_ms measures that."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_trace()
         for _ in range(iters):
             fn()
             torch.cuda.synchronize()
-    acts = device_activities(prof)
-    check(bool(acts) and len(acts) % iters == 0, f"{len(acts)} device activities do not split into {iters} calls")
-    per = len(acts) // iters
-    return float(np.median([sum(us for _name, us in acts[i * per : (i + 1) * per]) for i in range(iters)])) / 1e3
+    by_name: dict = {}
+    for name, us in device_activities(prof):
+        by_name.setdefault(name, []).append(us)
+    per_call = {name: round(len(durations) / iters) for name, durations in by_name.items()}
+    check(any(per_call.values()), f"no device activity recurs in each of {iters} calls")
+    for name, n in per_call.items():
+        if len(by_name[name]) != n * iters:
+            log(f"device_ms: {name[:60]} traced {len(by_name[name])} times in {iters} calls")
+    return sum(n * float(np.median(by_name[name])) for name, n in per_call.items()) / 1e3
 
 
 def call_ms(fn, iters: int = 20) -> float:
@@ -266,7 +357,7 @@ def phase_parity(M, dev) -> dict:
     K, SKK = M.K, M.SKK
     rng = np.random.default_rng(1)
     n_slots = N_SLOTS
-    err = {"way_scan": 0, "slab_apply": 0, "sketch_scan": 0}
+    err = dict.fromkeys(SOURCES, 0)
     for ways in (4, 128):
         for b in BUCKETS:
             table, lo, hi = scan_inputs(rng, b, n_slots, ways, NOW0, dev)
@@ -298,7 +389,31 @@ def phase_parity(M, dev) -> dict:
                 check(e == 0, f"sketch_scan differs from its plain version at b={b} W={ways} lanes={lanes}")
                 check(bool(want[1].any()) and not bool(want[1].all()), "sketch parity batch lacks matches or misses")
                 err["sketch_scan"] = max(err["sketch_scan"], e)
-    log(f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan also at lanes in (128, 1024)")
+    D = M.D
+    for b in BUCKETS:
+        ops, limit, dec_ops = decide_inputs(M, rng, b, NOW0, dev)
+        codes = K.slab_apply_plain(*ops, NOW0, s_limit=limit, decide=True, lean=True)[4]
+        check(bool((codes == D.CODE_OK).any()) and bool((codes == D.CODE_OVER_LIMIT).any()), "decide parity batch lacks OK or OVER")
+        for ratio in NEAR_RATIOS:
+            for name, lean in (("slab_apply_decide", False), ("slab_apply_lean", True)):
+                kw = {"s_limit": limit, "near_ratio": ratio, "decide": True, "lean": lean}
+                got = K.slab_apply(*ops, NOW0, **kw)
+                want = K.slab_apply_plain(*ops, NOW0, **kw)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                check(e == 0, f"{name} differs from its plain version at b={b} near_ratio={ratio}")
+                err[name] = max(err[name], e)
+            got = D.decide(*dec_ops, NOW0, ratio)
+            want = D.decide_plain(*dec_ops, NOW0, ratio)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            check(e == 0, f"decide differs from its plain version at b={b} near_ratio={ratio}")
+            check(bool((want.throttle_millis != 0).any()) or ratio == 1.0, "decide parity batch has no paced item")
+            err["decide"] = max(err["decide"], e)
+    log(
+        f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan also at lanes in (128, 1024);"
+        f" decided apply (full, lean) and decide at near_ratio in {NEAR_RATIOS}"
+    )
     return err
 
 
@@ -351,7 +466,7 @@ def phase_engine(M, dev):
             timed[name] = eng.submit_rows(block)
             t1 = time.perf_counter()
             ran = {k: K.LAUNCHES[k] > before[k] for k in before}
-            want_ran = {"way_scan": True, "slab_apply": True, "sketch_scan": name == "sketch_on"}
+            want_ran = dict.fromkeys(before, False) | {"way_scan": True, "slab_apply": True, "sketch_scan": name == "sketch_on"}
             check(ran == want_ran, f"{name} engine launched {ran} at launch {i}, expected {want_ran}")
             if n == top:
                 launch_ms[name].append((t1 - t0) * 1e3)
@@ -400,17 +515,23 @@ def phase_engine(M, dev):
 
 
 def profile_submit(engine, block: np.ndarray) -> dict:
-    """torch.profiler over one warm submit_rows: host wall time (synchronized,
+    """profile_call over one warm submit_rows."""
+    return profile_call(lambda: engine.submit_rows(block))
+
+
+def profile_call(fn) -> dict:
+    """torch.profiler over one warm call of fn: host wall time (synchronized,
     profiler overhead included), the summed device time of its kernels and
     copies, the device's busy share of that wall time, the count of device
     activities, and the kernels and host ops that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.submit_rows(block)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_trace()
         t0 = time.perf_counter()
-        engine.submit_rows(block)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     acts = device_activities(prof)
@@ -565,12 +686,196 @@ def phase_serve(K) -> dict:
     return launches
 
 
+def zipf_ids(n_keys: int, batch: int, n_batches: int, seed: int = 0) -> np.ndarray:
+    """bench.py zipf_ids: Zipf(1.1)-distributed key ids over an n_keys
+    universe, as uint32[n_batches, batch]."""
+    rng = np.random.RandomState(seed)
+    ids = rng.zipf(1.1, size=batch * n_batches).astype(np.uint64) % n_keys
+    return ids.reshape(n_batches, batch).astype(np.uint32)
+
+
+def fmix32(x: np.ndarray) -> np.ndarray:
+    """bench.py fmix32_np: the murmur3 finalizer, a bijection on uint32."""
+    x = np.asarray(x, dtype=np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def decided_operand(ids: np.ndarray, now: int) -> np.ndarray:
+    """bench_engine_zipf's expand() as a host operand uint32[7, b]: two
+    fmix32 bijections of the id as the fingerprint (distinct ids never
+    collide), 1 hit, limit 100, divider 1 (SECOND), no jitter; `now` and
+    near_ratio 0.8 in the scalar row."""
+    p = np.zeros((7, ids.size), np.uint32)
+    p[0] = fmix32(ids)
+    p[1] = fmix32(ids ^ np.uint32(0x9E3779B9))
+    p[2] = 1
+    p[3] = DECIDED_LIMIT
+    p[4] = 1
+    p[6, 0] = now
+    p[6, 1] = np.float32(0.8).view(np.uint32)
+    return p
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality of two tensors of one dtype and shape (uint32 through
+    its int32 view, which torch compares everywhere)."""
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_decided(M, dev) -> tuple[dict, dict]:
+    """The decided tier of bench_engine_zipf on the port (module docstring,
+    phase 5). Returns (summary, launch counts for the kernels line: the
+    lean apply's from the decided stream, the full apply's and decide's
+    from the packed step)."""
+    K, S, D, O = M.K, M.S, M.D, M.O
+    t_phase = time.perf_counter()
+    ways, now, limit = DECIDED_WAYS, NOW0, DECIDED_LIMIT
+    ids = zipf_ids(DECIDED_KEYS, DECIDED_BATCH, DECIDED_BLOCKS, seed=0)
+    # bench_engine_zipf warms up on its last staged block, then replays the rest
+    stream = np.concatenate([ids[-1:], ids[:-1]])
+    ops = [decided_operand(block, now) for block in stream]
+    t_gen = time.perf_counter() - t_phase
+
+    def over_bits(codes):
+        return D.packbits(codes == D.CODE_OVER_LIMIT)
+
+    # a kernel table beside a plain-version table over the first blocks
+    twin_k = S.make_slab(DECIDED_SLOTS, device=dev)
+    twin_p = S.make_slab(DECIDED_SLOTS, device=dev)
+    twin_bits = []
+    for i in range(PLAIN_TWIN_BLOCKS):
+        codes_k, health_k = S.slab_step_decided(twin_k, ops[i], ways=ways)
+        with plain_kernels(M):
+            codes_p, health_p = S.slab_step_decided(twin_p, ops[i], ways=ways)
+        check(same(codes_k, codes_p), f"decided codes differ from the plain versions' at block {i}")
+        check(same(health_k, health_p), f"decided health differs from the plain versions' at block {i}")
+        twin_bits.append(over_bits(codes_k))
+    check(same(twin_k.table, twin_p.table), "decided table differs from the plain versions' table")
+    twin_bits = torch.cat(twin_bits).cpu().numpy()
+    del twin_k, twin_p, codes_k, codes_p
+    torch.cuda.empty_cache()
+    t_twin = time.perf_counter() - t_phase - t_gen
+
+    # the stream: one warm-up launch, then 32 timed, through the kernels
+    state = S.make_slab(DECIDED_SLOTS, device=dev)
+    K.reset_launch_counts()
+    codes, health = S.slab_step_decided(state, ops[0], ways=ways)
+    healths, bits = [health], [over_bits(codes)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for op in ops[1:]:
+        codes, health = S.slab_step_decided(state, op, ways=ways)
+        healths.append(health)
+        bits.append(over_bits(codes))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host_bits = torch.cat(bits).cpu().numpy()
+    t2 = time.perf_counter()
+    decided_launches = dict(K.LAUNCHES)
+    n_launch = len(ops)
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": n_launch, "slab_apply_lean": n_launch}
+    check(decided_launches == want, f"the decided stream launched {decided_launches}, expected {want}")
+    check(np.array_equal(host_bits[: twin_bits.size], twin_bits), "the stream's first blocks differ from the twin check's kernel table")
+
+    rep = O.parity_report(stream.reshape(-1), np.unpackbits(host_bits), limit=limit, code_over=1)
+    h = [int(v) for v in torch.stack(healths).sum(dim=0).tolist()]
+    ev_live, drops = h[S.HEALTH_EVICT_LIVE], h[S.HEALTH_DROPS]
+    explained = rep["false_ok"] <= drops + ev_live * limit
+    check(rep["false_over"] == 0, f"decided stream false_over {rep['false_over']}")
+    check(explained, f"decided stream false_ok {rep['false_ok']} exceeds drops {drops} + {limit} x live evictions {ev_live}")
+    live = S.live_slot_count(state.table, now)
+
+    # the full decision: slab_step_packed on one 65536 block, its decision
+    # rows against the standalone decide kernel, then against the plain
+    # versions from a copy of the same table
+    blk = decided_operand(ids[0, : BUCKETS[-1]], now)
+    plain = S.SlabState(DECIDED_SLOTS, dev)
+    plain.rows.copy_(state.rows)
+    K.reset_launch_counts()
+    out_k, health_k = S.slab_step_packed(state, blk, ways=ways)
+    rows = out_k.view(torch.int32)
+    op_dev = torch.from_numpy(blk.view(np.int32)).to(dev)
+    order = rows[S.OUT_ORDER].long()
+    sorted_in = [op_dev[r][order] for r in (S.ROW_HITS, S.ROW_LIMIT, S.ROW_DIVIDER)]
+    fused = D.decide(rows[S.OUT_BEFORE], rows[S.OUT_AFTER], *sorted_in, now, 0.8)
+    torch.cuda.synchronize()
+    packed_launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": 1, "slab_apply_decide": 1, "decide": 1}
+    check(packed_launches == want, f"the packed step launched {packed_launches}, expected {want}")
+    check(same(torch.stack(list(fused)), rows[: S.OUT_BEFORE]), "the standalone decide disagrees with the fused apply")
+    with plain_kernels(M):
+        out_p, health_p = S.slab_step_packed(plain, blk, ways=ways)
+    check(same(out_k, out_p) and same(health_k, health_p), "slab_step_packed differs from the plain versions")
+    check(same(state.table, plain.table), "slab_step_packed's table differs from the plain versions'")
+    codes = rows[S.OUT_CODE]
+    check(bool((codes == D.CODE_OK).any()) and bool((codes == D.CODE_OVER_LIMIT).any()), "the packed block lacks OK or OVER")
+    check(bool((rows[S.OUT_NEAR] != 0).any()), "the packed block has no near-limit item")
+
+    blk = decided_operand(ids[1, : BUCKETS[-1]], now)
+    res_k = S.slab_update_and_decide(state, blk, ways=ways)
+    with plain_kernels(M):
+        res_p = S.slab_update_and_decide(plain, blk, ways=ways)
+    check(
+        all(same(a, b) for a, b in zip((res_k.before, res_k.after, *res_k.decision, res_k.health),
+                                      (res_p.before, res_p.after, *res_p.decision, res_p.health))),
+        "slab_update_and_decide differs from the plain versions",
+    )
+    check(same(state.table, plain.table), "slab_update_and_decide's table differs from the plain versions'")
+    del plain
+    torch.cuda.empty_cache()
+
+    prof = profile_call(lambda: S.slab_step_decided(state, ops[1], ways=ways))
+    timed = n_launch - 1
+    out = {
+        "n_slots": DECIDED_SLOTS,
+        "ways": ways,
+        "batch": DECIDED_BATCH,
+        "launches_timed": timed,
+        "decisions_per_s": timed * DECIDED_BATCH / (t2 - t0),
+        "step_ms_mean": (t1 - t0) * 1e3 / timed,
+        "readback_ms": (t2 - t1) * 1e3,
+        "device_busy_share_profiled": prof["device_busy_share"],
+        "device_busy_share_timed": timed * prof["device_ms"] / ((t1 - t0) * 1e3),
+        "parity": {**rep, "explained": explained},
+        "health": dict(zip(("evict_expired", "evict_window", "evict_live", "drops", "algo_resets"), h)),
+        "live_slots": live,
+        "occupancy": live / DECIDED_SLOTS,
+        "plain_twin_blocks": PLAIN_TWIN_BLOCKS,
+        "stream_s": t_gen,
+        "twin_s": t_twin,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(
+        f"decided: false_over {rep['false_over']} explained {str(explained).lower()} agreement {rep['agreement']}"
+        f" decisions/s {out['decisions_per_s']:.0f} phase {out['phase_s']:.1f} s"
+    )
+    log("decided:", json.dumps(out))
+    log("decided launches:", json.dumps({"decided_stream": decided_launches, "packed_step": packed_launches}))
+    log("decided profile:", json.dumps(prof))
+    launches = {
+        "slab_apply_lean": decided_launches["slab_apply_lean"],
+        "slab_apply_decide": packed_launches["slab_apply_decide"],
+        "decide": packed_launches["decide"],
+    }
+    return out, launches
+
+
 def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
-    """Times at the main path's largest shape: b = 65536, W = 128, over the
-    engine phase's populated 2^22-slot table and 128-lane sketch. ms,
+    """Times at each path's largest shape: the served path's b = 65536, W =
+    128, over the engine phase's populated 2^22-slot table and 128-lane
+    sketch; the decision kernels at the decided phase's b = 2^20. ms,
     plain_ms and library_ms are median device times (device_ms); call_ms
-    and plain_call_ms are CUDA-event medians around one call (call_ms)."""
-    K, SKK = M.K, M.SKK
+    and plain_call_ms are CUDA-event medians around one call (call_ms).
+    No single PyTorch call computes the way scan, the sketch scan or the
+    decision, so they have no library time; the applies' yardstick is the
+    torch.cumsum of their hits, the first of their two scans."""
+    K, SKK, D = M.K, M.SKK, M.D
     rng = np.random.default_rng(3)
     b, ways = BUCKETS[-1], 128
     table = engine._state.table
@@ -591,15 +896,38 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
             lambda: SKK.sketch_scan(planes, lo, hi, ways), lambda: SKK.sketch_scan_plain(planes, lo, hi, ways), 20, None,
         ),
     }
+    big = DECIDED_BATCH
+    big_ops, limit, dec_ops = decide_inputs(M, rng, big, now, dev)
+    for name, lean in (("slab_apply_decide", False), ("slab_apply_lean", True)):
+        kw = {"s_limit": limit, "near_ratio": 0.8, "decide": True, "lean": lean}
+        calls[name] = (
+            lambda kw=kw: K.slab_apply(*big_ops, now, **kw), lambda kw=kw: K.slab_apply_plain(*big_ops, now, **kw), 20,
+            lambda: torch.cumsum(big_ops[2], dim=0),
+        )
+    calls["decide"] = (lambda: D.decide(*dec_ops, now, 0.8), lambda: D.decide_plain(*dec_ops, now, 0.8), 20, None)
+    served = f"b={b}, W={ways}, {table.shape[0]}-slot table"
+    shape = {
+        "way_scan": served,
+        "slab_apply": f"b={b}",
+        "sketch_scan": f"b={b}, W={ways}, {planes.shape[1]} lanes",
+        "slab_apply_decide": f"b={big}",
+        "slab_apply_lean": f"b={big}",
+        "decide": f"b={big}",
+    }
     # way scan: each distinct set is read once (Zipf traffic repeats
     # sets), plus the per-item queries and outputs; sketch scan: the 8-byte
-    # query in and 13 bytes out per item, the planes read once
+    # query in and 13 bytes out per item, the planes read once; the applies:
+    # 5 (decided 6) int32 planes, the seg_start byte and 5 stored-row words
+    # in, 4 (decided 10, lean 5) planes out; decide: 5 planes in, 6 out
     n_sets = table.shape[0] // ways
     sets_read = int(torch.unique(lo & (n_sets - 1)).numel())
     nbytes = {
         "way_scan": sets_read * ways * 32 + b * (8 + 4 + 1 + 32),
         "slab_apply": b * (5 * 4 + 1 + 5 * 4 + 4 * 4),
         "sketch_scan": b * (8 + 13) + planes.numel() * 4,
+        "slab_apply_decide": big * (6 * 4 + 1 + 5 * 4 + 10 * 4),
+        "slab_apply_lean": big * (6 * 4 + 1 + 5 * 4 + 5 * 4),
+        "decide": big * (5 * 4 + 6 * 4),
     }
     rows = []
     for name, (kernel, plain, plain_iters, library) in calls.items():
@@ -608,6 +936,7 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
+            "shape": shape[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": device_ms(kernel),
@@ -627,12 +956,14 @@ def main() -> int:
         return 2
     from api_ratelimit_tpu_torch import utils
     from api_ratelimit_tpu_torch.backends import cuda as cuda_mod
+    from api_ratelimit_tpu_torch.ops import decide as D
     from api_ratelimit_tpu_torch.ops import sketch as SKT
     from api_ratelimit_tpu_torch.ops import sketch_kernels as SKK
     from api_ratelimit_tpu_torch.ops import slab as S
     from api_ratelimit_tpu_torch.ops import slab_kernels as K
+    from api_ratelimit_tpu_torch.testing import oracle as O
 
-    M = types.SimpleNamespace(K=K, S=S, SKK=SKK, SKT=SKT, cuda_mod=cuda_mod, utils=utils)
+    M = types.SimpleNamespace(K=K, S=S, SKK=SKK, SKT=SKT, D=D, O=O, cuda_mod=cuda_mod, utils=utils)
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -644,7 +975,8 @@ def main() -> int:
     errs = phase_parity(M, dev)
     engine = phase_engine(M, dev)
     launches = phase_serve(K)
-    kernels = kernel_report(M, engine, dev, launches, errs)
+    _decided, decided_launches = phase_decided(M, dev)
+    kernels = kernel_report(M, engine, dev, launches | decided_launches, errs)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
