@@ -8,23 +8,38 @@ post-increment counter, saturating-cast to the narrowest dtype the batch's
 limits allow, and the host derives code, remaining, throttle and the stats
 split with the same BaseRateLimiter oracle every backend shares.
 
-The port runs the reference's direct mode (TPU_BATCH_WINDOW=0): every
-submit is one serialized launch under the state lock. With hotkey_lanes > 0
-(HOTKEYS_ENABLED, the production default) every launch also updates the
-heavy-hitter sketch (ops/sketch.py), which the stats cadence drains
-(HotkeyStats); the cache's compiled-matcher path (do_limit_resolved)
-records the witness keys that /debug/hotkeys resolves fingerprints to. The
-micro-batcher, dispatch loop, victim tier, leases, mesh engine and
-persistence wait for later slices. The kernels cover fixed-window rules
-only: a launch carrying any other algorithm id raises CacheError instead of
-being served with the wrong semantics.
+Every launch is split in two, as in the reference: the LAUNCH packs the
+submitted row blocks into a pinned host operand, uploads it without blocking,
+enqueues the step and a non-blocking readback into pinned memory, and records
+a CUDA event after that readback; the COLLECT waits on that event and slices.
+Three arms drive the split (TPU_BATCH_WINDOW, DISPATCH_LOOP):
+
+    direct         window 0: each submit launches and collects under the
+                   batcher's direct lock
+    dispatch loop  window > 0, the default: one device-owner thread
+                   (backends/dispatch.py) keeps two batches in flight, fed
+                   by per-thread submit rings
+    leader-collects window > 0, dispatch_loop=False: the micro-batcher
+                   (backends/batcher.py) launches, the callers collect
+
+With hotkey_lanes > 0 (HOTKEYS_ENABLED, the production default) every launch
+also updates the heavy-hitter sketch (ops/sketch.py), which the stats
+cadence drains (HotkeyStats); the cache's compiled-matcher path
+(do_limit_resolved) records the witness keys that /debug/hotkeys resolves
+fingerprints to. The victim tier, leases, mesh engine and persistence wait
+for later slices. The kernels cover fixed-window rules only: a launch
+carrying any other algorithm id raises CacheError instead of being served
+with the wrong semantics. A failed kernel launch raises CacheError too: the
+reference's fallback from Pallas to its XLA twin has no counterpart here.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
-from typing import Sequence
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +69,9 @@ from ..ops.slab import (
     HEALTH_EVICT_LIVE,
     HEALTH_EVICT_WINDOW,
     HEALTH_WIDTH,
+    PACKED_IN_ROWS,
+    ROW_HITS,
+    ROW_LIMIT,
     default_ways,
     live_slot_count,
     make_slab,
@@ -62,6 +80,8 @@ from ..ops.slab import (
     slab_step_after,
     validate_ways,
 )
+from .batcher import MicroBatcher
+from .dispatch import DispatchLoop
 
 
 def _loss_ppm(snap: dict) -> int:
@@ -97,10 +117,50 @@ def _items_to_block(items: list[_Item]) -> np.ndarray:
     return block
 
 
+class _HostFence:
+    """A CPU engine's stand-in for a CUDA event: its launches run
+    synchronously, so every fence has passed by the time it is recorded."""
+
+    __slots__ = ()
+
+    def record(self) -> None:
+        pass
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
+class _Operand:
+    """One launch operand: a host int32[7, size] tensor (pinned on the
+    card), its uint32 numpy view the pack writes, and the fence of the last
+    launch that read it."""
+
+    __slots__ = ("host", "array", "fence")
+
+    def __init__(self, size: int, pin: bool):
+        self.host = torch.zeros((PACKED_IN_ROWS, size), dtype=torch.int32, pin_memory=pin)
+        self.array = self.host.numpy().view(np.uint32)
+        self.fence = None
+
+
+class _Launch(NamedTuple):
+    """One launch in flight: the device result, the pinned host buffer its
+    non-blocking readback fills, the fence recorded after that readback,
+    and the count of live items."""
+
+    device_out: torch.Tensor
+    host_out: torch.Tensor
+    fence: object
+    n: int
+
+
 class SlabDeviceEngine:
-    """The device driver in direct mode: owns the slab and turns row blocks
-    into post-increment counters, one launch per bucket-sized chunk, each
-    serialized under the state lock."""
+    """The device driver: owns the slab and the micro-batcher (and, in
+    windowed mode, the dispatch loop), and turns row blocks into
+    post-increment counters, one launch per bucket-sized chunk."""
 
     def __init__(
         self,
@@ -111,6 +171,14 @@ class SlabDeviceEngine:
         device="cuda",
         hotkey_lanes: int = 0,
         hotkey_k: int = 16,
+        batch_window_seconds: float = 0.0,
+        max_batch: int = 65536,
+        dispatch_loop: bool = True,
+        max_queue: int = 0,
+        overload=None,
+        fault_injector=None,
+        scope=None,
+        precompile: bool = False,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
@@ -119,7 +187,24 @@ class SlabDeviceEngine:
         hotkey_lanes: lanes of the heavy-hitter sketch (HOTKEY_LANES). 0
         disables it (the HOTKEYS_ENABLED=false arm): no sketch enters the
         launch, which is then exactly the sketch-free step. hotkey_k is the
-        top-K size each drain reports (HOTKEY_K)."""
+        top-K size each drain reports (HOTKEY_K).
+
+        batch_window_seconds: TPU_BATCH_WINDOW. 0 is direct mode; > 0
+        coalesces concurrent submits into shared launches of at most
+        max_batch items (TPU_BATCH_LIMIT). dispatch_loop (DISPATCH_LOOP,
+        windowed mode only): True runs the device-owner dispatch loop,
+        False the leader-collects micro-batcher.
+
+        max_queue / overload / fault_injector: admission control for
+        either arm (backends/batcher.py, backends/dispatch.py).
+
+        scope: optional stats Scope rooted at the service prefix. When set
+        the engine records <scope>.device.{pack_ms,launch_ms,readback_ms},
+        hands <scope>.batcher to the micro-batcher and <scope> to the
+        dispatch loop (<scope>.dispatch.*).
+
+        precompile: warm every bucket and readback width at construction
+        (see precompile())."""
         self._time_source = time_source
         self._device = resolve_device(device)
         if not ways:
@@ -132,6 +217,9 @@ class SlabDeviceEngine:
         self._health_totals = [0] * HEALTH_WIDTH
         self._decisions_total = 0
         self._pending_health: list = []
+        # serializes every launch's state rebind (the sketch) and the
+        # health list against the stats thread's drains; collects never
+        # take it
         self._state_lock = threading.Lock()
         # heavy-hitter sketch: planes beside the slab, updated by every
         # launch, drained and halved on the stats cadence (drain_hotkeys)
@@ -143,10 +231,83 @@ class SlabDeviceEngine:
         if int(hotkey_lanes) > 0:
             self._sketch_ways = sketch_ways(self._ways, hotkey_lanes)
             self._sketch = make_sketch(hotkey_lanes, self._device)
+        # launch/collect plumbing: on the card the operand and the readback
+        # live in pinned memory and every launch records a CUDA event after
+        # its readback; the CPU runs synchronously behind host fences
+        cuda = self._device.type == "cuda"
+        self._pin = cuda
+        self._new_fence = torch.cuda.Event if cuda else _HostFence
+        self._cuda_index = (
+            (self._device.index if self._device.index is not None else torch.cuda.current_device())
+            if cuda
+            else None
+        )
+        self._thread_bound = threading.local()
+        # recent launch sizes (items per device launch): how much
+        # coalescing the window buys
+        self.launch_sizes: collections.deque = collections.deque(maxlen=4096)
+        # per-bucket ping-pong pairs of operands (_packed_operand)
+        self._operand_pool: dict = {}
+        self._operand_lock = threading.Lock()
+        self._h_pack = self._h_launch = self._h_readback = None
+        batcher_scope = None
+        if scope is not None:
+            device_scope = scope.scope("device")
+            self._h_pack = device_scope.histogram("pack_ms")
+            self._h_launch = device_scope.histogram("launch_ms")
+            self._h_readback = device_scope.histogram("readback_ms")
+            batcher_scope = scope.scope("batcher")
+        use_loop = bool(dispatch_loop) and batch_window_seconds > 0
+        # the batcher's unit is a uint32[6, n] row block. With the dispatch
+        # loop active no submit reaches it (its dispatcher thread never
+        # starts); flush/drain/close still pass through. Its row ring copies
+        # each windowed submit under the enqueue lock, so callers may reuse
+        # a thread-local scratch block.
+        self._batcher = MicroBatcher(
+            self._execute_blocks,
+            window_seconds=0.0 if use_loop else batch_window_seconds,
+            max_batch=max_batch,
+            execute_launch=self._execute_blocks_launch,
+            execute_collect=self._execute_blocks_collect,
+            block_mode=True,
+            scope=batcher_scope,
+            max_queue=max_queue,
+            overload=overload,
+            fault_injector=fault_injector,
+            arena_rows=min(2 * int(max_batch), 1 << 17),
+        )
+        self._dispatch = None
+        if use_loop:
+            self._dispatch = DispatchLoop(
+                self._execute_blocks_launch,
+                self._execute_blocks_collect,
+                ready=self._launch_ready,
+                window_seconds=batch_window_seconds,
+                max_batch=max_batch,
+                scope=scope,
+                overload=overload,
+                fault_injector=fault_injector,
+                max_queue=max_queue,
+            )
+        # (bucket, readback dtype name) -> True for every launch shape
+        # warmed ahead of traffic
+        self.precompiled: dict = {}
+        if precompile:
+            self.precompile()
 
     @property
     def ways(self) -> int:
         return self._ways
+
+    @property
+    def dispatch_loop(self):
+        """The device-owner dispatch loop, or None (direct mode /
+        dispatch_loop=False)."""
+        return self._dispatch
+
+    @property
+    def batcher(self) -> MicroBatcher:
+        return self._batcher
 
     # -- heavy-hitter sketch drain (stats cadence; ops/sketch.py) --
 
@@ -218,33 +379,79 @@ class SlabDeviceEngine:
         snap["loss_ppm"] = _loss_ppm(snap)
         return snap
 
-    def submit(self, items: list[_Item]) -> list[int]:
-        """Batched fixed-window increment; returns each item's
-        post-increment counter."""
-        if not items:
-            return []
-        return self.submit_rows(_items_to_block(items)).tolist()
+    def precompile(self) -> dict:
+        """Warm every launch shape before the first request: one
+        all-padding launch (hits == 0) per bucket and readback width
+        (u8/u16/u32) through the real path — operand pool, step, pinned
+        readback of the whole padded bucket, collect. On the card this
+        builds the kernel library, creates the CUDA context on this thread
+        and allocates the pinned pools. Padding lanes write nothing
+        (ops/slab.py: they go to the scratch row, and no sketch candidate
+        has hits 0), so the slab and sketch bytes are unchanged. Returns
+        the covered-shape map, also kept as `precompiled`."""
+        # warm launches must not pollute the per-stage histograms
+        saved = self._h_pack, self._h_launch, self._h_readback
+        self._h_pack = self._h_launch = self._h_readback = None
+        try:
+            self._bind_thread()
+            for bucket in self._buckets:
+                for cap, name in ((0xFF, "uint8"), (0xFFFF, "uint16"), (0xFFFFFFFF, "uint32")):
+                    op = self._packed_operand(bucket)
+                    op.array[:] = 0
+                    self._execute_blocks_collect([self._dispatch_packed(op, 0, cap)])
+                    self.precompiled[(bucket, name)] = True
+        finally:
+            self._h_pack, self._h_launch, self._h_readback = saved
+        return self.precompiled
 
     def submit_rows(self, block: np.ndarray) -> np.ndarray:
-        """One uint32[6, n] row block -> uint32[n] post-increment counters."""
+        """One uint32[6, n] row block (fp_lo, fp_hi, hits, limit, divider,
+        jitter) -> uint32[n] post-increment counters. The caller may pass a
+        reusable scratch block: the dispatch ring copies it, and when the
+        batcher would keep it (no row ring), an owned copy decouples it
+        here. Through the dispatch loop the result is a view of this
+        thread's reusable ticket buffer, valid until its next submit."""
         if block.shape[1] == 0:
             return np.empty(0, dtype=np.uint32)
-        outs = [
-            self._launch_locked(packed, n, cap)
-            for packed, n, cap in self._iter_block_chunks(block)
-        ]
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        if self._dispatch is not None:
+            return self._dispatch.submit(block, reuse_out=True)
+        wire = block
+        if not self._batcher.consumes_submits:
+            wire = np.array(block, dtype=np.uint32)
+        return self._batcher.submit(wire)
 
     def export_tables(self) -> list[np.ndarray]:
-        """Host copy of the slab, uint32[n_slots, 8], under the state lock."""
+        """Host copy of the slab, uint32[n_slots, 8], under the state lock;
+        the copy orders after every launch already enqueued."""
         with self._state_lock:
             return [slab_export_copy(self._state)]
 
     def flush(self) -> None:
-        pass  # direct mode: every submit has finished when it returns
+        if self._dispatch is not None:
+            self._dispatch.flush()
+        self._batcher.flush()
+
+    def drain(self) -> None:
+        """Graceful-drain quiesce: refuse new submits, finish everything
+        already queued (dispatch rings and/or batcher)."""
+        if self._dispatch is not None:
+            self._dispatch.drain()
+        self._batcher.drain()
 
     def close(self) -> None:
-        pass
+        if self._dispatch is not None:
+            self._dispatch.close()
+        self._batcher.close()
+
+    # -- device execution (the launching thread: owner, batcher, or the
+    # direct-mode caller under the direct lock) --
+
+    def _bind_thread(self) -> None:
+        """Make the engine's card current on the launching thread (once
+        per thread)."""
+        if self._cuda_index is not None and not getattr(self._thread_bound, "done", False):
+            torch.cuda.set_device(self._cuda_index)
+            self._thread_bound.done = True
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:
@@ -252,49 +459,140 @@ class SlabDeviceEngine:
                 return b
         return self._max_bucket
 
-    def _iter_block_chunks(self, block: np.ndarray):
-        """Yield (packed uint32[7, bucket], n, cap) per max-bucket chunk.
-        Padding lanes carry hits == 0, the only gate the device reads. The
-        cap uses max(limit) + max(hits) over the chunk, so the saturating
-        readback stays exact."""
-        total = block.shape[1]
+    def _packed_operand(self, size: int) -> _Operand:
+        """A (7, size) launch operand from the per-bucket ping-pong pair.
+        The upload out of it is non-blocking, so before it is handed out
+        for repacking this waits on the fence of the last launch that read
+        it (two launches back on this bucket). Callers must zero the hits
+        row's padding after filling."""
+        with self._operand_lock:
+            pair = self._operand_pool.get(size)
+            if pair is None:
+                pair = self._operand_pool[size] = [
+                    _Operand(size, self._pin), _Operand(size, self._pin), 0,
+                ]
+            op = pair[pair[2]]
+            pair[2] ^= 1
+        if op.fence is not None:
+            op.fence.synchronize()
+        return op
+
+    def _iter_block_chunks(self, blocks: list[np.ndarray]):
+        """Yield (operand, n, cap) per max-bucket chunk of the submitted
+        blocks. The common case (the total fits one launch) copies each
+        block's columns straight into a pooled operand; an oversized
+        aggregate is concatenated and cut into fresh operands. Padding
+        lanes carry hits == 0, the only gate the device reads. The cap uses
+        max(limit) + max(hits) over the chunk, so the saturating readback
+        stays exact."""
+        total = sum(b.shape[1] for b in blocks)
+        if total <= self._max_bucket:
+            op = self._packed_operand(self._bucket_for(total))
+            packed = op.array
+            off = 0
+            for b in blocks:
+                packed[:6, off : off + b.shape[1]] = b
+                off += b.shape[1]
+            packed[ROW_HITS, total:] = 0
+            chunks = [(op, total)]
+        else:
+            cat = np.concatenate(blocks, axis=1)
+            chunks = []
+            for off in range(0, total, self._max_bucket):
+                chunk = cat[:, off : off + self._max_bucket]
+                n = chunk.shape[1]
+                op = _Operand(self._bucket_for(n), self._pin)
+                op.array[:6, :n] = chunk
+                chunks.append((op, n))
         now = np.uint32(self._time_source.unix_now())
-        for off in range(0, total, self._max_bucket):
-            chunk = block[:, off : off + self._max_bucket]
-            n = chunk.shape[1]
-            packed = np.zeros((7, self._bucket_for(n)), dtype=np.uint32)
-            packed[:6, :n] = chunk
-            maxv = int(packed[2, :n].max()) + int(packed[3, :n].max())
+        for op, n in chunks:
+            packed = op.array
+            maxv = int(packed[ROW_HITS, :n].max()) + int(packed[ROW_LIMIT, :n].max())
             cap = 0xFF if maxv < 255 else 0xFFFF if maxv < 65535 else 0xFFFFFFFF
             packed[6, 0] = now
-            yield packed, n, cap
+            yield op, n, cap
 
-    def _launch_locked(self, packed: np.ndarray, n: int, cap: int) -> np.ndarray:
-        algo = int(packed[4, :n].max()) >> ALGO_SHIFT
-        if algo:
-            raise CacheError(
-                f"rate-limit algorithm id {algo} on the wire: the CUDA port "
-                "serves fixed_window only; sliding window, GCRA and "
-                "concurrency come with a later slice of the port"
-            )
-        dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
-        try:
-            with self._state_lock:
-                outs = slab_step_after(
-                    self._state, packed, ways=self._ways, out_dtype=dtype,
-                    sketch=self._sketch, sketch_ways=self._sketch_ways,
+    def _dispatch_packed(self, op: _Operand, n: int, cap: int) -> _Launch:
+        """Enqueue one launch of the packed operand and its non-blocking
+        readback; returns the _Launch the collect drains. launch_ms times
+        this host-side phase, never the device execution (readback_ms
+        carries the wait). n == 0 (precompile's warmers) reads back the
+        whole padded bucket."""
+        t_launch = time.perf_counter() if self._h_launch is not None else 0.0
+        if n:  # precompile's warmers are not launches of traffic
+            self.launch_sizes.append(n)
+            algo = int(op.array[4, :n].max()) >> ALGO_SHIFT
+            if algo:
+                raise CacheError(
+                    f"rate-limit algorithm id {algo} on the wire: the CUDA port "
+                    "serves fixed_window only; sliding window, GCRA and "
+                    "concurrency come with a later slice of the port"
                 )
-                if self._sketch is not None:
-                    after_dev, health, self._sketch = outs
-                else:
-                    after_dev, health = outs
-                self._pending_health.append(health)
-                self._decisions_total += n
-                if len(self._pending_health) > 4096:
-                    self._drain_health_locked()
-            return after_dev[:n].cpu().numpy().astype(np.uint32)
+        dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
+        with self._state_lock:
+            outs = slab_step_after(
+                self._state, op.host, ways=self._ways, out_dtype=dtype,
+                sketch=self._sketch, sketch_ways=self._sketch_ways,
+            )
+            if self._sketch is not None:
+                after_dev, health, self._sketch = outs
+            else:
+                after_dev, health = outs
+            wanted = after_dev[:n] if n else after_dev
+            host_out = torch.empty(wanted.shape, dtype=wanted.dtype, pin_memory=self._pin)
+            host_out.copy_(wanted, non_blocking=True)
+            fence = self._new_fence()
+            fence.record()
+            op.fence = fence
+            self._pending_health.append(health)
+            self._decisions_total += n
+            if len(self._pending_health) > 4096:
+                self._drain_health_locked()
+        if self._h_launch is not None:
+            self._h_launch.record((time.perf_counter() - t_launch) * 1e3)
+        return _Launch(after_dev, host_out, fence, n)
+
+    def _launch_ready(self, tokens) -> bool:
+        """Non-blocking readiness probe for a launch token (the dispatch
+        loop's overlap decision): True once every chunk's readback has
+        landed."""
+        return all(t.fence.query() for t in tokens)
+
+    def _collect_array(self, launch: _Launch) -> np.ndarray:
+        """Blocking readback of one launch: wait on its fence, then an
+        owned uint32 copy of its live items. readback_ms covers the wait
+        for device completion plus the copy."""
+        t0 = time.perf_counter() if self._h_readback is not None else 0.0
+        launch.fence.synchronize()
+        out = launch.host_out[: launch.n].numpy().astype(np.uint32)
+        if self._h_readback is not None:
+            self._h_readback.record((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _execute_blocks(self, blocks: list[np.ndarray]) -> np.ndarray:
+        return self._execute_blocks_collect(self._execute_blocks_launch(blocks))
+
+    def _execute_blocks_launch(self, blocks: list[np.ndarray]) -> list[_Launch]:
+        self._bind_thread()
+        try:
+            if self._h_pack is None:
+                return [
+                    self._dispatch_packed(op, n, cap)
+                    for op, n, cap in self._iter_block_chunks(blocks)
+                ]
+            t0 = time.perf_counter()
+            chunks = list(self._iter_block_chunks(blocks))
+            self._h_pack.record((time.perf_counter() - t0) * 1e3)
+            return [self._dispatch_packed(op, n, cap) for op, n, cap in chunks]
         except (RuntimeError, ValueError) as e:
             raise CacheError(f"cuda backend failure: {e}") from e
+
+    def _execute_blocks_collect(self, tokens: list[_Launch]) -> np.ndarray:
+        try:
+            outs = [self._collect_array(t) for t in tokens]
+        except (RuntimeError, ValueError) as e:
+            raise CacheError(f"cuda backend failure: {e}") from e
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
 
 class SlabHealthStats:
@@ -392,7 +690,17 @@ class CudaRateLimitCache:
         device="cuda",
         hotkey_lanes: int = 0,
         hotkey_k: int = 16,
+        batch_window_seconds: float = 0.0,
+        max_batch: int = 65536,
+        dispatch_loop: bool = True,
+        max_queue: int = 0,
+        overload=None,
+        fault_injector=None,
+        stats_scope=None,
+        precompile: bool = False,
     ):
+        """The engine's arguments pass through (SlabDeviceEngine);
+        stats_scope becomes its `scope`."""
         self._base = base_limiter
         self._engine_core = SlabDeviceEngine(
             time_source=base_limiter.time_source,
@@ -402,6 +710,14 @@ class CudaRateLimitCache:
             device=device,
             hotkey_lanes=hotkey_lanes,
             hotkey_k=hotkey_k,
+            batch_window_seconds=batch_window_seconds,
+            max_batch=max_batch,
+            dispatch_loop=dispatch_loop,
+            max_queue=max_queue,
+            overload=overload,
+            fault_injector=fault_injector,
+            scope=stats_scope,
+            precompile=precompile,
         )
         # (domain, entries, divider) -> fingerprint, clear-on-full (the
         # do_limit path only; resolved records carry their fingerprint)
@@ -490,7 +806,9 @@ class CudaRateLimitCache:
             )
             for fp, (i, divider, jitter) in zip(fps, pending)
         ]
-        afters = self._engine_core.submit(items)
+        afters = (
+            self._engine_core.submit_rows(_items_to_block(items)).tolist() if items else ()
+        )
         for after, (i, _d, _j) in zip(afters, pending):
             results[i] = after
 
@@ -528,7 +846,10 @@ class CudaRateLimitCache:
         return response
 
     def _scratch_block(self, n: int) -> np.ndarray:
-        """This thread's reusable uint32[6, >=n] staging block."""
+        """This thread's reusable uint32[6, >=n] staging block. Reusing it
+        is safe only because the engine's submit_rows never keeps it: the
+        dispatch ring and the batcher's row ring copy it, and without a
+        ring submit_rows hands the batcher an owned copy."""
         block = getattr(self._scratch, "block", None)
         if block is None or block.shape[1] < n:
             block = self._scratch.block = np.empty((6, max(64, n)), dtype=np.uint32)

@@ -255,14 +255,32 @@ def _fixed_window_only(packed) -> np.ndarray:
 
 def _unpack(packed, device) -> tuple[SlabBatch, int, float]:
     """Host operand uint32[7, b] -> (the batch on `device`, now, near_ratio):
-    `now` is [6, 0] as int32 and near_ratio the float32 bitcast of [6, 1]."""
-    packed = _host_operand(packed)
-    rows = packed.view(np.int32)
-    now = int(rows[ROW_SCALARS, 0])
+    `now` is [6, 0] as int32 and near_ratio the float32 bitcast of [6, 1].
+    `packed` is the numpy operand, or the same bits as a host int32 tensor
+    (the engine's operand pool, pinned on the card), whose upload is
+    non-blocking: the caller must not rewrite it before the launch's work
+    on the stream has finished (backends/cuda.py fences it)."""
+    if isinstance(packed, torch.Tensor):
+        if (
+            packed.device.type != "cpu"
+            or packed.dtype != torch.int32
+            or packed.dim() != 2
+            or packed.shape[0] != PACKED_IN_ROWS
+            or not packed.is_contiguous()
+        ):
+            raise ValueError(
+                "a tensor operand must be a contiguous host int32[7, b], got "
+                f"{packed.dtype} {tuple(packed.shape)} on {packed.device}"
+            )
+        uploaded = packed[: ROW_JITTER + 1].to(device, non_blocking=True)
+        packed = packed.numpy().view(np.uint32)
+    else:
+        packed = _host_operand(packed)
+        uploaded = torch.from_numpy(packed.view(np.int32)[: ROW_JITTER + 1]).to(device)
+    now = int(packed.view(np.int32)[ROW_SCALARS, 0])
     ratio = packed[ROW_SCALARS, 1:2].view(np.float32)  # empty when b == 1
     near_ratio = float(ratio[0]) if ratio.size else 0.0
-    batch = SlabBatch(*torch.from_numpy(rows[: ROW_JITTER + 1]).to(device))
-    return batch, now, near_ratio
+    return SlabBatch(*uploaded), now, near_ratio
 
 
 def _finish_update(
@@ -396,9 +414,10 @@ def slab_step_after(
 ):
     """One launch: stateful update only. `packed` is the host operand
     uint32[7, b] (fp_lo, fp_hi, hits, limit, divider, jitter, scalars with
-    `now` in [6, 0]). Returns (post-increment counters in arrival order,
-    saturating-cast to out_dtype, as a device tensor of that width; int64[5]
-    health vector on the device). The table updates in place. Rows with a
+    `now` in [6, 0]), as numpy or as a host int32 tensor (_unpack). Returns
+    (post-increment counters in arrival order, saturating-cast to
+    out_dtype, as a device tensor of that width; int64[5] health vector on
+    the device). The table updates in place. Rows with a
     non-fixed algorithm id are the caller's to refuse (backends/cuda.py):
     this is the fixed-window body.
 

@@ -16,7 +16,8 @@ with torch ops. This module holds the slab step's two:
 
 (the sketch scan's wrapper is ops/sketch_kernels.py, the standalone
 decide's ops/decide.py, whose decision math the fused apply shares through
-csrc/decide.cuh). A wrapper runs the
+csrc/decide.cuh, and the compare/select micro-benchmark's two kernels'
+ops/select_kernels.py). A wrapper runs the
 plain version only because the tensors it was given lie on the CPU; for
 CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in LAUNCHES, so a run can show that it went through the kernel.
@@ -95,6 +96,8 @@ LAUNCHES = {
     "slab_apply_decide": 0,
     "slab_apply_lean": 0,
     "decide": 0,
+    "sel": 0,
+    "chain": 0,
 }
 
 _lib = None
@@ -211,6 +214,9 @@ def build() -> ctypes.CDLL:
         lib.rl_sketch_scan.restype = ci
         lib.rl_decide.argtypes = [vp] * 5 + [ci, ci, cf] + [vp] * 7
         lib.rl_decide.restype = ci
+        for fn in (lib.rl_sel, lib.rl_chain):
+            fn.argtypes = [vp, vp, ctypes.c_longlong, vp]
+            fn.restype = ci
         _lib = lib
         return lib
 

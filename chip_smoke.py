@@ -55,10 +55,33 @@ Phases, each of which must pass (nothing is caught):
            runs way_scan and slab_apply_lean once per launch and no other
            apply; the packed step slab_apply_decide once. One profiled step
            gives the device-busy share and the top device items.
-6. report  per-kernel median device times (torch.profiler) and CUDA-event
+6. compare the compare/select micro-benchmark's two kernels, sel and
+   paths   chain, bit-exact against their plain versions at b = 2^20 (full
+           range with INT_MIN, INT_MAX, 2^30 +- 1, 2^29 +- 1; the tool's own
+           input), at b = 2^20 - 37 and on a buffer off 16-byte alignment;
+           then the port's tool (api_ratelimit_tpu_torch/tools/
+           microbench_compare_paths.py) in process at b = 2^20, which
+           prints its JSON line: both kernels' launch counters must rise.
+7. windowed the windowed serving path at the reference's default
+           deployment (2^22 slots, W=128, the production sketch,
+           TPU_BATCH_WINDOW=200us, max_batch 65536, buckets 128 ... 65536,
+           precompiled) in three engines: the dispatch loop, leader-collects
+           and direct. A serial stream (100 blocks of 1-64 Zipf(1.1) items,
+           the clock crossing minutes) must give byte-identical results,
+           tables, sketch planes and health in all three. Then, on fresh
+           engines, 32 client threads submit single-descriptor blocks (2^13
+           requests; 2^9 in direct mode, which serializes them): every
+           key's count equals its hits (short keys at most drops + live
+           evictions), decisions equal the requests, and each kernel's
+           launch counter rises by the batches the arm reports. Prints
+           requests/s, p50/p99 per request, the mean batch, the batches
+           launched while another was in flight, and one profiled batch's
+           device busy share.
+8. report  per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the three
-           decision kernels at the decided phase's b = 2^20), the card's
-           name and power limit, then the ok line.
+           decision kernels at the decided phase's b = 2^20, sel and chain
+           at the tool's), the card's name and power limit, then the ok
+           line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -72,6 +95,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -90,6 +114,8 @@ SOURCES = {
     "slab_apply_decide": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "slab_apply_lean": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "decide": "api_ratelimit_tpu_torch/csrc/decide_kernels.cu",
+    "sel": "api_ratelimit_tpu_torch/csrc/select_kernels.cu",
+    "chain": "api_ratelimit_tpu_torch/csrc/select_kernels.cu",
 }
 REPLACES = {
     "way_scan": "api_ratelimit_tpu/ops/pallas_slab.py:312",
@@ -98,6 +124,8 @@ REPLACES = {
     "slab_apply_decide": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "slab_apply_lean": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "decide": "api_ratelimit_tpu/ops/pallas_decide.py:120",
+    "sel": "tools/microbench_compare_paths.py:83",
+    "chain": "tools/microbench_compare_paths.py:110",
 }
 NEAR_RATIOS = (0.0, 0.8, 1.0)
 # the decided phase: bench.py bench_engine_zipf's shapes on the card
@@ -108,6 +136,22 @@ DECIDED_BLOCKS = 33  # one warm-up launch + 32 timed
 DECIDED_LIMIT = 100
 DECIDED_WAYS = 128
 PLAIN_TWIN_BLOCKS = 4  # the plain way scan gathers (2^20, 128, 8) int32 sets: 4 GiB
+# the compare/select micro-benchmark: the tool's default batch
+SELECT_BATCH = 1 << 20
+INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
+SELECT_EDGES = (
+    INT_MIN, INT_MIN + 1, INT_MAX, INT_MAX - 1, 0, 1, -1, 3, -5,
+    1 << 30, (1 << 30) + 1, (1 << 30) - 1, (1 << 30) + 3,
+    1 << 29, (1 << 29) + 1, (1 << 29) - 1, (1 << 29) + 3, -(1 << 30),
+)
+# the windowed phase: the reference's default deployment with
+# TPU_BATCH_WINDOW=200us (README.md's example value)
+WINDOW_S = 0.0002
+# request counts cut so the script keeps its ~1 minute of command time
+SERIAL_SUBMITS = 100
+CLIENT_THREADS = 32
+WINDOWED_REQUESTS = 1 << 13
+DIRECT_REQUESTS = 1 << 9  # direct mode serializes every request: fewer
 
 
 def check(cond, message: str) -> None:
@@ -866,14 +910,233 @@ def phase_decided(M, dev) -> tuple[dict, dict]:
     return out, launches
 
 
+def select_inputs(rng, n: int) -> np.ndarray:
+    """Full-range int32 with every edge value (and its neighbours) first."""
+    x = rng.integers(INT_MIN, INT_MAX, n, dtype=np.int64, endpoint=True).astype(np.int32)
+    edges = np.array([e + d for e in SELECT_EDGES for d in (-1, 0, 1)], np.int64)
+    edges = ((edges + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+    x[: edges.size] = edges
+    return x
+
+
+def tool_input(n: int) -> np.ndarray:
+    """The tool's first input: RandomState(0).randint(0, 2^31) as int32."""
+    return np.random.RandomState(0).randint(0, 1 << 31, size=n).astype(np.int32)
+
+
+def phase_compare_paths(M, dev) -> tuple[dict, dict]:
+    """sel and chain against their plain versions, bit-exact: at b = 2^20
+    (full range with the edges, and the tool's own input), at a length that
+    is not a multiple of 128, and on a buffer off 16-byte alignment (the
+    kernels' scalar path). Then the port's tool in process at its default
+    b = 2^20 (its JSON line prints here): the main path of both kernels.
+    Returns (max abs errors, the tool run's launch counts)."""
+    K, SEL, CMP = M.K, M.SEL, M.CMP
+    rng = np.random.default_rng(4)
+    full = torch.from_numpy(select_inputs(rng, SELECT_BATCH + 1)).to(dev)
+    cases = {
+        "b=2^20 full range": full[:SELECT_BATCH],
+        "b=2^20 tool input": torch.from_numpy(tool_input(SELECT_BATCH)).to(dev),
+        "b=2^20-37": full[: SELECT_BATCH - 37].clone(),
+        "unaligned b=2^20": full[1:],
+    }
+    err = {"sel": 0, "chain": 0}
+    for label, x in cases.items():
+        for name, kernel, plain in (("sel", SEL.sel, SEL.sel_plain), ("chain", SEL.chain, SEL.chain_plain)):
+            got = kernel(x)
+            want = plain(x)
+            torch.cuda.synchronize()
+            e = max_abs_err([got], [want])
+            check(e == 0, f"{name} differs from its plain version on {label}")
+            err[name] = max(err[name], e)
+    edges = torch.tensor(SELECT_EDGES, dtype=torch.int32, device=dev)
+    got = SEL.sel(edges).cpu().tolist()
+    check(got[0] == INT_MIN and got[2] == INT_MAX, f"sel wraps wrongly at the int32 edges: {got}")
+    check(SEL.chain(edges).cpu().tolist() == SEL.chain_plain(edges.cpu()).tolist(), "chain differs at the int32 edges")
+    K.reset_launch_counts()
+    results = CMP.main(["--batch", str(SELECT_BATCH)])
+    launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"sel": launches["sel"], "chain": launches["chain"]}
+    check(launches["sel"] > 0 and launches["chain"] > 0 and launches == want, f"the tool launched {launches}")
+    check(results["platform"] == "cuda" and results["batch"] == SELECT_BATCH, f"unexpected tool header {results}")
+    log(f"compare-paths: bit-exact on {list(cases)} and the int32 edges; tool launches {launches}")
+    return err, {"sel": launches["sel"], "chain": launches["chain"]}
+
+
+def windowed_engines(M, dev) -> tuple[dict, dict]:
+    """The three arms at the reference's default deployment: 2^22 slots,
+    W=128, the production sketch, max_batch 65536, buckets 128 ... 65536,
+    precompiled; the windowed two at TPU_BATCH_WINDOW=200us."""
+    common = {
+        "n_slots": N_SLOTS, "ways": 128, "buckets": BUCKETS, "device": dev,
+        "hotkey_lanes": HOTKEY_LANES, "hotkey_k": HOTKEY_K, "max_batch": BUCKETS[-1], "precompile": True,
+    }
+    arms = {
+        "dispatch_loop": {"batch_window_seconds": WINDOW_S, "dispatch_loop": True},
+        "leader_collects": {"batch_window_seconds": WINDOW_S, "dispatch_loop": False},
+        "direct": {"batch_window_seconds": 0.0},
+    }
+    clocks = {name: M.utils.FakeTimeSource(NOW0) for name in arms}
+    engines = {name: M.cuda_mod.SlabDeviceEngine(clocks[name], **common, **kw) for name, kw in arms.items()}
+    for name, eng in engines.items():
+        check(len(eng.precompiled) == 3 * len(BUCKETS), f"{name} engine did not warm every shape")
+        check((eng.dispatch_loop is not None) == (name == "dispatch_loop"), f"{name} engine has the wrong arm")
+    return engines, clocks
+
+
+def arm_batches(name: str, engine) -> tuple[int, int]:
+    """(batches launched, of which launched while another was in flight)
+    as the arm itself counts them."""
+    counter = engine.dispatch_loop if name == "dispatch_loop" else engine.batcher
+    return counter.launches, counter.overlapped_launches
+
+
+def concurrent_run(engine, blocks: list) -> tuple[float, np.ndarray]:
+    """CLIENT_THREADS threads, each submitting its share of the
+    single-descriptor blocks one at a time; returns (wall seconds,
+    per-request latencies in ms)."""
+    lat = [[] for _ in range(CLIENT_THREADS)]
+    start = threading.Barrier(CLIENT_THREADS + 1)
+    errors = []
+
+    def client(k):
+        mine = blocks[k::CLIENT_THREADS]
+        out = lat[k]
+        start.wait()
+        try:
+            for block in mine:
+                t0 = time.perf_counter()
+                engine.submit_rows(block)
+                out.append((time.perf_counter() - t0) * 1e3)
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(CLIENT_THREADS)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    check(not errors, f"a client failed: {errors[:1]}")
+    return wall, np.concatenate([np.asarray(x) for x in lat])
+
+
+def check_counts(engine, block: np.ndarray, label: str) -> dict:
+    """Every key's count in the table equals its total hits in `block`
+    (1 per request), short only by what the lossy events explain: each
+    drop or live eviction shortens at most one key. No key may exceed its
+    hits."""
+    table = engine.export_tables()[0]
+    live = table[table[:, 4].astype(np.int64) > NOW0]
+    check(live.shape[0] > 0, f"{label}: no live row after the run")
+    fp = (live[:, 1].astype(np.uint64) << np.uint64(32)) | live[:, 0].astype(np.uint64)
+    order = np.argsort(fp)
+    fp, stored = fp[order], live[order, 2].astype(np.int64)
+    req = (block[1].astype(np.uint64) << np.uint64(32)) | block[0].astype(np.uint64)
+    keys, hits = np.unique(req, return_counts=True)
+    pos = np.minimum(np.searchsorted(fp, keys), fp.size - 1)
+    counts = np.where(fp[pos] == keys, stored[pos], 0)
+    snap = engine.health_snapshot()
+    short = int((counts < hits).sum())
+    check(not (counts > hits).any(), f"{label}: a key counted more than its hits")
+    check(short <= snap["drops"] + snap["evictions_live"], f"{label}: {short} keys short, {snap['drops']} drops, {snap['evictions_live']} live evictions")
+    check(snap["decisions"] == block.shape[1], f"{label}: decisions {snap['decisions']} != {block.shape[1]} items")
+    return {"keys": int(keys.size), "short_keys": short, "drops": snap["drops"], "evictions_live": snap["evictions_live"], "decisions": snap["decisions"]}
+
+
+def phase_windowed(M, dev) -> dict:
+    """The windowed serving path (module docstring, phase 7)."""
+    K = M.K
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+    sizes = rng.integers(1, 65, SERIAL_SUBMITS)
+    serial = key_block(zipf_keys(rng, int(sizes.sum())))
+    stream = key_block(zipf_keys(rng, WINDOWED_REQUESTS))
+    engines, clocks = windowed_engines(M, dev)
+    off = 0
+    for i, n in enumerate(sizes):
+        if i % 50 == 49:
+            for clock in clocks.values():
+                clock.advance(61)
+        block = np.ascontiguousarray(serial[:, off : off + n])
+        off += n
+        # a copy: the loop's result is a view of the thread's ticket buffer
+        outs = {name: eng.submit_rows(block).copy() for name, eng in engines.items()}
+        want = outs["direct"].tobytes()
+        check(all(o.tobytes() == want for o in outs.values()), f"windowed arms answer differently at serial submit {i}")
+    tables = {name: eng.export_tables()[0] for name, eng in engines.items()}
+    check(all(np.array_equal(t, tables["direct"]) for t in tables.values()), "windowed arms leave different tables")
+    sketches = [eng.export_sketch() for eng in engines.values()]
+    check(all(np.array_equal(s, sketches[0]) for s in sketches), "windowed arms leave different sketch planes")
+    health = [eng.health_snapshot() for eng in engines.values()]
+    check(all(h == health[0] for h in health), f"windowed arms report different health: {health}")
+    t_serial = time.perf_counter() - t_phase
+    for eng in engines.values():
+        eng.close()
+    del engines, tables
+    torch.cuda.empty_cache()
+
+    out = {"serial_submits": int(SERIAL_SUBMITS), "serial_items": int(sizes.sum()), "serial_s": t_serial, "window_s": WINDOW_S, "threads": CLIENT_THREADS}
+    engines, _clocks = windowed_engines(M, dev)
+    for name, eng in engines.items():
+        n_req = DIRECT_REQUESTS if name == "direct" else WINDOWED_REQUESTS
+        blocks = [np.ascontiguousarray(stream[:, i : i + 1]) for i in range(n_req)]
+        batches0, overlapped0 = arm_batches(name, eng)
+        K.reset_launch_counts()
+        wall, lat = concurrent_run(eng, blocks)
+        eng.flush()
+        launches = dict(K.LAUNCHES)
+        batches, overlapped = arm_batches(name, eng)
+        batches -= batches0
+        overlapped -= overlapped0
+        want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": batches, "slab_apply": batches, "sketch_scan": batches}
+        check(launches == want, f"{name}: launches {launches} against {batches} batches")
+        counts = check_counts(eng, stream[:, :n_req], name)
+        mean_batch = n_req / batches
+        probe = np.ascontiguousarray(stream[:, : max(1, round(mean_batch))])
+        prof = profile_call(lambda eng=eng, probe=probe: eng.submit_rows(probe))
+        out[name] = {
+            "requests": n_req,
+            "requests_per_s": n_req / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "batches": batches,
+            "mean_batch": mean_batch,
+            "overlapped_launches": overlapped,
+            "device_busy_share_profiled_batch": prof["device_busy_share"],
+            "profiled_batch_items": int(probe.shape[1]),
+            "profiled_batch_wall_ms": prof["wall_ms"],
+            "profiled_batch_device_ms": prof["device_ms"],
+            "wall_s": wall,
+            "launches": launches,
+            **counts,
+        }
+        log(
+            f"windowed {name}: {n_req} requests from {CLIENT_THREADS} threads, {out[name]['requests_per_s']:.0f} req/s,"
+            f" p50 {out[name]['p50_ms']:.3f} ms p99 {out[name]['p99_ms']:.3f} ms, {batches} batches (mean {mean_batch:.2f},"
+            f" {overlapped} launched while another was in flight), busy {prof['device_busy_share']:.3f}"
+        )
+        eng.close()
+    del engines
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("windowed:", json.dumps(out))
+    return out
+
+
 def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
     """Times at each path's largest shape: the served path's b = 65536, W =
     128, over the engine phase's populated 2^22-slot table and 128-lane
-    sketch; the decision kernels at the decided phase's b = 2^20. ms,
-    plain_ms and library_ms are median device times (device_ms); call_ms
-    and plain_call_ms are CUDA-event medians around one call (call_ms).
-    No single PyTorch call computes the way scan, the sketch scan or the
-    decision, so they have no library time; the applies' yardstick is the
+    sketch; the decision kernels at the decided phase's b = 2^20; sel and
+    chain at the tool's b = 2^20 on its first input. ms, plain_ms and
+    library_ms are median device times (device_ms); call_ms and
+    plain_call_ms are CUDA-event medians around one call (call_ms). No
+    single PyTorch call computes the way scan, the sketch scan, the
+    decision, sel or chain (torch.where(x > NOW, x, -x) is three
+    launches), so they have no library time; the applies' yardstick is the
     torch.cumsum of their hits, the first of their two scans."""
     K, SKK, D = M.K, M.SKK, M.D
     rng = np.random.default_rng(3)
@@ -905,6 +1168,10 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
             lambda: torch.cumsum(big_ops[2], dim=0),
         )
     calls["decide"] = (lambda: D.decide(*dec_ops, now, 0.8), lambda: D.decide_plain(*dec_ops, now, 0.8), 20, None)
+    # the compare/select kernels on the tool's own first input
+    x_sel = torch.from_numpy(tool_input(SELECT_BATCH)).to(dev)
+    calls["sel"] = (lambda: M.SEL.sel(x_sel), lambda: M.SEL.sel_plain(x_sel), 20, None)
+    calls["chain"] = (lambda: M.SEL.chain(x_sel), lambda: M.SEL.chain_plain(x_sel), 20, None)
     served = f"b={b}, W={ways}, {table.shape[0]}-slot table"
     shape = {
         "way_scan": served,
@@ -913,6 +1180,8 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
         "slab_apply_decide": f"b={big}",
         "slab_apply_lean": f"b={big}",
         "decide": f"b={big}",
+        "sel": f"b={SELECT_BATCH}",
+        "chain": f"b={SELECT_BATCH}",
     }
     # way scan: each distinct set is read once (Zipf traffic repeats
     # sets), plus the per-item queries and outputs; sketch scan: the 8-byte
@@ -928,6 +1197,8 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
         "slab_apply_decide": big * (6 * 4 + 1 + 5 * 4 + 10 * 4),
         "slab_apply_lean": big * (6 * 4 + 1 + 5 * 4 + 5 * 4),
         "decide": big * (5 * 4 + 6 * 4),
+        "sel": SELECT_BATCH * (4 + 4),
+        "chain": SELECT_BATCH * (4 + 4),
     }
     rows = []
     for name, (kernel, plain, plain_iters, library) in calls.items():
@@ -961,9 +1232,13 @@ def main() -> int:
     from api_ratelimit_tpu_torch.ops import sketch_kernels as SKK
     from api_ratelimit_tpu_torch.ops import slab as S
     from api_ratelimit_tpu_torch.ops import slab_kernels as K
+    from api_ratelimit_tpu_torch.ops import select_kernels as SEL
     from api_ratelimit_tpu_torch.testing import oracle as O
+    from api_ratelimit_tpu_torch.tools import microbench_compare_paths as CMP
 
-    M = types.SimpleNamespace(K=K, S=S, SKK=SKK, SKT=SKT, D=D, O=O, cuda_mod=cuda_mod, utils=utils)
+    M = types.SimpleNamespace(
+        K=K, S=S, SKK=SKK, SKT=SKT, D=D, O=O, SEL=SEL, CMP=CMP, cuda_mod=cuda_mod, utils=utils
+    )
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -976,7 +1251,9 @@ def main() -> int:
     engine = phase_engine(M, dev)
     launches = phase_serve(K)
     _decided, decided_launches = phase_decided(M, dev)
-    kernels = kernel_report(M, engine, dev, launches | decided_launches, errs)
+    select_errs, select_launches = phase_compare_paths(M, dev)
+    phase_windowed(M, dev)
+    kernels = kernel_report(M, engine, dev, launches | decided_launches | select_launches, errs | select_errs)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -400,7 +400,9 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
     shutil.copytree(K.CSRC_DIR, csrc)
     monkeypatch.setattr(K, "CSRC_DIR", str(csrc))
     before = K.library_path()
-    assert [p.rsplit("/", 1)[1] for p in K.sources()] == ["decide_kernels.cu", "sketch_kernels.cu", "slab_kernels.cu"]
+    assert [p.rsplit("/", 1)[1] for p in K.sources()] == [
+        "decide_kernels.cu", "select_kernels.cu", "sketch_kernels.cu", "slab_kernels.cu",
+    ]
     with open(csrc / "decide.cuh", "a") as f:
         f.write("// edited\n")
     assert K.library_path() != before
