@@ -24,11 +24,6 @@
 namespace {
 
 constexpr int kRowWidth = 8;
-constexpr int kColFpLo = 0;
-constexpr int kColFpHi = 1;
-constexpr int kColCount = 2;
-constexpr int kColWindow = 3;
-constexpr int kColExpire = 4;
 constexpr int kAlgoDivMask = (1 << 28) - 1;
 constexpr int kScoreTierShift = 28;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -129,32 +124,77 @@ way_scan_kernel(const int4* __restrict__ table, const int* __restrict__ fp_lo,
 //   slab_apply_kernel<false, false>  decide=False (after mode), 4 outputs
 //   slab_apply_kernel<true, false>   decide=True, 10 outputs
 //   slab_apply_kernel<true, true>    decide=True, lean=True, 5 outputs
+// and, in every form, the sketch's optional segment weight (prior + hits,
+// the incl - seg_base of ops/slab.py _segment_weights), stored only where
+// its pointer is non-null.
 //
-// Over the slot-sorted batch: the segmented exclusive prefix of hits
-// (in-batch duplicate serialization), the window rollover against the
-// stored row with the hits>0 gate, then before, after, cur_window and
-// expire = now + div + jitter, in uint32 wrap-around arithmetic. With
-// kDecide the fixed-window decision of decide.cuh follows per item (limit
-// and near_ratio in): all six fields, or with kLean only the code (the
-// decided mode reads nothing else, so the other five are neither computed
-// nor stored).
+// Over the slot-sorted batch, in uint32 wrap-around arithmetic:
+// incl = cumsum(hits), excl = incl - hits, seg_base = cummax(seg_start ?
+// excl : 0) (an unsigned max over the wrapped excl: the XLA twin's
+// semantics), prior = excl - seg_base; then per item the window rollover
+// against the stored row with the hits>0 gate, before, after, cur_window
+// and expire = now + div + jitter. With kDecide the fixed-window decision
+// of decide.cuh follows per item (limit and near_ratio in): all six
+// fields, or with kLean only the code (the decided mode reads nothing
+// else, so the other five are neither computed nor stored).
 //
-// Bound on this card: bytes, ~57 B per item in after mode (5 int32 planes,
-// the seg_start byte and 5 stored-row words in, 4 out), 85 B decided, 65 B
-// lean; at the H100 SXM's published 3.35 TB/s (700 W) ~1.1 us for 65536
-// items, ~0.027 ms decided at 2^20. The
-// TPU kernel carried its scan totals across a sequential grid in SMEM;
-// CUDA blocks have no order, so this first design is ONE block that walks
-// the batch in chunks of its 1024 threads, carrying the running sum and
-// the running segment-base max from chunk to chunk in shared memory,
-// exactly like the sequential grid. Each chunk is two block-wide inclusive
-// scans (warp shuffles, then a scan of the 32 warp totals). One block on
-// one of 132 SMs leaves the kernel bound by the chunk loop's latency, far
-// above its byte bound; the decision tail is elementwise after before and
-// after and adds no barrier. A multi-block two-pass scan is later work.
+// Bound on this card: bytes, ~57 B per item in after mode (5 int32
+// planes, the seg_start byte and 5 stored-row words in, 4 out), 85 B
+// decided, 65 B lean; at the H100 SXM's published 3.35 TB/s (700 W)
+// ~1.1 us for 65536 items, ~0.027 ms decided at 2^20. A stored row is one
+// 32-byte sector of which 20 B are read, so the floor in sectors is ~12 B
+// an item more.
+//
+// The TPU kernel carried its two scan totals across a sequential grid in
+// SMEM. Here the batch is cut into tiles of 512 items, one block of 128
+// threads each (65536 items fill 128 SMs; 2^20 items make 2048 tiles). It
+// is a single-pass scan with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016), run twice and chained:
+//   1. a block takes its tile from an atomic ticket, not from blockIdx, so
+//      it only ever waits on tiles that have already started;
+//   2. it issues every load of its tile at once: thread t holds items
+//      4t..4t+3, one int4 per int32 plane (neighbouring threads on
+//      neighbouring 16 bytes) and seg_start as a uchar4; the stored rows
+//      go to shared memory by cp.async, 512 contiguous bytes a warp step,
+//      and are read only by the tail, so their copy overlaps both scans;
+//      window and expire, which need no scan, are stored at once;
+//   3. the sum: a block scan of the hits, the tile total published as an
+//      aggregate, one warp looking back over 32 predecessors at a time
+//      until it meets an inclusive prefix, then the tile's own inclusive
+//      prefix published;
+//   4. the max: with the sum prefix known the tile forms its realized excl
+//      and the masked values, and only then publishes their max and looks
+//      back the same way. The two scans are not fused into one (sum, max)
+//      pair operator: max(carry + x) != carry + max(x) once the running
+//      sum wraps 2^32, so the max runs over the values each item really
+//      has, and both operators stay exactly associative;
+//   5. the elementwise tail, and the other stores as int4 per plane.
+// A status word packs its flag (invalid, aggregate, inclusive prefix) and
+// its 32-bit value into one 64-bit word, so relaxed gpu-scope accesses
+// suffice (release/acquire read 5-10% slower on the card), and each word
+// has a 128-byte line of its own: polled words that shared a line cost
+// ~12% (PERF.md). The operand planes stream past L2 (ld/st .cs). The
+// wrapper allocates the status words and the ticket; the entry point
+// zeroes them on the launch stream before each launch. What still holds
+// the kernel above its bound (PERF.md): the two look-backs, during which
+// a block moves no bytes, and the stored rows' 32-byte sectors.
 // ---------------------------------------------------------------------------
 
-constexpr int kApplyThreads = 1024;
+constexpr int kApplyThreads = 128;
+constexpr int kApplyWarps = kApplyThreads / 32;
+constexpr int kApplyItems = 4;  // per thread: one int4 of every int32 plane
+constexpr int kApplyTile = kApplyThreads * kApplyItems;
+static_assert(kApplyItems % 4 == 0, "items move as int4 and uchar4");
+
+// one status word per 128-byte line: words that share a line are polled by
+// the warps of up to 32 later tiles at once, and their L2 traffic queues
+// on that line
+constexpr int kStatusStride = 16;
+
+constexpr unsigned long long kFlagAggregate = 1ull << 32;
+constexpr unsigned long long kFlagPrefix = 2ull << 32;
+constexpr unsigned long long kFlagMask = 0xffffffffull << 32;
 
 struct AddOp {
   __device__ __forceinline__ unsigned operator()(unsigned a, unsigned b) const {
@@ -168,39 +208,193 @@ struct MaxOp {
   }
 };
 
-// Inclusive scan of one value per thread across the block, in thread order.
-// identity must be neutral for op. Ends with a barrier, so warp_buf may be
-// reused by the next call.
-template <typename Op>
-__device__ unsigned block_inclusive_scan(unsigned v, Op op, unsigned identity,
-                                         unsigned* warp_buf) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned t = __shfl_up_sync(kFullMask, v, off);
-    if (lane >= off) v = op(v, t);
-  }
-  if (lane == 31) warp_buf[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned t = lane < n_warps ? warp_buf[lane] : identity;
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned u = __shfl_up_sync(kFullMask, t, off);
-      if (lane >= off) t = op(t, u);
-    }
-    warp_buf[lane] = t;
-  }
-  __syncthreads();
-  if (wid > 0) v = op(v, warp_buf[wid - 1]);
-  __syncthreads();
+// The status words need no ordering against any other memory: the value
+// travels in the word with its flag, and a 64-bit aligned access is
+// single-copy atomic. Relaxed gpu-scope accesses are coherent in L2.
+__device__ __forceinline__ void store_status(unsigned long long* status,
+                                             int tile, unsigned long long v) {
+  unsigned long long* p = status + static_cast<long long>(tile) * kStatusStride;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* status, int tile) {
+  const unsigned long long* p =
+      status + static_cast<long long>(tile) * kStatusStride;
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
   return v;
 }
 
+// Exclusive scan of one value per thread across the block, in thread
+// order; `total` gets the block's aggregate. 0 is neutral for both ops.
+// One barrier; warp_buf is written once, so a block scans with it once.
+template <typename Op>
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, Op op,
+                                                         unsigned* warp_buf,
+                                                         unsigned& total) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned t = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl = op(incl, t);
+  }
+  if (lane == 31) warp_buf[wid] = incl;
+  __syncthreads();
+  unsigned before_warp = 0u;
+  total = 0u;
+#pragma unroll
+  for (int w = 0; w < kApplyWarps; ++w) {
+    const unsigned t = warp_buf[w];
+    if (w < wid) before_warp = op(before_warp, t);
+    total = op(total, t);
+  }
+  unsigned before_lane = __shfl_up_sync(kFullMask, incl, 1);
+  if (lane == 0) before_lane = 0u;
+  return op(before_warp, before_lane);
+}
+
+// Publishes `tile`'s aggregate, looks back for its exclusive prefix and
+// publishes its inclusive prefix. Called by all 32 lanes of one warp;
+// returns the exclusive prefix in every lane. Lane l reads tile
+// (window - l), so the nearest predecessor is lane 0; tiles before 0 read
+// as an inclusive prefix of 0.
+template <typename Op>
+__device__ unsigned look_back(unsigned long long* status, int tile,
+                              unsigned aggregate, Op op) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) store_status(status, 0, kFlagPrefix | aggregate);
+    return 0u;
+  }
+  if (lane == 0) store_status(status, tile, kFlagAggregate | aggregate);
+  unsigned exclusive = 0u;
+  for (int window = tile - 1;; window -= 32) {
+    const int j = window - lane;
+    unsigned long long w = j >= 0 ? load_status(status, j) : kFlagPrefix;
+    unsigned sleep_ns = 32;
+    while (__any_sync(kFullMask, (w & kFlagMask) == 0ull)) {
+      __nanosleep(sleep_ns);
+      sleep_ns = sleep_ns < 1024 ? sleep_ns * 2 : sleep_ns;
+      if ((w & kFlagMask) == 0ull) w = load_status(status, j);
+    }
+    const unsigned prefixes =
+        __ballot_sync(kFullMask, (w & kFlagMask) == kFlagPrefix);
+    // the lanes up to the nearest inclusive prefix count; without one,
+    // all 32 aggregates do and the window moves back
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    unsigned v = lane <= stop ? static_cast<unsigned>(w) : 0u;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v = op(v, __shfl_xor_sync(kFullMask, v, off));
+    }
+    exclusive = op(exclusive, v);
+    if (prefixes) break;
+  }
+  if (lane == 0) {
+    store_status(status, tile, kFlagPrefix | op(exclusive, aggregate));
+  }
+  return exclusive;
+}
+
+// Items i0 .. i0+N-1 of an int32 plane: N/4 int4 where the whole group
+// lies in the batch and the planes are 16-byte aligned, else masked
+// scalars. Every plane is read once and written once, so the vector
+// accesses are streaming (evict-first), which leaves L2 to the status
+// words.
+template <int N>
+__device__ __forceinline__ void load_items(const int* __restrict__ p,
+                                           long long i0, int b, bool vec,
+                                           int (&v)[N]) {
+  if (vec && i0 + N <= b) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(p + i0) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = i0 + k < b ? p[i0 + k] : 0;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_items(int* __restrict__ p, long long i0,
+                                            int b, bool vec,
+                                            const int (&v)[N]) {
+  if (vec && i0 + N <= b) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      __stcs(reinterpret_cast<int4*>(p + i0) + q,
+             make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (i0 + k < b) p[i0 + k] = v[k];
+    }
+  }
+}
+
+// A warp's stored rows in shared memory: its 32 * N rows as two int4
+// each, one spare int4 after every thread's N rows, so that the tail's
+// reads (lane l at int4 l * (2N + 1)) fall in distinct banks.
+constexpr int kWarpRowSlots = 32 * (2 * kApplyItems + 1);
+
+template <int N>
+__device__ __forceinline__ int row_slot(int row) {
+  return 2 * row + row / N;
+}
+
+__device__ __forceinline__ void copy_async16(int4* smem, const int4* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                   : "memory");
+}
+
+// Copies the stored rows of the warp's items warp_i0 .. warp_i0 + 32N - 1
+// (those below b) into `rows`: lane l moves int4 l, l + 32, ... of the
+// warp's contiguous rows, so each step reads 512 contiguous bytes. Aligned
+// rows go by cp.async (copy_async_wait before reading them), others by
+// scalar loads.
+template <int N>
+__device__ __forceinline__ void stage_rows(const int* __restrict__ st_rows,
+                                           long long warp_i0, int b, bool vec,
+                                           int lane, int4* rows) {
+  const int4* src = reinterpret_cast<const int4*>(st_rows + warp_i0 * kRowWidth);
+#pragma unroll
+  for (int m = 0; m < 2 * N; ++m) {
+    const int v = lane + 32 * m;
+    if (warp_i0 + v / 2 >= b) continue;
+    int4* dst = rows + row_slot<N>(v / 2) + (v & 1);
+    if (vec) {
+      copy_async16(dst, src + v);
+    } else {
+      const int* p = st_rows + (warp_i0 * kRowWidth + 4 * v);
+      *dst = make_int4(p[0], p[1], p[2], p[3]);
+    }
+  }
+}
+
 // The output planes come in the reference's order, each its own
-// __restrict__ pointer, so the compiler may hoist every load of a chunk
-// above its stores. The decision planes are null where the instantiation
-// does not store them.
+// __restrict__ pointer, so the compiler may hoist every load above the
+// stores. The decision planes are null where the instantiation does not
+// store them; weight_out is null unless the caller asks for the weight.
+// vec: every plane is 16-byte aligned and seg_start 4-byte aligned.
 template <bool kDecide, bool kLean>
 __global__ void __launch_bounds__(kApplyThreads)
 slab_apply_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
@@ -208,75 +402,195 @@ slab_apply_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
                   const int* __restrict__ div, const int* __restrict__ jitter,
                   const unsigned char* __restrict__ seg_start,
                   const int* __restrict__ st_rows, int b, int now,
-                  float near_ratio, int* __restrict__ before_out,
+                  float near_ratio, bool vec, int* __restrict__ before_out,
                   int* __restrict__ after_out, int* __restrict__ window_out,
                   int* __restrict__ expire_out, int* __restrict__ code_out,
                   int* __restrict__ remaining_out,
                   int* __restrict__ duration_out,
                   int* __restrict__ throttle_out, int* __restrict__ near_out,
-                  int* __restrict__ over_out) {
+                  int* __restrict__ over_out, int* __restrict__ weight_out,
+                  unsigned long long* __restrict__ sum_status,
+                  unsigned long long* __restrict__ max_status,
+                  unsigned* __restrict__ ticket) {
   static_assert(kDecide || !kLean, "lean is a form of the decided apply");
-  __shared__ unsigned warp_buf[32];
-  __shared__ unsigned carry[2];  // running sum, running segment-base max
-  if (threadIdx.x == 0) {
-    carry[0] = 0u;
-    carry[1] = 0u;
+  constexpr int N = kApplyItems;
+  __shared__ unsigned warp_sum[kApplyWarps];
+  __shared__ unsigned warp_max[kApplyWarps];
+  __shared__ int tile_slot;
+  __shared__ unsigned sum_prefix;
+  __shared__ unsigned max_prefix;
+  __shared__ int4 row_buf[kApplyWarps * kWarpRowSlots];
+  if (threadIdx.x == 0) tile_slot = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int tile = tile_slot;
+  const int lane = threadIdx.x & 31;
+  const long long warp_i0 =
+      static_cast<long long>(tile) * kApplyTile + (threadIdx.x >> 5) * 32 * N;
+  const long long i0 = warp_i0 + lane * N;
+
+  // the stored rows of the warp's items, copied into shared memory while
+  // the scans run; they are read only by the elementwise tail
+  int4* const rows = row_buf + (threadIdx.x >> 5) * kWarpRowSlots;
+  stage_rows<N>(st_rows, warp_i0, b, vec, lane, rows);
+
+  int h[N], lo[N], hi[N], dv[N], jit[N], lim[N];
+  bool seg[N];
+  load_items<N>(hits, i0, b, vec, h);
+  load_items<N>(fp_lo, i0, b, vec, lo);
+  load_items<N>(fp_hi, i0, b, vec, hi);
+  load_items<N>(div, i0, b, vec, dv);
+  load_items<N>(jitter, i0, b, vec, jit);
+  if constexpr (kDecide) load_items<N>(limit, i0, b, vec, lim);
+  if (vec && i0 + N <= b) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const uchar4 s = __ldcs(reinterpret_cast<const uchar4*>(seg_start + i0) + q);
+      seg[4 * q] = s.x;
+      seg[4 * q + 1] = s.y;
+      seg[4 * q + 2] = s.z;
+      seg[4 * q + 3] = s.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) seg[k] = i0 + k < b && seg_start[i0 + k];
+  }
+
+  // window and expire need no scan: they leave before the look-backs
+  int window_v[N], expire_v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int safe_div = dv[k] < 1 ? 1 : dv[k];
+    window_v[k] = rl::window_start(now, safe_div);
+    expire_v[k] = add_wrap(add_wrap(now, safe_div), jit[k]);
+  }
+  store_items<N>(window_out, i0, b, vec, window_v);
+  store_items<N>(expire_out, i0, b, vec, expire_v);
+
+  // the sum: this thread's items, the block, then the tiles before it
+  unsigned incl_local[N];
+  unsigned run = 0u;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    run += static_cast<unsigned>(h[k]);
+    incl_local[k] = run;
+  }
+  unsigned tile_sum;
+  const unsigned thread_sum = block_exclusive_scan(run, AddOp(), warp_sum, tile_sum);
+  if (threadIdx.x < 32) {
+    const unsigned p = look_back(sum_status, tile, tile_sum, AddOp());
+    if (threadIdx.x == 0) sum_prefix = p;
   }
   __syncthreads();
-  for (int chunk = 0; chunk < b; chunk += blockDim.x) {
-    const int i = chunk + threadIdx.x;
-    const bool in = i < b;
-    const unsigned carry_sum = carry[0];
-    const unsigned carry_max = carry[1];
-    const unsigned h = in ? static_cast<unsigned>(hits[i]) : 0u;
-    const unsigned incl =
-        block_inclusive_scan(h, AddOp(), 0u, warp_buf) + carry_sum;
-    const unsigned excl = incl - h;
-    const unsigned masked = (in && seg_start[i]) ? excl : 0u;
-    const unsigned seg_base =
-        max(block_inclusive_scan(masked, MaxOp(), 0u, warp_buf), carry_max);
-    const unsigned prior = excl - seg_base;
-    if (threadIdx.x == blockDim.x - 1) {
-      carry[0] = incl;
-      carry[1] = seg_base;
-    }
-    if (in) {
-      const int d = div[i];
-      const int safe_div = d < 1 ? 1 : d;
-      const int cur_window = rl::window_start(now, safe_div);
-      const int* st = st_rows + static_cast<long long>(i) * kRowWidth;
-      const bool live = st[kColExpire] > now;
-      const bool fp_match =
-          live && st[kColFpLo] == fp_lo[i] && st[kColFpHi] == fp_hi[i];
-      const bool same_window = st[kColWindow] == cur_window;
-      const unsigned base = (h != 0u && fp_match && same_window)
-                                ? static_cast<unsigned>(st[kColCount])
-                                : 0u;
-      const unsigned before = base + prior;
-      const unsigned after = before + h;
-      before_out[i] = static_cast<int>(before);
-      after_out[i] = static_cast<int>(after);
-      window_out[i] = cur_window;
-      expire_out[i] = add_wrap(add_wrap(now, safe_div), jitter[i]);
-      if constexpr (kDecide) {
-        const unsigned lim = static_cast<unsigned>(limit[i]);
-        if constexpr (kLean) {
-          code_out[i] = rl::decide_code(after, h, lim);
-        } else {
-          const rl::Decision r =
-              rl::decide_one(before, after, h, lim,
-                             add_wrap(cur_window, safe_div), now, near_ratio);
-          code_out[i] = r.code;
-          remaining_out[i] = static_cast<int>(r.remaining);
-          duration_out[i] = r.duration;
-          throttle_out[i] = static_cast<int>(r.throttle);
-          near_out[i] = static_cast<int>(r.near_delta);
-          over_out[i] = static_cast<int>(r.over_delta);
-        }
+
+  // the max, over the realized excl of the segment starts
+  const unsigned carry = sum_prefix + thread_sum;
+  unsigned excl[N], max_local[N];
+  unsigned mrun = 0u;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    excl[k] = carry + incl_local[k] - static_cast<unsigned>(h[k]);
+    mrun = max(mrun, seg[k] ? excl[k] : 0u);
+    max_local[k] = mrun;
+  }
+  unsigned tile_max;
+  const unsigned thread_max = block_exclusive_scan(mrun, MaxOp(), warp_max, tile_max);
+  if (threadIdx.x < 32) {
+    const unsigned p = look_back(max_status, tile, tile_max, MaxOp());
+    if (threadIdx.x == 0) max_prefix = p;
+  }
+  copy_async_wait();
+  __syncthreads();
+
+  const unsigned mcarry = max(max_prefix, thread_max);
+  int before_v[N], after_v[N], weight_v[N];
+  int code_v[N], remaining_v[N], duration_v[N], throttle_v[N], near_v[N],
+      over_v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    // the stored row's fp_lo, fp_hi, count, window and expire
+    const int slot = row_slot<N>(lane * N + k);
+    const int4 st = rows[slot];
+    const int st_expire = rows[slot + 1].x;
+    const unsigned hk = static_cast<unsigned>(h[k]);
+    const unsigned prior = excl[k] - max(mcarry, max_local[k]);
+    const bool live = st_expire > now;
+    const bool fp_match = live && st.x == lo[k] && st.y == hi[k];
+    const bool same_window = st.w == window_v[k];
+    const unsigned base = (hk != 0u && fp_match && same_window)
+                              ? static_cast<unsigned>(st.z)
+                              : 0u;
+    const unsigned before = base + prior;
+    const unsigned after = before + hk;
+    before_v[k] = static_cast<int>(before);
+    after_v[k] = static_cast<int>(after);
+    weight_v[k] = static_cast<int>(prior + hk);
+    if constexpr (kDecide) {
+      const unsigned lk = static_cast<unsigned>(lim[k]);
+      if constexpr (kLean) {
+        code_v[k] = rl::decide_code(after, hk, lk);
+      } else {
+        const int safe_div = dv[k] < 1 ? 1 : dv[k];
+        const rl::Decision r =
+            rl::decide_one(before, after, hk, lk,
+                           add_wrap(window_v[k], safe_div), now, near_ratio);
+        code_v[k] = r.code;
+        remaining_v[k] = static_cast<int>(r.remaining);
+        duration_v[k] = r.duration;
+        throttle_v[k] = static_cast<int>(r.throttle);
+        near_v[k] = static_cast<int>(r.near_delta);
+        over_v[k] = static_cast<int>(r.over_delta);
       }
     }
-    __syncthreads();
   }
+  store_items<N>(before_out, i0, b, vec, before_v);
+  store_items<N>(after_out, i0, b, vec, after_v);
+  if (weight_out != nullptr) store_items<N>(weight_out, i0, b, vec, weight_v);
+  if constexpr (kDecide) {
+    store_items<N>(code_out, i0, b, vec, code_v);
+    if constexpr (!kLean) {
+      store_items<N>(remaining_out, i0, b, vec, remaining_v);
+      store_items<N>(duration_out, i0, b, vec, duration_v);
+      store_items<N>(throttle_out, i0, b, vec, throttle_v);
+      store_items<N>(near_out, i0, b, vec, near_v);
+      store_items<N>(over_out, i0, b, vec, over_v);
+    }
+  }
+}
+
+// Scratch of one apply launch over b items: a sum and a max status word
+// per tile, each kStatusStride words apart, then the ticket.
+long long apply_scratch_bytes(int b) {
+  const long long tiles = (static_cast<long long>(b) + kApplyTile - 1) / kApplyTile;
+  return (2 * tiles * kStatusStride + 1) *
+         static_cast<long long>(sizeof(unsigned long long));
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<unsigned long long>(p) & (bytes - 1)) == 0;
+}
+
+// Zeroes the scratch on `s`, then launches the form's kernel over b >= 1
+// items. Returns the first cudaError_t (0 = success).
+template <bool kDecide, bool kLean>
+int launch_apply(const int* lo, const int* hi, const int* h, const int* lim,
+                 const int* d, const int* jit, const unsigned char* seg,
+                 const int* st, int b, int now, float near_ratio,
+                 int* const (&out)[10], int* weight, void* scratch,
+                 cudaStream_t s) {
+  const long long tiles = (static_cast<long long>(b) + kApplyTile - 1) / kApplyTile;
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, apply_scratch_bytes(b), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* planes[] = {lo, hi, h, lim, d, jit, st, weight};
+  bool vec = aligned(seg, 4);
+  for (const void* p : planes) vec = vec && aligned(p, 16);
+  for (const int* p : out) vec = vec && aligned(p, 16);
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  slab_apply_kernel<kDecide, kLean><<<static_cast<unsigned>(tiles), kApplyThreads, 0, s>>>(
+      lo, hi, h, lim, d, jit, seg, st, b, now, near_ratio, vec, out[0],
+      out[1], out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9],
+      weight, status, status + tiles * kStatusStride,
+      reinterpret_cast<unsigned*>(status + 2 * tiles * kStatusStride));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -300,27 +614,34 @@ int rl_way_scan(const void* table, const void* fp_lo, const void* fp_hi,
   return static_cast<int>(cudaGetLastError());
 }
 
+long long rl_slab_apply_scratch_bytes(int b) { return apply_scratch_bytes(b); }
+
+// The after-mode apply. weight_out may be null; scratch holds
+// rl_slab_apply_scratch_bytes(b) bytes on the batch's device and is zeroed
+// here on `stream` before the launch.
 int rl_slab_apply(const void* fp_lo, const void* fp_hi, const void* hits,
                   const void* div, const void* jitter, const void* seg_start,
                   const void* st_rows, int b, int now, void* before_out,
                   void* after_out, void* window_out, void* expire_out,
-                  void* stream) {
-  slab_apply_kernel<false, false><<<1, kApplyThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+                  void* weight_out, void* scratch, void* stream) {
+  int* const out[10] = {
+      static_cast<int*>(before_out), static_cast<int*>(after_out),
+      static_cast<int*>(window_out), static_cast<int*>(expire_out),
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_apply<false, false>(
       static_cast<const int*>(fp_lo), static_cast<const int*>(fp_hi),
       static_cast<const int*>(hits), nullptr, static_cast<const int*>(div),
       static_cast<const int*>(jitter),
       static_cast<const unsigned char*>(seg_start),
-      static_cast<const int*>(st_rows), b, now, 0.0f,
-      static_cast<int*>(before_out), static_cast<int*>(after_out),
-      static_cast<int*>(window_out), static_cast<int*>(expire_out), nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int*>(st_rows), b, now, 0.0f, out,
+      static_cast<int*>(weight_out), scratch,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The decided apply: outs[0..9] are before, after, window, expire, code,
 // remaining, duration, throttle, near_delta, over_delta; with lean != 0
-// only the first five are written (the rest may be null).
+// only the first five are written (the rest may be null). weight_out and
+// scratch as for rl_slab_apply.
 int rl_slab_apply_decide(const void* fp_lo, const void* fp_hi,
                          const void* hits, const void* limit, const void* div,
                          const void* jitter, const void* seg_start,
@@ -329,7 +650,7 @@ int rl_slab_apply_decide(const void* fp_lo, const void* fp_hi,
                          void* window_out, void* expire_out, void* code_out,
                          void* remaining_out, void* duration_out,
                          void* throttle_out, void* near_out, void* over_out,
-                         void* stream) {
+                         void* weight_out, void* scratch, void* stream) {
   int* const out[10] = {
       static_cast<int*>(before_out),   static_cast<int*>(after_out),
       static_cast<int*>(window_out),   static_cast<int*>(expire_out),
@@ -345,16 +666,13 @@ int rl_slab_apply_decide(const void* fp_lo, const void* fp_hi,
   const int* jit = static_cast<const int*>(jitter);
   const unsigned char* seg = static_cast<const unsigned char*>(seg_start);
   const int* st = static_cast<const int*>(st_rows);
+  int* w = static_cast<int*>(weight_out);
   if (lean) {
-    slab_apply_kernel<true, true><<<1, kApplyThreads, 0, s>>>(
-        lo, hi, h, lim, d, jit, seg, st, b, now, near_ratio, out[0], out[1],
-        out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
-  } else {
-    slab_apply_kernel<true, false><<<1, kApplyThreads, 0, s>>>(
-        lo, hi, h, lim, d, jit, seg, st, b, now, near_ratio, out[0], out[1],
-        out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
+    return launch_apply<true, true>(lo, hi, h, lim, d, jit, seg, st, b, now,
+                                    near_ratio, out, w, scratch, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_apply<true, false>(lo, hi, h, lim, d, jit, seg, st, b, now,
+                                   near_ratio, out, w, scratch, s);
 }
 
 }  // extern "C"

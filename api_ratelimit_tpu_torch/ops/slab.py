@@ -324,20 +324,17 @@ def _finish_update(
     return health
 
 
-def _segment_weights(s_hits, seg_start, same_prev):
-    """The sketch candidates of a slot-sorted batch: one per distinct-key
-    segment (its last row; padding segments carry hits 0 there and drop
-    out), weighted by the segment's total hits in uint32 wraparound -
-    the reference's cumsum/cummax forward fill. Returns (int32 weight
-    bits, bool cand)."""
+def _segment_weights(s_hits, seg_start):
+    """The sketch's weights over a slot-sorted batch on the CPU: each item's
+    running total within its distinct-key segment, in uint32 wraparound -
+    the reference's cumsum/cummax forward fill - so a segment's last row
+    carries its total hits. Returns int32 weight bits. On the card the
+    apply kernel stores the same plane (slab_apply(weight=True))."""
     hits = _u32(s_hits)
     incl = torch.cumsum(hits, dim=0) & _M32
     excl = (incl - hits) & _M32
     seg_base = torch.cummax(torch.where(seg_start, excl, 0), dim=0).values
-    weight = _wrap32((incl - seg_base) & _M32).to(torch.int32)
-    true1 = torch.ones(1, dtype=torch.bool, device=s_hits.device)
-    seg_last = torch.cat([~same_prev, true1])
-    return weight, seg_last & (s_hits != 0)
+    return _wrap32((incl - seg_base) & _M32).to(torch.int32)
 
 
 def _slab_update_sorted(
@@ -385,10 +382,16 @@ def _slab_update_sorted(
     seg_start = torch.cat([true1, ~same_prev])
     st_rows = picked[order]
 
+    # on the card the sketch's segment weights come from the apply's own
+    # scan; on the CPU _segment_weights recomputes them
+    weight_from_apply = sketch is not None and state.device.type == "cuda"
     outs = slab_apply(
         s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now,
         s_limit=s_limit, near_ratio=near_ratio, decide=decide, lean=lean,
+        weight=weight_from_apply,
     )
+    if weight_from_apply:
+        *outs, weight = outs
     s_before, s_after, cur_window, expire = outs[:4]
     decision = None
     if decide:
@@ -400,7 +403,11 @@ def _slab_update_sorted(
     result = (s_before, s_after, (s_hits, s_limit, s_div), order, health, decision)
     if sketch is None:
         return result
-    weight, cand = _segment_weights(s_hits, seg_start, same_prev)
+    if not weight_from_apply:
+        weight = _segment_weights(s_hits, seg_start)
+    # one candidate per distinct-key segment, its last row (padding
+    # segments carry hits 0 there and drop out)
+    cand = torch.cat([~same_prev, true1]) & (s_hits != 0)
     return (*result, sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways))
 
 

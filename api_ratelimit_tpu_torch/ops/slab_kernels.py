@@ -206,9 +206,11 @@ def build() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.rl_way_scan.restype = ci
-        lib.rl_slab_apply.argtypes = [vp] * 7 + [ci, ci] + [vp] * 5
+        lib.rl_slab_apply_scratch_bytes.argtypes = [ci]
+        lib.rl_slab_apply_scratch_bytes.restype = ctypes.c_longlong
+        lib.rl_slab_apply.argtypes = [vp] * 7 + [ci, ci] + [vp] * 7
         lib.rl_slab_apply.restype = ci
-        lib.rl_slab_apply_decide.argtypes = [vp] * 8 + [ci, ci, cf, ci] + [vp] * 11
+        lib.rl_slab_apply_decide.argtypes = [vp] * 8 + [ci, ci, cf, ci] + [vp] * 13
         lib.rl_slab_apply_decide.restype = ci
         lib.rl_sketch_scan.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.rl_sketch_scan.restype = ci
@@ -356,13 +358,14 @@ def f32(value) -> float:
 
 def slab_apply_plain(
     s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int,
-    s_limit=None, near_ratio=0.8, decide=False, lean=False,
+    s_limit=None, near_ratio=0.8, decide=False, lean=False, weight=False,
 ):
     """Plain version of the INCRBY apply over a slot-sorted batch. Returns
     int32[b] (before, after, cur_window, expire); before and after hold
     uint32 bits. decide=True appends the six DecideResult fields of the
     decision (ops/decide.py decide_plain) against `s_limit`; lean=True
-    appends the code alone."""
+    appends the code alone. weight=True appends the sketch's segment weight
+    prior + hits (uint32 bits) last."""
     hits = _u32(s_hits)
     incl = torch.cumsum(hits, dim=0) & 0xFFFFFFFF
     excl = (incl - hits) & 0xFFFFFFFF
@@ -389,27 +392,36 @@ def slab_apply_plain(
     expire = _wrap32(now + safe_div + s_jit.long())
     as_i32 = lambda x: _wrap32(x).to(torch.int32)  # noqa: E731
     outs = (as_i32(before), as_i32(after), cur_window.to(torch.int32), expire.to(torch.int32))
-    if not decide:
-        return outs
-    # decide.py imports this module's build and launch counts
-    from .decide import decide_plain
+    if decide:
+        # decide.py imports this module's build and launch counts
+        from .decide import decide_plain
 
-    d = decide_plain(outs[0], outs[1], s_hits, s_limit, s_div, now, near_ratio)
-    return (*outs, d.code) if lean else (*outs, *d)
+        d = decide_plain(outs[0], outs[1], s_hits, s_limit, s_div, now, near_ratio)
+        outs = (*outs, d.code) if lean else (*outs, *d)
+    return (*outs, as_i32(prior + hits)) if weight else outs
 
 
 def slab_apply(
     s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now: int,
-    s_limit=None, near_ratio=0.8, decide=False, lean=False,
+    s_limit=None, near_ratio=0.8, decide=False, lean=False, weight=False,
 ):
     """The INCRBY over a slot-sorted batch: segmented exclusive prefix of
     hits, window rollover against the stored row (int32[b, 8]),
     before/after counters, the new window and expire. decide=True fuses
     the fixed-window decision against `s_limit` (int32[b], uint32 bits) at
     `near_ratio` and appends code, remaining, duration, throttle, near and
-    over deltas; lean=True appends only the code. Each form counts its
-    launches under its own name (slab_apply, slab_apply_decide,
-    slab_apply_lean)."""
+    over deltas; lean=True appends only the code. weight=True appends the
+    sketch's segment weight, prior + hits (uint32 bits), last. Each form
+    counts its launches under its own name (slab_apply, slab_apply_decide,
+    slab_apply_lean).
+
+    On the card every form is one launch of the chained-scan kernel
+    (csrc/slab_kernels.cu slab_apply_kernel): tiles of 512 items, one block
+    each, whose sum and then max prefixes come from a decoupled look-back
+    over the tiles before them. Its scratch (two status words a tile and
+    the tile ticket) is allocated here per call, since launches come from
+    more than one thread, and zeroed by the entry point on the launch
+    stream."""
     device = s_hits.device
     named = [
         ("s_fp_lo", s_fp_lo), ("s_fp_hi", s_fp_hi), ("s_hits", s_hits),
@@ -435,26 +447,29 @@ def slab_apply(
     if device.type == "cpu":
         return slab_apply_plain(
             s_fp_lo, s_fp_hi, s_hits, s_div, s_jit, seg_start, st_rows, now,
-            s_limit, near_ratio, decide, lean,
+            s_limit, near_ratio, decide, lean, weight,
         )
     if device.type != "cuda":
         raise ValueError(f"slab_apply: unsupported device {device}")
     n_out = (5 if lean else 10) if decide else 4
-    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(n_out)]
+    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(n_out + bool(weight))]
     if b == 0:
         return tuple(outs)
     lib = build()
+    scratch = torch.empty(lib.rl_slab_apply_scratch_bytes(b) // 8, dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     head = (s_fp_lo.data_ptr(), s_fp_hi.data_ptr(), s_hits.data_ptr())
     tail = (s_div.data_ptr(), s_jit.data_ptr(), seg_start.data_ptr(), st_rows.data_ptr())
-    ptrs = [o.data_ptr() for o in outs]
+    ptrs = [o.data_ptr() for o in outs[:n_out]]
+    weight_ptr = outs[-1].data_ptr() if weight else None
     if not decide:
-        err = lib.rl_slab_apply(*head, *tail, b, now, *ptrs, stream)
+        err = lib.rl_slab_apply(*head, *tail, b, now, *ptrs, weight_ptr, scratch.data_ptr(), stream)
         name = "slab_apply"
     else:
         ptrs += [None] * (10 - n_out)  # lean stores no other decision plane
         err = lib.rl_slab_apply_decide(
-            *head, s_limit.data_ptr(), *tail, b, now, near_ratio, int(lean), *ptrs, stream
+            *head, s_limit.data_ptr(), *tail, b, now, near_ratio, int(lean), *ptrs,
+            weight_ptr, scratch.data_ptr(), stream,
         )
         name = "slab_apply_lean" if lean else "slab_apply_decide"
     _check(name, err)

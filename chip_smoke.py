@@ -9,7 +9,7 @@ Phases, each of which must pass (nothing is caught):
 2. parity  each kernel against its plain PyTorch version on the card,
            bit-exact, at every bucket (128 ... 65536): the way scan and the
            apply at W in {4, 128} on adversarial inputs (segments across the
-           apply kernel's 1024-item chunks, window rollovers, all eviction
+           apply kernel's 512-item tiles, window rollovers, all eviction
            tiers, one-set contention, padding lanes, counts >= 2^31); the
            sketch scan at sketch W in {4, 128} and lanes in {128, 1024} on
            adversarial planes (empty lanes, count ties, counts >= 2^31,
@@ -17,7 +17,14 @@ Phases, each of which must pass (nothing is caught):
            standalone decide at near_ratio in {0.0, 0.8, 1.0}, with limits
            that put items under the near threshold, between it and the
            limit, crossing the limit, all over, at the f32 edge below 2^32,
-           on counts >= 2^31 and padding.
+           on counts >= 2^31 and padding. Then the apply's chained tile
+           scan in every form (after, after with the sketch weight,
+           decided, lean) at b in {1, 127, 1024, 65536, 2^20 - 37, 2^20},
+           on one segment across every tile of 2^20 items, on a 2^20 batch
+           whose sum wraps 2^32 ~8 times with segments starting right
+           after each wrap, on all-zero hits, and the decided and lean
+           forms on 20 fresh 2^20 seeds (a look-back race shows only now
+           and then). The build's ptxas line for the apply prints first.
 3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, with the
            production sketch (HOTKEY_LANES=128, HOTKEY_K=16), Zipf(1.1) over
            2^20 keys: 32 launches at the 65536 bucket plus the smaller
@@ -128,6 +135,17 @@ REPLACES = {
     "chain": "tools/microbench_compare_paths.py:110",
 }
 NEAR_RATIOS = (0.0, 0.8, 1.0)
+# the apply kernel's tile-scan parity: sizes around its 512-item tiles and
+# the two paths' buckets, and the fresh 2^20 seeds run in full and lean form
+APPLY_SIZES = (1, 127, 1024, 65536, (1 << 20) - 37, 1 << 20)
+APPLY_REPEATS = 20
+APPLY_FORM_ARGS = {
+    "after": ("slab_apply", {}),
+    "after+weight": ("slab_apply", {"weight": True}),
+    "decided": ("slab_apply_decide", {"decide": True, "near_ratio": 0.8}),
+    "lean": ("slab_apply_lean", {"decide": True, "lean": True, "near_ratio": 0.8}),
+}
+APPLY_FORMS = tuple(APPLY_FORM_ARGS)
 # the decided phase: bench.py bench_engine_zipf's shapes on the card
 DECIDED_SLOTS = 1 << 23  # 256 MiB of rows
 DECIDED_BATCH = 1 << 20
@@ -212,15 +230,23 @@ def scan_inputs(rng, b: int, n_slots: int, ways: int, now: int, dev):
 
 def apply_inputs(rng, b: int, now: int, dev):
     """Slot-sorted apply operands: runs of one key up to 3000 long (so
-    segments cross the kernel's 1024-item chunks), hits up to 2^31 (sums
+    segments cross the kernel's 512-item tiles), hits up to 2^31 (sums
     wrap), stored rows that match in and out of the current window, and
     hits == 0 padding at the tail."""
     runs = rng.integers(1, 3000 if b > 1024 else 40, b)
     n_runs = int(np.searchsorted(np.cumsum(runs), b)) + 1  # the runs that fill b items
     keys = np.repeat(np.arange(n_runs), runs[:n_runs])[:b]
-    lo, hi = fingerprints(keys)
     hits = np.where(rng.random(b) < 0.05, rng.integers(0, 1 << 31, b), rng.integers(1, 4, b)).astype(np.uint32)
     hits[-b // 16 :] = 0
+    return apply_batch(rng, keys, hits, now, dev)
+
+
+def apply_batch(rng, keys: np.ndarray, hits: np.ndarray, now: int, dev):
+    """The apply's operands for slot-sorted key ids (a segment starts where
+    the id changes) and their hits: mixed dividers and jitter, stored rows
+    that match in and out of the current window."""
+    b = keys.size
+    lo, hi = fingerprints(keys)
     div = rng.choice(np.array([0, 1, 60, 3600], np.int32), b)
     jit = rng.integers(0, 30, b).astype(np.int32)
     seg_start = np.concatenate([[True], (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])])
@@ -231,6 +257,33 @@ def apply_inputs(rng, b: int, now: int, dev):
         i32(lo, dev), i32(hi, dev), i32(hits, dev), i32(div, dev), i32(jit, dev),
         torch.from_numpy(seg_start).to(dev), i32(st, dev),
     )
+
+
+def scan_edge_inputs(rng, kind: str, b: int, now: int, dev):
+    """Batches aimed at the apply's chained tile scan. "one_key": a single
+    segment across every tile, hits up to 2^31 (the sum wraps inside it);
+    "wraps": hits up to 2^16, so 2^20 items wrap the running sum ~8 times,
+    with a segment starting right after every wrap besides runs of up to
+    3000; "zero_hits": runs of keys with no hits at all."""
+    if kind == "one_key":
+        keys = np.zeros(b, np.int64)
+        hits = np.where(rng.random(b) < 0.05, rng.integers(0, 1 << 31, b), rng.integers(1, 4, b))
+    elif kind == "wraps":
+        hits = rng.integers(0, 1 << 16, b, dtype=np.uint64)
+        incl = np.cumsum(hits)
+        wrapped = np.concatenate([[False], (incl[:-1] >> np.uint64(32)) != ((incl[:-1] - hits[:-1]) >> np.uint64(32))])
+        check(int(wrapped.sum()) >= 2, "the wrap batch does not wrap 2^32 twice")
+        starts = wrapped | (rng.random(b) < 1 / 1500)
+        starts[0] = True
+        keys = np.cumsum(starts) - 1
+    elif kind == "zero_hits":
+        runs = rng.integers(1, 3000, b)
+        n_runs = int(np.searchsorted(np.cumsum(runs), b)) + 1
+        keys = np.repeat(np.arange(n_runs), runs[:n_runs])[:b]
+        hits = np.zeros(b)
+    else:
+        raise ValueError(kind)
+    return apply_batch(rng, keys, hits.astype(np.uint32), now, dev)
 
 
 def decide_limits(rng, before: np.ndarray, after: np.ndarray) -> np.ndarray:
@@ -310,15 +363,20 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prime_trace()
-        for _ in range(iters):
-            fn()
-            torch.cuda.synchronize()
-    by_name: dict = {}
-    for name, us in device_activities(prof):
-        by_name.setdefault(name, []).append(us)
-    per_call = {name: round(len(durations) / iters) for name, durations in by_name.items()}
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime_trace()
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+        by_name: dict = {}
+        for name, us in device_activities(prof):
+            by_name.setdefault(name, []).append(us)
+        per_call = {name: round(len(durations) / iters) for name, durations in by_name.items()}
+        if any(per_call.values()):
+            break
+        # the tracer has come back empty now and then: trace again
+        log(f"device_ms: trace {attempt} held no device activity that recurs in each of {iters} calls")
     check(any(per_call.values()), f"no device activity recurs in each of {iters} calls")
     for name, n in per_call.items():
         if len(by_name[name]) != n * iters:
@@ -454,11 +512,60 @@ def phase_parity(M, dev) -> dict:
             check(e == 0, f"decide differs from its plain version at b={b} near_ratio={ratio}")
             check(bool((want.throttle_millis != 0).any()) or ratio == 1.0, "decide parity batch has no paced item")
             err["decide"] = max(err["decide"], e)
+    apply_scan_parity(M, dev, err)
     log(
         f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan also at lanes in (128, 1024);"
         f" decided apply (full, lean) and decide at near_ratio in {NEAR_RATIOS}"
     )
     return err
+
+
+def apply_forms(M, ops, now: int, limit, label: str, err: dict, forms=APPLY_FORMS) -> None:
+    """Each named form of the apply kernel against its plain version on the
+    same operands, every output bit for bit; the errors go into `err`
+    under the form's launch-counter name."""
+    K = M.K
+    for form in forms:
+        name, kw = APPLY_FORM_ARGS[form]
+        if "decide" in kw:
+            kw = {**kw, "s_limit": limit}
+        got = K.slab_apply(*ops, now, **kw)
+        want = K.slab_apply_plain(*ops, now, **kw)
+        torch.cuda.synchronize()
+        check(len(got) == len(want), f"apply {form} returned {len(got)} planes, its plain version {len(want)}")
+        e = max_abs_err(got, want)
+        check(e == 0, f"apply {form} differs from its plain version on {label}")
+        err[name] = max(err[name], e)
+
+
+def apply_scan_parity(M, dev, err: dict) -> None:
+    """The apply kernel's chained tile scan against the plain version in
+    every form (after, after with the sketch weight, decided, lean): at the
+    sizes of APPLY_SIZES, on one segment across every tile of 2^20 items,
+    on a batch whose sum wraps 2^32 several times with segments starting
+    right after each wrap, and on all-zero hits; then the 2^20 full and
+    lean forms on APPLY_REPEATS fresh seeds, since a look-back race would
+    show only now and then."""
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    cases = [(f"b={b}", lambda b=b: apply_inputs(rng, b, NOW0, dev)) for b in APPLY_SIZES]
+    cases += [
+        (f"{kind} b=2^20", lambda kind=kind: scan_edge_inputs(rng, kind, DECIDED_BATCH, NOW0, dev))
+        for kind in ("one_key", "wraps", "zero_hits")
+    ]
+    for label, make in cases:
+        ops = make()
+        before, after = (t.cpu().numpy().view(np.uint32) for t in M.K.slab_apply_plain(*ops, NOW0)[:2])
+        limit = i32(decide_limits(rng, before, after), dev)
+        apply_forms(M, ops, NOW0, limit, label, err)
+    for seed in range(APPLY_REPEATS):
+        r = np.random.default_rng(1000 + seed)
+        ops, limit, _dec = decide_inputs(M, r, DECIDED_BATCH, NOW0, dev)
+        apply_forms(M, ops, NOW0, limit, f"2^20 seed {1000 + seed}", err, forms=("decided", "lean"))
+    log(
+        f"apply scan parity: every form bit-exact at b in {APPLY_SIZES}, on {[c[0] for c in cases[len(APPLY_SIZES):]]},"
+        f" and decided/lean on {APPLY_REPEATS} fresh 2^20 seeds ({time.perf_counter() - t0:.1f} s)"
+    )
 
 
 def zipf_keys(rng, n: int, n_keys: int = 1 << 20, s: float = 1.1) -> np.ndarray:
@@ -1221,6 +1328,22 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
     return rows
 
 
+def ptxas_entries(text: str, kernel: str) -> list:
+    """`nvcc -Xptxas -v`'s report for each compiled entry whose mangled name
+    holds `kernel`: registers, barriers, shared memory, stack and spills,
+    one string an entry. Empty when the library came from an earlier
+    build."""
+    out, cur = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = [line.split("'")[1]] if kernel in line else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and ("spill" in line or "Used" in line):
+            cur.append(line.split(" : ", 1)[-1].strip())
+    return [" | ".join(c) for c in out]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1246,6 +1369,7 @@ def main() -> int:
     srcs = [os.path.basename(p) for p in K.sources()]
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {K.BUILD_LOG.get('seconds', 0.0):.1f} s) from {srcs}")
     log(K.BUILD_LOG.get("ptxas", "").strip())
+    log("apply kernel ptxas:", json.dumps(ptxas_entries(K.BUILD_LOG.get("ptxas", ""), "slab_apply_kernel")))
 
     errs = phase_parity(M, dev)
     engine = phase_engine(M, dev)
