@@ -149,9 +149,11 @@ def decide(before, after, hits, limit, divider, now: int, near_ratio) -> DecideR
 def packbits(mask: torch.Tensor) -> torch.Tensor:
     """numpy.packbits of a 1-D mask on its own device: uint8[b / 8], each
     byte big-endian (item 8k in bit 7). Any nonzero element is a set bit.
-    Needs b % 8 == 0 (every launch bucket is a power of two >= 128)."""
+    Needs b % 8 == 0 (every launch bucket is a power of two >= 128). The
+    bit weights are made on the device: a host tensor copied there would
+    synchronize the stream on every call."""
     if mask.dim() != 1 or mask.shape[0] % 8:
         raise ValueError(f"packbits needs a 1-D mask with b % 8 == 0, got {tuple(mask.shape)}")
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=mask.device)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=mask.device)
     bits = (mask != 0).view(-1, 8).to(torch.int32)
-    return (bits * weights).sum(dim=1).to(torch.uint8)
+    return (bits << shifts).sum(dim=1).to(torch.uint8)

@@ -20,11 +20,11 @@ each viewed as `[n_sets, ways]` with ways = min(slab ways, lanes). A key lives
 only in set `fp_lo & (n_sets - 1)`. Counts are read signed, as the reference
 reads them: a lane is occupied iff its int32 count is > 0.
 
-The scan (match way, victim) is the kernel (ops/sketch_kernels.py, CUDA in
-csrc/sketch_kernels.cu). Phases A and B stay plain torch ops, as XLA owned
-them on the TPU, and stay sync-free: no boolean-mask compaction; writes that
-must not land go to a scratch lane past the last. The host copy HostTopK of
-the reference belongs to the mesh engine, which is not ported yet.
+On the card the whole update - the scan, phase A and phase B - is one
+kernel launch (ops/sketch_kernels.py sketch_update_fused, CUDA in
+csrc/sketch_kernels.cu); on the CPU its plain version runs the same steps
+as torch ops. The host copy HostTopK of the reference belongs to the mesh
+engine, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,10 +32,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .sketch_kernels import SKETCH_PLANES, sketch_scan
-from .slab_kernels import _M32, _u32, _wrap32, resolve_device
-
-PLANE_FP_LO, PLANE_FP_HI, PLANE_COUNT = range(SKETCH_PLANES)
+from .sketch_kernels import (
+    PLANE_COUNT,
+    PLANE_FP_HI,
+    PLANE_FP_LO,
+    SKETCH_PLANES,
+    sketch_update_fused,
+)
+from .slab_kernels import resolve_device
 
 # one warp-strided set of head keys on the card: a top-16 report with 8x
 # slack for churn, one sketch set at the default 128-way geometry
@@ -94,67 +98,7 @@ def sketch_update(
     ways: int,
 ) -> torch.Tensor:
     """One launch's sketch update (module docstring); returns new planes."""
-    lanes = planes.shape[1]
-    n_sets = lanes // ways
-    dev = planes.device
-    set_idx = (fp_lo & (n_sets - 1)).long()
-    m_way, m_any, v_way, v_cnt = sketch_scan(planes, fp_lo, fp_hi, ways)
-    w_u = _u32(weight)
-
-    # phase A: matched candidates accumulate in place. A fingerprint holds
-    # at most one lane of its set and candidates are distinct keys, so the
-    # landing lanes are unique; the rest add 0 to the scratch lane `lanes`.
-    matched = m_any & cand
-    add_lane = torch.where(matched, set_idx * ways + m_way.long(), lanes)
-    cnt = torch.cat([_u32(planes[PLANE_COUNT]), w_u.new_zeros(1)])
-    cnt.index_add_(0, add_lane, torch.where(matched, w_u, 0))
-    cnt_a = cnt[:lanes] & _M32
-
-    # phase B: one winner per set among unmatched candidates, ranked by
-    # (weight, fp_hi, fp_lo) unsigned through three masked segment maxima
-    # over {0} and the set's candidates (unique: candidates are distinct).
-    # Dense (b, n_sets) reductions, as in the reference: n_sets is 1 at the
-    # default geometry, where a scatter-max would send every row's atomic
-    # to the same address.
-    unmatched = cand & ~m_any
-    onehot = set_idx[:, None] == torch.arange(n_sets, device=dev)[None, :]
-
-    def seg_max(mask, vals):
-        return torch.where(mask[:, None] & onehot, vals[:, None], 0).amax(dim=0)
-
-    hi_u, lo_u = _u32(fp_hi), _u32(fp_lo)
-    w_max = seg_max(unmatched, w_u)
-    w_ok = unmatched & (w_u == w_max[set_idx])
-    h_max = seg_max(w_ok, hi_u)
-    h_ok = w_ok & (hi_u == h_max[set_idx])
-    l_max = seg_max(h_ok, lo_u)
-
-    # the write is per set: the victim (first way at the minimum of the
-    # PRE-launch signed counts) takes the winner, whose count overwrites
-    # any phase-A add to that lane with victim count + weight. The scan
-    # gave every item its set's victim, so scattering them by set lands
-    # equal values; a set without items has no winner, so its (unwritten)
-    # entries are masked out below.
-    vic_way = torch.empty(n_sets, dtype=torch.int32, device=dev)
-    vic_way.index_put_((set_idx,), v_way)
-    vic_cnt = torch.empty(n_sets, dtype=torch.int32, device=dev)
-    vic_cnt.index_put_((set_idx,), v_cnt)
-    vic_cnt = _u32(vic_cnt)
-    win_exists = w_max > 0
-    way_iota = torch.arange(ways, device=dev)
-    win_mask = (
-        (way_iota[None, :] == vic_way[:, None]) & win_exists[:, None]
-    ).reshape(lanes)
-    lo_plane = torch.where(
-        win_mask, l_max.repeat_interleave(ways), _u32(planes[PLANE_FP_LO])
-    )
-    hi_plane = torch.where(
-        win_mask, h_max.repeat_interleave(ways), _u32(planes[PLANE_FP_HI])
-    )
-    cnt_plane = torch.where(
-        win_mask, ((vic_cnt + w_max) & _M32).repeat_interleave(ways), cnt_a
-    )
-    return _wrap32(torch.stack([lo_plane, hi_plane, cnt_plane])).to(torch.int32)
+    return sketch_update_fused(planes, fp_lo, fp_hi, weight, cand, ways)
 
 
 # --- host-side drain helpers (numpy copies of the reference's) ---------------

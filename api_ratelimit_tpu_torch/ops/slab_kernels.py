@@ -14,14 +14,14 @@ with torch ops. This module holds the slab step's two:
     slab_apply  <- pallas_slab_apply(decide=False), and with decide=True
                    (lean=True) the fused INCRBY+decide forms
 
-(the sketch scan's wrapper is ops/sketch_kernels.py, the standalone
-decide's ops/decide.py, whose decision math the fused apply shares through
-csrc/decide.cuh, and the compare/select micro-benchmark's two kernels'
-ops/select_kernels.py). A wrapper runs the
-plain version only because the tensors it was given lie on the CPU; for
-CUDA tensors it launches the kernel or raises. Each wrapper counts its
-launches in LAUNCHES, so a run can show that it went through the kernel.
-Nothing here imports or builds anything CUDA at import time.
+(the sketch's two wrappers, the fused update and the standalone scan, are
+in ops/sketch_kernels.py, the standalone decide's in ops/decide.py, whose
+decision math the fused apply shares through csrc/decide.cuh, and the
+compare/select micro-benchmark's two kernels' in ops/select_kernels.py). A
+wrapper runs the plain version only because the tensors it was given lie
+on the CPU; for CUDA tensors it launches the kernel or raises. Each wrapper
+counts its launches in LAUNCHES, so a run can show that it went through the
+kernel. Nothing here imports or builds anything CUDA at import time.
 
 The row layout the kernels read is defined here (ops/slab.py re-exports
 it); csrc/slab_kernels.cu mirrors the same constants.
@@ -93,6 +93,7 @@ LAUNCHES = {
     "way_scan": 0,
     "slab_apply": 0,
     "sketch_scan": 0,
+    "sketch_update": 0,
     "slab_apply_decide": 0,
     "slab_apply_lean": 0,
     "decide": 0,
@@ -214,6 +215,12 @@ def build() -> ctypes.CDLL:
         lib.rl_slab_apply_decide.restype = ci
         lib.rl_sketch_scan.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.rl_sketch_scan.restype = ci
+        lib.rl_sketch_update_scratch_bytes.argtypes = [ci, ci, ci]
+        lib.rl_sketch_update_scratch_bytes.restype = ctypes.c_longlong
+        lib.rl_sketch_update_smem_bytes.argtypes = [ci, ci]
+        lib.rl_sketch_update_smem_bytes.restype = ctypes.c_longlong
+        lib.rl_sketch_update.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        lib.rl_sketch_update.restype = ci
         lib.rl_decide.argtypes = [vp] * 5 + [ci, ci, cf] + [vp] * 7
         lib.rl_decide.restype = ci
         for fn in (lib.rl_sel, lib.rl_chain):

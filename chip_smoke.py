@@ -13,7 +13,12 @@ Phases, each of which must pass (nothing is caught):
            tiers, one-set contention, padding lanes, counts >= 2^31); the
            sketch scan at sketch W in {4, 128} and lanes in {128, 1024} on
            adversarial planes (empty lanes, count ties, counts >= 2^31,
-           fp-0 padding queries); the decided apply (full and lean) and the
+           fp-0 padding queries); the fused sketch update on the same
+           geometries at b in {1, 1000, the buckets, 2^20} and at (8192
+           lanes, W 4) and (4096 lanes, W 1) at the top bucket, with set 0
+           forced (its victim lane matched, top-weight and fp_hi ties),
+           wrapped-zero weights and runs without a candidate, its input
+           planes unwritten; the decided apply (full and lean) and the
            standalone decide at near_ratio in {0.0, 0.8, 1.0}, with limits
            that put items under the near threshold, between it and the
            limit, crossing the limit, all over, at the f32 edge below 2^32,
@@ -32,36 +37,47 @@ Phases, each of which must pass (nothing is caught):
            whose three kernels are swapped for their plain versions;
            afters, table bytes, health, sketch planes and every drained
            top-K must be identical, and a sketch-off engine (slice 1's
-           step) must give the same afters and table. Prints the 65536-item
-           submit_rows medians with the sketch on and off.
+           step) must give the same afters and table. Each sketch-on
+           submit launches the fused sketch update once and the standalone
+           scan never. Prints the 65536-item submit_rows medians with the
+           sketch on and off, and one profiled submit of each: the
+           sketch-on one may run at most 8 device activities more, each
+           named.
 4. serve   two servers (device="cuda", 2^22 slots) with a two-rule config
            built from a mapping answer /json requests that cross a limit:
            200 then 429, bodies equal to the same stream served on the CPU.
            First slice 1's arm (sketch off, trie walk into do_limit): the
            slab kernels' launch counters must rise and the sketch scan's
            stay 0. Then the default-settings server (hotkeys on, host fast
-           path), with the same bodies: all three counters must rise. A
+           path), with the same bodies: way_scan, slab_apply and
+           sketch_update must rise together, one each a launch. A
            stats flush drains the sketch, and GET /debug/hotkeys on the
            debug server must equal the CPU server's document and name the
            hot descriptor.
 5. decided the engine benchmark's decided tier (bench.py bench_engine_zipf)
-           on the port: a 2^23-slot table (256 MiB), W=128, 33 host operands
-           of 2^20 items from its 10M-key Zipf(1.1) stream (seed 0, its
-           murmur3 fingerprints), 1 hit, limit 100, divider 1, one `now`,
-           near_ratio 0.8. A warm-up launch, then 32 timed launches of
-           slab_step_decided, each over-limit mask packed to 1 bit on the
-           card and read back at the end: decisions/s on the host clock
-           (H2D of every operand included). The 33 x 2^20 codes against the
+           on the port: a 2^23-slot table (256 MiB), W=128, 33 blocks of
+           2^20 ids from its 10M-key Zipf(1.1) stream (seed 0), 1 hit, limit
+           100, divider 1, one `now`, near_ratio 0.8. As the reference
+           times it: the ids staged on the card as int32 before timing,
+           expanded there to its murmur3 fingerprints (checked bit for bit
+           against the host operand's), _slab_step_sorted with the lean
+           fused apply, the codes unsorted and the OVER bits packed on the
+           card; a warm-up step, then 32 timed to one synchronize
+           (decisions/s), the bit readback timed apart. Beside it the host
+           operand stream of slab_step_decided (each uint32[7, 2^20]
+           operand uploaded inside the timed loop, readback included) with
+           the same OVER bits and health. The 33 x 2^20 codes against the
            exact oracle: false_over must be 0 and false_ok at most drops +
            100 x live evictions. Beside it, a second table through the plain
            versions for the first 4 blocks: codes, health and table bytes
            identical. Then slab_step_packed on one 65536 block against the
            plain versions (all 9 rows, health, table), its decision rows
            against the standalone decide kernel, and slab_update_and_decide
-           against the plain versions. Launch counters: the decided step
-           runs way_scan and slab_apply_lean once per launch and no other
-           apply; the packed step slab_apply_decide once. One profiled step
-           gives the device-busy share and the top device items.
+           against the plain versions. Launch counters: each stream runs
+           way_scan and slab_apply_lean once per step and no other apply;
+           the packed step slab_apply_decide once. One profiled staged step
+           gives the device-busy share and the top device items, and must
+           hold no host-to-device copy.
 6. compare the compare/select micro-benchmark's two kernels, sel and
    paths   chain, bit-exact against their plain versions at b = 2^20 (full
            range with INT_MIN, INT_MAX, 2^30 +- 1, 2^29 +- 1; the tool's own
@@ -85,10 +101,14 @@ Phases, each of which must pass (nothing is caught):
            launched while another was in flight, and one profiled batch's
            device busy share.
 8. report  per-kernel median device times (torch.profiler) and CUDA-event
-           call times, bounds and launches as one JSON line (the three
+           call times, bounds and launches as one JSON line (the sketch
+           update over a real served step's candidates; the way scan also
+           at the decided phase's b = 2^20 over its table; the three
            decision kernels at the decided phase's b = 2^20, sel and chain
-           at the tool's), the card's name and power limit, then the ok
-           line.
+           at the tool's); the standalone sketch scan, now on no path, on a
+           line of its own, with the parent's two-kernel sketch update
+           (scan kernel + torch phases) timed beside the fused kernel; the
+           card's name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -96,6 +116,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.client
 import json
@@ -118,6 +139,7 @@ SOURCES = {
     "way_scan": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "slab_apply": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "sketch_scan": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
+    "sketch_update": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
     "slab_apply_decide": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "slab_apply_lean": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "decide": "api_ratelimit_tpu_torch/csrc/decide_kernels.cu",
@@ -128,6 +150,7 @@ REPLACES = {
     "way_scan": "api_ratelimit_tpu/ops/pallas_slab.py:312",
     "slab_apply": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "sketch_scan": "api_ratelimit_tpu/ops/sketch.py:148",
+    "sketch_update": "api_ratelimit_tpu/ops/sketch.py:148",
     "slab_apply_decide": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "slab_apply_lean": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "decide": "api_ratelimit_tpu/ops/pallas_decide.py:120",
@@ -146,6 +169,12 @@ APPLY_FORM_ARGS = {
     "lean": ("slab_apply_lean", {"decide": True, "lean": True, "near_ratio": 0.8}),
 }
 APPLY_FORMS = tuple(APPLY_FORM_ARGS)
+# the fused sketch update's parity: one item, a batch that is not a multiple
+# of its 512-item blocks, the buckets and the decided batch
+SKETCH_UPDATE_SIZES = (1, 1000, *BUCKETS, 1 << 20)
+# (lanes, ways) beyond the served geometry, at the top bucket: planes too large
+# to stage in shared memory, and 4096 one-way sets (shared memory by opt-in)
+SKETCH_UPDATE_WIDE = ((8192, 4), (4096, 1))
 # the decided phase: bench.py bench_engine_zipf's shapes on the card
 DECIDED_SLOTS = 1 << 23  # 256 MiB of rows
 DECIDED_BATCH = 1 << 20
@@ -359,6 +388,23 @@ def device_ms(fn, iters: int = 20) -> float:
     times a call, and a trace that drops a record (prime_trace) still gives
     the median. The host time of the Python wrapper around a launch is not
     in it: call_ms measures that."""
+    return summed_ms(*traced_calls(fn, iters))
+
+
+def summed_ms(per_call: dict, by_name: dict) -> float:
+    """traced_calls' activities summed at their median durations, in ms."""
+    return sum(n * float(np.median(by_name[name])) for name, n in per_call.items()) / 1e3
+
+
+def activities_per_call(fn, iters: int = 20) -> int:
+    """The device activities one call runs, counted as device_ms counts
+    them, so a dropped record does not change the count."""
+    return sum(traced_calls(fn, iters)[0].values())
+
+
+def traced_calls(fn, iters: int) -> tuple[dict, dict]:
+    """torch.profiler over `iters` synchronized calls of fn after a warm-up:
+    ({activity name: runs a call}, {activity name: [microseconds]})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -381,7 +427,7 @@ def device_ms(fn, iters: int = 20) -> float:
     for name, n in per_call.items():
         if len(by_name[name]) != n * iters:
             log(f"device_ms: {name[:60]} traced {len(by_name[name])} times in {iters} calls")
-    return sum(n * float(np.median(by_name[name])) for name, n in per_call.items()) / 1e3
+    return per_call, by_name
 
 
 def call_ms(fn, iters: int = 20) -> float:
@@ -409,14 +455,14 @@ def plain_kernels(M):
     of the engine phase. Fails unless the block launched no kernel, so the
     reference can never be the kernels."""
     K, S, SKK, SKT = M.K, M.S, M.SKK, M.SKT
-    saved = S.way_scan, S.slab_apply, SKT.sketch_scan
+    saved = S.way_scan, S.slab_apply, SKT.sketch_update_fused
     before = dict(K.LAUNCHES)
     S.way_scan, S.slab_apply = K.way_scan_plain, K.slab_apply_plain
-    SKT.sketch_scan = SKK.sketch_scan_plain
+    SKT.sketch_update_fused = SKK.sketch_update_plain
     try:
         yield
     finally:
-        S.way_scan, S.slab_apply, SKT.sketch_scan = saved
+        S.way_scan, S.slab_apply, SKT.sketch_update_fused = saved
     check(K.LAUNCHES == before, f"the plain engine launched kernels: {before} -> {K.LAUNCHES}")
 
 
@@ -455,6 +501,47 @@ def sketch_queries(rng, planes: np.ndarray, b: int):
     return lo, hi
 
 
+def sketch_update_inputs(rng, lanes: int, ways: int, b: int):
+    """One launch's sketch update operands over the adversarial planes of
+    sketch_planes: a batch of runs of distinct keys (resident fingerprints,
+    occupied or not, and new ones), each run's last item the candidate (a
+    tenth of the runs have none); weights small (ties), up to 2^32 - 1 and
+    0 (a wrapped segment sum). From b >= 8 on, set 0 is forced: its lanes
+    occupied, its victim lane holding the first candidate's key (the
+    matched lane is the victim), and two new keys tied on the top weight
+    and fp_hi. Returns (planes, fp_lo, fp_hi, weight) as uint32 numpy and
+    cand as bool numpy."""
+    planes = sketch_planes(rng, lanes, ways)
+    n_keys = max(1, b // 3)
+    pick = rng.integers(0, lanes, n_keys)
+    lo, hi = planes[0, pick].copy(), planes[1, pick].copy()
+    new = rng.random(n_keys) < 0.5
+    lo[new] = rng.integers(0, 1 << 32, int(new.sum()), dtype=np.uint64)
+    hi[new] = rng.integers(0, 1 << 32, int(new.sum()), dtype=np.uint64)
+    _, first = np.unique((lo.astype(np.uint64) << np.uint64(32)) | hi, return_index=True)
+    lo, hi = lo[np.sort(first)], hi[np.sort(first)]
+    item_key = np.sort(rng.integers(0, lo.size, b))
+    lo, hi = lo[item_key], hi[item_key]
+    cand = np.r_[item_key[1:] != item_key[:-1], True] & (rng.random(b) < 0.9)
+    weight = np.select(
+        [rng.random(b) < 0.1, rng.random(b) < 0.2],
+        [np.uint64(0), rng.integers(1 << 31, 1 << 32, b, dtype=np.uint64)],
+        rng.integers(1, 4, b, dtype=np.uint64),
+    ).astype(np.uint32)
+    if b >= 8:
+        n_sets = lanes // ways
+        planes[2, :ways] = rng.integers(10, 1000, ways)
+        victim = 1 % ways
+        planes[2, victim] = 3
+        new_lo = (rng.integers(1 << 20, 1 << 31, 2, dtype=np.uint64) * np.uint64(n_sets)) & np.uint64(0xFFFFFFFF)
+        lo[:3] = [planes[0, victim], new_lo[0], new_lo[1]]
+        hi[:3] = [planes[1, victim], 0xFFFFFFF0, 0xFFFFFFF0]
+        weight[:3] = [7, 0xFFFFFFFF, 0xFFFFFFFF]
+        cand[:3] = True
+        cand[3:][(lo[3:] == lo[0]) & (hi[3:] == hi[0])] = False  # the keys stay distinct
+    return planes, lo, hi, weight, cand
+
+
 def phase_parity(M, dev) -> dict:
     K, SKK = M.K, M.SKK
     rng = np.random.default_rng(1)
@@ -491,6 +578,21 @@ def phase_parity(M, dev) -> dict:
                 check(e == 0, f"sketch_scan differs from its plain version at b={b} W={ways} lanes={lanes}")
                 check(bool(want[1].any()) and not bool(want[1].all()), "sketch parity batch lacks matches or misses")
                 err["sketch_scan"] = max(err["sketch_scan"], e)
+    sketch_cases = [(lanes, ways, b) for lanes in (128, 1024) for ways in (4, 128) for b in SKETCH_UPDATE_SIZES]
+    sketch_cases += [(lanes, ways, BUCKETS[-1]) for lanes, ways in SKETCH_UPDATE_WIDE]
+    for lanes, ways, b in sketch_cases:
+        planes, lo, hi, weight, cand = sketch_update_inputs(rng, lanes, ways, b)
+        args = (i32(planes, dev), i32(lo, dev), i32(hi, dev), i32(weight, dev), torch.from_numpy(cand).to(dev), ways)
+        got = SKK.sketch_update_fused(*args)
+        want = SKK.sketch_update_plain(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [want])
+        check(e == 0, f"sketch_update differs from its plain version at b={b} W={ways} lanes={lanes}")
+        check(same(args[0], i32(planes, dev)), "sketch_update wrote its input planes")
+        if b >= 8:
+            victim = 1 % ways
+            check(int(want[2, victim]) == 3 + 0xFFFFFFFF - (1 << 32), f"the forced victim lane was not taken at b={b} W={ways} lanes={lanes}")
+        err["sketch_update"] = max(err["sketch_update"], e)
     D = M.D
     for b in BUCKETS:
         ops, limit, dec_ops = decide_inputs(M, rng, b, NOW0, dev)
@@ -514,7 +616,8 @@ def phase_parity(M, dev) -> dict:
             err["decide"] = max(err["decide"], e)
     apply_scan_parity(M, dev, err)
     log(
-        f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan also at lanes in (128, 1024);"
+        f"parity: bit-exact at buckets {BUCKETS}, W in (4, 128); sketch scan and update also at lanes in (128, 1024),"
+        f" the update at b in {SKETCH_UPDATE_SIZES};"
         f" decided apply (full, lean) and decide at near_ratio in {NEAR_RATIOS}"
     )
     return err
@@ -616,8 +719,8 @@ def phase_engine(M, dev):
             t0 = time.perf_counter()
             timed[name] = eng.submit_rows(block)
             t1 = time.perf_counter()
-            ran = {k: K.LAUNCHES[k] > before[k] for k in before}
-            want_ran = dict.fromkeys(before, False) | {"way_scan": True, "slab_apply": True, "sketch_scan": name == "sketch_on"}
+            ran = {k: K.LAUNCHES[k] - before[k] for k in before}
+            want_ran = dict.fromkeys(before, 0) | {"way_scan": 1, "slab_apply": 1, "sketch_update": int(name == "sketch_on")}
             check(ran == want_ran, f"{name} engine launched {ran} at launch {i}, expected {want_ran}")
             if n == top:
                 launch_ms[name].append((t1 - t0) * 1e3)
@@ -646,6 +749,7 @@ def phase_engine(M, dev):
     check(hk["decisions"] == sum(sizes), "decision count is off")
     block = key_block(zipf_keys(rng, top))
     profiles = {name: profile_submit(eng, block) for name, eng in (("sketch_on", eng_k), ("sketch_off", eng_off))}
+    sketch_share = sketch_activities(eng_k, eng_off, block)
     out = {
         "n_slots": N_SLOTS,
         "ways": eng_k.ways,
@@ -662,7 +766,35 @@ def phase_engine(M, dev):
     }
     log("engine:", json.dumps(out))
     log("profile:", json.dumps(profiles))
+    log("sketch share of a 65536-item submit (5 traced submits):", json.dumps(sketch_share))
     return eng_k
+
+
+# the sketch's device activities in one served submit beyond the sketch-off
+# step's: the fused kernel, its scratch memset and the few ops forming the
+# candidate mask (ops/slab.py)
+SKETCH_EXTRA_ACTIVITIES = 8
+
+
+def sketch_activities(eng_on, eng_off, block: np.ndarray, iters: int = 5) -> dict:
+    """The sketch's share of a 65536-item submit: the device activities a
+    submit runs and their device ms (device_ms's counting over `iters`
+    traced submits, so a dropped record changes nothing) with the sketch
+    on and off, and the activities the sketch-on submit runs beyond the
+    sketch-off one, by name. Fails if they are more than
+    SKETCH_EXTRA_ACTIVITIES."""
+    (on, on_us), (off, off_us) = (traced_calls(lambda e=e: e.submit_rows(block), iters) for e in (eng_on, eng_off))
+    extra = collections.Counter(on) - collections.Counter(off)
+    share = {
+        "activities_on": sum(on.values()),
+        "activities_off": sum(off.values()),
+        "device_ms_on": summed_ms(on, on_us),
+        "device_ms_off": summed_ms(off, off_us),
+        "extra": sorted((name[:60], n) for name, n in extra.items()),
+    }
+    n_extra = sum(extra.values())
+    check(n_extra <= SKETCH_EXTRA_ACTIVITIES, f"the sketch-on submit ran {n_extra} activities beyond the sketch-off one: {share['extra']}")
+    return share
 
 
 def profile_submit(engine, block: np.ndarray) -> dict:
@@ -673,20 +805,27 @@ def profile_submit(engine, block: np.ndarray) -> dict:
 def profile_call(fn) -> dict:
     """torch.profiler over one warm call of fn: host wall time (synchronized,
     profiler overhead included), the summed device time of its kernels and
-    copies, the device's busy share of that wall time, the count of device
-    activities, and the kernels and host ops that take the most time."""
+    copies and of its host-to-device copies alone, the device's busy share
+    of that wall time, the count of device activities, and the kernels and
+    host ops that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prime_trace()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = device_activities(prof)
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime_trace()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = device_activities(prof)
+        if acts:
+            break
+        # the tracer has come back empty now and then: trace again
+        log(f"profile_call: trace {attempt} held no device activity")
     check(bool(acts), "the profiler recorded no device activity")
+    htod_ms = sum(us for name, us in acts if "HtoD" in name) / 1e3
     by_name: dict = {}
     for name, us in acts:
         ms, n = by_name.get(name[:60], (0.0, 0))
@@ -698,6 +837,7 @@ def profile_call(fn) -> dict:
         "device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "device_activities": len(acts),
+        "htod_ms": htod_ms,
         "top_device_ms": sorted(([k, ms, n] for k, (ms, n) in by_name.items()), key=lambda r: -r[1])[:10],
         "top_host_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in by_host],
     }
@@ -794,13 +934,14 @@ def phase_serve(K) -> dict:
     want_statuses = [200, 200, 200, 429, 429, 200] + [200] * 10
 
     # slice 1's arm (sketch off, trie walk into do_limit): both slab
-    # kernels launch, the sketch scan never does
+    # kernels launch, the sketch's never do
     K.reset_launch_counts()
     got1, _, stats1 = serve("cuda", bodies, defaults=False)
     launches1 = dict(K.LAUNCHES)
     want1, _, _ = serve("cpu", bodies, defaults=False)
     check(
-        launches1["way_scan"] > 0 and launches1["slab_apply"] > 0 and launches1["sketch_scan"] == 0,
+        launches1["way_scan"] > 0 and launches1["slab_apply"] > 0
+        and launches1["sketch_update"] == 0 and launches1["sketch_scan"] == 0,
         f"slice 1's arm launched {launches1}",
     )
     check([s for s, _ in got1] == want_statuses, f"unexpected slice-1 statuses {[s for s, _ in got1]}")
@@ -813,7 +954,12 @@ def phase_serve(K) -> dict:
     got, hot_doc, stats = serve("cuda", bodies)
     launches = dict(K.LAUNCHES)
     want, want_doc, _ = serve("cpu", bodies)
-    check(all(launches[k] > 0 for k in ("way_scan", "slab_apply", "sketch_scan")), f"main path skipped a kernel: {launches}")
+    check(all(launches[k] > 0 for k in ("way_scan", "slab_apply", "sketch_update")), f"main path skipped a kernel: {launches}")
+    # one sketch update a launch, and the standalone scan never
+    check(
+        launches["sketch_update"] == launches["way_scan"] == launches["slab_apply"] and launches["sketch_scan"] == 0,
+        f"the served launches do not run one sketch update each: {launches}",
+    )
     statuses = [s for s, _ in got]
     check(statuses == want_statuses, f"unexpected statuses {statuses}")
     check(got == want, "card and CPU responses differ")
@@ -871,6 +1017,51 @@ def decided_operand(ids: np.ndarray, now: int) -> np.ndarray:
     return p
 
 
+def fmix32_dev(x: torch.Tensor) -> torch.Tensor:
+    """fmix32 on the card over int64 values in [0, 2^32). Each multiply by
+    a 32-bit constant is split at bit 16, so no product exceeds 2^49 and
+    nothing relies on how the card wraps an overflowing multiply; the
+    result is masked to 32 bits."""
+
+    def mul(v, c):
+        return (v * (c & 0xFFFF) + (((v * (c >> 16)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+    x = x ^ (x >> 16)
+    x = mul(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = mul(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def expand_ids(S, ids: torch.Tensor):
+    """bench_step's expand() on the card: staged int32 ids (uint32 bits) ->
+    the device SlabBatch of decided_operand's rows 0-5: fp_lo = fmix32(id),
+    fp_hi = fmix32(id ^ 0x9E3779B9), 1 hit, limit 100, divider 1 (SECOND),
+    no jitter."""
+    x = ids.long() & 0xFFFFFFFF
+
+    def as_i32(v):
+        return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+    ones = torch.ones_like(ids)
+    return S.SlabBatch(
+        as_i32(fmix32_dev(x)), as_i32(fmix32_dev(x ^ 0x9E3779B9)), ones,
+        torch.full_like(ids, DECIDED_LIMIT), ones, torch.zeros_like(ids),
+    )
+
+
+def staged_step(M, state, ids: torch.Tensor, now: int):
+    """bench_step on the port: expand staged ids on the card, run
+    _slab_step_sorted with the lean fused apply, unsort the codes and pack
+    the OVER bits on the card. Returns (uint8[b / 8] bits, int64[5] health),
+    both on the card."""
+    S, D = M.S, M.D
+    _before, _after, d, order, health = S._slab_step_sorted(
+        state, expand_ids(S, ids), now, 0.8, DECIDED_WAYS, lean=True
+    )
+    return D.packbits(S._unsort(d.code, order) == D.CODE_OVER_LIMIT), health
+
+
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit equality of two tensors of one dtype and shape (uint32 through
     its int32 view, which torch compares everywhere)."""
@@ -879,11 +1070,13 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_decided(M, dev) -> tuple[dict, dict]:
+def phase_decided(M, dev) -> tuple[dict, dict, dict]:
     """The decided tier of bench_engine_zipf on the port (module docstring,
     phase 5). Returns (summary, launch counts for the kernels line: the
-    lean apply's from the decided stream, the full apply's and decide's
-    from the packed step)."""
+    lean apply's from the staged stream, the full apply's and decide's from
+    the packed step; the way scan's operands at this shape: the stream's
+    table, one staged block's fingerprints and its launches in the staged
+    stream)."""
     K, S, D, O = M.K, M.S, M.D, M.O
     t_phase = time.perf_counter()
     ways, now, limit = DECIDED_WAYS, NOW0, DECIDED_LIMIT
@@ -913,29 +1106,63 @@ def phase_decided(M, dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     t_twin = time.perf_counter() - t_phase - t_gen
 
-    # the stream: one warm-up launch, then 32 timed, through the kernels
-    state = S.make_slab(DECIDED_SLOTS, device=dev)
+    # the host-operand stream (slice 3's measure): one warm-up launch, then
+    # 32 timed, each numpy operand uploaded inside the timed loop
+    state_h = S.make_slab(DECIDED_SLOTS, device=dev)
     K.reset_launch_counts()
-    codes, health = S.slab_step_decided(state, ops[0], ways=ways)
-    healths, bits = [health], [over_bits(codes)]
+    codes, health = S.slab_step_decided(state_h, ops[0], ways=ways)
+    healths_h, bits = [health], [over_bits(codes)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for op in ops[1:]:
-        codes, health = S.slab_step_decided(state, op, ways=ways)
-        healths.append(health)
+        codes, health = S.slab_step_decided(state_h, op, ways=ways)
+        healths_h.append(health)
         bits.append(over_bits(codes))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     host_bits = torch.cat(bits).cpu().numpy()
     t2 = time.perf_counter()
-    decided_launches = dict(K.LAUNCHES)
+    host_launches = dict(K.LAUNCHES)
     n_launch = len(ops)
     want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": n_launch, "slab_apply_lean": n_launch}
-    check(decided_launches == want, f"the decided stream launched {decided_launches}, expected {want}")
+    check(host_launches == want, f"the host-operand stream launched {host_launches}, expected {want}")
     check(np.array_equal(host_bits[: twin_bits.size], twin_bits), "the stream's first blocks differ from the twin check's kernel table")
+    del state_h, codes, bits
+    torch.cuda.empty_cache()
 
-    rep = O.parity_report(stream.reshape(-1), np.unpackbits(host_bits), limit=limit, code_over=1)
+    # the reference tier's quantity (bench.py bench_engine_zipf run_path):
+    # the u32 ids staged on the card before timing and expanded there; the
+    # launch chain timed to one synchronize, the bit readback apart
+    staged = [torch.from_numpy(block.view(np.int32)).to(dev) for block in stream]
+    first = expand_ids(S, staged[0])
+    check(
+        np.array_equal(first.fp_lo.cpu().numpy().view(np.uint32), ops[0][S.ROW_FP_LO])
+        and np.array_equal(first.fp_hi.cpu().numpy().view(np.uint32), ops[0][S.ROW_FP_HI]),
+        "the card's id expansion differs from decided_operand's fingerprints",
+    )
+    del first
+    state = S.make_slab(DECIDED_SLOTS, device=dev)
+    K.reset_launch_counts()
+    bits_dev, health = staged_step(M, state, staged[0], now)
+    healths, bits = [health], [bits_dev]
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    for block in staged[1:]:
+        bits_dev, health = staged_step(M, state, block, now)
+        healths.append(health)
+        bits.append(bits_dev)
+    torch.cuda.synchronize()
+    s1 = time.perf_counter()
+    staged_bits = torch.cat(bits).cpu().numpy()
+    s2 = time.perf_counter()
+    decided_launches = dict(K.LAUNCHES)
+    check(decided_launches == want, f"the staged stream launched {decided_launches}, expected {want}")
+    check(np.array_equal(staged_bits, host_bits), "the staged stream's OVER bits differ from the host-operand stream's")
+    del bits
+
+    rep = O.parity_report(stream.reshape(-1), np.unpackbits(staged_bits), limit=limit, code_over=1)
     h = [int(v) for v in torch.stack(healths).sum(dim=0).tolist()]
+    check(h == [int(v) for v in torch.stack(healths_h).sum(dim=0).tolist()], "the staged stream's health differs from the host-operand stream's")
     ev_live, drops = h[S.HEALTH_EVICT_LIVE], h[S.HEALTH_DROPS]
     explained = rep["false_ok"] <= drops + ev_live * limit
     check(rep["false_over"] == 0, f"decided stream false_over {rep['false_over']}")
@@ -981,18 +1208,23 @@ def phase_decided(M, dev) -> tuple[dict, dict]:
     del plain
     torch.cuda.empty_cache()
 
-    prof = profile_call(lambda: S.slab_step_decided(state, ops[1], ways=ways))
+    # the staged step's profile: no operand upload, no host-to-device copy
+    prof = profile_call(lambda: staged_step(M, state, staged[1], now))
+    check(prof["htod_ms"] < 0.1, f"the staged step copied {prof['htod_ms']:.3f} ms host to device")
     timed = n_launch - 1
     out = {
         "n_slots": DECIDED_SLOTS,
         "ways": ways,
         "batch": DECIDED_BATCH,
         "launches_timed": timed,
-        "decisions_per_s": timed * DECIDED_BATCH / (t2 - t0),
-        "step_ms_mean": (t1 - t0) * 1e3 / timed,
-        "readback_ms": (t2 - t1) * 1e3,
+        "decisions_per_s": timed * DECIDED_BATCH / (s1 - s0),
+        "step_ms_mean": (s1 - s0) * 1e3 / timed,
+        "readback_ms": (s2 - s1) * 1e3,
+        "decisions_per_s_host_operand": timed * DECIDED_BATCH / (t2 - t0),
+        "step_ms_mean_host_operand": (t1 - t0) * 1e3 / timed,
+        "readback_ms_host_operand": (t2 - t1) * 1e3,
         "device_busy_share_profiled": prof["device_busy_share"],
-        "device_busy_share_timed": timed * prof["device_ms"] / ((t1 - t0) * 1e3),
+        "device_busy_share_timed": timed * prof["device_ms"] / ((s1 - s0) * 1e3),
         "parity": {**rep, "explained": explained},
         "health": dict(zip(("evict_expired", "evict_window", "evict_live", "drops", "algo_resets"), h)),
         "live_slots": live,
@@ -1004,17 +1236,21 @@ def phase_decided(M, dev) -> tuple[dict, dict]:
     }
     log(
         f"decided: false_over {rep['false_over']} explained {str(explained).lower()} agreement {rep['agreement']}"
-        f" decisions/s {out['decisions_per_s']:.0f} phase {out['phase_s']:.1f} s"
+        f" decisions/s {out['decisions_per_s']:.0f} (staged ids) {out['decisions_per_s_host_operand']:.0f} (host operands)"
+        f" phase {out['phase_s']:.1f} s"
     )
     log("decided:", json.dumps(out))
-    log("decided launches:", json.dumps({"decided_stream": decided_launches, "packed_step": packed_launches}))
+    log("decided launches:", json.dumps({"staged_stream": decided_launches, "host_operand_stream": host_launches, "packed_step": packed_launches}))
     log("decided profile:", json.dumps(prof))
     launches = {
         "slab_apply_lean": decided_launches["slab_apply_lean"],
         "slab_apply_decide": packed_launches["slab_apply_decide"],
         "decide": packed_launches["decide"],
     }
-    return out, launches
+    # the way scan at this shape: the stream's table and one staged block
+    probe = expand_ids(S, staged[1])
+    scan = {"table": state.table, "fp_lo": probe.fp_lo, "fp_hi": probe.fp_hi, "launches": decided_launches["way_scan"]}
+    return out, launches, scan
 
 
 def select_inputs(rng, n: int) -> np.ndarray:
@@ -1199,7 +1435,7 @@ def phase_windowed(M, dev) -> dict:
         batches, overlapped = arm_batches(name, eng)
         batches -= batches0
         overlapped -= overlapped0
-        want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": batches, "slab_apply": batches, "sketch_scan": batches}
+        want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": batches, "slab_apply": batches, "sketch_update": batches}
         check(launches == want, f"{name}: launches {launches} against {batches} batches")
         counts = check_counts(eng, stream[:, :n_req], name)
         mean_batch = n_req / batches
@@ -1234,17 +1470,42 @@ def phase_windowed(M, dev) -> dict:
     return out
 
 
-def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
+def served_sketch_args(M, engine, rng) -> tuple:
+    """The fused sketch update's operands in one real served step: one
+    65536-item Zipf submit through the engine, its call recorded (the
+    sorted fingerprints, the apply's segment weights, the candidate mask)."""
+    SKT = M.SKT
+    fused, seen = SKT.sketch_update_fused, []
+
+    def record(*args):
+        seen.append(args)
+        return fused(*args)
+
+    SKT.sketch_update_fused = record
+    try:
+        engine.submit_rows(key_block(zipf_keys(rng, BUCKETS[-1])))
+    finally:
+        SKT.sketch_update_fused = fused
+    check(len(seen) == 1, f"one submit ran {len(seen)} sketch updates")
+    return seen[0]
+
+
+def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict) -> tuple[list, list]:
     """Times at each path's largest shape: the served path's b = 65536, W =
     128, over the engine phase's populated 2^22-slot table and 128-lane
-    sketch; the decision kernels at the decided phase's b = 2^20; sel and
-    chain at the tool's b = 2^20 on its first input. ms, plain_ms and
-    library_ms are median device times (device_ms); call_ms and
-    plain_call_ms are CUDA-event medians around one call (call_ms). No
-    single PyTorch call computes the way scan, the sketch scan, the
-    decision, sel or chain (torch.where(x > NOW, x, -x) is three
-    launches), so they have no library time; the applies' yardstick is the
-    torch.cumsum of their hits, the first of their two scans."""
+    sketch (the sketch update over a real step's sorted candidates); the
+    way scan also at the decided phase's b = 2^20 over its 2^23-slot table;
+    the decision kernels at the decided phase's b = 2^20; sel and chain at
+    the tool's b = 2^20 on its first input. ms, plain_ms and library_ms are
+    median device times (device_ms); call_ms and plain_call_ms are
+    CUDA-event medians around one call (call_ms). No single PyTorch call
+    computes the way scan, the sketch's kernels, the decision, sel or chain
+    (torch.where(x > NOW, x, -x) is three launches), so they have no
+    library time; the applies' yardstick is the torch.cumsum of their
+    hits, the first of their two scans, not the same function. Returns
+    (the kernels line's rows, one per kernel of a path; the standalone
+    sketch scan's row: off every path since the fused update took its
+    place, it is timed at the served shape)."""
     K, SKK, D = M.K, M.SKK, M.D
     rng = np.random.default_rng(3)
     b, ways = BUCKETS[-1], 128
@@ -1253,20 +1514,24 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
     now = NOW0 + 200
     planes = engine._sketch
     ops = apply_inputs(rng, b, now, dev)
-    # name -> (kernel call, plain call, plain iterations, library call)
+    sk = served_sketch_args(M, engine, rng)
+    big_table, big_lo, big_hi = decided_scan["table"], decided_scan["fp_lo"], decided_scan["fp_hi"]
+    big = big_lo.shape[0]
+    # label -> (kernel call, plain call, plain iterations, library call)
     calls = {
         "way_scan": (
             lambda: K.way_scan(table, lo, hi, now, ways), lambda: K.way_scan_plain(table, lo, hi, now, ways), 5, None,
+        ),
+        "way_scan_decided": (
+            lambda: K.way_scan(big_table, big_lo, big_hi, NOW0, DECIDED_WAYS),
+            lambda: K.way_scan_plain(big_table, big_lo, big_hi, NOW0, DECIDED_WAYS), 3, None,
         ),
         "slab_apply": (
             lambda: K.slab_apply(*ops, now), lambda: K.slab_apply_plain(*ops, now), 20,
             lambda: torch.cumsum(ops[2], dim=0),
         ),
-        "sketch_scan": (
-            lambda: SKK.sketch_scan(planes, lo, hi, ways), lambda: SKK.sketch_scan_plain(planes, lo, hi, ways), 20, None,
-        ),
+        "sketch_update": (lambda: SKK.sketch_update_fused(*sk), lambda: SKK.sketch_update_plain(*sk), 20, None),
     }
-    big = DECIDED_BATCH
     big_ops, limit, dec_ops = decide_inputs(M, rng, big, now, dev)
     for name, lean in (("slab_apply_decide", False), ("slab_apply_lean", True)):
         kw = {"s_limit": limit, "near_ratio": 0.8, "decide": True, "lean": lean}
@@ -1279,53 +1544,93 @@ def kernel_report(M, engine, dev, launches: dict, errs: dict) -> list:
     x_sel = torch.from_numpy(tool_input(SELECT_BATCH)).to(dev)
     calls["sel"] = (lambda: M.SEL.sel(x_sel), lambda: M.SEL.sel_plain(x_sel), 20, None)
     calls["chain"] = (lambda: M.SEL.chain(x_sel), lambda: M.SEL.chain_plain(x_sel), 20, None)
-    served = f"b={b}, W={ways}, {table.shape[0]}-slot table"
+    calls["sketch_scan"] = (
+        lambda: SKK.sketch_scan(planes, lo, hi, ways), lambda: SKK.sketch_scan_plain(planes, lo, hi, ways), 20, None,
+    )
+    lanes = sk[0].shape[1]
     shape = {
-        "way_scan": served,
+        "way_scan": f"b={b}, W={ways}, {table.shape[0]}-slot table",
+        "way_scan_decided": f"b={big}, W={DECIDED_WAYS}, {big_table.shape[0]}-slot table",
         "slab_apply": f"b={b}",
-        "sketch_scan": f"b={b}, W={ways}, {planes.shape[1]} lanes",
+        "sketch_update": f"b={sk[1].shape[0]}, W={sk[5]}, {lanes} lanes, {int(sk[4].sum())} candidates",
         "slab_apply_decide": f"b={big}",
         "slab_apply_lean": f"b={big}",
         "decide": f"b={big}",
         "sel": f"b={SELECT_BATCH}",
         "chain": f"b={SELECT_BATCH}",
+        "sketch_scan": f"b={b}, W={ways}, {planes.shape[1]} lanes",
     }
+
+    def sets_read(tbl, fp_lo, w):
+        return int(torch.unique(fp_lo & (tbl.shape[0] // w - 1)).numel())
+
     # way scan: each distinct set is read once (Zipf traffic repeats
-    # sets), plus the per-item queries and outputs; sketch scan: the 8-byte
-    # query in and 13 bytes out per item, the planes read once; the applies:
-    # 5 (decided 6) int32 planes, the seg_start byte and 5 stored-row words
-    # in, 4 (decided 10, lean 5) planes out; decide: 5 planes in, 6 out
-    n_sets = table.shape[0] // ways
-    sets_read = int(torch.unique(lo & (n_sets - 1)).numel())
+    # sets), plus the per-item queries and outputs; sketch update: fp_lo,
+    # fp_hi, weight and the cand byte per item, the planes read once and
+    # written once; sketch scan: the 8-byte query in and 13 bytes out per
+    # item, the planes read once; the applies: 5 (decided 6) int32 planes,
+    # the seg_start byte and 5 stored-row words in, 4 (decided 10, lean 5)
+    # planes out; decide: 5 planes in, 6 out
     nbytes = {
-        "way_scan": sets_read * ways * 32 + b * (8 + 4 + 1 + 32),
+        "way_scan": sets_read(table, lo, ways) * ways * 32 + b * (8 + 4 + 1 + 32),
+        "way_scan_decided": sets_read(big_table, big_lo, DECIDED_WAYS) * DECIDED_WAYS * 32 + big * (8 + 4 + 1 + 32),
         "slab_apply": b * (5 * 4 + 1 + 5 * 4 + 4 * 4),
-        "sketch_scan": b * (8 + 13) + planes.numel() * 4,
+        "sketch_update": sk[1].shape[0] * (4 + 4 + 4 + 1) + 2 * sk[0].numel() * 4,
         "slab_apply_decide": big * (6 * 4 + 1 + 5 * 4 + 10 * 4),
         "slab_apply_lean": big * (6 * 4 + 1 + 5 * 4 + 5 * 4),
         "decide": big * (5 * 4 + 6 * 4),
         "sel": SELECT_BATCH * (4 + 4),
         "chain": SELECT_BATCH * (4 + 4),
+        "sketch_scan": b * (8 + 13) + planes.numel() * 4,
     }
+    kernel_launches = launches | {"way_scan_decided": decided_scan["launches"]}
     rows = []
-    for name, (kernel, plain, plain_iters, library) in calls.items():
+    for label, (kernel, plain, plain_iters, library) in calls.items():
+        name = "way_scan" if label == "way_scan_decided" else label
         rows.append({
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "shape": shape[name],
-            "launches": launches[name],
+            "shape": shape[label],
+            "launches": kernel_launches[label],
             "max_abs_err": errs[name],
             "ms": device_ms(kernel),
             "plain_ms": device_ms(plain, iters=plain_iters),
-            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": nbytes[label] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None if library is None else device_ms(library),
             "call_ms": call_ms(kernel),
             "plain_call_ms": call_ms(plain, iters=plain_iters),
         })
-    return rows
+    log("sketch update, the parent's two-kernel form beside the fused kernel:", json.dumps(two_kernel_sketch(M, sk)))
+    standalone = [row for row in rows if row["name"] == "sketch_scan"]
+    return [row for row in rows if row["name"] != "sketch_scan"], standalone
+
+
+def two_kernel_sketch(M, sk: tuple) -> dict:
+    """The served sketch update as it ran before the fused kernel, on the
+    same operands: the standalone scan kernel, then phases A and B as torch
+    ops (sketch_update_plain with scan=sketch_scan). Its device ms and activities beside the fused kernel's, and its
+    glue: its device ms less the scan's. It must give the fused planes."""
+    SKK = M.SKK
+
+    def two_kernel():
+        return SKK.sketch_update_plain(*sk, scan=SKK.sketch_scan)
+
+    check(same(two_kernel(), SKK.sketch_update_fused(*sk)), "the two-kernel sketch update differs from the fused kernel")
+    planes, lo, hi, _weight, _cand, ways = sk
+    out = {
+        "two_kernel_ms": device_ms(two_kernel),
+        "two_kernel_call_ms": call_ms(two_kernel),
+        "two_kernel_activities": activities_per_call(two_kernel),
+        "scan_ms": device_ms(lambda: SKK.sketch_scan(planes, lo, hi, ways)),
+        "fused_ms": device_ms(lambda: SKK.sketch_update_fused(*sk)),
+        "fused_call_ms": call_ms(lambda: SKK.sketch_update_fused(*sk)),
+        "fused_activities": activities_per_call(lambda: SKK.sketch_update_fused(*sk)),
+    }
+    out["glue_ms"] = out["two_kernel_ms"] - out["scan_ms"]
+    return out
 
 
 def ptxas_entries(text: str, kernel: str) -> list:
@@ -1374,10 +1679,12 @@ def main() -> int:
     errs = phase_parity(M, dev)
     engine = phase_engine(M, dev)
     launches = phase_serve(K)
-    _decided, decided_launches = phase_decided(M, dev)
+    _decided, decided_launches, decided_scan = phase_decided(M, dev)
     select_errs, select_launches = phase_compare_paths(M, dev)
     phase_windowed(M, dev)
-    kernels = kernel_report(M, engine, dev, launches | decided_launches | select_launches, errs | select_errs)
+    kernels, standalone = kernel_report(
+        M, engine, decided_scan, dev, launches | decided_launches | select_launches, errs | select_errs
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1385,6 +1692,7 @@ def main() -> int:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(smi.stdout.strip())
+    log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

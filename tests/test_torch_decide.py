@@ -418,3 +418,33 @@ def test_smoke_stream_is_the_engine_benchmarks():
     assert np.array_equal(chip_smoke.zipf_ids(1000, 256, 3, seed=0), bench.zipf_ids(1000, 256, 3, seed=0))
     x = np.random.default_rng(90).integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
     assert np.array_equal(chip_smoke.fmix32(x), bench.fmix32_np(x))
+
+
+def test_smoke_staged_step_is_the_host_operand_step():
+    """chip_smoke.py's staged decided step (ids expanded by torch ops, as
+    the reference's bench_step expands them on the device) gives
+    decided_operand's fingerprints bit for bit, over the whole uint32
+    range, and the same OVER bits and health as slab_step_decided on the
+    host operand, launch after launch."""
+    import types
+
+    import chip_smoke
+
+    rng = np.random.default_rng(91)
+    ids = rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
+    ids[:4] = [0, 1, 0x9E3779B9, 0xFFFFFFFF]
+    batch = chip_smoke.expand_ids(T, torch.from_numpy(ids.view(np.int32)))
+    want = chip_smoke.decided_operand(ids, NOW0)
+    for row, got in zip(want[:6], batch):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy().view(np.uint32), row)
+    M = types.SimpleNamespace(S=T, D=D)
+    staged, host = T.make_slab(1 << 12, device="cpu"), T.make_slab(1 << 12, device="cpu")
+    for _ in range(3):
+        block = np.minimum(rng.zipf(1.2, 1024), 300).astype(np.uint32)
+        bits, health = chip_smoke.staged_step(M, staged, torch.from_numpy(block.view(np.int32)), NOW0)
+        codes, want_health = T.slab_step_decided(host, chip_smoke.decided_operand(block, NOW0), ways=chip_smoke.DECIDED_WAYS)
+        assert torch.equal(bits, D.packbits(codes == D.CODE_OVER_LIMIT))
+        assert torch.equal(health, want_health)
+    assert torch.equal(staged.table, host.table)
+    assert bool((codes == D.CODE_OVER_LIMIT).any())

@@ -230,12 +230,18 @@ def test_wrappers_validate_and_count_no_cpu_launch():
     with pytest.raises(ValueError):
         SK.sketch_scan(planes[:2].contiguous(), q, q, 4)
     SK.sketch_scan(planes, q, q, 4)
+    cand = torch.ones(8, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        SK.sketch_update_fused(planes, q, q, q, cand.int(), 4)  # cand must be bool
+    with pytest.raises(ValueError):
+        SK.sketch_update_fused(planes, q, q, q[:4], cand, 4)
+    SK.sketch_update_fused(planes, q, q, q, cand, 4)
     from api_ratelimit_tpu_torch.ops import select_kernels as SEL
 
     SEL.sel(q)
     SEL.chain(q)
     assert K.LAUNCHES == {
-        "way_scan": 0, "slab_apply": 0, "sketch_scan": 0,
+        "way_scan": 0, "slab_apply": 0, "sketch_scan": 0, "sketch_update": 0,
         "slab_apply_decide": 0, "slab_apply_lean": 0, "decide": 0,
         "sel": 0, "chain": 0,
     }
