@@ -30,6 +30,30 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 using rl::add_wrap;
 
+// 16 bytes global -> shared memory by cp.async (L2 only). A thread's copies
+// land in groups: copy_async_commit closes one, copy_async_wait_group<N>
+// waits until at most N of the thread's latest groups are in flight, and
+// copy_async_wait commits and waits for all.
+__device__ __forceinline__ void copy_async16(int4* smem, const int4* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  copy_async_commit();
+  copy_async_wait_group<0>();
+}
+
 // ---------------------------------------------------------------------------
 // Way scan. Replaces api_ratelimit_tpu/ops/pallas_slab.py pallas_way_scan
 // (_way_scan_kernel), and with it the XLA set gather and picked-row select
@@ -41,14 +65,47 @@ using rl::add_wrap;
 // [way_bits, 2*way_bits)), the chosen way (first match, else argmin score),
 // the matched flag, and the chosen way's stored row.
 //
-// Bound on this card: the set bytes read, W * 32 B per item (4 KiB at
-// W=128, 268 MB for a 65536-item launch, ~80 us at 3.35 TB/s). The design
-// reads each set straight from the table (set = fp_lo & (n_sets-1)), so the
-// (b, W, 8) gathered intermediate of the reference never exists: one warp
-// per item, lane l takes ways l, l+32, ...; a warp's 32 lanes read 32
-// neighbouring 32-byte rows (1 KiB contiguous) per step; any-match,
-// first-match way and argmin score reduce with warp shuffles. Works for
-// any power-of-two W.
+// Bound on this card: bytes. Each distinct set the batch touches is read
+// once (W * 32 B), and an item moves 45 B of its own (8 B of query in; the
+// way, the flag and the 32-byte picked row out); chip_smoke.py
+// kernel_report counts the same. Zipf traffic repeats sets: the decided
+// stream's 2^20 items touch nearly all 65536 sets of its 2^23-slot table,
+// so there the bound is close to reading the 268 MB table once (~0.094 ms
+// at 3.35 TB/s).
+//
+// Two forms, one op. The wrapper (ops/slab_kernels.py way_scan_form) picks
+// one by a rule on the shapes alone (b, n_sets, W), stated there and in
+// PERF.md:
+//  - per item (way_scan_kernel): one warp an item reads the item's set
+//    straight from the table; lane l takes ways l, l+32, ..., a warp step
+//    reads 1 KiB of neighbouring rows, and any-match, first-match way and
+//    argmin score reduce with warp shuffles. It fetches a set once for
+//    every item that maps to it: where the touched sets fit the 50 MB L2
+//    (the served 65536-item batch) that costs little, but the decided
+//    stream's items reach ~16 a set scattered through the batch over a
+//    table five times the L2, ~4 GB of set traffic for ~0.3 GB of work.
+//  - set-major (set_count_kernel, set_offset_kernel, set_scatter_kernel,
+//    way_scan_set_kernel, after one memset): a counting sort on the card
+//    groups the items by set, then each warp takes 32 consecutive grouped
+//    items and reads each distinct set among them once into shared memory,
+//    the next run's set by cp.async while it scans the current one. The
+//    set's query-free part (liveness, tier, capped count) reduces once to
+//    the mask of ways that attain the minimal (tier, count) key; an item
+//    then takes its first live tag match (one ballot per 32 ways) or else
+//    the first way of that mask at or after pref, cyclically, which is the
+//    argmin since the rotation only breaks ties. A hot set spans many
+//    warps, each re-reading the same rows from L2, so no warp serializes
+//    the hot key's items. Every grid is sized from b and n_sets, and
+//    nothing synchronizes with the host, so a CUDA graph can capture the
+//    op.
+//  Routing (way_scan_form): set-major where W <= 256 and either b >= 2^20,
+//  or b >= 2^18 with b >= 4 x n_sets; per item elsewhere, as at the served
+//  65536-item batch (tools/way_scan_forms.py's sweep, PERF.md).
+//  What holds the set-major form above its bound (tools/way_scan_variants.py,
+//  PERF.md): not the set bytes but the per-item memory operations at
+//  random addresses that grouping costs: the histogram's atomics, the
+//  scatter's record writes and the scan's way, flag and row stores in
+//  arrival order, ~40 B an item in all.
 // ---------------------------------------------------------------------------
 
 constexpr int kScanWarpsPerBlock = 8;
@@ -116,6 +173,322 @@ way_scan_kernel(const int4* __restrict__ table, const int* __restrict__ fp_lo,
     picked_out[static_cast<long long>(item) * kRowWidth + lane] =
         rows[(set_row + way) * kRowWidth + lane];
   }
+}
+
+// The set-major form. Its scratch (set_major_scratch_bytes): one record a
+// grouped item (item index, fp_lo, fp_hi; 16 B), each item's rank within
+// its set, a counter a set, and the running total the offsets claim.
+constexpr int kGroupThreads = 256;  // the grouping kernels' blocks
+// the scan stages a set in shared memory twice a warp: see set_scan_warps
+constexpr int kSetMajorMaxWays = 256;
+
+// 1. Histogram: counts[set] gains the items of each set, and each item
+// gets its rank among them. A block takes kCountItems items and counts
+// them per set in a shared-memory hash of the sets it holds (the lanes of
+// a warp that share a set first add together, __match_any_sync), then adds
+// each set's total to its counter with one atomic and hands its items
+// ranks after the base that atomic returns. A Zipf batch puts ~9% of its
+// items on one set: with one atomic a set a warp, that counter took ~3 x
+// 10^4 serialized atomics at 2^20 items (PERF.md); here it takes one a
+// block.
+constexpr int kCountPerThread = 4;
+constexpr int kCountItems = kGroupThreads * kCountPerThread;  // 1024 a block
+constexpr int kCountSlotBits = 11;  // 2048 slots: at most half full
+constexpr int kCountSlots = 1 << kCountSlotBits;
+constexpr unsigned kEmptySlot = 0xffffffffu;  // no set id: n_sets <= 2^31
+
+__global__ void __launch_bounds__(kGroupThreads)
+set_count_kernel(const int* __restrict__ fp_lo, int b, unsigned set_mask,
+                 int* __restrict__ counts, int* __restrict__ rank) {
+  __shared__ unsigned slot_set[kCountSlots];
+  __shared__ int slot_count[kCountSlots];  // the block's items of the set, then their base
+  for (int j = threadIdx.x; j < kCountSlots; j += kGroupThreads) {
+    slot_set[j] = kEmptySlot;
+    slot_count[j] = 0;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long i0 = static_cast<long long>(blockIdx.x) * kCountItems + threadIdx.x;
+  int slot[kCountPerThread], local[kCountPerThread];
+#pragma unroll
+  for (int k = 0; k < kCountPerThread; ++k) {
+    const long long i = i0 + k * kGroupThreads;
+    const unsigned active = __ballot_sync(kFullMask, i < b);
+    slot[k] = -1;
+    if (i < b) {
+      const unsigned set = static_cast<unsigned>(fp_lo[i]) & set_mask;
+      const unsigned peers = __match_any_sync(active, set);
+      const int leader = __ffs(peers) - 1;
+      int h = 0;
+      int base = 0;
+      if (lane == leader) {
+        h = static_cast<int>((set * 0x9E3779B1u) >> (32 - kCountSlotBits));
+        for (;;) {  // linear probing; the block holds at most 1024 sets
+          const unsigned old = atomicCAS(slot_set + h, kEmptySlot, set);
+          if (old == kEmptySlot || old == set) break;
+          h = (h + 1) & (kCountSlots - 1);
+        }
+        base = atomicAdd(slot_count + h, __popc(peers));
+      }
+      slot[k] = __shfl_sync(active, h, leader);
+      local[k] = __shfl_sync(active, base, leader) + __popc(peers & ((1u << lane) - 1u));
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kCountSlots; j += kGroupThreads) {
+    const unsigned set = slot_set[j];
+    if (set != kEmptySlot) slot_count[j] = atomicAdd(counts + set, slot_count[j]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCountPerThread; ++k) {
+    if (slot[k] >= 0) rank[i0 + k * kGroupThreads] = slot_count[slot[k]] + local[k];
+  }
+}
+
+// 2. Offsets: counts[set] becomes the set's first position among the
+// grouped items. A block scans its 256 counters and claims their span with
+// one atomicAdd on `total`, so the sets' segments lie in the order the
+// blocks claimed them: any order serves, since an item's answer depends
+// only on its own set.
+__global__ void __launch_bounds__(kGroupThreads)
+set_offset_kernel(int* __restrict__ counts, int n_sets, int* __restrict__ total) {
+  __shared__ int warp_sum[kGroupThreads / 32];
+  __shared__ int block_base;
+  const long long s = static_cast<long long>(blockIdx.x) * kGroupThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int c = s < n_sets ? counts[s] : 0;
+  int incl = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) warp_sum[wid] = incl;
+  __syncthreads();
+  int before_warp = 0;
+  int sum = 0;
+#pragma unroll
+  for (int w = 0; w < kGroupThreads / 32; ++w) {
+    if (w < wid) before_warp += warp_sum[w];
+    sum += warp_sum[w];
+  }
+  if (threadIdx.x == 0) block_base = atomicAdd(total, sum);
+  __syncthreads();
+  if (s < n_sets) counts[s] = block_base + before_warp + incl - c;
+}
+
+// 3. Scatter: item i's record to its place in its set's segment.
+__global__ void __launch_bounds__(kGroupThreads)
+set_scatter_kernel(const int* __restrict__ fp_lo, const int* __restrict__ fp_hi,
+                   int b, unsigned set_mask, const int* __restrict__ offsets,
+                   const int* __restrict__ rank, int4* __restrict__ records) {
+  const long long i = static_cast<long long>(blockIdx.x) * kGroupThreads + threadIdx.x;
+  if (i >= b) return;
+  const int lo = fp_lo[i];
+  const unsigned set = static_cast<unsigned>(lo) & set_mask;
+  records[offsets[set] + rank[i]] = make_int4(static_cast<int>(i), lo, fp_hi[i], 0);
+}
+
+// The first way at or after `pref`, cyclically, whose bit is set in the
+// W-bit mask held as NW words (W < 32: the low W bits of one word). The
+// mask is never empty: some way attains the minimum.
+template <int NW>
+__device__ __forceinline__ int first_way_from(const unsigned (&mask)[NW], int pref) {
+  const int pw = pref >> 5;
+  const int pb = pref & 31;
+#pragma unroll
+  for (int c = 0; c <= NW; ++c) {
+    const int q = (pw + c) & (NW - 1);
+    unsigned word = 0u;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) word = k == q ? mask[k] : word;
+    if (c == 0) word &= ~0u << pb;        // pref's word from pref on
+    if (c == NW) word &= (1u << pb) - 1u;  // and at last below pref
+    if (word) return q * 32 + __ffs(word) - 1;
+  }
+  return 0;
+}
+
+// 4. The scan over the grouped items: warp j of block t takes items
+// t * tile + 32 j ... + 31, one a lane. A run of lanes that share a set is
+// scanned together: the set's W rows (NW = max(1, W / 32) ways a lane,
+// lane l taking ways l, l + 32, ...) are read once into shared memory. A
+// warp double-buffers them: while it scans one run, cp.async brings the
+// next run's set, so a set's DRAM latency overlaps the previous run's work.
+
+// warps a scan block: two W-row buffers a warp, 32 KiB a block at W = 128
+// (4 warps) and at W = 256 (2 warps), under the 48 KiB a launch takes
+// without opt-in
+__host__ __device__ constexpr int set_scan_warps(int nw) { return nw >= 8 ? 2 : 4; }
+
+// a warp's copy of one set's W rows (2W int4) into `rows`
+__device__ __forceinline__ void stage_set(int4* rows, const int4* table, unsigned set,
+                                          int ways, int lane) {
+  const int4* src = table + static_cast<long long>(set) * ways * 2;
+  for (int v = lane; v < 2 * ways; v += 32) copy_async16(rows + v, src + v);
+  copy_async_commit();
+}
+
+template <int NW>
+__global__ void __launch_bounds__(set_scan_warps(NW) * 32)
+way_scan_set_kernel(const int4* __restrict__ table, const int4* __restrict__ records,
+                    int b, unsigned set_mask, int ways, int way_bits, int now,
+                    int* __restrict__ way_out, unsigned char* __restrict__ matched_out,
+                    int* __restrict__ picked_out) {
+  constexpr int kTile = set_scan_warps(NW) * 32;
+  extern __shared__ int4 set_rows[];  // a warp: two buffers of W rows, 2 int4 a row
+  const int lane = threadIdx.x & 31;
+  int4* const bufs = set_rows + (threadIdx.x >> 5) * 4 * ways;
+  const long long pos = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
+  const unsigned valid = __ballot_sync(kFullMask, pos < b);
+  if (valid == 0u) return;  // uniform: the warp lies past the batch
+  const int4 rec = pos < b ? records[pos] : make_int4(0, 0, 0, 0);
+  const unsigned set = static_cast<unsigned>(rec.y) & set_mask;
+  const unsigned prev = __shfl_up_sync(kFullMask, set, 1);
+  unsigned todo = __ballot_sync(kFullMask, pos < b && (lane == 0 || set != prev));
+  const int n_valid = __popc(valid);  // the valid lanes are a prefix
+  const int pref = static_cast<int>((static_cast<unsigned>(rec.z) >> way_bits) &
+                                    static_cast<unsigned>(ways - 1));
+  const unsigned count_cap = (1u << (kScoreTierShift - way_bits)) - 1u;
+  int my_way = 0;
+  bool my_match = false;
+  int buf = 0;
+  stage_set(bufs, table, __shfl_sync(kFullMask, set, __ffs(todo) - 1), ways, lane);
+  while (todo) {
+    const int a = __ffs(todo) - 1;  // the run is lanes [a, e)
+    todo &= todo - 1u;
+    const int e = todo ? __ffs(todo) - 1 : n_valid;
+    if (todo) {  // the next run's set, while this one is scanned
+      stage_set(bufs + (buf ^ 1) * 2 * ways, table,
+                __shfl_sync(kFullMask, set, __ffs(todo) - 1), ways, lane);
+      copy_async_wait_group<1>();
+    } else {
+      copy_async_wait_group<0>();
+    }
+    __syncwarp();  // every lane's copies of this run's set have landed
+    const int4* rows = bufs + buf * 2 * ways;
+
+    // the query-free part, once a set: each way's (tier, capped count) key
+    int tag_lo[NW], tag_hi[NW], key[NW];
+    unsigned live_bits = 0u;
+    int key_min = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      const int w = lane + 32 * k;
+      key[k] = INT_MAX;
+      tag_lo[k] = 0;
+      tag_hi[k] = 0;
+      if (w < ways) {
+        const int4 lo = rows[2 * w];      // fp_lo, fp_hi, count, window
+        const int4 hi = rows[2 * w + 1];  // expire, divider, prev, aux
+        const bool live = hi.x > now;
+        const int div = hi.y & kAlgoDivMask;
+        const bool ended = live && div > 0 && add_wrap(lo.w, div) <= now;
+        const unsigned cnt = min(static_cast<unsigned>(lo.z), count_cap);
+        const int tier = live ? (ended ? 1 : 2) : 0;
+        key[k] = (tier << kScoreTierShift) | (live ? static_cast<int>(cnt << way_bits) : 0);
+        tag_lo[k] = lo.x;
+        tag_hi[k] = lo.y;
+        live_bits |= static_cast<unsigned>(live) << k;
+        key_min = min(key_min, key[k]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      key_min = min(key_min, __shfl_xor_sync(kFullMask, key_min, off));
+    }
+    unsigned min_mask[NW];  // the ways that attain the minimal key
+#pragma unroll
+    for (int k = 0; k < NW; ++k) min_mask[k] = __ballot_sync(kFullMask, key[k] == key_min);
+
+    // the run's items one at a time: the first live tag match, a ballot
+    // per 32 ways
+    for (int t = a; t < e; ++t) {
+      const int q_lo = __shfl_sync(kFullMask, rec.y, t);
+      const int q_hi = __shfl_sync(kFullMask, rec.z, t);
+      int match = ways;
+#pragma unroll
+      for (int k = NW - 1; k >= 0; --k) {
+        const unsigned hit = __ballot_sync(
+            kFullMask, ((live_bits >> k) & 1u) && tag_lo[k] == q_lo && tag_hi[k] == q_hi);
+        if (hit) match = 32 * k + __ffs(hit) - 1;
+      }
+      if (lane == t) {
+        my_match = match < ways;
+        my_way = match;
+      }
+    }
+    if (lane >= a && lane < e) {
+      if (!my_match) my_way = first_way_from<NW>(min_mask, pref);
+      way_out[rec.x] = my_way;
+      matched_out[rec.x] = my_match ? 1 : 0;
+    }
+    // the run's picked rows from shared memory, 8 words an item
+    const int* words = reinterpret_cast<const int*>(rows);
+    const int n_words = (e - a) * kRowWidth;
+    for (int base = 0; base < n_words; base += 32) {
+      const int idx = base + lane;
+      const int t = a + min(idx, n_words - 1) / kRowWidth;
+      const int w = __shfl_sync(kFullMask, my_way, t);
+      const int item = __shfl_sync(kFullMask, rec.x, t);
+      if (idx < n_words) {
+        picked_out[static_cast<long long>(item) * kRowWidth + (idx & (kRowWidth - 1))] =
+            words[w * kRowWidth + (idx & (kRowWidth - 1))];
+      }
+    }
+    __syncwarp();  // every lane is done with this buffer before it is refilled
+    buf ^= 1;
+  }
+}
+
+long long set_major_scratch_bytes(int b, int n_sets) {
+  return 20LL * b + 4LL * (static_cast<long long>(n_sets) + 4);
+}
+
+// Zeroes the counters on `s` and launches the four kernels over b >= 1
+// items. Returns the first cudaError_t (0 = success).
+int launch_way_scan_set_major(const int4* table, const int* fp_lo, const int* fp_hi,
+                              int b, int n_sets, int ways, int way_bits, int now,
+                              int* way_out, unsigned char* matched_out,
+                              int* picked_out, void* scratch, cudaStream_t s) {
+  if (ways > kSetMajorMaxWays) return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(scratch);
+  int4* records = reinterpret_cast<int4*>(base);
+  int* rank = reinterpret_cast<int*>(base + 16LL * b);
+  int* counts = rank + b;
+  int* total = counts + n_sets;
+  const cudaError_t err = cudaMemsetAsync(
+      counts, 0, (static_cast<size_t>(n_sets) + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned set_mask = static_cast<unsigned>(n_sets - 1);
+  const unsigned count_blocks = static_cast<unsigned>((b + kCountItems - 1) / kCountItems);
+  const unsigned item_blocks = static_cast<unsigned>((b + kGroupThreads - 1) / kGroupThreads);
+  const unsigned set_blocks =
+      static_cast<unsigned>((static_cast<long long>(n_sets) + kGroupThreads - 1) / kGroupThreads);
+  set_count_kernel<<<count_blocks, kGroupThreads, 0, s>>>(fp_lo, b, set_mask, counts, rank);
+  set_offset_kernel<<<set_blocks, kGroupThreads, 0, s>>>(counts, n_sets, total);
+  set_scatter_kernel<<<item_blocks, kGroupThreads, 0, s>>>(fp_lo, fp_hi, b, set_mask, counts,
+                                                           rank, records);
+  const int nw = ways <= 32 ? 1 : ways / 32;
+  const unsigned tiles = static_cast<unsigned>(
+      (static_cast<long long>(b) + set_scan_warps(nw) * 32 - 1) / (set_scan_warps(nw) * 32));
+  const size_t smem = static_cast<size_t>(set_scan_warps(nw)) * 4 * ways * sizeof(int4);
+  if (nw == 1) {
+    way_scan_set_kernel<1><<<tiles, set_scan_warps(1) * 32, smem, s>>>(
+        table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
+  } else if (nw == 2) {
+    way_scan_set_kernel<2><<<tiles, set_scan_warps(2) * 32, smem, s>>>(
+        table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
+  } else if (nw == 4) {
+    way_scan_set_kernel<4><<<tiles, set_scan_warps(4) * 32, smem, s>>>(
+        table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
+  } else {
+    way_scan_set_kernel<8><<<tiles, set_scan_warps(8) * 32, smem, s>>>(
+        table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -353,17 +726,6 @@ constexpr int kWarpRowSlots = 32 * (2 * kApplyItems + 1);
 template <int N>
 __device__ __forceinline__ int row_slot(int row) {
   return 2 * row + row / N;
-}
-
-__device__ __forceinline__ void copy_async16(int4* smem, const int4* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
-                   : "memory");
 }
 
 // Copies the stored rows of the warp's items warp_i0 .. warp_i0 + 32N - 1
@@ -612,6 +974,24 @@ int rl_way_scan(const void* table, const void* fp_lo, const void* fp_hi,
       ways, way_bits, now, static_cast<int*>(way_out),
       static_cast<unsigned char*>(matched_out), static_cast<int*>(picked_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+long long rl_way_scan_scratch_bytes(int b, int n_sets) {
+  return set_major_scratch_bytes(b, n_sets);
+}
+
+// The set-major form of rl_way_scan (ways <= 256): scratch holds
+// rl_way_scan_scratch_bytes(b, n_sets) bytes on the batch's device, 16-byte
+// aligned; its counters are zeroed here on `stream`.
+int rl_way_scan_set_major(const void* table, const void* fp_lo, const void* fp_hi,
+                          int b, int n_sets, int ways, int way_bits, int now,
+                          void* way_out, void* matched_out, void* picked_out,
+                          void* scratch, void* stream) {
+  return launch_way_scan_set_major(
+      static_cast<const int4*>(table), static_cast<const int*>(fp_lo),
+      static_cast<const int*>(fp_hi), b, n_sets, ways, way_bits, now,
+      static_cast<int*>(way_out), static_cast<unsigned char*>(matched_out),
+      static_cast<int*>(picked_out), scratch, static_cast<cudaStream_t>(stream));
 }
 
 long long rl_slab_apply_scratch_bytes(int b) { return apply_scratch_bytes(b); }

@@ -10,7 +10,9 @@ Beside each kernel sits its plain PyTorch version, the same function written
 with torch ops. This module holds the slab step's two:
 
     way_scan    <- pallas_way_scan (plus the set gather and picked-row
-                   select that surrounded it in ops/slab.py _choose_ways)
+                   select that surrounded it in ops/slab.py _choose_ways),
+                   in two forms routed by way_scan_form: per item, or
+                   set-major (items grouped by set on the card)
     slab_apply  <- pallas_slab_apply(decide=False), and with decide=True
                    (lean=True) the fused INCRBY+decide forms
 
@@ -88,7 +90,8 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches made through its wrapper; the apply counts each
-# of its three forms under its own name
+# of its three forms under its own name, the way scan one a call in either
+# of its forms
 LAUNCHES = {
     "way_scan": 0,
     "slab_apply": 0,
@@ -101,14 +104,19 @@ LAUNCHES = {
     "chain": 0,
 }
 
+# way_scan calls by the form that ran on the card (way_scan_form); each
+# also counts once in LAUNCHES["way_scan"]
+WAY_SCAN_FORMS = {"set_major": 0, "per_item": 0}
+
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, WAY_SCAN_FORMS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -207,6 +215,10 @@ def build() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.rl_way_scan.restype = ci
+        lib.rl_way_scan_scratch_bytes.argtypes = [ci, ci]
+        lib.rl_way_scan_scratch_bytes.restype = ctypes.c_longlong
+        lib.rl_way_scan_set_major.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+        lib.rl_way_scan_set_major.restype = ci
         lib.rl_slab_apply_scratch_bytes.argtypes = [ci]
         lib.rl_slab_apply_scratch_bytes.restype = ctypes.c_longlong
         lib.rl_slab_apply.argtypes = [vp] * 7 + [ci, ci] + [vp] * 7
@@ -313,10 +325,43 @@ def way_scan_plain(table, fp_lo, fp_hi, now: int, ways: int):
     return way, matched, picked
 
 
-def way_scan(table, fp_lo, fp_hi, now: int, ways: int):
+# The set-major scan stages two sets a warp in shared memory, 32 KiB a
+# block up to this W (csrc/slab_kernels.cu set_scan_warps,
+# kSetMajorMaxWays); wider sets take the per-item kernel.
+SET_MAJOR_MAX_WAYS = 256
+# The routing rule, from tools/way_scan_forms.py's sweep (PERF.md): grouping
+# costs a fixed ~0.04 ms and pays once enough items share a set, or once
+# the batch is so large that one warp an item is itself the limit.
+SET_MAJOR_MIN_BATCH = 1 << 18
+SET_MAJOR_MIN_ITEMS_PER_SET = 4
+SET_MAJOR_ANY_SETS_BATCH = 1 << 20
+WAY_SCAN_FORM_NAMES = ("set_major", "per_item")
+
+
+def way_scan_form(b: int, n_sets: int, ways: int) -> str:
+    """The form of the way scan that runs on the card for a batch of b
+    items over n_sets sets of `ways` rows: "set_major" where W <= 256 and
+    either b >= 2^20, or b >= 2^18 with at least 4 items a set on average
+    (b >= 4 x n_sets); else "per_item" (PERF.md, way scan routing)."""
+    if ways > SET_MAJOR_MAX_WAYS or b < SET_MAJOR_MIN_BATCH:
+        return "per_item"
+    if b >= SET_MAJOR_ANY_SETS_BATCH or b >= SET_MAJOR_MIN_ITEMS_PER_SET * n_sets:
+        return "set_major"
+    return "per_item"
+
+
+def way_scan(table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None):
     """Per item over its set (`fp_lo & (n_sets - 1)`) of `ways` rows of
     `table` (int32[n_slots, 8]): the chosen way (first live tag match, else
-    the argmin eviction score), the matched flag and the chosen row."""
+    the argmin eviction score), the matched flag and the chosen row.
+
+    On the card the op runs in one of two forms, by way_scan_form's rule on
+    (b, n_sets, W) unless `form` names one: "per_item", one warp an item
+    reading its set from the table (one launch); "set_major", the items
+    grouped by set with a counting sort on the card and each set read once
+    for each group of its items (a memset and four launches over per-call
+    scratch). Either counts once in LAUNCHES["way_scan"] and once in
+    WAY_SCAN_FORMS under its form."""
     device = table.device
     _require(table, "table", torch.int32, 2, device)
     _require(fp_lo, "fp_lo", torch.int32, 1, device)
@@ -333,11 +378,17 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int):
     if fp_hi.shape != fp_lo.shape:
         raise ValueError("fp_lo and fp_hi must have the same shape")
     now = _check_int32("now", now)
+    b = fp_lo.shape[0]
+    if form is None:
+        form = way_scan_form(b, n_sets, ways)
+    elif form not in WAY_SCAN_FORM_NAMES:
+        raise ValueError(f"way_scan form {form!r} is not one of {WAY_SCAN_FORM_NAMES}")
+    if form == "set_major" and ways > SET_MAJOR_MAX_WAYS:
+        raise ValueError(f"the set-major way scan takes ways <= {SET_MAJOR_MAX_WAYS}, got {ways}")
     if device.type == "cpu":
         return way_scan_plain(table, fp_lo, fp_hi, now, ways)
     if device.type != "cuda":
         raise ValueError(f"way_scan: unsupported device {device}")
-    b = fp_lo.shape[0]
     way = torch.empty(b, dtype=torch.int32, device=device)
     matched = torch.empty(b, dtype=torch.bool, device=device)
     picked = torch.empty((b, ROW_WIDTH), dtype=torch.int32, device=device)
@@ -345,13 +396,16 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int):
         return way, matched, picked
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rl_way_scan(
-        table.data_ptr(), fp_lo.data_ptr(), fp_hi.data_ptr(), b, n_sets, ways,
-        max(1, (ways - 1).bit_length()), now, way.data_ptr(),
-        matched.data_ptr(), picked.data_ptr(), stream,
-    )
-    _check("way_scan", err)
+    head = (table.data_ptr(), fp_lo.data_ptr(), fp_hi.data_ptr(), b, n_sets, ways,
+            max(1, (ways - 1).bit_length()), now, way.data_ptr(), matched.data_ptr(), picked.data_ptr())
+    if form == "set_major":
+        scratch = torch.empty(-(-lib.rl_way_scan_scratch_bytes(b, n_sets) // 16), 4, dtype=torch.int32, device=device)
+        err = lib.rl_way_scan_set_major(*head, scratch.data_ptr(), stream)
+    else:
+        err = lib.rl_way_scan(*head, stream)
+    _check(f"way_scan ({form})", err)
     LAUNCHES["way_scan"] += 1
+    WAY_SCAN_FORMS[form] += 1
     return way, matched, picked
 
 

@@ -5,12 +5,16 @@
 Phases, each of which must pass (nothing is caught):
 
 1. build   nvcc-compiles every api_ratelimit_tpu_torch/csrc/*.cu source (one
-           nvcc per source, all started together) into one library.
+           nvcc per source, all started together) into one library, and
+           prints ptxas's lines for the apply and way scan kernels.
 2. parity  each kernel against its plain PyTorch version on the card,
-           bit-exact, at every bucket (128 ... 65536): the way scan and the
-           apply at W in {4, 128} on adversarial inputs (segments across the
-           apply kernel's 512-item tiles, window rollovers, all eviction
-           tiers, one-set contention, padding lanes, counts >= 2^31); the
+           bit-exact, at every bucket (128 ... 65536): the way scan (with
+           the shipped routing and in each of its two forms, set-major and
+           per item, on its own; also on a 2^20 batch with over half of
+           it in one set) and the apply at W in {4, 128} on adversarial
+           inputs (segments across the apply kernel's 512-item tiles,
+           window rollovers, all eviction tiers, one-set contention,
+           padding lanes, counts >= 2^31); the
            sketch scan at sketch W in {4, 128} and lanes in {128, 1024} on
            adversarial planes (empty lanes, count ties, counts >= 2^31,
            fp-0 padding queries); the fused sketch update on the same
@@ -29,7 +33,7 @@ Phases, each of which must pass (nothing is caught):
            whose sum wraps 2^32 ~8 times with segments starting right
            after each wrap, on all-zero hits, and the decided and lean
            forms on 20 fresh 2^20 seeds (a look-back race shows only now
-           and then). The build's ptxas line for the apply prints first.
+           and then). The build's ptxas lines print first.
 3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, with the
            production sketch (HOTKEY_LANES=128, HOTKEY_K=16), Zipf(1.1) over
            2^20 keys: 32 launches at the 65536 bucket plus the smaller
@@ -74,10 +78,14 @@ Phases, each of which must pass (nothing is caught):
            plain versions (all 9 rows, health, table), its decision rows
            against the standalone decide kernel, and slab_update_and_decide
            against the plain versions. Launch counters: each stream runs
-           way_scan and slab_apply_lean once per step and no other apply;
-           the packed step slab_apply_decide once. One profiled staged step
-           gives the device-busy share and the top device items, and must
-           hold no host-to-device copy.
+           way_scan and slab_apply_lean once per step and no other apply,
+           the staged stream's way scans all in the set-major form; the
+           packed step slab_apply_decide once. The way scan's two forms
+           against the plain version on the stream's table, and one way
+           scan captured in a CUDA graph whose replay must equal the eager
+           call. One profiled staged step gives the device-busy share, the
+           way scan's kernels' device ms and the top device items, and
+           must hold no host-to-device copy.
 6. compare the compare/select micro-benchmark's two kernels, sel and
    paths   chain, bit-exact against their plain versions at b = 2^20 (full
            range with INT_MIN, INT_MAX, 2^30 +- 1, 2^29 +- 1; the tool's own
@@ -102,8 +110,10 @@ Phases, each of which must pass (nothing is caught):
            device busy share.
 8. report  per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
-           update over a real served step's candidates; the way scan also
-           at the decided phase's b = 2^20 over its table; the three
+           update over a real served step's candidates; the way scan, with
+           the shipped routing, also at the decided phase's b = 2^20 over
+           its table, each of its forms timed beside it on the same
+           operands with its activities one by one; the three
            decision kernels at the decided phase's b = 2^20, sel and chain
            at the tool's); the standalone sketch scan, now on no path, on a
            line of its own, with the parent's two-kernel sketch update
@@ -244,12 +254,12 @@ def adversarial_table(rng, n_slots: int, now: int, lo, hi, ways: int = 1) -> np.
     return t
 
 
-def scan_inputs(rng, b: int, n_slots: int, ways: int, now: int, dev):
-    """A batch with its own keys in the table, a quarter of it contending
-    for one set, and zero (padding) fingerprints at the tail."""
+def scan_inputs(rng, b: int, n_slots: int, ways: int, now: int, dev, crowd_share: float = 0.25):
+    """A batch with its own keys in the table, a share of it (a quarter)
+    contending for one set, and zero (padding) fingerprints at the tail."""
     lo, hi = fingerprints(rng.integers(0, 1 << 40, b))
     n_sets = n_slots // ways
-    crowd = rng.random(b) < 0.25
+    crowd = rng.random(b) < crowd_share
     lo[crowd] = (lo[crowd] & ~np.uint32(n_sets - 1)) | np.uint32(7 % n_sets)
     lo[-b // 16 :] = 0
     hi[-b // 16 :] = 0
@@ -550,13 +560,13 @@ def phase_parity(M, dev) -> dict:
     for ways in (4, 128):
         for b in BUCKETS:
             table, lo, hi = scan_inputs(rng, b, n_slots, ways, NOW0, dev)
-            got = K.way_scan(table, lo, hi, NOW0, ways)
-            want = K.way_scan_plain(table, lo, hi, NOW0, ways)
-            torch.cuda.synchronize()
-            e = max_abs_err(got, want)
-            check(e == 0, f"way_scan differs from its plain version at b={b} W={ways}")
+            want = way_scan_forms_parity(M, table, lo, hi, NOW0, ways, f"b={b} W={ways}", err)
             check(bool(want[1].any()) and not bool(want[1].all()), "scan parity batch lacks matches or misses")
-            err["way_scan"] = max(err["way_scan"], e)
+        # one set holding over half of a 2^20 batch
+        table, lo, hi = scan_inputs(rng, DECIDED_BATCH, n_slots, ways, NOW0, dev, crowd_share=0.6)
+        check(int((lo & (n_slots // ways - 1) == 7 % (n_slots // ways)).sum()) * 2 > DECIDED_BATCH, "the skewed batch's crowd is under half")
+        way_scan_forms_parity(M, table, lo, hi, NOW0, ways, f"skewed b=2^20 W={ways}", err)
+        del table, lo, hi
     for b in BUCKETS:
         ops = apply_inputs(rng, b, NOW0, dev)
         got = K.slab_apply(*ops, NOW0)
@@ -621,6 +631,21 @@ def phase_parity(M, dev) -> dict:
         f" decided apply (full, lean) and decide at near_ratio in {NEAR_RATIOS}"
     )
     return err
+
+
+def way_scan_forms_parity(M, table, lo, hi, now: int, ways: int, label: str, err: dict):
+    """The way scan with the shipped routing and in each form on its own
+    (set-major, per item) against its plain version, every output bit for
+    bit; returns the plain version's outputs."""
+    K = M.K
+    want = K.way_scan_plain(table, lo, hi, now, ways)
+    for form in (None, *K.WAY_SCAN_FORM_NAMES):
+        got = K.way_scan(table, lo, hi, now, ways, form=form)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"way_scan ({form or 'shipped routing'}) differs from its plain version on {label}")
+        err["way_scan"] = max(err["way_scan"], e)
+    return want
 
 
 def apply_forms(M, ops, now: int, limit, label: str, err: dict, forms=APPLY_FORMS) -> None:
@@ -802,6 +827,11 @@ def profile_submit(engine, block: np.ndarray) -> dict:
     return profile_call(lambda: engine.submit_rows(block))
 
 
+# the way scan's kernels by name: the per-item kernel, or the set-major
+# form's grouping kernels and its scan
+WAY_SCAN_KERNELS = ("way_scan", "set_count_kernel", "set_offset_kernel", "set_scatter_kernel")
+
+
 def profile_call(fn) -> dict:
     """torch.profiler over one warm call of fn: host wall time (synchronized,
     profiler overhead included), the summed device time of its kernels and
@@ -826,6 +856,7 @@ def profile_call(fn) -> dict:
         log(f"profile_call: trace {attempt} held no device activity")
     check(bool(acts), "the profiler recorded no device activity")
     htod_ms = sum(us for name, us in acts if "HtoD" in name) / 1e3
+    scan_acts = [us for name, us in acts if any(k in name for k in WAY_SCAN_KERNELS)]
     by_name: dict = {}
     for name, us in acts:
         ms, n = by_name.get(name[:60], (0.0, 0))
@@ -838,6 +869,9 @@ def profile_call(fn) -> dict:
         "device_busy_share": busy_ms / wall_ms,
         "device_activities": len(acts),
         "htod_ms": htod_ms,
+        # the way scan's kernels (its memset is not told apart from others)
+        "way_scan_ms": sum(scan_acts) / 1e3,
+        "way_scan_kernels": len(scan_acts),
         "top_device_ms": sorted(([k, ms, n] for k, (ms, n) in by_name.items()), key=lambda r: -r[1])[:10],
         "top_host_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in by_host],
     }
@@ -953,6 +987,8 @@ def phase_serve(K) -> dict:
     K.reset_launch_counts()
     got, hot_doc, stats = serve("cuda", bodies)
     launches = dict(K.LAUNCHES)
+    forms = dict(K.WAY_SCAN_FORMS)
+    check(sum(forms.values()) == launches["way_scan"], f"the served way scans ran as {forms}, against {launches['way_scan']} launches")
     want, want_doc, _ = serve("cpu", bodies)
     check(all(launches[k] > 0 for k in ("way_scan", "slab_apply", "sketch_update")), f"main path skipped a kernel: {launches}")
     # one sketch update a launch, and the standalone scan never
@@ -979,7 +1015,7 @@ def phase_serve(K) -> dict:
     head = doc["top"][0]
     check(head["key"] == "smoke_path_/login_" and head["count"] in (14, 15), f"hot descriptor not first: {doc['top']}")
     check(stats["ratelimit.hotkeys.drains"] == 2 and stats["ratelimit.slab.decisions"] == 21, f"unexpected /stats {stats}")
-    log(f"serve: statuses {statuses}, slice-1 arm launches {launches1}, default launches {launches}, /debug/hotkeys top {doc['top'][:3]}")
+    log(f"serve: statuses {statuses}, slice-1 arm launches {launches1}, default launches {launches} (way scan forms {forms}), /debug/hotkeys top {doc['top'][:3]}")
     return launches
 
 
@@ -1070,13 +1106,39 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_decided(M, dev) -> tuple[dict, dict, dict]:
+def way_scan_graph_check(M, scan: dict, now: int, ways: int) -> None:
+    """One way scan call over the decided stream's table and a staged block
+    captured in a torch.cuda.CUDAGraph: the op makes no host
+    synchronization and sizes its grids from shapes alone, so the replay's
+    three outputs must equal an eager call's bit for bit."""
+    K = M.K
+    args = (scan["table"], scan["fp_lo"], scan["fp_hi"], now, ways)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.way_scan(*args)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    forms = dict(K.WAY_SCAN_FORMS)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K.way_scan(*args)
+    form = [f for f in K.WAY_SCAN_FORMS if K.WAY_SCAN_FORMS[f] != forms[f]]
+    graph.replay()
+    eager = K.way_scan(*args)
+    torch.cuda.synchronize()
+    check(all(same(a, b) for a, b in zip(captured, eager)), "the CUDA graph's way scan differs from the eager call")
+    log(f"way scan in a CUDA graph: {form} form at b={args[1].shape[0]}, replay bit-exact to the eager call")
+    del graph, captured, eager
+
+
+def phase_decided(M, dev, scan_errs: dict) -> tuple[dict, dict, dict]:
     """The decided tier of bench_engine_zipf on the port (module docstring,
     phase 5). Returns (summary, launch counts for the kernels line: the
     lean apply's from the staged stream, the full apply's and decide's from
     the packed step; the way scan's operands at this shape: the stream's
     table, one staged block's fingerprints and its launches in the staged
-    stream)."""
+    stream). The way scan's forms are held to the plain version on the
+    stream's table, their errors going into scan_errs["way_scan"]."""
     K, S, D, O = M.K, M.S, M.D, M.O
     t_phase = time.perf_counter()
     ways, now, limit = DECIDED_WAYS, NOW0, DECIDED_LIMIT
@@ -1156,7 +1218,11 @@ def phase_decided(M, dev) -> tuple[dict, dict, dict]:
     staged_bits = torch.cat(bits).cpu().numpy()
     s2 = time.perf_counter()
     decided_launches = dict(K.LAUNCHES)
+    decided_forms = dict(K.WAY_SCAN_FORMS)
     check(decided_launches == want, f"the staged stream launched {decided_launches}, expected {want}")
+    # the way scan's rule sends this shape to the set-major form
+    want_forms = {"set_major": n_launch, "per_item": 0}
+    check(decided_forms == want_forms, f"the staged stream's way scans ran as {decided_forms}, expected {want_forms}")
     check(np.array_equal(staged_bits, host_bits), "the staged stream's OVER bits differ from the host-operand stream's")
     del bits
 
@@ -1240,16 +1306,22 @@ def phase_decided(M, dev) -> tuple[dict, dict, dict]:
         f" phase {out['phase_s']:.1f} s"
     )
     log("decided:", json.dumps(out))
-    log("decided launches:", json.dumps({"staged_stream": decided_launches, "host_operand_stream": host_launches, "packed_step": packed_launches}))
+    log("decided launches:", json.dumps({
+        "staged_stream": decided_launches, "staged_stream_way_scan_forms": decided_forms,
+        "host_operand_stream": host_launches, "packed_step": packed_launches,
+    }))
     log("decided profile:", json.dumps(prof))
     launches = {
         "slab_apply_lean": decided_launches["slab_apply_lean"],
         "slab_apply_decide": packed_launches["slab_apply_decide"],
         "decide": packed_launches["decide"],
     }
-    # the way scan at this shape: the stream's table and one staged block
+    # the way scan at this shape: the stream's table and one staged block,
+    # in each form against the plain version, and captured in a CUDA graph
     probe = expand_ids(S, staged[1])
     scan = {"table": state.table, "fp_lo": probe.fp_lo, "fp_hi": probe.fp_hi, "launches": decided_launches["way_scan"]}
+    way_scan_forms_parity(M, state.table, probe.fp_lo, probe.fp_hi, now, ways, "the decided stream's table", scan_errs)
+    way_scan_graph_check(M, scan, now, ways)
     return out, launches, scan
 
 
@@ -1584,6 +1656,11 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
         "sketch_scan": b * (8 + 13) + planes.numel() * 4,
     }
     kernel_launches = launches | {"way_scan_decided": decided_scan["launches"]}
+    # the way scan rows run the shipped routing; the form it takes there
+    scan_forms = {
+        "way_scan": K.way_scan_form(b, table.shape[0] // ways, ways),
+        "way_scan_decided": K.way_scan_form(big, big_table.shape[0] // DECIDED_WAYS, DECIDED_WAYS),
+    }
     rows = []
     for label, (kernel, plain, plain_iters, library) in calls.items():
         name = "way_scan" if label == "way_scan_decided" else label
@@ -1602,10 +1679,39 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
             "library_ms": None if library is None else device_ms(library),
             "call_ms": call_ms(kernel),
             "plain_call_ms": call_ms(plain, iters=plain_iters),
+            **({"form": scan_forms[label]} if label in scan_forms else {}),
         })
+    forms = way_scan_forms_report(M, {
+        f"b={b}": (table, lo, hi, now, ways),
+        "b=2^20": (big_table, big_lo, big_hi, NOW0, DECIDED_WAYS),
+    })
+    log("way scan, each form beside the shipped routing on the same operands:", json.dumps(forms))
     log("sketch update, the parent's two-kernel form beside the fused kernel:", json.dumps(two_kernel_sketch(M, sk)))
     standalone = [row for row in rows if row["name"] == "sketch_scan"]
     return [row for row in rows if row["name"] != "sketch_scan"], standalone
+
+
+def way_scan_forms_report(M, shapes: dict) -> dict:
+    """Each form of the way scan on the operands of the kernels line's way
+    scan rows: the form the shipped routing takes there, and per form the
+    device ms (device_ms's counting), the CUDA-event call ms, the device
+    activities of one call and each activity's runs a call and median
+    microseconds."""
+    K = M.K
+    out = {}
+    for label, (table, lo, hi, now, ways) in shapes.items():
+        row = {"shipped": K.way_scan_form(lo.shape[0], table.shape[0] // ways, ways)}
+        for form in K.WAY_SCAN_FORM_NAMES:
+            fn = lambda form=form: K.way_scan(table, lo, hi, now, ways, form=form)  # noqa: E731
+            per_call, by_name = traced_calls(fn, 20)
+            row[form] = {
+                "ms": summed_ms(per_call, by_name),
+                "call_ms": call_ms(fn),
+                "activities": sum(per_call.values()),
+                "by_activity_us": {name[:60]: [n, float(np.median(by_name[name]))] for name, n in per_call.items()},
+            }
+        out[label] = row
+    return out
 
 
 def two_kernel_sketch(M, sk: tuple) -> dict:
@@ -1674,12 +1780,15 @@ def main() -> int:
     srcs = [os.path.basename(p) for p in K.sources()]
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {K.BUILD_LOG.get('seconds', 0.0):.1f} s) from {srcs}")
     log(K.BUILD_LOG.get("ptxas", "").strip())
-    log("apply kernel ptxas:", json.dumps(ptxas_entries(K.BUILD_LOG.get("ptxas", ""), "slab_apply_kernel")))
+    ptxas = K.BUILD_LOG.get("ptxas", "")
+    log("apply kernel ptxas:", json.dumps(ptxas_entries(ptxas, "slab_apply_kernel")))
+    scan_ptxas = ptxas_entries(ptxas, "way_scan") + [e for e in ptxas_entries(ptxas, "set_") if "way_scan" not in e]
+    log("way scan kernels ptxas:", json.dumps(scan_ptxas))
 
     errs = phase_parity(M, dev)
     engine = phase_engine(M, dev)
     launches = phase_serve(K)
-    _decided, decided_launches, decided_scan = phase_decided(M, dev)
+    _decided, decided_launches, decided_scan = phase_decided(M, dev, errs)
     select_errs, select_launches = phase_compare_paths(M, dev)
     phase_windowed(M, dev)
     kernels, standalone = kernel_report(

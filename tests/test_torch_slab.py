@@ -223,6 +223,12 @@ def test_wrappers_validate_and_count_no_cpu_launch():
         K.way_scan(table, q, q, 1 << 31, 4)
     K.way_scan(table, q, q, 0, 4)
     with pytest.raises(ValueError):
+        K.way_scan(table, q, q, 0, 4, form="warp_per_set")
+    with pytest.raises(ValueError):  # a set beyond the set-major kernel's shared memory
+        K.way_scan(torch.zeros((1024, 8), dtype=torch.int32), q, q, 0, 512, form="set_major")
+    for form in K.WAY_SCAN_FORM_NAMES:
+        K.way_scan(table, q, q, 0, 4, form=form)
+    with pytest.raises(ValueError):
         K.slab_apply(q, q, q, q, q, q, table[:8], 0)  # seg_start must be bool
     planes = torch.zeros((3, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -245,3 +251,4 @@ def test_wrappers_validate_and_count_no_cpu_launch():
         "slab_apply_decide": 0, "slab_apply_lean": 0, "decide": 0,
         "sel": 0, "chain": 0,
     }
+    assert K.WAY_SCAN_FORMS == {"set_major": 0, "per_item": 0}
