@@ -27,10 +27,16 @@ also updates the heavy-hitter sketch (ops/sketch.py), which the stats
 cadence drains (HotkeyStats); the cache's compiled-matcher path
 (do_limit_resolved) records the witness keys that /debug/hotkeys resolves
 fingerprints to. The victim tier, leases, mesh engine and persistence wait
-for later slices. The kernels cover fixed-window rules only: a launch
-carrying any other algorithm id raises CacheError instead of being served
-with the wrong semantics. A failed kernel launch raises CacheError too: the
-reference's fallback from Pallas to its XLA twin has no counterpart here.
+for later slices.
+
+Every algorithm is served (fixed window, sliding window, GCRA, concurrency
+and its Release, do_release). The algorithm id rides bits 28-30 of the wire
+divider. As in the reference, a sticky guard (algos_seen) keeps an all-fixed
+deployment on the fixed-window program forever; the first launch carrying
+another algorithm id, or a table imported with one, flips every later launch
+to the multi-algorithm body (ops/slab.py multi_algo=True). A failed kernel
+launch raises CacheError: the reference's fallback from Pallas to its XLA
+twin has no counterpart here.
 """
 
 from __future__ import annotations
@@ -48,7 +54,12 @@ from ..assertx import assert_
 from ..limiter.base_limiter import BaseRateLimiter, LimitInfo
 from ..limiter.cache import CacheError
 from ..limiter.cache_key import generate_cache_key
-from ..models.config import ALGO_ID_FIXED_WINDOW, ALGORITHM_IDS, RateLimit
+from ..models.config import (
+    ALGO_ID_CONCURRENCY,
+    ALGO_ID_FIXED_WINDOW,
+    ALGORITHM_IDS,
+    RateLimit,
+)
 from ..models.descriptors import RateLimitRequest
 from ..models.response import DoLimitResponse
 from ..models.units import unit_to_divider
@@ -62,6 +73,7 @@ from ..ops.sketch import (
     sketch_ways,
 )
 from ..ops.slab import (
+    ALGO_CONC_RELEASE,
     ALGO_SHIFT,
     HEALTH_ALGO_RESETS,
     HEALTH_DROPS,
@@ -72,11 +84,13 @@ from ..ops.slab import (
     PACKED_IN_ROWS,
     ROW_HITS,
     ROW_LIMIT,
+    ROW_WIDTH,
     default_ways,
     live_slot_count,
     make_slab,
     resolve_device,
     slab_export_copy,
+    slab_import_rows,
     slab_step_after,
     validate_ways,
 )
@@ -102,6 +116,16 @@ class _Item:
     limit: int
     divider: int  # window seconds, algorithm id in bits 28-30
     jitter: int
+
+
+def validate_gcra_burst_ratio(ratio) -> float:
+    """The GCRA burst ratio (GCRA_BURST_RATIO), validated as the
+    reference's settings validate it: in (0, 16]. A zero ratio would deny
+    everything and a huge one would never deny."""
+    ratio = float(ratio)
+    if not 0.0 < ratio <= 16.0:
+        raise ValueError(f"GCRA_BURST_RATIO must be in (0, 16], got {ratio}")
+    return ratio
 
 
 def _items_to_block(items: list[_Item]) -> np.ndarray:
@@ -179,10 +203,15 @@ class SlabDeviceEngine:
         fault_injector=None,
         scope=None,
         precompile: bool = False,
+        gcra_burst_ratio: float = 1.0,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
         raises without a card; "cpu" runs the kernels' plain versions.
+
+        gcra_burst_ratio: GCRA's burst tolerance (GCRA_BURST_RATIO, in
+        (0, 16]): tau = ratio x window - T, T = window / limit. Every
+        launch carries it in scalar slot [6, 2] of its operand.
 
         hotkey_lanes: lanes of the heavy-hitter sketch (HOTKEY_LANES). 0
         disables it (the HOTKEYS_ENABLED=false arm): no sketch enters the
@@ -206,6 +235,12 @@ class SlabDeviceEngine:
         precompile: warm every bucket and readback width at construction
         (see precompile())."""
         self._time_source = time_source
+        self._gcra_burst_ratio = validate_gcra_burst_ratio(gcra_burst_ratio)
+        self._burst_bits = np.float32(self._gcra_burst_ratio).view(np.uint32)
+        # the sticky algorithms guard: False keeps every launch on the
+        # fixed-window program; the first launch (or imported table) with
+        # another algorithm id flips it for good
+        self._algos_seen = False
         self._device = resolve_device(device)
         if not ways:
             ways = default_ways(self._device.type)
@@ -298,6 +333,13 @@ class SlabDeviceEngine:
     @property
     def ways(self) -> int:
         return self._ways
+
+    @property
+    def algos_seen(self) -> bool:
+        """The sticky algorithms guard: True once a launch or an imported
+        table carried a non-fixed algorithm id; from then on every launch
+        runs the multi-algorithm body."""
+        return self._algos_seen
 
     @property
     def dispatch_loop(self):
@@ -426,6 +468,24 @@ class SlabDeviceEngine:
         with self._state_lock:
             return [slab_export_copy(self._state)]
 
+    def import_tables(self, tables: list[np.ndarray]) -> None:
+        """Replace the slab with one host table, uint32[n_slots, 8] (the
+        reference's restore upload, without the snapshot layer). Rows whose
+        divider word carries a non-fixed algorithm id flip the guard before
+        any launch sees them, as in the reference."""
+        if len(tables) != 1:
+            raise ValueError(f"single-device slab restores from 1 shard, got {len(tables)}")
+        rows = np.asarray(tables[0], dtype=np.uint32)
+        if rows.shape != (self._n_slots, ROW_WIDTH):
+            raise ValueError(
+                f"table shape {rows.shape} does not match the configured slab "
+                f"({self._n_slots}, {ROW_WIDTH})"
+            )
+        if not self._algos_seen and int(rows[:, 5].max(initial=0)) >= (1 << ALGO_SHIFT):
+            self._algos_seen = True
+        with self._state_lock:
+            self._state = slab_import_rows(rows, self._device)
+
     def flush(self) -> None:
         if self._dispatch is not None:
             self._dispatch.flush()
@@ -510,6 +570,7 @@ class SlabDeviceEngine:
             maxv = int(packed[ROW_HITS, :n].max()) + int(packed[ROW_LIMIT, :n].max())
             cap = 0xFF if maxv < 255 else 0xFFFF if maxv < 65535 else 0xFFFFFFFF
             packed[6, 0] = now
+            packed[6, 2] = self._burst_bits  # GCRA's burst ratio (ops/slab.py)
             yield op, n, cap
 
     def _dispatch_packed(self, op: _Operand, n: int, cap: int) -> _Launch:
@@ -521,18 +582,16 @@ class SlabDeviceEngine:
         t_launch = time.perf_counter() if self._h_launch is not None else 0.0
         if n:  # precompile's warmers are not launches of traffic
             self.launch_sizes.append(n)
-            algo = int(op.array[4, :n].max()) >> ALGO_SHIFT
-            if algo:
-                raise CacheError(
-                    f"rate-limit algorithm id {algo} on the wire: the CUDA port "
-                    "serves fixed_window only; sliding window, GCRA and "
-                    "concurrency come with a later slice of the port"
-                )
+            if not self._algos_seen and int(op.array[4, :n].max()) >= (1 << ALGO_SHIFT):
+                # the first non-fixed algorithm id: this launch and every
+                # later one run the multi-algorithm body
+                self._algos_seen = True
         dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
         with self._state_lock:
             outs = slab_step_after(
                 self._state, op.host, ways=self._ways, out_dtype=dtype,
                 sketch=self._sketch, sketch_ways=self._sketch_ways,
+                multi_algo=self._algos_seen,
             )
             if self._sketch is not None:
                 after_dev, health, self._sketch = outs
@@ -605,8 +664,8 @@ class SlabHealthStats:
                                           the only lossy tier
         ratelimit.slab.drops       cumulative in-batch contention drops
         ratelimit.slab.algo_resets rows reset because their rule's algorithm
-                                   changed (0 while the port serves
-                                   fixed_window only)
+                                   changed (a matched row stored under
+                                   another algorithm)
         ratelimit.slab.decisions   cumulative decisions submitted on-device
         ratelimit.slab.loss_ppm    (evictions.live + drops) per million
                                    decisions since the last flush
@@ -698,9 +757,13 @@ class CudaRateLimitCache:
         fault_injector=None,
         stats_scope=None,
         precompile: bool = False,
+        gcra_burst_ratio: float = 1.0,
     ):
         """The engine's arguments pass through (SlabDeviceEngine);
-        stats_scope becomes its `scope`."""
+        stats_scope becomes its `scope` and roots the per-algorithm decision
+        counters <stats_scope>.algo.<name>.{decisions,over_limit}. A
+        concurrency rule's idle TTL is the config loader's
+        concurrency_ttl_s (config/loader.py), carried in its divider."""
         self._base = base_limiter
         self._engine_core = SlabDeviceEngine(
             time_source=base_limiter.time_source,
@@ -718,7 +781,31 @@ class CudaRateLimitCache:
             fault_injector=fault_injector,
             scope=stats_scope,
             precompile=precompile,
+            gcra_burst_ratio=gcra_burst_ratio,
         )
+        # per-algorithm decision counters (do_limit_resolved): which
+        # algorithm carries the traffic and which one denies it
+        self._algo_stats = None
+        if stats_scope is not None:
+            algo_scope = stats_scope.scope("algo")
+            self._algo_stats = {
+                0: (
+                    algo_scope.counter("fixed_window.decisions"),
+                    algo_scope.counter("fixed_window.over_limit"),
+                ),
+                1: (
+                    algo_scope.counter("sliding_window.decisions"),
+                    algo_scope.counter("sliding_window.over_limit"),
+                ),
+                2: (
+                    algo_scope.counter("gcra.decisions"),
+                    algo_scope.counter("gcra.over_limit"),
+                ),
+                3: (
+                    algo_scope.counter("concurrency.decisions"),
+                    algo_scope.counter("concurrency.over_limit"),
+                ),
+            }
         # (domain, entries, divider) -> fingerprint, clear-on-full (the
         # do_limit path only; resolved records carry their fingerprint)
         self._fp_cache: dict = {}
@@ -765,7 +852,9 @@ class CudaRateLimitCache:
             if self._base.is_over_limit_with_local_cache(cache_key.key, limits[i]):
                 over_local[i] = True
                 continue
-            divider = unit_to_divider(limits[i].unit)
+            # a concurrency rule has no unit: its idle TTL is its window
+            # (config/compiled.py _make_record derives the same divider)
+            divider = limits[i].window_override_s or unit_to_divider(limits[i].unit)
             jitter = self._base.expiration_seconds(divider) - divider
             pending.append((i, divider, jitter))
 
@@ -795,7 +884,7 @@ class CudaRateLimitCache:
                 fps[pos] = fp_cache[key] = int(fp)
 
         # the wire divider carries the rule's algorithm id in bits 28-30 (0
-        # for fixed_window), so the engine can refuse what it cannot serve
+        # for fixed_window), as do_limit_resolved's records do
         items = [
             _Item(
                 fp=fp,
@@ -907,7 +996,7 @@ class CudaRateLimitCache:
                 hits_addend,
                 rec.requests_per_unit,
                 # window length + algorithm id in one word (== divider for
-                # fixed_window); the engine refuses other algorithms
+                # fixed_window)
                 rec.wire_divider,
                 base.expiration_seconds(divider) - divider,
             )
@@ -922,6 +1011,7 @@ class CudaRateLimitCache:
         response = DoLimitResponse()
         statuses = response.descriptor_statuses
         get_status = base.get_response_descriptor_status
+        algo_stats = self._algo_stats
         pos = 0
         for i in range(n):
             rec = resolved[i]
@@ -930,6 +1020,10 @@ class CudaRateLimitCache:
                 continue
             limit = rec.limit
             if over_local is not None and over_local[i]:
+                if algo_stats is not None:
+                    dec_c, over_c = algo_stats[rec.algorithm]
+                    dec_c.add(1)
+                    over_c.add(1)
                 statuses.append(
                     get_status(
                         keys[i], LimitInfo(limit, -hits_addend, 0), True,
@@ -939,6 +1033,11 @@ class CudaRateLimitCache:
                 continue
             after = afters[pos]
             pos += 1
+            if algo_stats is not None:
+                dec_c, over_c = algo_stats[rec.algorithm]
+                dec_c.add(1)
+                if after > rec.requests_per_unit:
+                    over_c.add(1)
             info = LimitInfo(limit, after - hits_addend, after)
             if local_cache is not None:
                 key = keys[i]
@@ -953,6 +1052,35 @@ class CudaRateLimitCache:
             statuses.append(get_status(key, info, False, hits_addend, response))
         assert_(len(statuses) == n)
         return response
+
+    def do_release(self, request, resolved) -> int:
+        """Concurrency Release: one release row per resolved concurrency
+        descriptor, on the same row-block wire as an acquire, with
+        ALGO_CONC_RELEASE in its divider word; the device decrements the
+        key's in-flight count, flooring at 0. Returns the number of release
+        rows submitted; descriptors whose rule is not a concurrency cap are
+        ignored. Holders that never release are covered by the row's idle
+        TTL (the rule's divider): an untouched key's row is reclaimed and
+        its count restarts at zero."""
+        hits_addend = max(1, request.hits_addend)
+        base = self._base
+        block = self._scratch_block(len(resolved))
+        count = 0
+        for rec in resolved:
+            if rec is None or rec.algorithm != ALGO_ID_CONCURRENCY:
+                continue
+            block[:, count] = (
+                rec.fp_lo,
+                rec.fp_hi,
+                hits_addend,
+                rec.requests_per_unit,
+                rec.divider | (ALGO_CONC_RELEASE << ALGO_SHIFT),
+                base.expiration_seconds(rec.divider) - rec.divider,
+            )
+            count += 1
+        if count:
+            self._engine_core.submit_rows(block[:, :count])
+        return count
 
     def flush(self) -> None:
         self._engine_core.flush()

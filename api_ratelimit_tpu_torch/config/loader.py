@@ -158,6 +158,17 @@ def _validate_keys(file: ConfigFile, node, allowed=_ROOT_KEYS, ctx="the file roo
             raise _error(file, f"error checking config: {value}")
 
 
+def validate_concurrency_ttl(ttl) -> int:
+    """A concurrency rule's idle TTL in seconds (CONCURRENCY_TTL_S), as the
+    reference's settings validate it: in [1, 2^28). It is the rule's window
+    in the divider word's 28-bit field, so junk must fail the load, never
+    become a leak that lasts forever or spill into the algorithm bits."""
+    ttl = int(ttl)
+    if ttl <= 0 or ttl >= (1 << 28):
+        raise ValueError(f"CONCURRENCY_TTL_S must be in [1, 2^28), got {ttl}")
+    return ttl
+
+
 class RateLimitConfig:
     """An immutable rule tree over one or more parsed config documents, with
     its compiled matcher as `compiled`."""
@@ -170,7 +181,7 @@ class RateLimitConfig:
     ):
         self._domains: dict[str, _Node] = {}
         self._stats_scope = stats_scope
-        self._concurrency_ttl_s = int(concurrency_ttl_s)
+        self._concurrency_ttl_s = validate_concurrency_ttl(concurrency_ttl_s)
         for doc in docs:
             self._load_doc(doc)
         self.compiled = CompiledMatcher(

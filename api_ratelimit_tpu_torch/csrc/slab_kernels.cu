@@ -24,7 +24,9 @@
 namespace {
 
 constexpr int kRowWidth = 8;
-constexpr int kAlgoDivMask = (1 << 28) - 1;
+constexpr int kAlgoShift = 28;
+constexpr int kAlgoDivMask = (1 << kAlgoShift) - 1;
+constexpr int kAlgoSliding = 1;  // ops/slab.py ALGO_SLIDING_WINDOW
 constexpr int kScoreTierShift = 28;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -106,10 +108,21 @@ __device__ __forceinline__ void copy_async_wait() {
 //  random addresses that grouping costs: the histogram's atomics, the
 //  scatter's record writes and the scan's way, flag and row stores in
 //  arrival order, ~40 B an item in all.
+//
+// Both scans take kMulti, the reference's multi_algo (ops/slab.py
+// _scan_ways): with it, a stored row whose divider word carries the
+// sliding-window id (bits 28-30) stays out of the window-ended tier for one
+// window past its own end (span = 2 x divider), since the next window's
+// interpolation still reads its count. The tier is the stored row's, so
+// one set tiers its sliding and fixed rows each by its own span. With
+// kMulti false the source is the fixed-window scan's, line for line, so it
+// compiles to the same code (an inlined helper here cost the per-item
+// kernel 4 registers and ~7% at the served shape).
 // ---------------------------------------------------------------------------
 
 constexpr int kScanWarpsPerBlock = 8;
 
+template <bool kMulti>
 __global__ void __launch_bounds__(kScanWarpsPerBlock * 32)
 way_scan_kernel(const int4* __restrict__ table, const int* __restrict__ fp_lo,
                 const int* __restrict__ fp_hi, int b, unsigned set_mask,
@@ -139,7 +152,11 @@ way_scan_kernel(const int4* __restrict__ table, const int* __restrict__ fp_lo,
       match_way = w;
     }
     const int div = hi.y & kAlgoDivMask;
-    const bool ended = live && div > 0 && add_wrap(lo.w, div) <= now;
+    int span = div;
+    if constexpr (kMulti) {
+      if (((hi.y >> kAlgoShift) & 7) == kAlgoSliding) span = div * 2;
+    }
+    const bool ended = live && div > 0 && add_wrap(lo.w, span) <= now;
     const unsigned cnt = min(static_cast<unsigned>(lo.z), count_cap);
     const int rot = (w - pref) & (ways - 1);
     const int tier = live ? (ended ? 1 : 2) : 0;
@@ -331,7 +348,7 @@ __device__ __forceinline__ void stage_set(int4* rows, const int4* table, unsigne
   copy_async_commit();
 }
 
-template <int NW>
+template <int NW, bool kMulti>
 __global__ void __launch_bounds__(set_scan_warps(NW) * 32)
 way_scan_set_kernel(const int4* __restrict__ table, const int4* __restrict__ records,
                     int b, unsigned set_mask, int ways, int way_bits, int now,
@@ -385,7 +402,11 @@ way_scan_set_kernel(const int4* __restrict__ table, const int4* __restrict__ rec
         const int4 hi = rows[2 * w + 1];  // expire, divider, prev, aux
         const bool live = hi.x > now;
         const int div = hi.y & kAlgoDivMask;
-        const bool ended = live && div > 0 && add_wrap(lo.w, div) <= now;
+        int span = div;
+        if constexpr (kMulti) {
+          if (((hi.y >> kAlgoShift) & 7) == kAlgoSliding) span = div * 2;
+        }
+        const bool ended = live && div > 0 && add_wrap(lo.w, span) <= now;
         const unsigned cnt = min(static_cast<unsigned>(lo.z), count_cap);
         const int tier = live ? (ended ? 1 : 2) : 0;
         key[k] = (tier << kScoreTierShift) | (live ? static_cast<int>(cnt << way_bits) : 0);
@@ -448,7 +469,9 @@ long long set_major_scratch_bytes(int b, int n_sets) {
 }
 
 // Zeroes the counters on `s` and launches the four kernels over b >= 1
-// items. Returns the first cudaError_t (0 = success).
+// items, the scan in its fixed-window (kMulti false) or multi-algorithm
+// instantiation. Returns the first cudaError_t (0 = success).
+template <bool kMulti>
 int launch_way_scan_set_major(const int4* table, const int* fp_lo, const int* fp_hi,
                               int b, int n_sets, int ways, int way_bits, int now,
                               int* way_out, unsigned char* matched_out,
@@ -476,16 +499,16 @@ int launch_way_scan_set_major(const int4* table, const int* fp_lo, const int* fp
       (static_cast<long long>(b) + set_scan_warps(nw) * 32 - 1) / (set_scan_warps(nw) * 32));
   const size_t smem = static_cast<size_t>(set_scan_warps(nw)) * 4 * ways * sizeof(int4);
   if (nw == 1) {
-    way_scan_set_kernel<1><<<tiles, set_scan_warps(1) * 32, smem, s>>>(
+    way_scan_set_kernel<1, kMulti><<<tiles, set_scan_warps(1) * 32, smem, s>>>(
         table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
   } else if (nw == 2) {
-    way_scan_set_kernel<2><<<tiles, set_scan_warps(2) * 32, smem, s>>>(
+    way_scan_set_kernel<2, kMulti><<<tiles, set_scan_warps(2) * 32, smem, s>>>(
         table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
   } else if (nw == 4) {
-    way_scan_set_kernel<4><<<tiles, set_scan_warps(4) * 32, smem, s>>>(
+    way_scan_set_kernel<4, kMulti><<<tiles, set_scan_warps(4) * 32, smem, s>>>(
         table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
   } else {
-    way_scan_set_kernel<8><<<tiles, set_scan_warps(8) * 32, smem, s>>>(
+    way_scan_set_kernel<8, kMulti><<<tiles, set_scan_warps(8) * 32, smem, s>>>(
         table, records, b, set_mask, ways, way_bits, now, way_out, matched_out, picked_out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -962,13 +985,15 @@ extern "C" {
 // Each entry point launches on `stream` and returns the cudaError_t of the
 // launch (0 = success); the Python wrapper raises on anything else.
 
+// The per-item way scan; multi != 0 runs its multi-algorithm instantiation
+// (the sliding grace, way_scan_kernel<true>).
 int rl_way_scan(const void* table, const void* fp_lo, const void* fp_hi,
                 int b, int n_sets, int ways, int way_bits, int now,
                 void* way_out, void* matched_out, void* picked_out,
-                void* stream) {
+                int multi, void* stream) {
   const int blocks = (b + kScanWarpsPerBlock - 1) / kScanWarpsPerBlock;
-  way_scan_kernel<<<blocks, kScanWarpsPerBlock * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = multi ? way_scan_kernel<true> : way_scan_kernel<false>;
+  kernel<<<blocks, kScanWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(table), static_cast<const int*>(fp_lo),
       static_cast<const int*>(fp_hi), b, static_cast<unsigned>(n_sets - 1),
       ways, way_bits, now, static_cast<int*>(way_out),
@@ -982,12 +1007,14 @@ long long rl_way_scan_scratch_bytes(int b, int n_sets) {
 
 // The set-major form of rl_way_scan (ways <= 256): scratch holds
 // rl_way_scan_scratch_bytes(b, n_sets) bytes on the batch's device, 16-byte
-// aligned; its counters are zeroed here on `stream`.
+// aligned; its counters are zeroed here on `stream`. multi != 0 runs the
+// multi-algorithm scan (the sliding grace), as in rl_way_scan.
 int rl_way_scan_set_major(const void* table, const void* fp_lo, const void* fp_hi,
                           int b, int n_sets, int ways, int way_bits, int now,
                           void* way_out, void* matched_out, void* picked_out,
-                          void* scratch, void* stream) {
-  return launch_way_scan_set_major(
+                          void* scratch, int multi, void* stream) {
+  auto launch = multi ? launch_way_scan_set_major<true> : launch_way_scan_set_major<false>;
+  return launch(
       static_cast<const int4*>(table), static_cast<const int*>(fp_lo),
       static_cast<const int*>(fp_hi), b, n_sets, ways, way_bits, now,
       static_cast<int*>(way_out), static_cast<unsigned char*>(matched_out),

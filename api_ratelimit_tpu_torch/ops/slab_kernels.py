@@ -50,6 +50,7 @@ COL_PREV, COL_AUX = 6, 7
 
 ALGO_SHIFT = 28
 ALGO_DIV_MASK = (1 << ALGO_SHIFT) - 1
+ALGO_SLIDING_WINDOW = 1  # ops/slab.py's algorithm ids
 
 SCORE_TIER_SHIFT = 28
 TIER_DEAD, TIER_WINDOW_ENDED, TIER_LIVE = 0, 1, 2
@@ -104,9 +105,12 @@ LAUNCHES = {
     "chain": 0,
 }
 
-# way_scan calls by the form that ran on the card (way_scan_form); each
-# also counts once in LAUNCHES["way_scan"]
+# way_scan calls by the form that ran on the card (way_scan_form), in the
+# fixed-window instantiation (WAY_SCAN_FORMS) or the multi-algorithm one
+# (WAY_SCAN_MULTI_FORMS, multi_algo=True); each call also counts once in
+# LAUNCHES["way_scan"]
 WAY_SCAN_FORMS = {"set_major": 0, "per_item": 0}
+WAY_SCAN_MULTI_FORMS = {"set_major": 0, "per_item": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -114,7 +118,7 @@ BUILD_LOG: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, WAY_SCAN_FORMS):
+    for counts in (LAUNCHES, WAY_SCAN_FORMS, WAY_SCAN_MULTI_FORMS):
         for name in counts:
             counts[name] = 0
 
@@ -213,11 +217,11 @@ def build() -> ctypes.CDLL:
             BUILD_LOG["seconds"] = time.perf_counter() - t0
         lib = ctypes.CDLL(library)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.rl_way_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.rl_way_scan.restype = ci
         lib.rl_way_scan_scratch_bytes.argtypes = [ci, ci]
         lib.rl_way_scan_scratch_bytes.restype = ctypes.c_longlong
-        lib.rl_way_scan_set_major.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+        lib.rl_way_scan_set_major.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, ci, vp]
         lib.rl_way_scan_set_major.restype = ci
         lib.rl_slab_apply_scratch_bytes.argtypes = [ci]
         lib.rl_slab_apply_scratch_bytes.restype = ctypes.c_longlong
@@ -278,10 +282,24 @@ def _gather_sets(table, fp_lo: torch.Tensor, ways: int):
     return table.view(n_sets, ways, ROW_WIDTH)[set_idx]
 
 
-def _scan_ways(rows, fp_lo, fp_hi, now: int, ways: int):
-    """The W-wide scan arithmetic on pre-gathered sets (multi_algo=False):
-    (int32[b] way, bool[b] match_any). Count compares unsigned against the
-    cap; window, expire and the divider are signed int32."""
+def window_span(divider_word: torch.Tensor, multi_algo: bool) -> torch.Tensor:
+    """int64 span of a stored row's window for the window-ended test
+    (window + span <= now): its divider (bits 0-27 of the divider word),
+    twice that for a sliding-window row when multi_algo is set (the
+    reference's sliding grace: the next window's interpolation still reads
+    the row's count)."""
+    divider = (divider_word & ALGO_DIV_MASK).long()
+    if not multi_algo:
+        return divider
+    sliding = ((divider_word >> ALGO_SHIFT) & 7) == ALGO_SLIDING_WINDOW
+    return torch.where(sliding, divider * 2, divider)
+
+
+def _scan_ways(rows, fp_lo, fp_hi, now: int, ways: int, multi_algo: bool = False):
+    """The W-wide scan arithmetic on pre-gathered sets: (int32[b] way,
+    bool[b] match_any). Count compares unsigned against the cap; window,
+    expire and the divider are signed int32. multi_algo adds the sliding
+    grace to the tiering (window_span)."""
     expire = rows[:, :, COL_EXPIRE]
     window = rows[:, :, COL_WINDOW].long()
     divider = (rows[:, :, COL_DIVIDER] & ALGO_DIV_MASK).long()
@@ -292,7 +310,8 @@ def _scan_ways(rows, fp_lo, fp_hi, now: int, ways: int):
         & (rows[:, :, COL_FP_LO] == fp_lo[:, None])
         & (rows[:, :, COL_FP_HI] == fp_hi[:, None])
     )
-    window_ended = live & (divider > 0) & (_wrap32(window + divider) <= now)
+    span = window_span(rows[:, :, COL_DIVIDER], multi_algo)
+    window_ended = live & (divider > 0) & (_wrap32(window + span) <= now)
 
     way_bits = max(1, (ways - 1).bit_length())
     way_iota = torch.arange(ways, dtype=torch.int64, device=rows.device)
@@ -315,12 +334,12 @@ def _scan_ways(rows, fp_lo, fp_hi, now: int, ways: int):
     return way, match_any
 
 
-def way_scan_plain(table, fp_lo, fp_hi, now: int, ways: int):
+def way_scan_plain(table, fp_lo, fp_hi, now: int, ways: int, multi_algo: bool = False):
     """Plain version of the way scan: gather each item's set, run the scan
     arithmetic, select the chosen way's row. Returns (int32[b] way,
     bool[b] matched, int32[b, ROW_WIDTH] picked row)."""
     rows = _gather_sets(table, fp_lo, ways)
-    way, matched = _scan_ways(rows, fp_lo, fp_hi, now, ways)
+    way, matched = _scan_ways(rows, fp_lo, fp_hi, now, ways, multi_algo)
     picked = rows[torch.arange(rows.shape[0], device=rows.device), way.long()]
     return way, matched, picked
 
@@ -350,10 +369,15 @@ def way_scan_form(b: int, n_sets: int, ways: int) -> str:
     return "per_item"
 
 
-def way_scan(table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None):
+def way_scan(
+    table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None, multi_algo: bool = False
+):
     """Per item over its set (`fp_lo & (n_sets - 1)`) of `ways` rows of
     `table` (int32[n_slots, 8]): the chosen way (first live tag match, else
     the argmin eviction score), the matched flag and the chosen row.
+    multi_algo runs the scan's multi-algorithm instantiation, whose tiering
+    keeps a sliding-window row out of the window-ended tier for one more
+    window (window_span); either instantiation runs in either form.
 
     On the card the op runs in one of two forms, by way_scan_form's rule on
     (b, n_sets, W) unless `form` names one: "per_item", one warp an item
@@ -361,7 +385,7 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None):
     grouped by set with a counting sort on the card and each set read once
     for each group of its items (a memset and four launches over per-call
     scratch). Either counts once in LAUNCHES["way_scan"] and once in
-    WAY_SCAN_FORMS under its form."""
+    WAY_SCAN_FORMS (WAY_SCAN_MULTI_FORMS with multi_algo) under its form."""
     device = table.device
     _require(table, "table", torch.int32, 2, device)
     _require(fp_lo, "fp_lo", torch.int32, 1, device)
@@ -386,7 +410,7 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None):
     if form == "set_major" and ways > SET_MAJOR_MAX_WAYS:
         raise ValueError(f"the set-major way scan takes ways <= {SET_MAJOR_MAX_WAYS}, got {ways}")
     if device.type == "cpu":
-        return way_scan_plain(table, fp_lo, fp_hi, now, ways)
+        return way_scan_plain(table, fp_lo, fp_hi, now, ways, multi_algo)
     if device.type != "cuda":
         raise ValueError(f"way_scan: unsupported device {device}")
     way = torch.empty(b, dtype=torch.int32, device=device)
@@ -400,12 +424,12 @@ def way_scan(table, fp_lo, fp_hi, now: int, ways: int, form: str | None = None):
             max(1, (ways - 1).bit_length()), now, way.data_ptr(), matched.data_ptr(), picked.data_ptr())
     if form == "set_major":
         scratch = torch.empty(-(-lib.rl_way_scan_scratch_bytes(b, n_sets) // 16), 4, dtype=torch.int32, device=device)
-        err = lib.rl_way_scan_set_major(*head, scratch.data_ptr(), stream)
+        err = lib.rl_way_scan_set_major(*head, scratch.data_ptr(), int(multi_algo), stream)
     else:
-        err = lib.rl_way_scan(*head, stream)
+        err = lib.rl_way_scan(*head, int(multi_algo), stream)
     _check(f"way_scan ({form})", err)
     LAUNCHES["way_scan"] += 1
-    WAY_SCAN_FORMS[form] += 1
+    (WAY_SCAN_MULTI_FORMS if multi_algo else WAY_SCAN_FORMS)[form] += 1
     return way, matched, picked
 
 

@@ -2,7 +2,9 @@
 
 Main port: POST /json is the HTTP/JSON mirror of the v3 ShouldRateLimit RPC
 (server_impl.go:62-104): 200 for OK, 429 for OVER_LIMIT, 500 for UNKNOWN or
-a backend/service error, 400 for a malformed request. GET /healthcheck
+a backend/service error, 400 for a malformed request. POST /release takes the
+same request body and releases each matched concurrency descriptor
+(RateLimitService.release), answering {"released": n}. GET /healthcheck
 answers 200 "OK". The body codec is server/proto_adapter.py (standard-library
 JSON in place of protobuf's json_format).
 
@@ -49,28 +51,38 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._write(404, b"404 page not found\n")
 
-    def do_POST(self):  # noqa: N802
-        if self.path.split("?", 1)[0] != "/json":
-            self._write(404, b"404 page not found\n")
-            return
+    def _read_request(self):
+        """The POST body decoded as a RateLimitRequest, or None after
+        answering 400 (malformed) or 500."""
         # a malformed Content-Length is a 400, and a negative one must not
         # turn into an unbounded read
         try:
             length = int(self.headers.get("Content-Length", 0))
         except (TypeError, ValueError):
             self._write(400, b"Bad Request: invalid Content-Length\n")
-            return
+            return None
         body = self.rfile.read(length) if length > 0 else b""
         if not body:
             self._write(400, b"Bad Request: empty body\n")
-            return
+            return None
         try:
-            request = proto_adapter.decode_request(body)
+            return proto_adapter.decode_request(body)
         except proto_adapter.RequestDecodeError as e:
             self._write(400, f"Bad Request: {e}\n".encode())
-            return
         except ServiceError as e:
             self._write(500, f"Internal Server Error: {e}\n".encode())
+        return None
+
+    def do_POST(self):  # noqa: N802
+        path = self.path.split("?", 1)[0]
+        if path == "/release":
+            self._release()
+            return
+        if path != "/json":
+            self._write(404, b"404 page not found\n")
+            return
+        request = self._read_request()
+        if request is None:
             return
         try:
             overall, statuses, headers = self.service.should_rate_limit(request)
@@ -85,6 +97,20 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             status = 500
         self._write(status, out, content_type="application/json")
+
+    def _release(self) -> None:
+        """POST /release: the concurrency Release surface. The body is a
+        /json request; each matched concurrency descriptor's in-flight
+        count is decremented. Answers {"released": n}."""
+        request = self._read_request()
+        if request is None:
+            return
+        try:
+            released = self.service.release(request)
+        except (CacheError, ServiceError) as e:
+            self._write(500, f"Internal Server Error: {e}\n".encode())
+            return
+        self._write(200, json.dumps({"released": released}).encode(), content_type="application/json")
 
 
 class _Listener:
@@ -119,7 +145,7 @@ class _Listener:
 
 
 class HttpServer(_Listener):
-    """The main listener: /json and /healthcheck over one service."""
+    """The main listener: /json, /release and /healthcheck over one service."""
 
     def __init__(self, service: RateLimitService, host: str = "127.0.0.1", port: int = 0):
         handler = type("JsonHandler", (_Handler,), {"service": service})

@@ -241,6 +241,27 @@ class RateLimitService:
         )
         return overall, statuses, headers
 
+    def release(self, request: RateLimitRequest) -> int:
+        """The concurrency Release: decrement each matched concurrency
+        descriptor's in-flight count (the cache's do_release, a release row
+        on the normal row-block wire). Returns how many release rows were
+        submitted; descriptors that resolve to no rule or to a rule of
+        another algorithm are ignored. Served over HTTP as POST /release
+        (server/http_server.py); holders that never release are reclaimed
+        by the rule's idle TTL."""
+        if request.domain == "":
+            raise ServiceError("rate limit domain must not be empty")
+        if not request.descriptors:
+            raise ServiceError("rate limit descriptor list must not be empty")
+        config = self.get_current_config()
+        if config is None:
+            raise ServiceError("no rate limit configuration loaded")
+        do_release = getattr(self._cache, "do_release", None)
+        if do_release is None:
+            return 0  # a cache without a release path
+        resolved = [config.compiled.resolve(request.domain, d) for d in request.descriptors]
+        return do_release(request, resolved)
+
     def _maybe_sleep(self, do_limit_response: DoLimitResponse) -> None:
         """Server-side pacing: sleep the handler instead of answering
         immediately, bounded by the sleeper semaphore (ratelimit.go:180-205);

@@ -6,7 +6,10 @@ Phases, each of which must pass (nothing is caught):
 
 1. build   nvcc-compiles every api_ratelimit_tpu_torch/csrc/*.cu source (one
            nvcc per source, all started together) into one library, and
-           prints ptxas's lines for the apply and way scan kernels.
+           prints ptxas's lines for the apply and way scan kernels (the way
+           scan's multi-algorithm instantiations also on a line of their
+           own), after a line saying whether grpc, google.protobuf and yaml
+           import here, with their versions.
 2. parity  each kernel against its plain PyTorch version on the card,
            bit-exact, at every bucket (128 ... 65536): the way scan (with
            the shipped routing and in each of its two forms, set-major and
@@ -108,17 +111,49 @@ Phases, each of which must pass (nothing is caught):
            requests/s, p50/p99 per request, the mean batch, the batches
            launched while another was in flight, and one profiled batch's
            device busy share.
-8. report  per-kernel median device times (torch.profiler) and CUDA-event
+8. algorithms the sibling algorithms (sliding window, GCRA, concurrency and
+           its Release). (a) the way scan's multi-algorithm instantiation,
+           both forms and the shipped routing, bit-exact to
+           way_scan_plain(multi_algo=True) at W in {4, 128}, the buckets and
+           a 2^20 batch 60% in one set, over tables of every algorithm's
+           rows with sliding rows in their grace window beside fixed rows of
+           lower count (the grace must change picks). (b) a served mix at
+           the reference's default deployment (2^22 slots, W = 128, the
+           production sketch, direct mode): 16 x 65536 Zipf(1.1) items over
+           2^20 keys, a key's algorithm its id mod 4, one concurrency item
+           in ten a release, GCRA burst ratio 1.5, `now` 7 s later each
+           batch, through SlabDeviceEngine on the card and on the CPU:
+           afters, health, table, sketch planes and the hotkeys document
+           equal, the guard flipped on the first launch, its launches
+           counted (the multi way scan and the sketch update once each a
+           launch, no apply); the first 4 batches through
+           slab_step_packed(multi_algo=True) against SetSlabOracle, item by
+           item. Then /json and POST /release through HttpServer on the
+           card and the CPU: equal answers, a release frees one slot. (c)
+           bench.py's boundary-burst tier (64 keys, limit 100, 60 s
+           windows, 4096 slots; the churn run, cap 32, TTL 40 s) on the
+           card and the CPU: equal counts; fixed about 2x, sliding and GCRA
+           within their bounds, the cap held, the TTL reclaiming. (d)
+           slab_step_decided(multi_algo=True) at b = 2^20 over 2^23 slots:
+           codes against SetSlabOracle, the set-major multi way scan and
+           the decide kernel launched; the step staged on the card, its
+           device ms and activities beside the fixed staged step's. Prints
+           submit_rows medians and activities, fixed-only against flipped,
+           and the multi body's device ms and activities.
+9. report  per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
            its table, each of its forms timed beside it on the same
            operands with its activities one by one; the three
            decision kernels at the decided phase's b = 2^20, sel and chain
-           at the tool's); the standalone sketch scan, now on no path, on a
-           line of its own, with the parent's two-kernel sketch update
-           (scan kernel + torch phases) timed beside the fused kernel; the
-           card's name and power limit, then the ok line.
+           at the tool's; the multi-algorithm way scan on the served mix's
+           table and the decided multi step's, each beside the fixed
+           instantiation on the same operands, and the decide kernel on
+           that step's before/after); the standalone sketch scan, now on no
+           path, on a line of its own, with the parent's two-kernel sketch
+           update (scan kernel + torch phases) timed beside the fused
+           kernel; the card's name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -147,6 +182,7 @@ NOW0 = 1_700_000_000
 HOTKEY_LANES, HOTKEY_K = 128, 16  # the settings defaults
 SOURCES = {
     "way_scan": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
+    "way_scan_multi": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "slab_apply": "api_ratelimit_tpu_torch/csrc/slab_kernels.cu",
     "sketch_scan": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
     "sketch_update": "api_ratelimit_tpu_torch/csrc/sketch_kernels.cu",
@@ -158,6 +194,9 @@ SOURCES = {
 }
 REPLACES = {
     "way_scan": "api_ratelimit_tpu/ops/pallas_slab.py:312",
+    # the Pallas scan is fixed-window only: its multi-algorithm form is the
+    # XLA twin's _scan_ways(multi_algo=True), api_ratelimit_tpu/ops/slab.py:278
+    "way_scan_multi": "api_ratelimit_tpu/ops/pallas_slab.py:312",
     "slab_apply": "api_ratelimit_tpu/ops/pallas_slab.py:371",
     "sketch_scan": "api_ratelimit_tpu/ops/sketch.py:148",
     "sketch_update": "api_ratelimit_tpu/ops/sketch.py:148",
@@ -633,18 +672,20 @@ def phase_parity(M, dev) -> dict:
     return err
 
 
-def way_scan_forms_parity(M, table, lo, hi, now: int, ways: int, label: str, err: dict):
+def way_scan_forms_parity(M, table, lo, hi, now: int, ways: int, label: str, err: dict, multi_algo: bool = False):
     """The way scan with the shipped routing and in each form on its own
     (set-major, per item) against its plain version, every output bit for
-    bit; returns the plain version's outputs."""
+    bit, in the fixed-window or (multi_algo) the multi-algorithm
+    instantiation; returns the plain version's outputs."""
     K = M.K
-    want = K.way_scan_plain(table, lo, hi, now, ways)
+    name = "way_scan_multi" if multi_algo else "way_scan"
+    want = K.way_scan_plain(table, lo, hi, now, ways, multi_algo=multi_algo)
     for form in (None, *K.WAY_SCAN_FORM_NAMES):
-        got = K.way_scan(table, lo, hi, now, ways, form=form)
+        got = K.way_scan(table, lo, hi, now, ways, form=form, multi_algo=multi_algo)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
-        check(e == 0, f"way_scan ({form or 'shipped routing'}) differs from its plain version on {label}")
-        err["way_scan"] = max(err["way_scan"], e)
+        check(e == 0, f"{name} ({form or 'shipped routing'}) differs from its plain version on {label}")
+        err[name] = max(err.get(name, 0), e)
     return want
 
 
@@ -911,13 +952,16 @@ def http_call(port: int, method: str, path: str, body=None):
         conn.close()
 
 
-def serve(device: str, bodies, defaults: bool = True):
+def serve(device: str, bodies, defaults: bool = True, rules=None, clock_steps=None):
     """Start the port's server (W=128) and its debug server on ephemeral
-    ports, POST `bodies`, flush the stats (the flush drains the sketch),
-    GET /debug/hotkeys and /stats, stop both. defaults: the production
+    ports, POST `bodies` (each a /json body, or a (path, body) pair such as
+    POST /release), flush the stats (the flush drains the sketch), GET
+    /debug/hotkeys and /stats, stop both. defaults: the production
     settings (hotkeys on, host fast path); else slice 1's arm (sketch off,
-    the trie walk into do_limit). Returns ([(status, body bytes)], hotkeys
-    document bytes, stats document)."""
+    the trie walk into do_limit). rules: the config mapping (RULES if
+    None); clock_steps: seconds to advance the clock before each body.
+    Returns ([(status, body bytes)], hotkeys document bytes, stats
+    document)."""
     from api_ratelimit_tpu_torch.backends.cuda import CudaRateLimitCache, HotkeyStats, SlabHealthStats
     from api_ratelimit_tpu_torch.config import ConfigDoc, build_config
     from api_ratelimit_tpu_torch.limiter import BaseRateLimiter
@@ -936,7 +980,7 @@ def serve(device: str, bodies, defaults: bool = True):
     )
     service = RateLimitService(
         _Runtime(), cache, root, clock,
-        config_loader=lambda _files: build_config([ConfigDoc("smoke", RULES)], rules_scope),
+        config_loader=lambda _files: build_config([ConfigDoc("smoke", rules or RULES)], rules_scope),
         host_fast_path=defaults,
     )
     store.add_stat_generator(SlabHealthStats(cache.engine, root.scope("slab")))
@@ -947,7 +991,11 @@ def serve(device: str, bodies, defaults: bool = True):
     server.serve_background()
     debug.serve_background()
     try:
-        out = [http_call(server.port, "POST", "/json", body) for body in bodies]
+        out = []
+        for i, body in enumerate(bodies):
+            clock.advance(clock_steps[i] if clock_steps else 0)
+            path, body = body if isinstance(body, tuple) else ("/json", body)
+            out.append(http_call(server.port, "POST", path, body))
         store.flush()
         status, hotkeys = http_call(debug.port, "GET", "/debug/hotkeys")
         check(status == 200, f"/debug/hotkeys answered {status}")
@@ -1542,6 +1590,539 @@ def phase_windowed(M, dev) -> dict:
     return out
 
 
+# --- phase 8: the sibling algorithms ------------------------------------------
+
+ALGO_KEYS = 1 << 20  # the served mix's Zipf universe
+ALGO_BATCHES = 16
+ALGO_ORACLE_BATCHES = 4
+ALGO_STEP_S = 7  # `now` advances 7 s a batch: windows roll, TATs drain
+ALGO_BURST = 1.5  # GCRA_BURST_RATIO of the mix
+ALGO_RELEASE_SHARE = 0.1  # of the concurrency items
+ALGO_DECIDED_STEPS = 1
+ALGO_TIMED_SUBMITS = 10
+ALGO_NAMES = ("fixed_window", "sliding_window", "gcra", "concurrency")
+ALGO_RULES = {
+    "domain": "algo",
+    "descriptors": [
+        {"key": "fixed", "rate_limit": {"unit": "minute", "requests_per_unit": 5}},
+        {"key": "slide", "rate_limit": {"unit": "minute", "requests_per_unit": 6, "algorithm": "sliding_window"}},
+        {"key": "bucket", "rate_limit": {"unit": "minute", "requests_per_unit": 4, "algorithm": "gcra"}},
+        {"key": "conns", "rate_limit": {"requests_per_unit": 3, "algorithm": "concurrency"}},
+    ],
+}
+# bench.py bench_boundary_burst's tier: 64 keys, limit 100, 60 s windows, a
+# 4096-slot table; the churn run's cap 32 and idle TTL 40 s
+BURST_KEYS, BURST_LIMIT, BURST_DIV, BURST_SLOTS = 64, 100, 60, 1 << 12
+CHURN_CAP, CHURN_TTL, CHURN_WAVES = 32, 40, 60
+
+
+def algo_fingerprints(keys: np.ndarray, n_sets: int) -> tuple[np.ndarray, np.ndarray]:
+    """fingerprints() with the set index taken from the key id's low bits
+    and the id's next 5 bits in fp_hi's top bits, the bits the step's sort
+    key breaks ties with: distinct keys of one set never share them, the
+    one case SetSlabOracle does not model (ops/slab.py _sort_key). Needs
+    keys < 32 x n_sets."""
+    lo, hi = fingerprints(keys)
+    set_bits = n_sets.bit_length() - 1
+    k = keys.astype(np.uint64)
+    check(int(k.max()) < (32 << set_bits), "too many keys for the oracle's fingerprints")
+    lo = (lo & ~np.uint32(n_sets - 1)) | (k & np.uint64(n_sets - 1)).astype(np.uint32)
+    hi = ((k >> np.uint64(set_bits)).astype(np.uint32) << np.uint32(27)) | (hi & np.uint32((1 << 27) - 1))
+    return lo, hi
+
+
+def algo_block(S, rng, keys: np.ndarray, n_sets: int) -> np.ndarray:
+    """uint32[6, n] row block of the four-algorithm mix: a key's algorithm
+    is its id mod 4 (fixed window, sliding window, GCRA, concurrency), its
+    limit 5, 100 or 1000 and its window 1 s, 60 s or 1 h by id (a
+    concurrency cap's window is its 60 s idle TTL); one concurrency item in
+    ten is a release row; 1 hit, a jitter of id mod 7."""
+    n = keys.size
+    block = np.empty((6, n), np.uint32)
+    block[0], block[1] = algo_fingerprints(keys, n_sets)
+    block[2] = 1
+    algo = (keys % 4).astype(np.uint32)
+    block[3] = np.array([5, 100, 1000], np.uint32)[(keys // 4) % 3]
+    div = np.array([1, 60, 3600], np.uint32)[(keys // 12) % 3]
+    div = np.where(algo == S.ALGO_CONCURRENCY, np.uint32(60), div)
+    release = (algo == S.ALGO_CONCURRENCY) & (rng.random(n) < ALGO_RELEASE_SHARE)
+    algo = np.where(release, np.uint32(S.ALGO_CONC_RELEASE), algo)
+    block[4] = div | (algo << np.uint32(S.ALGO_SHIFT))
+    block[5] = (keys % 7).astype(np.uint32)
+    return block
+
+
+def algo_operand(block: np.ndarray, now: int, burst: float = ALGO_BURST) -> np.ndarray:
+    """The launch operand uint32[7, n] of a row block: `now`, near_ratio 0.8
+    and the GCRA burst ratio in the scalar row, as the engine packs it."""
+    op = np.zeros((7, block.shape[1]), np.uint32)
+    op[:6] = block
+    op[6, 0] = now
+    op[6, 1] = np.float32(0.8).view(np.uint32)
+    op[6, 2] = np.float32(burst).view(np.uint32)
+    return op
+
+
+def unsorted_rows(out: torch.Tensor, S) -> dict:
+    """before, after and code of a packed step's uint32[9, b] block in
+    arrival order, on the host."""
+    host = out.view(torch.int32).cpu().numpy().view(np.uint32)
+    order = host[S.OUT_ORDER].astype(np.int64)
+    res = {}
+    for name, row in (("before", S.OUT_BEFORE), ("after", S.OUT_AFTER), ("code", S.OUT_CODE)):
+        arr = np.empty(host.shape[1], np.uint32)
+        arr[order] = host[row]
+        res[name] = arr
+    return res
+
+
+def grace_rows(rng, table: np.ndarray, now: int, ways: int, sets) -> None:
+    """In each of `sets`: a sliding-window row in its grace window (window +
+    div <= now < window + 2 div, count 9) beside a fixed row of lower count
+    (3) in its current window, the set's other ways live, in window and
+    fuller (50): the fixed-window scan evicts the sliding row, the
+    multi-algorithm one the fixed row."""
+    div = 60
+    win = (now // div) * div
+    for s in sets:
+        a, b = (s * ways + w for w in rng.choice(ways, 2, replace=False))
+        for w in range(ways):
+            table[s * ways + w] = (*rng.integers(0, 1 << 32, 2, dtype=np.uint64), 50, win, now + 50, div, 0, 0)
+        table[a, 2:7] = (9, win - div, now + 50, div | (1 << 28), 4)
+        table[b, 2:6] = (3, win, now + 50, div)
+
+
+def algo_scan_inputs(rng, b: int, n_slots: int, ways: int, now: int, dev, crowd_share: float = 0.25):
+    """scan_inputs' batch over a table of every algorithm's rows: random
+    algorithm ids (0-7, so unknown ids too) on the adversarial rows, a
+    quarter of them sliding rows in their grace window, and grace_rows in
+    the crowded set 7 and 64 more sets."""
+    lo, hi = fingerprints(rng.integers(0, 1 << 40, b))
+    n_sets = n_slots // ways
+    crowd = rng.random(b) < crowd_share
+    lo[crowd] = (lo[crowd] & ~np.uint32(n_sets - 1)) | np.uint32(7 % n_sets)
+    lo[-b // 16 :] = 0
+    hi[-b // 16 :] = 0
+    t = adversarial_table(rng, n_slots, now, lo, hi, ways)
+    t[:, 5] |= rng.integers(0, 8, n_slots).astype(np.uint32) << np.uint32(28)
+    div = (t[:, 5] & np.uint32((1 << 28) - 1)).astype(np.int64)
+    g = rng.random(n_slots) < 0.25
+    t[g, 3] = (now // div[g]) * div[g] - div[g]
+    t[g, 4] = now + 1 + rng.integers(0, 100, int(g.sum()))
+    t[g, 5] = div[g] | (1 << 28)
+    grace_rows(rng, t, now, ways, sorted({7 % n_sets, *rng.choice(n_sets, min(64, n_sets), replace=False).tolist()}))
+    return i32(t, dev), i32(lo, dev), i32(hi, dev)
+
+
+def algo_scan_parity(M, dev, err: dict) -> dict:
+    """(a) The multi-algorithm instantiation of both way-scan forms and the
+    shipped routing against way_scan_plain(multi_algo=True) at W in {4,
+    128}: the buckets and a 2^20 batch with 60% of it in one set, over
+    tables of every algorithm's rows with sliding rows in their grace
+    window beside fixed rows of lower count. Each batch must also pick
+    differently from the fixed-window scan somewhere (the grace decides)."""
+    K = M.K
+    rng = np.random.default_rng(8)
+    differs = {}
+    for ways in (4, 128):
+        for b in (*BUCKETS, DECIDED_BATCH):
+            share = 0.6 if b == DECIDED_BATCH else 0.25
+            table, lo, hi = algo_scan_inputs(rng, b, N_SLOTS, ways, NOW0, dev, crowd_share=share)
+            label = f"{'skewed ' if b == DECIDED_BATCH else ''}b={b} W={ways} (every algorithm)"
+            want = way_scan_forms_parity(M, table, lo, hi, NOW0, ways, label, err, multi_algo=True)
+            fixed = K.way_scan_plain(table, lo, hi, NOW0, ways)
+            n_diff = int((want[0] != fixed[0]).sum())
+            check(n_diff > 0, f"the sliding grace changed no pick at {label}")
+            differs[f"b={b} W={ways}"] = n_diff
+            del table, lo, hi, want, fixed
+    return differs
+
+
+def served_mix(S, rng, n_batches: int, n_slots: int, ways: int = 128) -> list:
+    return [algo_block(S, rng, zipf_keys(rng, BUCKETS[-1], ALGO_KEYS), n_slots // ways) for _ in range(n_batches)]
+
+
+def algo_served(M, dev) -> dict:
+    """(b) The served four-algorithm mix at the reference's default
+    deployment (2^22 slots, W = 128, the production sketch, direct mode):
+    16 batches of 65536 Zipf(1.1) items through SlabDeviceEngine.submit_rows
+    on the card, `now` 7 s later each batch, against the same engine on the
+    CPU: every after, the health, the table, the sketch planes and the
+    drained hotkeys document. The card run is the main path of the
+    multi-algorithm way scan (per item at this shape) and of the fused
+    sketch update: its launches are counted. The first 4 batches again
+    through slab_step_packed(multi_algo=True) on a second card table:
+    before, after and code of every item and the health against
+    SetSlabOracle."""
+    K, S, O, cuda_mod, utils = M.K, M.S, M.O, M.cuda_mod, M.utils
+    rng = np.random.default_rng(5)
+    batches = served_mix(S, rng, ALGO_BATCHES, N_SLOTS)
+    hot = {"hotkey_lanes": HOTKEY_LANES, "hotkey_k": HOTKEY_K, "gcra_burst_ratio": ALGO_BURST, "ways": 128, "n_slots": N_SLOTS}
+    clocks = {"cuda": utils.FakeTimeSource(NOW0), "cpu": utils.FakeTimeSource(NOW0)}
+    engines = {name: cuda_mod.SlabDeviceEngine(clock, device=name, **hot) for name, clock in clocks.items()}
+    check(not engines["cuda"].algos_seen, "a fresh engine's guard is already flipped")
+    afters = {}
+    for name in ("cuda", "cpu"):
+        eng, clock = engines[name], clocks[name]
+        if name == "cuda":
+            K.reset_launch_counts()
+        t0 = time.perf_counter()
+        afters[name] = []
+        for block in batches:
+            clock.advance(ALGO_STEP_S)
+            afters[name].append(eng.submit_rows(block).copy())
+        if name == "cuda":
+            torch.cuda.synchronize()
+            launches, multi_forms, fixed_forms = dict(K.LAUNCHES), dict(K.WAY_SCAN_MULTI_FORMS), dict(K.WAY_SCAN_FORMS)
+        elapsed = time.perf_counter() - t0
+        log(f"algorithms served mix on {name}: {len(batches)} x {BUCKETS[-1]} items in {elapsed:.1f} s")
+    n = len(batches)
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": n, "sketch_update": n}
+    check(launches == want, f"the served mix launched {launches}, expected {want}")
+    form = K.way_scan_form(BUCKETS[-1], N_SLOTS // 128, 128)  # per item at 65536 over 2^22 slots
+    check(multi_forms == dict.fromkeys(multi_forms, 0) | {form: n} and not any(fixed_forms.values()),
+          f"the served mix's way scans ran as {multi_forms} (multi) and {fixed_forms} (fixed)")
+    check(engines["cuda"].algos_seen, "the served mix did not flip the guard")
+    for i in range(n):
+        check(np.array_equal(afters["cuda"][i], afters["cpu"][i]), f"served mix afters differ from the CPU's at batch {i}")
+    tables = {name: eng.export_tables()[0] for name, eng in engines.items()}
+    check(np.array_equal(tables["cuda"], tables["cpu"]), "served mix tables differ from the CPU's")
+    check(np.array_equal(engines["cuda"].export_sketch(), engines["cpu"].export_sketch()), "served mix sketch planes differ")
+    health = {name: eng.health_snapshot() for name, eng in engines.items()}
+    check(health["cuda"] == health["cpu"], f"served mix health differs: {health}")
+    drained = {name: eng.drain_hotkeys() for name, eng in engines.items()}
+    docs = {name: json.dumps(eng.hotkeys_snapshot(), indent=2) for name, eng in engines.items()}
+    check(drained["cuda"] == drained["cpu"] and docs["cuda"] == docs["cpu"], "served mix hotkeys documents differ")
+    algos = (tables["cuda"][:, 5] >> np.uint32(S.ALGO_SHIFT)) & np.uint32(7)
+    stored = {ALGO_NAMES[a]: int((algos[tables["cuda"][:, 4] != 0] == a).sum()) for a in range(4)}
+    check(all(stored.values()), f"the served mix stored no row of some algorithm: {stored}")
+    check(bool(tables["cuda"][:, 6].any()) and bool(tables["cuda"][:, 7].any()), "columns 6-7 were never written")
+
+    # the oracle: before/after/code of every item through the packed step
+    twin = S.make_slab(N_SLOTS, dev)
+    oracle = O.SetSlabOracle(N_SLOTS, 128, burst_ratio=ALGO_BURST)
+    t0 = time.perf_counter()
+    for i, block in enumerate(batches[:ALGO_ORACLE_BATCHES]):
+        now = NOW0 + ALGO_STEP_S * (i + 1)
+        out, health_dev = S.slab_step_packed(twin, algo_operand(block, now), ways=128, multi_algo=True)
+        got = unsorted_rows(out, S)
+        cap = np.uint32(0xFF if int(block[2].max()) + int(block[3].max()) < 255 else 0xFFFF)
+        check(np.array_equal(np.minimum(got["after"], cap), afters["cuda"][i]), f"the packed step's afters differ from the engine's at batch {i}")
+        items = list(zip(*(block[r].tolist() for r in range(6))))
+        w_before, w_after, w_codes, w_delta = oracle.step_batch(items, now)
+        check(got["before"].tolist() == w_before and got["after"].tolist() == w_after, f"served mix before/after differ from SetSlabOracle at batch {i}")
+        check(got["code"].tolist() == w_codes, f"served mix codes differ from SetSlabOracle at batch {i}")
+        check([int(v) for v in health_dev.tolist()] == w_delta, f"served mix health differs from SetSlabOracle at batch {i}")
+    check(np.array_equal(S.slab_export_copy(twin).astype(np.uint64), oracle.table), "the packed twin's table differs from SetSlabOracle's")
+    oracle_s = time.perf_counter() - t0
+    codes_over = [int((a > batches[i][3]).sum()) for i, a in enumerate(afters["cuda"])]
+    del twin, oracle
+    torch.cuda.empty_cache()
+    return {
+        "engine": engines["cuda"],
+        "batches": batches,
+        "launches": launches,
+        "multi_forms": multi_forms,
+        "summary": {
+            "n_slots": N_SLOTS, "ways": 128, "batches": n, "batch": BUCKETS[-1], "burst_ratio": ALGO_BURST,
+            "stored_rows": stored, "over_limit_per_batch": codes_over, "health": health["cuda"],
+            "oracle_batches": ALGO_ORACLE_BATCHES, "oracle_s": oracle_s,
+            "hotkeys_top": drained["cuda"][:3],
+        },
+    }
+
+
+def algo_http(M) -> dict:
+    """(b) /json and POST /release through HttpServer on the card and on
+    the CPU (the four rules of ALGO_RULES): statuses and bodies equal, the
+    concurrency cap denying its fourth holder until one release frees a
+    slot, the sliding window and GCRA denying past their limits."""
+    K = M.K
+
+    def req(key, path="/json"):
+        body = json.dumps({"domain": "algo", "descriptors": [{"entries": [{"key": key}]}]}).encode()
+        return (path, body) if path != "/json" else body
+
+    bodies = [req("conns")] * 4 + [req("conns", "/release"), req("conns"), req("conns")]
+    bodies += [req("slide")] * 7 + [req("bucket")] * 5 + [req("fixed")] * 6 + [req("slide"), req("bucket")]
+    steps = [0] * (len(bodies) - 2) + [60, 15]
+    K.reset_launch_counts()
+    got, got_doc, _ = serve("cuda", bodies, rules=ALGO_RULES, clock_steps=steps)
+    launches = dict(K.LAUNCHES)
+    multi_forms = dict(K.WAY_SCAN_MULTI_FORMS)
+    want, want_doc, _ = serve("cpu", bodies, rules=ALGO_RULES, clock_steps=steps)
+    statuses = [s for s, _ in got]
+    check(got == want, f"card and CPU answers to the algorithm rules differ:\n{got}\n{want}")
+    check(got_doc == want_doc, "card and CPU /debug/hotkeys of the algorithm rules differ")
+    check(statuses[:4] == [200, 200, 200, 429], f"the concurrency cap did not hold: {statuses[:4]}")
+    check(got[4] == (200, b'{"released": 1}'), f"POST /release answered {got[4]}")
+    check(statuses[5:7] == [200, 429], f"the release did not free exactly one slot: {statuses[5:7]}")
+    check(statuses[7:14] == [200] * 6 + [429] and statuses[14:19] == [200] * 4 + [429], f"sliding/GCRA statuses {statuses[7:19]}")
+    check(statuses[19:25] == [200] * 5 + [429], f"fixed-window statuses {statuses[19:25]}")
+    check(statuses[25:] == [200, 200], f"the next window's sliding carry or the drained TAT denied: {statuses[25:]}")
+    check(multi_forms["per_item"] > 0 and launches["sketch_update"] > 0, f"the algorithm rules' launches {launches} {multi_forms}")
+    log(f"algorithms http: statuses {statuses}, launches {launches}, multi way scans {multi_forms}")
+    return {"statuses": statuses, "launches": launches}
+
+
+def boundary_burst(M, device) -> dict:
+    """(c) bench.py bench_boundary_burst on the port: 64 keys, limit 100,
+    60 s windows, a 4096-slot table (W = 128), each key offering `limit`
+    one-hit requests in the last quarter of a window and `limit` more in
+    the first quarter of the next, per algorithm; then the churn run (cap
+    32, idle TTL 40 s, 60 acquire waves, 25% of sessions leaking) and the
+    TTL reclaim. Every launch is slab_step_packed(multi_algo=True)."""
+    S = M.S
+    ways = 128
+
+    def launch(state, rows_div, now, limit, ids):
+        p = np.zeros((7, BURST_KEYS), np.uint32)
+        p[S.ROW_FP_LO], p[S.ROW_FP_HI] = fmix32(ids), fmix32(ids ^ np.uint32(0x5A5A5A5A))
+        p[S.ROW_HITS] = 1
+        p[S.ROW_LIMIT] = limit
+        p[S.ROW_DIVIDER] = rows_div
+        p[S.ROW_SCALARS, 0] = np.uint32(now)
+        p[S.ROW_SCALARS, 1] = np.float32(0.8).view(np.uint32)
+        out, _h = S.slab_step_packed(state, p, ways=ways, multi_algo=True)
+        return unsorted_rows(out, S)["code"]
+
+    w0 = 1_000_000 * BURST_DIV // BURST_DIV * BURST_DIV
+    edge = [(w0 + BURST_DIV - 8 + 2 * k, BURST_LIMIT // 4) for k in range(4)]
+    edge += [(w0 + BURST_DIV + 2 + 2 * k, BURST_LIMIT // 4) for k in range(4)]
+    result: dict = {"limit": BURST_LIMIT, "offered_per_key": 2 * BURST_LIMIT}
+    for name, algo in (("fixed_window", 0), ("sliding_window", S.ALGO_SLIDING_WINDOW), ("gcra", S.ALGO_GCRA)):
+        state = S.make_slab(BURST_SLOTS, device)
+        ids = np.arange(BURST_KEYS, dtype=np.uint32) + np.uint32(0x1000 * (algo + 1))
+        admitted = 0
+        for now, per_key in edge:
+            for _ in range(per_key):
+                admitted += int((launch(state, BURST_DIV | (algo << S.ALGO_SHIFT), now, BURST_LIMIT, ids) == 1).sum())
+        result[name] = {"admitted": admitted, "admitted_over_limit_ratio": admitted / BURST_KEYS / BURST_LIMIT}
+    state = S.make_slab(BURST_SLOTS, device)
+    rng = np.random.default_rng(12)
+    ids = np.arange(BURST_KEYS, dtype=np.uint32) + np.uint32(0x9000)
+
+    def conc(now, release):
+        algo = np.where(release, S.ALGO_CONC_RELEASE, S.ALGO_CONCURRENCY).astype(np.uint32)
+        return launch(state, np.uint32(CHURN_TTL) | (algo << np.uint32(S.ALGO_SHIFT)), now, CHURN_CAP, ids)
+
+    now = w0 + 10 * BURST_DIV
+    admitted = denied = 0
+    max_count = 0
+    leak = rng.random(size=(CHURN_WAVES, BURST_KEYS)) < 0.25
+    for wave in range(CHURN_WAVES):
+        codes = conc(now, np.zeros(BURST_KEYS, bool))
+        admitted += int((codes == 1).sum())
+        denied += int((codes == 2).sum())
+        if not leak[wave].all():
+            conc(now, ~leak[wave])
+        table = S.slab_export_copy(state)
+        conc_rows = ((table[:, 5] >> np.uint32(S.ALGO_SHIFT)) == S.ALGO_CONCURRENCY) & (table[:, 4] != 0)
+        max_count = max(max_count, int(table[conc_rows, 2].max(initial=0)))
+        now += 1
+    now += CHURN_TTL + 5
+    reclaimed = float(np.mean(conc(now, np.zeros(BURST_KEYS, bool)) == 1))
+    result["connection_churn"] = {
+        "cap": CHURN_CAP, "ttl_s": CHURN_TTL, "churn_admitted": admitted, "churn_denied": denied,
+        "max_in_flight": max_count, "cap_bound_held": denied > 0 and max_count <= CHURN_CAP,
+        "reclaimed_admit_rate": reclaimed,
+    }
+    return result
+
+
+def algo_boundary_burst(M, dev) -> dict:
+    """(c) boundary_burst on the card and on the CPU: equal counts; fixed
+    window admits about 2x its limit across the edge, the sliding window at
+    most 1 + the interpolation error (the edge's last arrival 8 s into the
+    window: 8/60 of the limit, plus one for the floor), GCRA at most its
+    burst (one window at ratio 1.0) plus what drains over the edge's 16 s;
+    the churn cap holds and the TTL reclaims every leaked slot."""
+    got = boundary_burst(M, dev)
+    want = boundary_burst(M, "cpu")
+    check(got == want, f"boundary burst counts differ between card and CPU:\n{got}\n{want}")
+    r = {name: got[name]["admitted_over_limit_ratio"] for name in ("fixed_window", "sliding_window", "gcra")}
+    check(1.9 <= r["fixed_window"] <= 2.0, f"fixed window admitted {r['fixed_window']} x its limit across the edge")
+    check(r["sliding_window"] <= 1 + 8 / BURST_DIV + 1 / BURST_LIMIT, f"sliding window admitted {r['sliding_window']} x")
+    check(r["gcra"] <= 1 + 16 / BURST_DIV + 1 / BURST_LIMIT, f"GCRA admitted {r['gcra']} x")
+    churn = got["connection_churn"]
+    check(churn["cap_bound_held"] and churn["reclaimed_admit_rate"] == 1.0, f"churn: {churn}")
+    log("algorithms boundary burst:", json.dumps(got))
+    return got
+
+
+def staged_multi_step(M, state, batch, now: int):
+    """The decided multi-algorithm step over a batch staged on the card:
+    _slab_step_sorted(multi_algo=True) (the decide kernel after the body),
+    the codes unsorted and the OVER bits packed on the card."""
+    S, D = M.S, M.D
+    _before, _after, d, order, health = S._slab_step_sorted(
+        state, batch, now, 0.8, DECIDED_WAYS, lean=True, multi_algo=True, burst_ratio=ALGO_BURST
+    )
+    return D.packbits(S._unsort(d.code, order) == D.CODE_OVER_LIMIT), health
+
+
+def algo_decided(M, dev) -> dict:
+    """(d) slab_step_decided(multi_algo=True) at b = 2^20 over 2^23 slots
+    (W = 128) on the four-algorithm mix, one step from an empty table: every
+    code against SetSlabOracle, the launches (the set-major multi way scan
+    and the decide kernel once a step, no apply). Then the step staged on
+    the card, its device ms and activities against the fixed-window staged
+    step of the decided phase in the same call."""
+    K, S, O, D = M.K, M.S, M.O, M.D
+    ways = DECIDED_WAYS
+    rng = np.random.default_rng(6)
+    n_sets = DECIDED_SLOTS // ways
+    blocks = [algo_block(S, rng, zipf_keys(rng, DECIDED_BATCH, ALGO_KEYS), n_sets) for _ in range(ALGO_DECIDED_STEPS)]
+    state = S.make_slab(DECIDED_SLOTS, dev)
+    oracle = O.SetSlabOracle(DECIDED_SLOTS, ways, burst_ratio=ALGO_BURST)
+    decide_args = []
+    real_decide = S.decide_items
+
+    def record(*args):
+        decide_args.append(args)
+        return real_decide(*args)
+
+    K.reset_launch_counts()
+    S.decide_items = record
+    codes = []
+    try:
+        for i, block in enumerate(blocks):
+            c, _h = S.slab_step_decided(state, algo_operand(block, NOW0 + ALGO_STEP_S * i), ways=ways, multi_algo=True)
+            codes.append(c.cpu().numpy())
+    finally:
+        S.decide_items = real_decide
+    launches, forms = dict(K.LAUNCHES), dict(K.WAY_SCAN_MULTI_FORMS)
+    n = len(blocks)
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"way_scan": n, "decide": n}
+    check(launches == want, f"the decided multi steps launched {launches}, expected {want}")
+    form = K.way_scan_form(DECIDED_BATCH, n_sets, ways)  # set-major at 2^20
+    check(forms == dict.fromkeys(forms, 0) | {form: n}, f"the decided multi way scans ran as {forms}")
+    t0 = time.perf_counter()
+    over = []
+    for i, block in enumerate(blocks):
+        items = list(zip(*(block[r].tolist() for r in range(6))))
+        _b, _a, w_codes, _delta = oracle.step_batch(items, NOW0 + ALGO_STEP_S * i)
+        check(codes[i].tolist() == w_codes, f"decided multi codes differ from SetSlabOracle at step {i}")
+        over.append(int((codes[i] == D.CODE_OVER_LIMIT).sum()))
+    oracle_s = time.perf_counter() - t0
+    del oracle
+    args = decide_args[-1]
+    decide_err = max_abs_err(M.D.decide(*args), M.D.decide_plain(*args))
+    check(decide_err == 0, "decide differs from its plain version on the decided multi step's operands")
+
+    # staged: the next block's rows on the card before timing
+    nxt = algo_block(S, rng, zipf_keys(rng, DECIDED_BATCH, ALGO_KEYS), n_sets)
+    staged = S.SlabBatch(*torch.from_numpy(nxt.view(np.int32)).to(dev))
+    now = NOW0 + ALGO_STEP_S * n
+    multi_fn = lambda: staged_multi_step(M, state, staged, now)  # noqa: E731
+    per_call, by_name = traced_calls(multi_fn, 5)
+    fixed_state = S.make_slab(DECIDED_SLOTS, dev)
+    ids = torch.from_numpy(zipf_ids(DECIDED_KEYS, DECIDED_BATCH, 1, seed=3)[0].view(np.int32)).to(dev)
+    fixed_fn = lambda: staged_step(M, fixed_state, ids, NOW0)  # noqa: E731
+    f_per_call, f_by_name = traced_calls(fixed_fn, 5)
+    out = {
+        "n_slots": DECIDED_SLOTS, "ways": ways, "batch": DECIDED_BATCH, "steps": n, "over_limit": over,
+        "oracle_s": oracle_s,
+        "staged_multi_device_ms": summed_ms(per_call, by_name),
+        "staged_multi_activities": sum(per_call.values()),
+        "staged_multi_call_ms": call_ms(multi_fn, iters=5),
+        "staged_fixed_device_ms": summed_ms(f_per_call, f_by_name),
+        "staged_fixed_activities": sum(f_per_call.values()),
+        "staged_fixed_call_ms": call_ms(fixed_fn, iters=5),
+        "staged_multi_top_device_ms": profile_call(multi_fn)["top_device_ms"][:8],
+    }
+    del fixed_state
+    torch.cuda.empty_cache()
+    probe = staged
+    return {
+        "summary": out, "launches": launches, "forms": forms, "state": state,
+        "scan": (state.table, probe.fp_lo, probe.fp_hi, now, ways), "decide_args": decide_args[-1],
+        "decide_err": decide_err,
+    }
+
+
+def algo_timing(M, served: dict) -> dict:
+    """Timing, no claim: submit_rows medians and device activities of one
+    65536-item batch, a fixed-only engine (the guard unflipped, fixed
+    rows) against the served mix's flipped engine (the mix); the
+    multi-algorithm body's device ms and activities over a real served
+    step's sorted operands."""
+    S, cuda_mod, utils = M.S, M.cuda_mod, M.utils
+    rng = np.random.default_rng(9)
+    flipped = served["engine"]
+    fixed = cuda_mod.SlabDeviceEngine(utils.FakeTimeSource(NOW0), n_slots=N_SLOTS, device="cuda", hotkey_lanes=HOTKEY_LANES, hotkey_k=HOTKEY_K)
+    fixed_blocks = [key_block(zipf_keys(rng, BUCKETS[-1])) for _ in range(ALGO_TIMED_SUBMITS)]
+    mix_blocks = served_mix(S, rng, ALGO_TIMED_SUBMITS, N_SLOTS)
+    ms = {"fixed": [], "flipped": []}
+    for i in range(ALGO_TIMED_SUBMITS):
+        for name, eng, block in (("fixed", fixed, fixed_blocks[i]), ("flipped", flipped, mix_blocks[i]))[:: 1 if i % 2 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.submit_rows(block)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    check(not fixed.algos_seen and flipped.algos_seen, "the timed engines' guards are not as set up")
+    acts = {}
+    for name, eng, block in (("fixed", fixed, fixed_blocks[0]), ("flipped", flipped, mix_blocks[0])):
+        per_call, by_name = traced_calls(lambda e=eng, b=block: e.submit_rows(b), 5)
+        acts[name] = (sum(per_call.values()), summed_ms(per_call, by_name))
+    body_args, real = [], S._multi_algo_body
+
+    def record(*args):
+        body_args.append(args)
+        return real(*args)
+
+    S._multi_algo_body = record
+    try:
+        flipped.submit_rows(mix_blocks[1])
+    finally:
+        S._multi_algo_body = real
+    args = body_args[0]
+    body_fn = lambda: S._multi_algo_body(*args)  # noqa: E731
+    per_call, by_name = traced_calls(body_fn, 10)
+    return {
+        "submit_ms_median_fixed": float(np.median(ms["fixed"])),
+        "submit_ms_median_flipped": float(np.median(ms["flipped"])),
+        "device_activities_fixed": acts["fixed"][0], "device_ms_fixed": acts["fixed"][1],
+        "device_activities_flipped": acts["flipped"][0], "device_ms_flipped": acts["flipped"][1],
+        "body_device_ms": summed_ms(per_call, by_name),
+        "body_activities": sum(per_call.values()),
+        "body_call_ms": call_ms(body_fn, iters=10),
+        "body_top_device_ms": profile_call(body_fn)["top_device_ms"][:8],
+    }
+
+
+def phase_algorithms(M, dev) -> dict:
+    """Phase 8 (module docstring): the sibling algorithms. Returns the
+    operands and launch counts of the kernels line's multi-algorithm rows
+    and the errors of the multi way scan's parity."""
+    t_phase = time.perf_counter()
+    errs: dict = {}
+    differs = algo_scan_parity(M, dev, errs)
+    log(f"algorithms scan parity: both forms and the shipped routing bit-exact in the multi-algorithm instantiation; picks the grace changed: {json.dumps(differs)}")
+    served = algo_served(M, dev)
+    log("algorithms served mix:", json.dumps(served["summary"]))
+    http = algo_http(M)
+    burst = algo_boundary_burst(M, dev)
+    decided = algo_decided(M, dev)
+    log("algorithms decided:", json.dumps(decided["summary"]))
+    timing = algo_timing(M, served)
+    log("algorithms timing:", json.dumps(timing))
+    eng = served["engine"]
+    lo, hi = (i32(a, dev) for a in algo_fingerprints(zipf_keys(np.random.default_rng(10), BUCKETS[-1], ALGO_KEYS), N_SLOTS // 128))
+    log(f"algorithms: phase {time.perf_counter() - t_phase:.1f} s")
+    errs["decide_multi"] = decided["decide_err"]
+    return {
+        "errs": errs,
+        "served_scan": (eng._state.table, lo, hi, NOW0 + ALGO_STEP_S * ALGO_BATCHES, 128),
+        "served_launches": sum(served["multi_forms"].values()),
+        "decided_scan": decided["scan"],
+        "decided_launches": sum(decided["forms"].values()),
+        "decide_args": decided["decide_args"],
+        "decide_launches": decided["launches"]["decide"],
+        "http": http, "burst": burst, "keep": (eng, decided["state"]),
+    }
+
+
 def served_sketch_args(M, engine, rng) -> tuple:
     """The fused sketch update's operands in one real served step: one
     65536-item Zipf submit through the engine, its call recorded (the
@@ -1562,7 +2143,7 @@ def served_sketch_args(M, engine, rng) -> tuple:
     return seen[0]
 
 
-def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict) -> tuple[list, list]:
+def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict, algo: dict) -> tuple[list, list]:
     """Times at each path's largest shape: the served path's b = 65536, W =
     128, over the engine phase's populated 2^22-slot table and 128-lane
     sketch (the sketch update over a real step's sorted candidates); the
@@ -1577,7 +2158,12 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
     hits, the first of their two scans, not the same function. Returns
     (the kernels line's rows, one per kernel of a path; the standalone
     sketch scan's row: off every path since the fused update took its
-    place, it is timed at the served shape)."""
+    place, it is timed at the served shape). `algo` (phase_algorithms)
+    adds the multi-algorithm rows: the way scan's multi instantiation on
+    the served mix's table (per item) and on the decided multi step's
+    (set-major), and the decide kernel on that step's before/after; each
+    way scan row is also timed in the fixed-window instantiation on the
+    same operands, printed apart."""
     K, SKK, D = M.K, M.SKK, M.D
     rng = np.random.default_rng(3)
     b, ways = BUCKETS[-1], 128
@@ -1612,6 +2198,14 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
             lambda: torch.cumsum(big_ops[2], dim=0),
         )
     calls["decide"] = (lambda: D.decide(*dec_ops, now, 0.8), lambda: D.decide_plain(*dec_ops, now, 0.8), 20, None)
+    m_served, m_decided, m_dec = algo["served_scan"], algo["decided_scan"], algo["decide_args"]
+    calls["way_scan_multi"] = (
+        lambda: K.way_scan(*m_served, multi_algo=True), lambda: K.way_scan_plain(*m_served, multi_algo=True), 5, None,
+    )
+    calls["way_scan_multi_decided"] = (
+        lambda: K.way_scan(*m_decided, multi_algo=True), lambda: K.way_scan_plain(*m_decided, multi_algo=True), 3, None,
+    )
+    calls["decide_multi"] = (lambda: D.decide(*m_dec), lambda: D.decide_plain(*m_dec), 20, None)
     # the compare/select kernels on the tool's own first input
     x_sel = torch.from_numpy(tool_input(SELECT_BATCH)).to(dev)
     calls["sel"] = (lambda: M.SEL.sel(x_sel), lambda: M.SEL.sel_plain(x_sel), 20, None)
@@ -1631,6 +2225,9 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
         "sel": f"b={SELECT_BATCH}",
         "chain": f"b={SELECT_BATCH}",
         "sketch_scan": f"b={b}, W={ways}, {planes.shape[1]} lanes",
+        "way_scan_multi": f"b={m_served[1].shape[0]}, W={m_served[4]}, {m_served[0].shape[0]}-slot table, four-algorithm mix",
+        "way_scan_multi_decided": f"b={m_decided[1].shape[0]}, W={m_decided[4]}, {m_decided[0].shape[0]}-slot table, four-algorithm mix",
+        "decide_multi": f"b={m_dec[0].shape[0]}, the decided multi-algorithm step",
     }
 
     def sets_read(tbl, fp_lo, w):
@@ -1655,15 +2252,26 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
         "chain": SELECT_BATCH * (4 + 4),
         "sketch_scan": b * (8 + 13) + planes.numel() * 4,
     }
-    kernel_launches = launches | {"way_scan_decided": decided_scan["launches"]}
+    for label, (tbl, q_lo, _hi, _now, w) in (("way_scan_multi", m_served), ("way_scan_multi_decided", m_decided)):
+        nbytes[label] = sets_read(tbl, q_lo, w) * w * 32 + q_lo.shape[0] * (8 + 4 + 1 + 32)
+    nbytes["decide_multi"] = m_dec[0].shape[0] * (5 * 4 + 6 * 4)
+    kernel_launches = launches | {
+        "way_scan_decided": decided_scan["launches"],
+        "way_scan_multi": algo["served_launches"],
+        "way_scan_multi_decided": algo["decided_launches"],
+        "decide_multi": algo["decide_launches"],
+    }
     # the way scan rows run the shipped routing; the form it takes there
     scan_forms = {
         "way_scan": K.way_scan_form(b, table.shape[0] // ways, ways),
         "way_scan_decided": K.way_scan_form(big, big_table.shape[0] // DECIDED_WAYS, DECIDED_WAYS),
     }
+    for label, (tbl, q_lo, _hi, _now, w) in (("way_scan_multi", m_served), ("way_scan_multi_decided", m_decided)):
+        scan_forms[label] = K.way_scan_form(q_lo.shape[0], tbl.shape[0] // w, w)
+    names = {"way_scan_decided": "way_scan", "way_scan_multi_decided": "way_scan_multi", "decide_multi": "decide"}
     rows = []
     for label, (kernel, plain, plain_iters, library) in calls.items():
-        name = "way_scan" if label == "way_scan_decided" else label
+        name = names.get(label, label)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1671,7 +2279,7 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
             "replaces": REPLACES[name],
             "shape": shape[label],
             "launches": kernel_launches[label],
-            "max_abs_err": errs[name],
+            "max_abs_err": errs.get(label, errs[name]),
             "ms": device_ms(kernel),
             "plain_ms": device_ms(plain, iters=plain_iters),
             "bound_ms": nbytes[label] / HBM_BYTES_PER_S * 1e3,
@@ -1680,12 +2288,21 @@ def kernel_report(M, engine, decided_scan: dict, dev, launches: dict, errs: dict
             "call_ms": call_ms(kernel),
             "plain_call_ms": call_ms(plain, iters=plain_iters),
             **({"form": scan_forms[label]} if label in scan_forms else {}),
+            **({"path": "multi_algo"} if label in ("way_scan_multi", "way_scan_multi_decided", "decide_multi") else {}),
         })
     forms = way_scan_forms_report(M, {
         f"b={b}": (table, lo, hi, now, ways),
         "b=2^20": (big_table, big_lo, big_hi, NOW0, DECIDED_WAYS),
     })
     log("way scan, each form beside the shipped routing on the same operands:", json.dumps(forms))
+    both = {}
+    for label, args in (("served mix b=65536", m_served), ("decided mix b=2^20", m_decided)):
+        both[label] = {
+            inst: {"ms": device_ms(lambda multi=multi: K.way_scan(*args, multi_algo=multi)),
+                   "call_ms": call_ms(lambda multi=multi: K.way_scan(*args, multi_algo=multi))}
+            for inst, multi in (("fixed", False), ("multi", True))
+        }
+    log("way scan, fixed-window beside multi-algorithm instantiation on the same operands:", json.dumps(both))
     log("sketch update, the parent's two-kernel form beside the fused kernel:", json.dumps(two_kernel_sketch(M, sk)))
     standalone = [row for row in rows if row["name"] == "sketch_scan"]
     return [row for row in rows if row["name"] != "sketch_scan"], standalone
@@ -1755,6 +2372,23 @@ def ptxas_entries(text: str, kernel: str) -> list:
     return [" | ".join(c) for c in out]
 
 
+def codec_packages() -> dict:
+    """Whether grpc, google.protobuf and yaml import here, with their
+    versions (None where they do not): the settings/runner slice chooses its
+    wire codec by them. Printed only; nothing depends on it."""
+    import importlib
+
+    out = {}
+    for name in ("grpc", "google.protobuf", "yaml"):
+        try:
+            mod = importlib.import_module(name)
+        except Exception as e:  # noqa: BLE001 (absence is the answer)
+            out[name] = {"present": False, "error": f"{type(e).__name__}: {e}"[:120]}
+        else:
+            out[name] = {"present": True, "version": getattr(mod, "__version__", None)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1775,6 +2409,7 @@ def main() -> int:
     )
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
+    log("wire codec packages:", json.dumps(codec_packages()))
     t0 = time.perf_counter()
     K.build()
     srcs = [os.path.basename(p) for p in K.sources()]
@@ -1784,6 +2419,9 @@ def main() -> int:
     log("apply kernel ptxas:", json.dumps(ptxas_entries(ptxas, "slab_apply_kernel")))
     scan_ptxas = ptxas_entries(ptxas, "way_scan") + [e for e in ptxas_entries(ptxas, "set_") if "way_scan" not in e]
     log("way scan kernels ptxas:", json.dumps(scan_ptxas))
+    # the multi-algorithm instantiations carry the bool template argument
+    # true in their mangled names (Lb1E)
+    log("way scan kernels ptxas, multi-algorithm:", json.dumps([e for e in scan_ptxas if "Lb1E" in e.split(" | ")[0]]))
 
     errs = phase_parity(M, dev)
     engine = phase_engine(M, dev)
@@ -1791,8 +2429,10 @@ def main() -> int:
     _decided, decided_launches, decided_scan = phase_decided(M, dev, errs)
     select_errs, select_launches = phase_compare_paths(M, dev)
     phase_windowed(M, dev)
+    algo = phase_algorithms(M, dev)
     kernels, standalone = kernel_report(
-        M, engine, decided_scan, dev, launches | decided_launches | select_launches, errs | select_errs
+        M, engine, decided_scan, dev, launches | decided_launches | select_launches,
+        errs | select_errs | algo["errs"], algo,
     )
 
     smi = subprocess.run(

@@ -247,7 +247,7 @@ def test_step_decision_matches_jax_pallas_fused_interpret(lean):
             sj, batch_j, jnp.int32(now), jnp.float32(0.8), ways=ways, use_pallas=True,
             lean_decide=lean, interpret=True, multi_algo=False,
         )
-        batch_t, now_t, ratio = T._unpack(p, "cpu")
+        batch_t, now_t, ratio, _burst = T._unpack(p, "cpu")
         bt, at, dt, ot, _ht = T._slab_step_sorted(st, batch_t, now_t, ratio, ways, lean=lean)
         assert np.array_equal(ot.numpy(), np.asarray(oj))
         assert np.array_equal(u32(bt), u32(bj)) and np.array_equal(u32(at), u32(aj))

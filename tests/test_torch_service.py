@@ -2,8 +2,9 @@
 the same request stream through the JAX service with TpuRateLimitCache
 (use_pallas=False, no hotkey sketch) and through the port's server with
 CudaRateLimitCache on device="cpu", with the same slab geometry. Status codes,
-parsed response bodies and the exported slab bytes must be identical. Also
-the port's import guard and its refusal to run without a card."""
+parsed response bodies and the exported slab bytes must be identical, a
+sliding-window rule included. Also the port's import guard and its refusal to
+run without a card."""
 
 import http.client
 import json
@@ -160,9 +161,18 @@ def test_json_stream_matches_reference():
                 assert json.loads(b_port) == json.loads(b_ref), body
                 assert b_port == b_ref  # byte-identical, not only equal JSON
         assert {200, 429, 400, 500} <= seen
-        # a sliding-window rule is refused with a 500, never served as fixed
-        s_port, b_port = _post(port.port, _req([("sliding", "a")]))
-        assert s_port == 500 and b"later slice" in b_port
+        # a sliding-window rule is served by its own algorithm, as the
+        # reference serves it: past its limit of 5, then the next window's
+        # carried count
+        assert not port_cache.engine.algos_seen
+        for advance in (0,) * 7 + (60, 0, 0):
+            ts_ref.advance(advance)
+            ts_port.advance(advance)
+            s_ref, b_ref = _post(ref.port, _req([("sliding", "a")]))
+            s_port, b_port = _post(port.port, _req([("sliding", "a")]))
+            assert (s_port, b_port) == (s_ref, b_ref)
+            seen.add(s_ref)
+        assert port_cache.engine.algos_seen
     finally:
         ref.shutdown()
         port.shutdown()
