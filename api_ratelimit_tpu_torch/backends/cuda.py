@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import threading
 import time
 from typing import NamedTuple, Sequence
@@ -96,6 +97,8 @@ from ..ops.slab import (
 )
 from .batcher import MicroBatcher
 from .dispatch import DispatchLoop
+
+_log = logging.getLogger("ratelimit.backends.cuda")
 
 
 def _loss_ppm(snap: dict) -> int:
@@ -204,6 +207,7 @@ class SlabDeviceEngine:
         scope=None,
         precompile: bool = False,
         gcra_burst_ratio: float = 1.0,
+        watermark_high: float = 0.0,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
@@ -233,8 +237,16 @@ class SlabDeviceEngine:
         dispatch loop (<scope>.dispatch.*).
 
         precompile: warm every bucket and readback width at construction
-        (see precompile())."""
+        (see precompile()).
+
+        watermark_high: slab-occupancy fraction in (0, 1]; 0 disables
+        (SLAB_WATERMARK_HIGH). health_snapshot() compares the occupancy
+        with it on the stats cadence; past it the degraded health probe
+        raises (watermark_reason). Observability only: admission and the
+        launch path are untouched, full sets evict by value."""
         self._time_source = time_source
+        self._watermark_high = float(watermark_high)
+        self._watermark_state = 0  # 0 normal / 1 high
         self._gcra_burst_ratio = validate_gcra_burst_ratio(gcra_burst_ratio)
         self._burst_bits = np.float32(self._gcra_burst_ratio).view(np.uint32)
         # the sticky algorithms guard: False keeps every launch on the
@@ -402,8 +414,9 @@ class SlabDeviceEngine:
 
     def health_snapshot(self) -> dict:
         """Slab health for the stats tree: the eviction mix, drops, the
-        decisions denominator, occupancy and loss_ppm. live_slots is an
-        O(n_slots) device reduction — call it on the stats cadence."""
+        decisions denominator, occupancy, loss_ppm and the watermark
+        state. live_slots is an O(n_slots) device reduction — call it on
+        the stats cadence."""
         now = int(self._time_source.unix_now())
         with self._state_lock:
             self._drain_health_locked()
@@ -419,7 +432,32 @@ class SlabDeviceEngine:
                 "occupancy": live / self._n_slots,
             }
         snap["loss_ppm"] = _loss_ppm(snap)
+        self._apply_watermark(snap)
         return snap
+
+    def _apply_watermark(self, snap: dict) -> None:
+        """Occupancy -> pressure flag (snap["watermark"]), logged on every
+        transition, as the reference's _apply_watermarks."""
+        high = self._watermark_high
+        occ = snap["occupancy"]
+        state = 1 if (high > 0 and occ >= high) else 0
+        if state != self._watermark_state:
+            _log.warning(
+                "slab watermark state %d -> %d (occupancy %.3f)",
+                self._watermark_state, state, occ,
+            )
+        self._watermark_state = state
+        snap["watermark"] = state
+
+    def watermark_reason(self) -> str | None:
+        """HealthChecker degraded-probe contract: a reason string while the
+        slab sits past the pressure watermark, else None."""
+        if self._watermark_state:
+            return (
+                f"slab pressure: occupancy >= high watermark "
+                f"{self._watermark_high:g}; sets evicting by value"
+            )
+        return None
 
     def precompile(self) -> dict:
         """Warm every launch shape before the first request: one
@@ -671,9 +709,8 @@ class SlabHealthStats:
                                    decisions since the last flush
         ratelimit.slab.live_slots  currently live (unexpired) slots
         ratelimit.slab.occupancy   live fraction x 1e6
-
-    The reference's `watermark` gauge waits for SLAB_WATERMARK_HIGH, which
-    the port has no setting for yet."""
+        ratelimit.slab.watermark   0 normal / 1 past SLAB_WATERMARK_HIGH
+                                   (observability only)"""
 
     def __init__(self, engine, scope):
         self._engine = engine
@@ -690,6 +727,7 @@ class SlabHealthStats:
             "loss_ppm": scope.gauge("loss_ppm"),
             "live_slots": scope.gauge("live_slots"),
             "occupancy": scope.gauge("occupancy"),
+            "watermark": scope.gauge("watermark"),
         }
 
     def generate_stats(self) -> None:
@@ -708,6 +746,7 @@ class SlabHealthStats:
         self._gauges["loss_ppm"].set(_loss_ppm(delta))
         self._gauges["live_slots"].set(snap["live_slots"])
         self._gauges["occupancy"].set(int(snap["occupancy"] * 1_000_000))
+        self._gauges["watermark"].set(snap.get("watermark", 0))
 
 
 class HotkeyStats:
@@ -758,6 +797,7 @@ class CudaRateLimitCache:
         stats_scope=None,
         precompile: bool = False,
         gcra_burst_ratio: float = 1.0,
+        watermark_high: float = 0.0,
     ):
         """The engine's arguments pass through (SlabDeviceEngine);
         stats_scope becomes its `scope` and roots the per-algorithm decision
@@ -782,6 +822,7 @@ class CudaRateLimitCache:
             scope=stats_scope,
             precompile=precompile,
             gcra_burst_ratio=gcra_burst_ratio,
+            watermark_high=watermark_high,
         )
         # per-algorithm decision counters (do_limit_resolved): which
         # algorithm carries the traffic and which one denies it

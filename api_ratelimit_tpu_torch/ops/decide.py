@@ -68,7 +68,9 @@ def _near_threshold(limit: torch.Tensor, near_ratio: float) -> torch.Tensor:
     does."""
     ratio = torch.tensor(np.float32(near_ratio), device=limit.device)
     x = torch.floor(limit.to(torch.float32) * ratio)
-    x = torch.where(x > 0, x, 0.0)
+    # saturate in f32 first: a product at or past 2^63 (or inf) would
+    # wrap the int64 convert; NaN reads as 0, as the kernel's
+    x = torch.where(x > 0, torch.clamp(x, max=4294967296.0), 0.0)
     return torch.clamp(x.to(torch.int64), max=_M32)
 
 

@@ -307,10 +307,12 @@ def _unpack(packed, device) -> tuple[SlabBatch, int, float, float]:
         packed = _host_operand(packed)
         uploaded = torch.from_numpy(packed.view(np.int32)[: ROW_JITTER + 1]).to(device)
     now = int(packed.view(np.int32)[ROW_SCALARS, 0])
-    ratio = packed[ROW_SCALARS, 1:2].view(np.float32)  # empty when b == 1
-    near_ratio = float(ratio[0]) if ratio.size else 0.0
-    # the reference's static index clamps to the last column when b <= 2
-    burst = packed[ROW_SCALARS, min(2, packed.shape[1] - 1) :][:1]
+    # the reference's static indices clamp to the last column: at b == 1
+    # near_ratio is `now`'s bits, and at b <= 2 the burst slot is column
+    # b - 1
+    last = packed.shape[1] - 1
+    near_ratio = float(packed[ROW_SCALARS, min(1, last) :][:1].view(np.float32)[0])
+    burst = packed[ROW_SCALARS, min(2, last) :][:1]
     burst_ratio = float(burst.view(np.float32)[0]) if burst[0] else 1.0
     return SlabBatch(*uploaded), now, near_ratio, burst_ratio
 

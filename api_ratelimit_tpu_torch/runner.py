@@ -1,0 +1,297 @@
+"""Port of api_ratelimit_tpu/runner.py: the composition root, the Python twin
+of src/service_cmd/runner/runner.go.
+
+Run(): parse settings, refuse what this package does not serve
+(settings.py check_ported), configure logging, build the process clock, the
+local over-limit cache, the stats store and its sink, the transport server,
+the admission controller, the backend selected by BACKEND_TYPE (cuda: the
+H100 engine, backends/cuda.py; memory: the host backend), the slab and
+sketch stat generators, the runtime loader and the service; register v3 +
+v2 gRPC and /json (runner.go:115-121), hang /rlconfig and /debug/hotkeys on
+the debug port (runner.go:108-113), and serve.
+
+The device is a constructor argument and nothing else: Runner(settings,
+device="cuda") is what service_cmd builds, and no setting or environment
+variable moves a deployment onto the CPU. Tests pass device="cpu", which
+runs the kernels' plain versions. The reference's tracer, journey
+recorder, /metrics, fallback ladder, fault injector, leases, federation,
+snapshots, native codec and SIGUSR2 stack dump belong to ROADMAP items 4b
+and 6-11.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import random
+import sys
+import threading
+
+from .backends.memory import MemoryRateLimitCache
+from .backends.overload import AdmissionController
+from .config.loader import load_config
+from .limiter.base_limiter import BaseRateLimiter
+from .limiter.cache import RateLimitCache
+from .limiter.local_cache import LocalCache, LocalCacheStats
+from .server.runtime_loader import DirectoryRuntimeLoader
+from .server.server import Server, new_server
+from .service.ratelimit import RateLimitService
+from .settings import Settings, new_settings
+from .stats.sinks import NullSink, StatsdSink
+from .stats.store import Store
+from .utils.timeutil import process_time_source
+
+logger = logging.getLogger("ratelimit.runner")
+
+_LOG_LEVELS = {
+    "TRACE": logging.DEBUG,
+    "DEBUG": logging.DEBUG,
+    "INFO": logging.INFO,
+    "WARN": logging.WARNING,
+    "WARNING": logging.WARNING,
+    "ERROR": logging.ERROR,
+    "FATAL": logging.CRITICAL,
+}
+
+
+class _JsonFormatter(logging.Formatter):
+    """LOG_FORMAT=json with the reference's field remaps: @timestamp/@message
+    (runner.go:75-83) so existing log collectors keep working."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "@timestamp": self.formatTime(record, "%Y-%m-%dT%H:%M:%S%z"),
+            "@message": record.getMessage(),
+            "level": record.levelname.lower(),
+            "logger": record.name,
+        }
+        if record.exc_info:
+            out["exception"] = self.formatException(record.exc_info)
+        return json.dumps(out)
+
+
+def setup_logging(settings: Settings) -> None:
+    level = _LOG_LEVELS.get(settings.log_level.upper())
+    if level is None:
+        raise ValueError(f"invalid log level: {settings.log_level}")
+    handler = logging.StreamHandler(sys.stderr)
+    if settings.log_format == "json":
+        handler.setFormatter(_JsonFormatter())
+    elif settings.log_format == "text":
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+        )
+    else:
+        raise ValueError(f"invalid log format: {settings.log_format}")
+    root = logging.getLogger()
+    root.handlers[:] = [handler]
+    root.setLevel(level)
+
+
+def create_limiter(
+    settings: Settings,
+    base: BaseRateLimiter,
+    stats_store: Store,
+    overload=None,
+    device="cuda",
+) -> RateLimitCache:
+    """BackendType switch (runner.go:43-64). The CUDA engine gets the
+    `ratelimit` scope, so its per-stage histograms (batcher.queue_wait_ms,
+    device.{pack,launch,readback}_ms) and the per-algorithm counters land
+    in the store /stats reads; overload (the AdmissionController) wires
+    the bounded queue and the brownout into its batcher or dispatch loop.
+    device: where the engine runs ("cuda", or "cpu" for the plain
+    versions); the memory backend ignores it."""
+    backend = settings.backend_type
+    if backend == "cuda":
+        from .backends.cuda import CudaRateLimitCache
+
+        settings.warn_deprecated_knobs(logger)
+        kwargs = {}
+        ladder = settings.buckets()
+        if ladder is not None:
+            kwargs["buckets"] = ladder
+        hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
+        return CudaRateLimitCache(
+            base,
+            n_slots=settings.tpu_slab_slots,
+            ways=settings.slab_ways_count(),
+            device=device,
+            hotkey_lanes=hk_lanes if hk_enabled else 0,
+            hotkey_k=hk_k,
+            batch_window_seconds=settings.tpu_batch_window,
+            max_batch=settings.tpu_batch_limit,
+            dispatch_loop=settings.dispatch_loop,
+            max_queue=settings.overload_max_queue,
+            overload=overload,
+            stats_scope=stats_store.scope("ratelimit"),
+            # every launch shape is warmed BEFORE the server reports
+            # healthy: no request rides a first-touch kernel build
+            precompile=settings.tpu_precompile,
+            gcra_burst_ratio=settings.gcra_burst(),
+            watermark_high=settings.slab_watermark(),
+            **kwargs,
+        )
+    if backend == "memory":
+        return MemoryRateLimitCache(base)
+    raise ValueError(f"invalid backend type: {backend!r}")
+
+
+class Runner:
+    def __init__(self, settings: Settings | None = None, sink=None, device="cuda"):
+        """settings: new_settings() (the environment) when None. sink: the
+        stats sink; StatsdSink when USE_STATSD, else NullSink, when None.
+        device: where BACKEND_TYPE=cuda runs its engine, "cuda" (the card)
+        unless a caller such as a test asks for "cpu"."""
+        self.settings = settings if settings is not None else new_settings()
+        if sink is None:
+            sink = (
+                StatsdSink(self.settings.statsd_host, self.settings.statsd_port)
+                if self.settings.use_statsd
+                else NullSink()
+            )
+        self.device = device
+        self.stats_store = Store(sink, latency_buckets=self.settings.latency_buckets())
+        self.scope = self.stats_store.scope("ratelimit")
+        self.server: Server | None = None
+        self.service: RateLimitService | None = None
+        self.runtime: DirectoryRuntimeLoader | None = None
+        self.cache: RateLimitCache | None = None
+        self.overload: AdmissionController | None = None
+        self._ready = threading.Event()
+
+    def _build(self) -> None:
+        settings = self.settings
+        setup_logging(settings)
+        settings.check_ported()
+        settings.warn_unserved_defaults(logger)
+
+        # One clock authority per process (utils/timeutil.py): every
+        # time-semantic component below shares it.
+        self.time_source = process_time_source()
+
+        local_cache = None
+        if settings.local_cache_size_in_bytes > 0:
+            # freecache is sized in bytes; entries here are (key -> expiry)
+            # pairs of ~100 bytes, so the byte knob maps onto an entry cap.
+            local_cache = LocalCache(
+                max_entries=max(1, settings.local_cache_size_in_bytes // 100),
+                time_source=self.time_source,
+            )
+            self.stats_store.add_stat_generator(
+                LocalCacheStats(local_cache, self.scope.scope("localcache"))
+            )
+
+        self.server = new_server(settings, self.stats_store)
+
+        base = BaseRateLimiter(
+            time_source=self.time_source,
+            jitter_rand=random.Random(),
+            expiration_jitter_max_seconds=settings.expiration_jitter_max_seconds,
+            local_cache=local_cache,
+            near_limit_ratio=settings.near_limit_ratio,
+        )
+
+        # Overload admission control (backends/overload.py): always built;
+        # the default knobs (no queue bound, no brownout) leave it inert on
+        # the hot path while keeping the overload.* stats defined.
+        self.overload = AdmissionController(
+            shed_mode=settings.shed_mode(),
+            max_queue=settings.overload_max_queue,
+            brownout_target_ms=settings.overload_brownout_target_ms,
+            brownout_exit_ms=settings.overload_brownout_exit_ms,
+            ewma_alpha=settings.overload_ewma_alpha,
+            scope=self.scope,
+        )
+        self.server.health.add_degraded_probe(self.overload.degraded_reason)
+
+        cache = self.cache = create_limiter(
+            settings, base, self.stats_store, self.overload, device=self.device
+        )
+        engine = getattr(cache, "engine", None)
+        if engine is not None:
+            from .backends.cuda import HotkeyStats, SlabHealthStats
+
+            # ratelimit.slab.* on every stats flush
+            self.stats_store.add_stat_generator(
+                SlabHealthStats(engine, self.scope.scope("slab"))
+            )
+            # the HotkeyStats generator is the sketch's drain cadence:
+            # ratelimit.hotkeys.* and the ranked top-K of /debug/hotkeys
+            if engine.hotkeys_enabled:
+                self.stats_store.add_stat_generator(
+                    HotkeyStats(engine, self.scope.scope("hotkeys"))
+                )
+                self.server.add_debug_endpoint(
+                    "/debug/hotkeys",
+                    lambda: json.dumps(cache.hotkeys_debug(), indent=2),
+                )
+            # slab pressure shows in the /healthcheck body beside the
+            # overload reason
+            self.server.health.add_degraded_probe(engine.watermark_reason)
+
+        self.runtime = DirectoryRuntimeLoader(
+            runtime_path=settings.runtime_path,
+            runtime_subdirectory=settings.runtime_subdirectory,
+            ignore_dotfiles=settings.runtime_ignoredotfiles,
+            poll_interval_seconds=settings.runtime_poll_interval,
+            watcher=settings.runtime_watcher,
+            safety_rescan_seconds=settings.runtime_safety_rescan,
+        )
+        # the config loader carries the validated concurrency idle TTL,
+        # stamped into rules at load and on every hot reload
+        service_scope = self.scope.scope("service")
+        rl_scope = service_scope.scope("rate_limit")
+        concurrency_ttl = settings.concurrency_ttl()
+        self.service = RateLimitService(
+            runtime=self.runtime,
+            cache=cache,
+            stats_scope=service_scope,
+            time_source=self.time_source,
+            runtime_watch_root=settings.runtime_watch_root,
+            max_sleeping_routines=settings.max_sleeping_routines,
+            config_loader=lambda files: load_config(
+                files, rl_scope, concurrency_ttl_s=concurrency_ttl
+            ),
+            host_fast_path=settings.host_fast_path,
+        )
+
+        def dump_config() -> str:
+            config = self.service.get_current_config()
+            return config.dump() if config is not None else ""
+
+        self.server.add_debug_endpoint("/rlconfig", dump_config)
+        self.server.register_service(self.service, service_scope)
+        self.runtime.start_watching()
+        self.stats_store.start_flushing()
+
+    def run(self) -> None:
+        """Build and serve; blocks until shutdown (Runner.Run, runner.go:66)."""
+        self._build()
+        self.server.install_signal_handlers()
+        self._ready.set()
+        try:
+            self.server.start()
+        finally:
+            self._teardown()
+
+    def run_background(self) -> None:
+        """Build and serve on daemon threads (the in-process boot)."""
+        self._build()
+        self.server.start_background()
+        self._ready.set()
+
+    def wait_ready(self, timeout: float = 10.0) -> bool:
+        return self._ready.wait(timeout)
+
+    def stop(self) -> None:
+        """Fail health, then close the listeners on the server's own thread
+        (Server.stop), and stop the watcher and the stats flush."""
+        if self.server is not None:
+            self.server.stop()
+        self._teardown()
+
+    def _teardown(self) -> None:
+        if self.runtime is not None:
+            self.runtime.stop()
+        self.stats_store.stop_flushing()

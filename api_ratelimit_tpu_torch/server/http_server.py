@@ -5,14 +5,16 @@ Main port: POST /json is the HTTP/JSON mirror of the v3 ShouldRateLimit RPC
 a backend/service error, 400 for a malformed request. POST /release takes the
 same request body and releases each matched concurrency descriptor
 (RateLimitService.release), answering {"released": n}. GET /healthcheck
-answers 200 "OK". The body codec is server/proto_adapter.py (standard-library
-JSON in place of protobuf's json_format).
+answers from the server's HealthChecker (server/health.py): 200 "OK" (with
+any degraded reasons in the body) while healthy, 500 once fail() ran. The
+body codec is server/proto_adapter.py (standard-library JSON in place of
+protobuf's json_format).
 
 Debug port (new_debug_server, server_impl.go:217-250): GET / (endpoint
 index), GET /stats (Store.debug_snapshot), and whatever the caller mounts
-with add_debug_endpoint, as the reference's runner mounts /debug/hotkeys.
+with add_debug_endpoint, as the runner mounts /rlconfig and /debug/hotkeys.
 /metrics, /debug/pprof, /debug/profile, /debug/journeys and /debug/traces,
-gRPC, deadlines and tracing wait for later slices.
+/json deadlines and tracing are ROADMAP item 4b.
 """
 
 from __future__ import annotations
@@ -27,13 +29,16 @@ from ..limiter.cache import CacheError
 from ..models.response import Code
 from ..service.ratelimit import RateLimitService, ServiceError
 from . import proto_adapter
+from .health import HealthChecker
 
 logger = logging.getLogger("ratelimit.server.http")
 
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
-    service: RateLimitService  # set on the per-server subclass
+    # set on the per-server subclass; service is None until registered
+    service: RateLimitService | None
+    health: HealthChecker
 
     def log_message(self, format, *args):  # noqa: A002 (stdlib signature)
         logger.debug("http: " + format, *args)
@@ -47,7 +52,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):  # noqa: N802
         if self.path.split("?", 1)[0] == "/healthcheck":
-            self._write(200, b"OK")
+            status, body = self.health.http_response()
+            self._write(status, body.encode())
         else:
             self._write(404, b"404 page not found\n")
 
@@ -75,6 +81,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802
         path = self.path.split("?", 1)[0]
+        if self.service is None:
+            self._write(404, b"404 page not found\n")
+            return
         if path == "/release":
             self._release()
             return
@@ -127,12 +136,13 @@ class _Listener:
     def port(self) -> int:
         return self._server.server_address[1]
 
+    def serve(self) -> None:
+        """Serve in the calling thread until shutdown()."""
+        self._server.serve_forever(poll_interval=0.1)
+
     def serve_background(self) -> None:
         self._thread = threading.Thread(
-            target=self._server.serve_forever,
-            kwargs={"poll_interval": 0.1},
-            name=f"http-{self._name}",
-            daemon=True,
+            target=self.serve, name=f"http-{self._name}", daemon=True
         )
         self._thread.start()
 
@@ -145,11 +155,27 @@ class _Listener:
 
 
 class HttpServer(_Listener):
-    """The main listener: /json, /release and /healthcheck over one service."""
+    """The main listener: /json, /release and /healthcheck. The service may
+    come later (register_service); until then /json and /release answer
+    404. health is the HealthChecker /healthcheck answers from (a fresh,
+    healthy one when None)."""
 
-    def __init__(self, service: RateLimitService, host: str = "127.0.0.1", port: int = 0):
-        handler = type("JsonHandler", (_Handler,), {"service": service})
-        super().__init__(handler, host, port, "json")
+    def __init__(
+        self,
+        service: RateLimitService | None = None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        health: HealthChecker | None = None,
+    ):
+        self.health = health if health is not None else HealthChecker()
+        self._handler = type(
+            "JsonHandler", (_Handler,), {"service": service, "health": self.health}
+        )
+        super().__init__(self._handler, host, port, "json")
+
+    def register_service(self, service: RateLimitService) -> None:
+        """Route /json and /release to `service` (runner.go:115-121)."""
+        self._handler.service = service
 
 
 class _DebugHandler(BaseHTTPRequestHandler):

@@ -1,9 +1,13 @@
-"""Port of api_ratelimit_tpu/server/proto_adapter.py: wire JSON <-> models.
+"""Port of api_ratelimit_tpu/server/proto_adapter.py: wire <-> models.
 
-The reference converts with protobuf's json_format (Parse into a v3
-RateLimitRequest, MessageToJson of a v3 RateLimitResponse). The port has no
-protobuf, so this module speaks the same proto3 JSON mapping directly with
-the standard library:
+gRPC: request_from_v3 / request_from_v2 turn the Envoy protobuf requests
+into the internal request, response_to_v3 / response_to_v2 build the
+responses, as the reference does (the v2 path converts directly, one hop
+fewer than src/service/ratelimit_legacy.go:62-150's v2<->v3 adaption).
+
+/json: the reference converts with protobuf's json_format (Parse into a v3
+RateLimitRequest, MessageToJson of a v3 RateLimitResponse). This module
+speaks the same proto3 JSON mapping directly with the standard library:
 
 * requests accept each field under its JSON name or its proto name, enums
   as names or numbers, uint32 as a number or a numeric string, and null as
@@ -22,6 +26,7 @@ from typing import Iterable, Sequence
 from ..models.descriptors import Descriptor, Entry, LimitOverride, RateLimitRequest
 from ..models.response import Code, DescriptorStatus, HeaderValue
 from ..models.units import Unit
+from ..pb import rls_v2, rls_v3
 from ..service.ratelimit import ServiceError
 
 _UNIT_NAMES = {u.name: int(u) for u in Unit}
@@ -200,3 +205,97 @@ def encode_response(
     if header_list:
         out["responseHeadersToAdd"] = header_list
     return json.dumps(out, indent=2).encode()
+
+
+def request_from_v3(msg) -> RateLimitRequest:
+    """envoy.service.ratelimit.v3.RateLimitRequest -> internal request.
+    Raises ServiceError on malformed fields (proto3 preserves out-of-range
+    enum ints) so the transports surface it like any request error."""
+    descriptors = []
+    for d in msg.descriptors:
+        limit = None
+        if d.HasField("limit"):
+            try:
+                unit = Unit(d.limit.unit)
+            except ValueError:
+                raise ServiceError(
+                    f"invalid limit override unit: {d.limit.unit}"
+                ) from None
+            limit = LimitOverride(
+                requests_per_unit=d.limit.requests_per_unit, unit=unit
+            )
+        descriptors.append(
+            Descriptor(
+                entries=tuple(Entry(e.key, e.value) for e in d.entries),
+                limit=limit,
+            )
+        )
+    return RateLimitRequest(
+        domain=msg.domain,
+        descriptors=tuple(descriptors),
+        hits_addend=msg.hits_addend,
+    )
+
+
+def request_from_v2(msg) -> RateLimitRequest:
+    """Legacy request: identical shape minus the per-descriptor override
+    (ratelimit_legacy.go:62-92)."""
+    return RateLimitRequest(
+        domain=msg.domain,
+        descriptors=tuple(
+            Descriptor(entries=tuple(Entry(e.key, e.value) for e in d.entries))
+            for d in msg.descriptors
+        ),
+        hits_addend=msg.hits_addend,
+    )
+
+
+def _fill_response(
+    resp,
+    overall: Code,
+    statuses: Sequence[DescriptorStatus],
+    headers: Iterable[HeaderValue],
+    header_field: str,
+):
+    resp.overall_code = int(overall)
+    for status in statuses:
+        out = resp.statuses.add()
+        out.code = int(status.code)
+        out.limit_remaining = status.limit_remaining
+        if status.current_limit is not None:
+            out.current_limit.requests_per_unit = status.current_limit.requests_per_unit
+            out.current_limit.unit = int(status.current_limit.unit)
+            if status.current_limit.name:
+                out.current_limit.name = status.current_limit.name
+        if status.duration_until_reset is not None:
+            out.duration_until_reset.seconds = status.duration_until_reset
+    field = getattr(resp, header_field)
+    for h in headers:
+        field.add(key=h.key, value=h.value)
+    return resp
+
+
+def response_to_v3(
+    overall: Code,
+    statuses: Sequence[DescriptorStatus],
+    headers: Iterable[HeaderValue] = (),
+):
+    return _fill_response(
+        rls_v3.RateLimitResponse(),
+        overall,
+        statuses,
+        headers,
+        "response_headers_to_add",
+    )
+
+
+def response_to_v2(
+    overall: Code,
+    statuses: Sequence[DescriptorStatus],
+    headers: Iterable[HeaderValue] = (),
+):
+    """Legacy response; v2 carries the response headers in `headers`
+    (ratelimit_legacy.go:94-150)."""
+    return _fill_response(
+        rls_v2.RateLimitResponse(), overall, statuses, headers, "headers"
+    )

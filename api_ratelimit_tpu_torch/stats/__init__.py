@@ -1,5 +1,5 @@
 from .store import Counter, Gauge, Histogram, Scope, Store, Timer, new_null_store
-from .sinks import NullSink
+from .sinks import NullSink, StatsdSink, TestSink
 
 __all__ = [
     "Counter",
@@ -10,4 +10,6 @@ __all__ = [
     "Timer",
     "new_null_store",
     "NullSink",
+    "StatsdSink",
+    "TestSink",
 ]

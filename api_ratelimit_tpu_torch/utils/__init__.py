@@ -1,3 +1,19 @@
-from .timeutil import FakeTimeSource, RealTimeSource, TimeSource, calculate_reset
+from .timeutil import (
+    FakeTimeSource,
+    RealTimeSource,
+    SkewableTimeSource,
+    TimeSource,
+    calculate_reset,
+    install_process_time_source,
+    process_time_source,
+)
 
-__all__ = ["FakeTimeSource", "RealTimeSource", "TimeSource", "calculate_reset"]
+__all__ = [
+    "FakeTimeSource",
+    "RealTimeSource",
+    "SkewableTimeSource",
+    "TimeSource",
+    "calculate_reset",
+    "install_process_time_source",
+    "process_time_source",
+]

@@ -140,7 +140,32 @@ Phases, each of which must pass (nothing is caught):
            device ms and activities beside the fixed staged step's. Prints
            submit_rows medians and activities, fixed-only against flipped,
            and the multi body's device ms and activities.
-9. report  per-kernel median device times (torch.profiler) and CUDA-event
+9. process the process that boots, at the reference's default deployment
+           (BACKEND_TYPE=cuda, 2^22 slots, SLAB_WAYS=0 so W = 128, the
+           production sketch, HOST_FAST_PATH, direct mode, TPU_PRECOMPILE):
+           Runner(new_settings(env)) in process over a runtime directory in
+           the reference's layout, booted until gRPC health says SERVING
+           (timed), beside a BACKEND_TYPE=memory Runner, both on one fake
+           process clock. 4096 v3 ShouldRateLimit calls of 1-3 descriptors
+           (Zipf(1.1) keys over 2^16, limits crossed), 64 legacy v2 calls
+           and 64 /json POSTs go to both: every v3/v2 response byte-identical
+           and every /json answer equal; the way scan, the apply and the
+           fused sketch update each launch once a served launch; the slab's
+           counters show no lossy eviction and one decision a descriptor.
+           Then gRPC requests/s with p50/p99 per call, sequential and from
+           32 client threads in this process, and one profiled 32-thread
+           run's device busy share. A hot reload lowers a limit and adds a
+           sliding-window domain (seen on /rlconfig): the lower limit
+           answers, a fresh sliding key admits 5 and refuses the 6th, and
+           the multi-algorithm way scan launches; a malformed file leaves
+           the config in force; config_check_cmd passes the directory and
+           refuses the malformed file. stop() pushes NOT_SERVING to an open
+           health Watch and /healthcheck answers 500 before the ports
+           close. Last, service_cmd in a subprocess with the same
+           environment boots, answers client_cmd (a subprocess too) with
+           the in-process runner's verdict, and on SIGTERM fails health and
+           exits 0 within 30 s. Prints one "process:" JSON line.
+10. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -153,7 +178,8 @@ Phases, each of which must pass (nothing is caught):
            that step's before/after); the standalone sketch scan, now on no
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
-           kernel; the card's name and power limit, then the ok line.
+           kernel; the process phase's line, the card's name and power limit, then the
+           ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -166,6 +192,7 @@ import contextlib
 import http.client
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -176,6 +203,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 BUCKETS = (128, 1024, 8192, 65536)
 N_SLOTS = 1 << 22  # the TPU_SLAB_SLOTS default: 128 MiB of rows
 NOW0 = 1_700_000_000
@@ -2372,6 +2400,571 @@ def ptxas_entries(text: str, kernel: str) -> list:
     return [" | ".join(c) for c in out]
 
 
+# -- phase 9: the process that boots (settings, Runner, gRPC, reload) --------
+
+PROCESS_RULES = """\
+domain: proc
+descriptors:
+  - key: user
+    rate_limit: {unit: minute, requests_per_unit: 20}
+  - key: tenant
+    descriptors:
+      - key: path
+        rate_limit: {unit: hour, requests_per_unit: 400}
+  - key: ip
+    rate_limit: {unit: second, requests_per_unit: 10}
+"""
+# the hot reload: the user limit lowered to 2, and a second domain with a
+# sliding-window rule
+PROCESS_RULES_LOWERED = PROCESS_RULES.replace("requests_per_unit: 20}", "requests_per_unit: 2}")
+PROCESS_SLIDING_RULES = """\
+domain: slide
+descriptors:
+  - key: s
+    rate_limit: {unit: minute, requests_per_unit: 5, algorithm: sliding_window}
+"""
+PROCESS_KEYS = 1 << 16  # the stream's Zipf(1.1) universe
+PROCESS_V3_CALLS = 4096
+PROCESS_V2_CALLS = 64
+PROCESS_JSON_CALLS = 64
+PROCESS_CLOCK_EVERY = 256  # the fake clock advances every 256 v3 calls
+PROCESS_SEQ_CALLS = 512  # the timed sequential run
+PROCESS_THREADS = 32
+PROCESS_CONCURRENT_CALLS = 2048  # the timed run with 32 client threads
+PROCESS_PROFILED_CALLS = 256  # the profiled run with 32 client threads
+V3_PATH = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+V2_PATH = "/envoy.service.ratelimit.v2.RateLimitService/ShouldRateLimit"
+HEALTH_CHECK_PATH = "/grpc.health.v1.Health/Check"
+HEALTH_WATCH_PATH = "/grpc.health.v1.Health/Watch"
+
+
+def process_env(runtime_root: str, backend: str = "cuda", **overrides) -> dict:
+    """The reference's default deployment as environment variables: the
+    CUDA engine at 2^22 slots, W picked by the engine (128 on the card),
+    the production sketch, the host fast path, direct mode, precompiled,
+    on ephemeral ports; `overrides` (variable=value) replace any."""
+    env = {
+        "BACKEND_TYPE": backend,
+        "RUNTIME_ROOT": runtime_root,
+        "RUNTIME_SUBDIRECTORY": "ratelimit",
+        "USE_STATSD": "false",
+        "LOG_LEVEL": "WARN",
+        "PORT": "0",
+        "GRPC_PORT": "0",
+        "DEBUG_PORT": "0",
+        "TPU_SLAB_SLOTS": str(N_SLOTS),
+        "SLAB_WAYS": "0",
+        "HOTKEYS_ENABLED": "true",
+        "HOTKEY_LANES": str(HOTKEY_LANES),
+        "HOTKEY_K": str(HOTKEY_K),
+        "HOST_FAST_PATH": "true",
+        "TPU_BATCH_WINDOW": "0",
+        "TPU_PRECOMPILE": "true",
+    }
+    env.update({k: str(v) for k, v in overrides.items()})
+    return env
+
+
+def process_runtime(root: str) -> str:
+    """The reference's layout, RUNTIME_ROOT/RUNTIME_SUBDIRECTORY/config/*.yaml;
+    returns the config directory."""
+    config = os.path.join(root, "ratelimit", "config")
+    os.makedirs(config, exist_ok=True)
+    write_text(os.path.join(config, "proc.yaml"), PROCESS_RULES)
+    return config
+
+
+def write_text(path: str, text: str) -> None:
+    """Write a rule file as a deploy does: into a temporary file beside
+    the runtime root (outside the tree the loader reads), then renamed into
+    place, so the watcher never reads half a file or a stray copy."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(path))))
+    tmp = os.path.join(root, "." + os.path.basename(path) + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def grpc_health(port: int, timeout: float = 5.0) -> int:
+    """gRPC health Check's status (or -1 when the call fails)."""
+    import grpc
+    from api_ratelimit_tpu_torch.pb import health_pb2
+
+    with grpc.insecure_channel(f"localhost:{port}") as ch:
+        check = ch.unary_unary(
+            HEALTH_CHECK_PATH,
+            request_serializer=health_pb2.HealthCheckRequest.SerializeToString,
+            response_deserializer=health_pb2.HealthCheckResponse.FromString,
+        )
+        try:
+            return int(check(health_pb2.HealthCheckRequest(), timeout=timeout).status)
+        except grpc.RpcError:
+            return -1
+
+
+def process_boot(env: dict, device: str = "cuda"):
+    """Runner(new_settings(env)) booted in process; polls gRPC health until
+    SERVING. Returns (runner, seconds from construction to SERVING)."""
+    from api_ratelimit_tpu_torch.pb import health_pb2
+    from api_ratelimit_tpu_torch.runner import Runner
+    from api_ratelimit_tpu_torch.settings import new_settings
+
+    t0 = time.perf_counter()
+    runner = Runner(new_settings(env), device=device)
+    runner.run_background()
+    while grpc_health(runner.server.grpc_port) != health_pb2.HealthCheckResponse.SERVING:
+        check(time.perf_counter() - t0 < 120, "the runner never reported SERVING")
+        time.sleep(0.01)
+    return runner, time.perf_counter() - t0
+
+
+def process_descriptors(rng, keys: np.ndarray) -> list:
+    """One descriptor per key: a user, a (tenant, path) pair or an ip, each
+    under its rule."""
+    out = []
+    for k in keys.tolist():
+        kind = k % 3
+        if kind == 0:
+            out.append([("user", f"u{k}")])
+        elif kind == 1:
+            out.append([("tenant", f"t{k % 97}"), ("path", f"/p{k}")])
+        else:
+            out.append([("ip", f"10.{k >> 16}.{(k >> 8) & 255}.{k & 255}")])
+    return out
+
+
+def process_requests(rng, n: int, n_keys: int, kind: str = "v3") -> list:
+    """n requests of 1-3 descriptors with Zipf(1.1) keys over n_keys, a
+    hits_addend of 0 (one hit) or 1-3 now and then; v3, v2 or /json."""
+    from api_ratelimit_tpu_torch.pb import rls_v2, rls_v3
+
+    sizes = rng.integers(1, 4, n)
+    descs = process_descriptors(rng, zipf_keys(rng, int(sizes.sum()), n_keys))
+    hits = np.where(rng.random(n) < 0.1, rng.integers(1, 4, n), 0)
+    out, at = [], 0
+    for size, h in zip(sizes.tolist(), hits.tolist()):
+        group, at = descs[at : at + size], at + size
+        if kind == "json":
+            body = {"domain": "proc", "descriptors": [{"entries": [{"key": k, "value": v} for k, v in d]} for d in group]}
+            if h:
+                body["hitsAddend"] = h
+            out.append(json.dumps(body).encode())
+            continue
+        req = (rls_v3 if kind == "v3" else rls_v2).RateLimitRequest(domain="proc", hits_addend=h)
+        for d in group:
+            entry = req.descriptors.add()
+            for k, v in d:
+                entry.entries.add(key=k, value=v)
+        out.append(req)
+    return out
+
+
+def raw_caller(channel, path: str):
+    """A unary call that returns the response's wire bytes unparsed."""
+    return channel.unary_unary(path, request_serializer=lambda m: m.SerializeToString(), response_deserializer=None)
+
+
+def process_stream(card, host, clock, n_v3: int, n_v2: int, n_json: int, n_keys: int, seed: int = 7) -> dict:
+    """The same stream through `card` (BACKEND_TYPE=cuda) and `host`
+    (BACKEND_TYPE=memory), one call to each in turn, both on the one fake
+    process clock, which advances between calls: every v3 and v2 response
+    byte-identical and every /json status and body equal. Returns the
+    verdict counts and the descriptors sent."""
+    import grpc
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    rng = np.random.default_rng(seed)
+    streams = {
+        "v3": process_requests(rng, n_v3, n_keys, "v3"),
+        "v2": process_requests(rng, n_v2, n_keys, "v2"),
+        "json": process_requests(rng, n_json, n_keys, "json"),
+    }
+    codes = collections.Counter()
+    descriptors = 0
+    with grpc.insecure_channel(f"localhost:{card.server.grpc_port}") as cc, grpc.insecure_channel(
+        f"localhost:{host.server.grpc_port}"
+    ) as hc:
+        for kind, path in (("v3", V3_PATH), ("v2", V2_PATH)):
+            c_call, h_call = raw_caller(cc, path), raw_caller(hc, path)
+            for i, req in enumerate(streams[kind]):
+                if kind == "v3" and i and i % PROCESS_CLOCK_EVERY == 0:
+                    clock.advance(int(rng.choice([1, 7, 61])))
+                got, want = c_call(req, timeout=60), h_call(req, timeout=60)
+                check(got == want, f"{kind} call {i}: the card's response differs from the memory backend's")
+                descriptors += len(req.descriptors)
+                if kind == "v3":
+                    codes[rls_v3.RateLimitResponse.Code.Name(rls_v3.RateLimitResponse.FromString(got).overall_code)] += 1
+    for i, body in enumerate(streams["json"]):
+        got = http_call(card.server.http_port, "POST", "/json", body)
+        want = http_call(host.server.http_port, "POST", "/json", body)
+        check(got == want, f"/json call {i}: the card's answer differs from the memory backend's: {got} {want}")
+        codes[f"json_{got[0]}"] += 1
+        descriptors += len(json.loads(body)["descriptors"])
+    check(codes["OK"] > 0 and codes["OVER_LIMIT"] > 0, f"the stream did not cross a limit: {dict(codes)}")
+    return {"codes": dict(codes), "descriptors": descriptors}
+
+
+def rlconfig(runner) -> str:
+    return http_call(runner.server.debug_port, "GET", "/rlconfig")[1].decode()
+
+
+def wait_until(pred, what: str, timeout: float = 20.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def v3_verdict(port: int, pairs, domain: str = "proc"):
+    """One v3 call: (overall code name, [(code name, limit, remaining)])."""
+    import grpc
+    from api_ratelimit_tpu_torch.pb import rls_grpc, rls_v3
+
+    req = rls_v3.RateLimitRequest(domain=domain)
+    entry = req.descriptors.add()
+    for k, v in pairs:
+        entry.entries.add(key=k, value=v)
+    with grpc.insecure_channel(f"localhost:{port}") as ch:
+        return verdict_of(rls_grpc.RateLimitServiceV3Stub(ch).ShouldRateLimit(req, timeout=60))
+
+
+def verdict_of(resp):
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    name = rls_v3.RateLimitResponse.Code.Name
+    return name(resp.overall_code), [
+        (name(s.code), s.current_limit.requests_per_unit, s.limit_remaining) for s in resp.statuses
+    ]
+
+
+def process_reload(runner, config_dir: str) -> dict:
+    """Hot reload through the runtime watcher: lower the user limit and add
+    a sliding-window domain; wait until /rlconfig shows both; the lowered
+    limit answers, and a fresh sliding key admits its limit in one window
+    and refuses the next call. Then a malformed file (a duplicate domain):
+    config_load_error counts it and the reloaded config stays in force."""
+    snap = runner.stats_store.debug_snapshot
+    loads = snap()["ratelimit.service.config_load_success"]
+    write_text(os.path.join(config_dir, "proc.yaml"), PROCESS_RULES_LOWERED)
+    write_text(os.path.join(config_dir, "slide.yaml"), PROCESS_SLIDING_RULES)
+    wait_until(
+        lambda: "slide.s: unit=MINUTE requests_per_unit=5" in rlconfig(runner)
+        and "proc.user: unit=MINUTE requests_per_unit=2" in rlconfig(runner),
+        "/rlconfig to show the reloaded rules",
+    )
+    port = runner.server.grpc_port
+    lowered = [v3_verdict(port, [("user", "reload-check")]) for _ in range(3)]
+    check(
+        lowered == [("OK", [("OK", 2, 1)]), ("OK", [("OK", 2, 0)]), ("OVER_LIMIT", [("OVER_LIMIT", 2, 0)])],
+        f"the lowered limit did not take effect: {lowered}",
+    )
+    sliding = [v3_verdict(port, [("s", "one")], domain="slide")[0] for _ in range(6)]
+    check(sliding == ["OK"] * 5 + ["OVER_LIMIT"], f"the sliding rule answered {sliding}")
+    errors = snap().get("ratelimit.service.config_load_error", 0)
+    write_text(os.path.join(config_dir, "broken.yaml"), "domain: proc\n")  # a duplicate domain
+    wait_until(lambda: snap().get("ratelimit.service.config_load_error", 0) > errors, "the malformed file's load error")
+    kept = v3_verdict(port, [("user", "reload-check-2")])
+    check(kept == ("OK", [("OK", 2, 1)]), f"the malformed file displaced the config: {kept}")
+    check("slide.s:" in rlconfig(runner), "the malformed file displaced the sliding domain")
+    return {"loads": snap()["ratelimit.service.config_load_success"] - loads, "lowered": lowered, "sliding": sliding}
+
+
+def process_stop(runner) -> dict:
+    """runner.stop(): an open health Watch stream gets NOT_SERVING and
+    /healthcheck answers 500 while the gRPC grace holds the listeners;
+    then every port closes."""
+    import grpc
+    from api_ratelimit_tpu_torch.pb import health_pb2
+
+    serving, not_serving = health_pb2.HealthCheckResponse.SERVING, health_pb2.HealthCheckResponse.NOT_SERVING
+    check(http_call(runner.server.http_port, "GET", "/healthcheck") == (200, b"OK"), "/healthcheck was not 200 OK before stop")
+    with grpc.insecure_channel(f"localhost:{runner.server.grpc_port}") as ch:
+        watch = ch.unary_stream(
+            HEALTH_WATCH_PATH,
+            request_serializer=health_pb2.HealthCheckRequest.SerializeToString,
+            response_deserializer=health_pb2.HealthCheckResponse.FromString,
+        )
+        stream = watch(health_pb2.HealthCheckRequest())
+        check(next(stream).status == serving, "health Watch did not start SERVING")
+        runner.stop()
+        check(next(stream).status == not_serving, "health Watch did not push NOT_SERVING on stop")
+        status = http_call(runner.server.http_port, "GET", "/healthcheck")[0]
+        check(status == 500, f"/healthcheck answered {status} after stop, before the ports closed")
+        stream.cancel()
+    check(runner.server.wait_closed(30.0), "the listeners did not close within 30 s of stop")
+    for port in (runner.server.http_port, runner.server.debug_port):
+        try:
+            http_call(port, "GET", "/healthcheck")
+        except OSError:
+            continue
+        check(False, f"port {port} still answers after stop")
+    return {"health_failed_before_close": True}
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def run_module(module: str, args, env: dict, timeout: float = 120.0):
+    return subprocess.run(
+        [sys.executable, "-m", module, *args], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=timeout
+    )
+
+
+def process_service_cmd(env: dict, in_process_verdict, scratch: str) -> dict:
+    """python -m api_ratelimit_tpu_torch.cmd.service_cmd with the same
+    environment on fixed ports: it boots (health SERVING), answers
+    client_cmd with the in-process runner's verdict, and on SIGTERM pushes
+    NOT_SERVING to an open health Watch before it exits 0 within 30 s."""
+    import grpc
+    from google.protobuf import text_format
+    from api_ratelimit_tpu_torch.pb import health_pb2, rls_v3
+
+    http, grpc_port, debug = free_ports(3)
+    env = {**os.environ, **env, "PORT": str(http), "GRPC_PORT": str(grpc_port), "DEBUG_PORT": str(debug), "PYTHONPATH": REPO_ROOT}
+    out_path = os.path.join(scratch, "service_cmd.log")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "api_ratelimit_tpu_torch.cmd.service_cmd"],
+            cwd=REPO_ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        )
+    try:
+        while grpc_health(grpc_port, timeout=2.0) != health_pb2.HealthCheckResponse.SERVING:
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                with open(out_path) as f:
+                    tail = f.read()[-4000:]
+                check(False, f"service_cmd never reported SERVING (exit {proc.poll()}):\n{tail}")
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        client = run_module(
+            "api_ratelimit_tpu_torch.cmd.client_cmd",
+            ["-dial_string", f"localhost:{grpc_port}", "-domain", "proc", "-descriptors", "user=client-check"],
+            env,
+        )
+        check(client.returncode == 0, f"client_cmd failed: {client.stderr}")
+        resp = text_format.Parse(client.stdout.split("response:", 1)[1], rls_v3.RateLimitResponse())
+        check(verdict_of(resp) == in_process_verdict, f"service_cmd answered {verdict_of(resp)}, in process {in_process_verdict}")
+        with grpc.insecure_channel(f"localhost:{grpc_port}") as ch:
+            watch = ch.unary_stream(
+                HEALTH_WATCH_PATH,
+                request_serializer=health_pb2.HealthCheckRequest.SerializeToString,
+                response_deserializer=health_pb2.HealthCheckResponse.FromString,
+            )
+            stream = watch(health_pb2.HealthCheckRequest())
+            check(next(stream).status == health_pb2.HealthCheckResponse.SERVING, "service_cmd's Watch did not start SERVING")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            check(
+                next(stream).status == health_pb2.HealthCheckResponse.NOT_SERVING,
+                "service_cmd did not fail health on SIGTERM",
+            )
+            stream.cancel()
+        rc = proc.wait(timeout=30)
+        exit_s = time.perf_counter() - t_term
+        check(rc == 0, f"service_cmd exited {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"boot_s": boot_s, "exit_s": exit_s, "verdict": in_process_verdict}
+
+
+def process_config_check(config_dir: str) -> dict:
+    """config_check_cmd over the runtime's config directory: exit 0, then
+    non-zero once a malformed file is there."""
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    module = "api_ratelimit_tpu_torch.cmd.config_check_cmd"
+    ok = run_module(module, ["-config_dir", config_dir], env)
+    check(ok.returncode == 0, f"config_check_cmd refused the good config: {ok.stderr}")
+    bad = os.path.join(config_dir, "broken.yaml")
+    write_text(bad, "domain: proc\n")
+    broken = run_module(module, ["-config_dir", config_dir], env)
+    os.remove(bad)
+    check(broken.returncode != 0 and "error loading config" in broken.stderr, f"config_check_cmd passed a malformed file: {broken}")
+    return {"good": ok.returncode, "malformed": broken.returncode}
+
+
+def grpc_load(port: int, reqs: list, threads: int) -> tuple[float, list]:
+    """reqs over `threads` client threads, each with its own channel, one
+    call at a time: (wall seconds, per-call seconds)."""
+    import grpc
+
+    chunks = [reqs[i::threads] for i in range(threads)]
+    lat = [[] for _ in range(threads)]
+    start = threading.Barrier(threads + 1)
+    errors = []
+
+    def worker(i):
+        try:
+            with grpc.insecure_channel(f"localhost:{port}") as ch:
+                call = raw_caller(ch, V3_PATH)
+                call(chunks[i][0], timeout=60)  # connect before the clock starts
+                start.wait()
+                for req in chunks[i]:
+                    t = time.perf_counter()
+                    call(req, timeout=60)
+                    lat[i].append(time.perf_counter() - t)
+        except Exception as e:  # noqa: BLE001 (re-raised by the caller's check)
+            errors.append(repr(e))
+            start.abort()
+
+    pool = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    for t in pool:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in pool:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"client threads failed: {errors[:3]}")
+    return wall, [x for xs in lat for x in xs]
+
+
+def rate_line(wall: float, lat: list) -> dict:
+    return {
+        "calls": len(lat),
+        "requests_per_s": len(lat) / wall,
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+    }
+
+
+def process_timing(runner, n_keys: int) -> dict:
+    """gRPC v3 requests/s and per-call p50/p99: sequential on one channel,
+    then 32 client threads; the slab's decisions must rise by the
+    descriptors sent; then one profiled run with 32 threads gives the
+    device's busy share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(11)
+    decisions = lambda: runner.stats_store.debug_snapshot()["ratelimit.slab.decisions"]  # noqa: E731
+    seq_reqs = process_requests(rng, PROCESS_SEQ_CALLS, n_keys)
+    before = decisions()
+    seq_wall, seq_lat = grpc_load(runner.server.grpc_port, seq_reqs, 1)
+    conc_reqs = process_requests(rng, PROCESS_CONCURRENT_CALLS, n_keys)
+    conc_wall, conc_lat = grpc_load(runner.server.grpc_port, conc_reqs, PROCESS_THREADS)
+    # each thread's first request goes once more, to connect
+    sent = sum(len(r.descriptors) for r in seq_reqs + conc_reqs + seq_reqs[:1] + conc_reqs[:PROCESS_THREADS])
+    check(decisions() - before == sent, f"the slab counted {decisions() - before} decisions for {sent} descriptors")
+    prof_reqs = process_requests(rng, PROCESS_PROFILED_CALLS, n_keys)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_trace()
+        prof_wall, prof_lat = grpc_load(runner.server.grpc_port, prof_reqs, PROCESS_THREADS)
+        torch.cuda.synchronize()
+    acts = device_activities(prof)
+    check(bool(acts), "the profiled concurrent run recorded no device activity")
+    busy_ms = sum(us for _name, us in acts) / 1e3
+    return {
+        "sequential": rate_line(seq_wall, seq_lat),
+        "threads_32": rate_line(conc_wall, conc_lat),
+        "profiled_threads_32": rate_line(prof_wall, prof_lat)
+        | {"device_ms": busy_ms, "device_busy_share": busy_ms / (prof_wall * 1e3), "device_activities": len(acts)},
+    }
+
+
+def phase_process(K) -> dict:
+    """The process that boots: Runner(new_settings(env)) with the default
+    deployment against a memory-backend Runner on one fake clock, the
+    kernels counted through the served stream, the hot reload, the stop,
+    service_cmd and client_cmd in subprocesses and config_check_cmd."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_process_") as scratch:
+        runtime_root = os.path.join(scratch, "runtime")
+        config_dir = process_runtime(runtime_root)
+        clock = FakeTimeSource(NOW0)
+        install_process_time_source(clock)
+        try:
+            card, boot_s = process_boot(process_env(runtime_root))
+            host, _ = process_boot(process_env(runtime_root, backend="memory"))
+            check(card.cache.engine.ways == 128, f"SLAB_WAYS=0 picked {card.cache.engine.ways} ways on the card")
+            check(card.cache.engine.precompiled, "TPU_PRECOMPILE=true warmed no launch shape")
+            lap("boot")
+
+            K.reset_launch_counts()
+            stream = process_stream(card, host, clock, PROCESS_V3_CALLS, PROCESS_V2_CALLS, PROCESS_JSON_CALLS, PROCESS_KEYS)
+            launches = dict(K.LAUNCHES)
+            forms = dict(K.WAY_SCAN_FORMS)
+            check(all(launches[k] > 0 for k in ("way_scan", "slab_apply", "sketch_update")), f"the runner skipped a kernel: {launches}")
+            check(
+                launches["way_scan"] == launches["slab_apply"] == launches["sketch_update"]
+                and launches["sketch_scan"] == 0 and sum(K.WAY_SCAN_MULTI_FORMS.values()) == 0,
+                f"the served launches do not run one of each kernel: {launches}",
+            )
+            check(sum(forms.values()) == launches["way_scan"], f"way scan forms {forms} against {launches['way_scan']} launches")
+            slab = {k: v for k, v in card.stats_store.debug_snapshot().items() if k.startswith("ratelimit.slab.")}
+            check(
+                slab["ratelimit.slab.evictions.live"] == slab["ratelimit.slab.evictions.window"] == slab["ratelimit.slab.drops"] == 0,
+                f"evictions of live rows at 2^22 slots: {slab}",
+            )
+            check(slab["ratelimit.slab.decisions"] == stream["descriptors"], f"the slab decided {slab['ratelimit.slab.decisions']} of {stream['descriptors']} descriptors")
+            lap("stream")
+
+            timing = process_timing(card, PROCESS_KEYS)
+            lap("timing")
+
+            K.reset_launch_counts()
+            reload = process_reload(card, config_dir)
+            multi = sum(K.WAY_SCAN_MULTI_FORMS.values())
+            check(multi > 0 and card.cache.engine.algos_seen, f"the sliding rule ran no multi-algorithm way scan: {dict(K.WAY_SCAN_MULTI_FORMS)}")
+            loads = card.stats_store.debug_snapshot()["ratelimit.service.config_load_success"]
+            os.remove(os.path.join(config_dir, "broken.yaml"))
+            wait_until(
+                lambda: card.stats_store.debug_snapshot()["ratelimit.service.config_load_success"] > loads,
+                "the reload once the malformed file went",
+            )
+            lap("reload")
+            check_cmd = process_config_check(config_dir)
+            lap("config_check_cmd")
+            verdict = v3_verdict(card.server.grpc_port, [("user", "client-check")])
+            stop = process_stop(card)
+            host.stop()
+            lap("stop")
+            subprocess_run = process_service_cmd(process_env(runtime_root), verdict, scratch)
+            lap("service_cmd")
+        finally:
+            install_process_time_source(RealTimeSource())
+    out = {
+        "boot_s": boot_s,
+        "launches": {k: launches[k] for k in ("way_scan", "slab_apply", "sketch_update")},
+        "way_scan_forms": forms,
+        "multi_way_scans_after_reload": multi,
+        "stream": stream,
+        "slab": {k.removeprefix("ratelimit.slab."): v for k, v in slab.items()},
+        "grpc": timing,
+        "reload": {"sliding": reload["sliding"], "lowered": reload["lowered"]},
+        "stop": stop,
+        "service_cmd": subprocess_run,
+        "config_check_cmd": check_cmd,
+        "phase_s": time.perf_counter() - t_phase,
+        "step_s": steps,
+    }
+    log(
+        f"process: boot {boot_s:.2f} s, launches {out['launches']}, stream {stream['codes']}, "
+        f"sequential {timing['sequential']['requests_per_s']:.0f}/s, 32 threads {timing['threads_32']['requests_per_s']:.0f}/s, "
+        f"busy {timing['profiled_threads_32']['device_busy_share']:.4f}, service_cmd boot {subprocess_run['boot_s']:.1f} s "
+        f"exit {subprocess_run['exit_s']:.2f} s ({out['phase_s']:.1f} s)"
+    )
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -2434,12 +3027,14 @@ def main() -> int:
         M, engine, decided_scan, dev, launches | decided_launches | select_launches,
         errs | select_errs | algo["errs"], algo,
     )
+    process = phase_process(K)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log("process:", json.dumps(process | {"card": smi.stdout.strip()}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

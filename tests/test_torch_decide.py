@@ -448,3 +448,58 @@ def test_smoke_staged_step_is_the_host_operand_step():
         assert torch.equal(health, want_health)
     assert torch.equal(staged.table, host.table)
     assert bool((codes == D.CODE_OVER_LIMIT).any())
+
+
+# `now` values whose bits, read as float32, are a huge ratio (NOW0) and the
+# ratios 1.0, 0.8 and 0.5
+ONE_ITEM_NOWS = (NOW0, 0x3F800000, 0x3F4CCCCD, 0x3F000000)
+
+
+@pytest.mark.parametrize("entry", ["slab_step_packed", "slab_step_decided"])
+@pytest.mark.parametrize("now", ONE_ITEM_NOWS, ids=["now0", "r1.0", "r0.8", "r0.5"])
+def test_one_item_step_reads_near_ratio_like_the_reference(entry, now):
+    """A one-item operand has no column 1, and the reference's static index
+    packed[ROW_SCALARS, 1] clamps to column 0: near_ratio is `now`'s bits
+    read as float32. The port's step must be bit-identical to the JAX XLA
+    twin's there: all 9 rows (the near flag included) or the codes, health
+    and the table, over a stream of one-item launches that crosses the
+    near threshold and the limit. At NOW0 the threshold saturates at
+    2^32 - 1, as XLA's convert does."""
+    n_slots, ways = 256, 4
+    sj, st = J.make_slab(n_slots), T.make_slab(n_slots, device="cpu")
+    seen_near = 0
+    for hits in (3, 4, 2, 1, 5):
+        p = np.zeros((7, 1), np.uint32)
+        p[0], p[1] = _fps(np.array([7]))
+        p[2, 0], p[3, 0], p[4, 0] = hits, 12, 3600
+        p[6, 0] = now
+        if entry == "slab_step_packed":
+            sj, out_j, h_j = J.slab_step_packed(sj, jnp.asarray(p), ways=ways, use_pallas=False, multi_algo=False)[:3]
+            out_t, h_t = T.slab_step_packed(st, p, ways=ways)[:2]
+            assert np.array_equal(out_t.numpy(), np.asarray(out_j))
+            seen_near += int(np.asarray(out_j)[T.OUT_NEAR, 0])
+        else:
+            sj, out_j, h_j = J.slab_step_decided(sj, jnp.asarray(p), ways=ways, use_pallas=False, multi_algo=False)[:3]
+            out_t, h_t = T.slab_step_decided(st, p, ways=ways)[:2]
+            assert np.array_equal(out_t.numpy(), np.asarray(out_j))
+        assert np.array_equal(h_t.numpy(), np.asarray(h_j).astype(np.int64))
+        assert np.array_equal(T.slab_export_copy(st), np.asarray(sj.table))
+    if entry == "slab_step_packed" and now in (0x3F4CCCCD, 0x3F000000):
+        assert seen_near > 0  # a ratio below 1 puts some launch over it
+
+
+@pytest.mark.parametrize("near_ratio", [float(np.uint32(NOW0).view(np.float32)), 2.0**40, float("inf"), float("nan")])
+def test_decide_plain_saturates_huge_ratios_like_jax(near_ratio):
+    """A ratio whose product with the limit reaches 2^63 or inf (as a
+    one-item operand's `now` bits can) saturates the threshold at
+    2^32 - 1, and NaN reads as 0, as XLA's convert and the kernel do: the
+    plain version must not wrap through its int64 convert."""
+    rng = np.random.default_rng(31)
+    before, after, hits, limit, div = decide_operands(rng, 4096, False)
+    want = jax_decide(
+        jnp.asarray(before), jnp.asarray(after), jnp.asarray(hits), jnp.asarray(limit),
+        jnp.asarray(div), jnp.int32(NOW0), jnp.float32(near_ratio),
+    )
+    got = D.decide_plain(i32(before), i32(after), i32(hits), i32(limit), i32(div), NOW0, near_ratio)
+    for field in D.DecideResult._fields:
+        assert np.array_equal(u32(getattr(got, field)), u32(getattr(want, field))), field

@@ -244,7 +244,7 @@ def test_json_fast_path_with_hotkeys_matches_reference():
     assert stats["ratelimit.hotkeys.drains"] == 2 and stats["ratelimit.hotkeys.tracked"] >= 1
     ref_stats = ref_store.debug_snapshot()
     slab_keys = [k for k in stats if k.startswith("ratelimit.slab.")]
-    assert len(slab_keys) == 9
+    assert len(slab_keys) == 10  # the reference's ten, the watermark gauge included
     assert {k: stats[k] for k in slab_keys} == {k: ref_stats[k] for k in slab_keys}
 
 

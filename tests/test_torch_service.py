@@ -209,13 +209,18 @@ def test_cuda_entry_points_raise_without_card(monkeypatch):
 def test_port_imports_no_jax_and_no_reference():
     code = (
         "import importlib, pkgutil, sys\n"
+        "path = list(sys.path)\n"
         "import api_ratelimit_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'api_ratelimit_tpu', 'xxhash', 'grpc', 'yaml') or m.startswith('google.protobuf'))\n"
+        "('jax', 'api_ratelimit_tpu', 'xxhash', 'envoy', 'grpc_health_pb'))\n"
         "assert not bad, bad\n"
-        "new = ('ops.sketch', 'ops.sketch_kernels', 'config.compiled', 'server.http_server')\n"
+        "assert sys.path == path, 'an import edited sys.path'\n"
+        "new = ('ops.sketch', 'ops.sketch_kernels', 'config.compiled', 'server.http_server', "
+        "'pb', 'pb.rls_grpc', 'settings', 'runner', 'backends.memory', 'server.server', "
+        "'server.grpc_service', 'server.health', 'server.runtime_loader', "
+        "'cmd.service_cmd', 'cmd.client_cmd', 'cmd.config_check_cmd')\n"
         "missing = [m for m in new if 'api_ratelimit_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules if m.startswith('api_ratelimit_tpu_torch')]))\n"

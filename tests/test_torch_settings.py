@@ -1,0 +1,196 @@
+"""The port's settings against the JAX package's: the same environment
+parses into the same fields (BACKEND_TYPE's cuda standing for tpu), a bad
+value raises the same message, the boot validators agree, and every knob
+that turns on a feature the port has not ported is refused at boot with its
+ROADMAP item."""
+
+import dataclasses
+import logging
+
+import pytest
+
+pytest.importorskip("torch")
+
+from api_ratelimit_tpu import settings as R  # noqa: E402
+from api_ratelimit_tpu_torch import settings as P  # noqa: E402
+
+# (name, env) pairs; valid and invalid, each through both new_settings
+ENVS = [
+    ("empty", {}),
+    ("ports", {"PORT": "9080", "GRPC_PORT": "9081", "DEBUG_PORT": "7070"}),
+    ("statsd", {"USE_STATSD": "false", "STATSD_HOST": "stats.local", "STATSD_PORT": "9125"}),
+    ("runtime", {"RUNTIME_ROOT": "/srv/rt", "RUNTIME_SUBDIRECTORY": "rl", "RUNTIME_IGNOREDOTFILES": "yes", "RUNTIME_WATCH_ROOT": "off"}),
+    ("watcher", {"RUNTIME_WATCHER": "poll", "RUNTIME_POLL_INTERVAL": "0.5", "RUNTIME_SAFETY_RESCAN": "2"}),
+    ("logging", {"LOG_LEVEL": "debug", "LOG_FORMAT": "json"}),
+    ("limiter", {"EXPIRATION_JITTER_MAX_SECONDS": "0", "LOCAL_CACHE_SIZE_IN_BYTES": "1048576", "NEAR_LIMIT_RATIO": "0.9"}),
+    ("engine", {"TPU_SLAB_SLOTS": "8388608", "SLAB_WAYS": "128", "TPU_BUCKETS": "1024,128", "TPU_PRECOMPILE": "0"}),
+    ("windowed", {"TPU_BATCH_WINDOW": "200us", "TPU_BATCH_LIMIT": "32768", "DISPATCH_LOOP": "f"}),
+    ("durations", {"TPU_BATCH_WINDOW": "1.5ms", "REDIS_PIPELINE_WINDOW": "75µs", "REDIS_PERSECOND_PIPELINE_WINDOW": "2"}),
+    ("hotpath", {"HOST_FAST_PATH": "false", "MAX_SLEEPING_ROUTINES": "4"}),
+    ("hotkeys", {"HOTKEYS_ENABLED": "true", "HOTKEY_K": "8", "HOTKEY_LANES": "256"}),
+    ("algorithms", {"CONCURRENCY_TTL_S": "30", "GCRA_BURST_RATIO": "1.5"}),
+    ("overload", {"OVERLOAD_MAX_QUEUE": "4096", "OVERLOAD_BROWNOUT_TARGET_MS": "20", "OVERLOAD_EWMA_ALPHA": "0.5"}),
+    ("deadlines", {"OVERLOAD_DEADLINE_PROPAGATION": "false", "OVERLOAD_SHED_MODE": "unavailable"}),
+    ("watermark", {"SLAB_WATERMARK_HIGH": "0.9", "SLAB_WATERMARK_CRITICAL": "0.95"}),
+    ("metrics", {"DEBUG_METRICS_ENABLED": "false", "METRICS_LATENCY_BUCKETS_MS": "1,5,25"}),
+    ("journeys", {"JOURNEY_RECORDER_ENABLED": "0", "JOURNEY_SLOW_MS": "12.5", "JOURNEY_RETAIN": "32", "JOURNEY_RING": "8"}),
+    ("redis_knobs", {"REDIS_URL": "localhost:6379", "REDIS_POOL_SIZE": "4", "REDIS_PERSECOND": "1"}),
+    ("memory_backend", {"BACKEND_TYPE": "memory"}),
+    ("tpu_backend", {"BACKEND_TYPE": "tpu"}),
+    ("empty_values_keep_defaults", {"PORT": "", "HOTKEY_K": "", "TPU_BATCH_WINDOW": ""}),
+    ("mesh_one_chip", {"TPU_MESH_DEVICES": "1"}),
+    # invalid: a parse error, the same text from both
+    ("bad_int", {"PORT": "eighty"}),
+    ("bad_bool", {"USE_STATSD": "maybe"}),
+    ("bad_float", {"NEAR_LIMIT_RATIO": "high"}),
+    ("bad_duration", {"TPU_BATCH_WINDOW": "fastms"}),
+    ("bad_octal", {"SIDECAR_SOCKET_MODE": "0999"}),
+    ("bad_hotkey_k", {"HOTKEY_K": "1.5"}),
+    ("bad_slots", {"TPU_SLAB_SLOTS": "1<<22"}),
+    ("bad_watch_root", {"RUNTIME_WATCH_ROOT": "2"}),
+    ("bad_dispatch_loop", {"DISPATCH_LOOP": "yes please"}),
+]
+
+# the boot validators both packages have, called as their runners call them
+VALIDATORS = (
+    "latency_buckets",
+    "buckets",
+    "failure_mode",
+    "shed_mode",
+    "slab_watermark",
+    "slab_ways_count",
+    "hotkey_config",
+    "concurrency_ttl",
+    "gcra_burst",
+)
+
+# parsed, but a validator refuses it at boot: the same text from both
+VALIDATOR_ENVS = [
+    ("junk_buckets", {"TPU_BUCKETS": "128,x"}),
+    ("zero_bucket", {"TPU_BUCKETS": "0,128"}),
+    ("ways_not_pow2", {"SLAB_WAYS": "6"}),
+    ("watermark_out_of_range", {"SLAB_WATERMARK_HIGH": "1.5"}),
+    ("hotkey_k_over_lanes", {"HOTKEY_K": "64", "HOTKEY_LANES": "32"}),
+    ("lanes_not_pow2", {"HOTKEY_LANES": "100"}),
+    ("ttl_zero", {"CONCURRENCY_TTL_S": "0"}),
+    ("burst_too_big", {"GCRA_BURST_RATIO": "17"}),
+    ("latency_buckets_negative", {"METRICS_LATENCY_BUCKETS_MS": "-1,2"}),
+    ("shed_mode_junk", {"OVERLOAD_SHED_MODE": "drop"}),
+    ("failure_mode_junk", {"FAILURE_MODE_DENY": "sometimes"}),
+    ("ways_negative", {"SLAB_WAYS": "-4"}),
+    ("lanes_zero", {"HOTKEY_LANES": "0"}),
+]
+
+
+def _outcome(new_settings, env):
+    try:
+        s = new_settings(env)
+    except ValueError as e:
+        return "error", str(e)
+    return "ok", dataclasses.asdict(s)
+
+
+def _port_env(env):
+    return dict(env, BACKEND_TYPE="cuda") if env.get("BACKEND_TYPE") == "tpu" else env
+
+
+@pytest.mark.parametrize("env", [e for _n, e in ENVS], ids=[n for n, _e in ENVS])
+def test_new_settings_parses_like_the_reference(env):
+    want = _outcome(R.new_settings, env)
+    got = _outcome(P.new_settings, _port_env(env))
+    if want[0] == "ok":
+        assert want[1].pop("backend_type") == env.get("BACKEND_TYPE", "tpu")
+        assert got[1].pop("backend_type") == _port_env(env).get("BACKEND_TYPE", "cuda")
+    assert got == want
+
+
+def _validated(settings):
+    out = []
+    for name in VALIDATORS:
+        try:
+            out.append((name, getattr(settings, name)()))
+        except ValueError as e:
+            out.append((name, "error: " + str(e)))
+    return out
+
+
+@pytest.mark.parametrize("env", [e for _n, e in ENVS + VALIDATOR_ENVS], ids=[n for n, _e in ENVS + VALIDATOR_ENVS])
+def test_boot_validators_agree(env):
+    """Each validator's value, or its error text, is the reference's.
+    The port's refusals (check_ported) run after the parse, so the port's
+    Settings are built field by field here, as the reference parses them."""
+    try:
+        want_settings = R.new_settings(env)
+    except ValueError:
+        return  # a parse error: test_new_settings_parses_like_the_reference
+    got_settings = P.Settings(**{**dataclasses.asdict(want_settings), "backend_type": "cuda"})
+    assert _validated(got_settings) == _validated(want_settings)
+
+
+# (env, the ROADMAP item the refusal names)
+UNPORTED = [
+    ({"TPU_MESH_DEVICES": "4"}, "10"),
+    ({"FRONTEND_PROCS": "2"}, "8"),
+    ({"SIDECAR_SOCKET": "/run/owner.sock"}, "8"),
+    ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "8"),
+    ({"SIDECAR_RETRIES": "5"}, "8"),
+    ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, "7"),
+    ({"LEASE_ENABLED": "true"}, "8"),
+    ({"FED_ENABLED": "true"}, "9"),
+    ({"PARTITIONS": "2"}, "9"),
+    ({"REPL_ROLE": "primary"}, "9"),
+    ({"VICTIM_TIER_ENABLED": "true"}, "6"),
+    ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
+    ({"FAILURE_MODE_DENY": "true"}, "4b"),
+    ({"FAILURE_MODE_DENY": "degraded"}, "4b"),
+    ({"OVERLOAD_SHED_MODE": "allow"}, "4b"),
+    ({"TPU_PROFILE_DIR": "/tmp/prof"}, "4b"),
+    ({"K_TRACING_ENABLED": "true"}, "4b"),
+    ({"BACKEND_TYPE": "redis"}, "4c"),
+    ({"BACKEND_TYPE": "memcache"}, "4c"),
+]
+
+
+@pytest.mark.parametrize("env, item", UNPORTED, ids=[next(iter(e)) + "=" + next(iter(e.values())) for e, _i in UNPORTED])
+def test_unported_knob_is_refused_with_its_item(env, item):
+    R.new_settings(env)  # the reference accepts it
+    with pytest.raises(ValueError, match=f"ROADMAP item {item}\\)"):
+        P.new_settings(env)
+
+
+@pytest.mark.parametrize("backend", ["tpu", "tpu-sidecar"])
+def test_jax_backends_name_cuda(backend):
+    with pytest.raises(ValueError, match="BACKEND_TYPE=cuda"):
+        P.new_settings({"BACKEND_TYPE": backend})
+
+
+def test_plain_path_is_refused():
+    with pytest.raises(ValueError, match="no plain path on the card"):
+        P.new_settings({"TPU_USE_PALLAS": "false"})
+
+
+def test_unknown_backend_is_invalid():
+    with pytest.raises(ValueError, match="invalid backend type: 'gpu'"):
+        P.new_settings({"BACKEND_TYPE": "gpu"})
+
+
+def test_defaults_boot_with_warnings_for_item_4b(caplog):
+    """The reference's own defaults turn on /metrics and the journey
+    recorder: the port boots with them and warns once each, naming item
+    4b; turning them off silences the warnings."""
+    log = logging.getLogger("test.settings")
+    with caplog.at_level(logging.WARNING, logger="test.settings"):
+        P.new_settings({}).warn_unserved_defaults(log)
+    assert [r.getMessage().split("=")[0] for r in caplog.records] == [
+        "DEBUG_METRICS_ENABLED",
+        "JOURNEY_RECORDER_ENABLED",
+    ]
+    assert all("ROADMAP item 4b" in r.getMessage() for r in caplog.records)
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="test.settings"):
+        P.new_settings({"DEBUG_METRICS_ENABLED": "false", "JOURNEY_RECORDER_ENABLED": "false"}).warn_unserved_defaults(log)
+    assert not caplog.records
+
+
+def test_field_table_is_the_reference():
+    assert [(f, v) for f, v, _p in P._FIELD_ENV] == [(f, v) for f, v, _p in R._FIELD_ENV]
