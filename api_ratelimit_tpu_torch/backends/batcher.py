@@ -19,8 +19,11 @@ collect ticket; the first waiter to wake redeems the whole batch's readback
 and the rest read their slices. max_inflight bounds un-collected launches (a
 semaphore held from launch to redemption).
 
-Journey stages (tracing/journeys.py in the reference) wait for the port's
-tracing (ROADMAP A item 4).
+With a journey recorder registered (tracing/journeys.py) every arm stamps
+the request's stage set: direct mode stamps the whole set around its
+execute; in windowed mode the caller stamps publish, the dispatcher the
+take/pack/launch half, and the redeeming caller the redeem/scatter half,
+which rides the collect ticket back and merges into the caller's journey.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Any, Callable
 import numpy as np
 
 from ..limiter.cache import CacheError, DeadlineExceededError
+from ..tracing import journeys
 from ..utils.deadline import current_deadline
 from .overload import BrownoutError, QueueFullError
 
@@ -48,15 +52,22 @@ class _CollectTicket:
     error). The ticket owns the inflight bookkeeping: _finish_one runs
     exactly once, whoever redeems first."""
 
-    __slots__ = ("_batcher", "_token", "_lock", "_results", "_error", "_done")
+    __slots__ = (
+        "_batcher", "_token", "_lock", "_results", "_error", "_done",
+        "stage_ns",
+    )
 
-    def __init__(self, batcher: "MicroBatcher", token):
+    def __init__(self, batcher: "MicroBatcher", token, stage_partial=None):
         self._batcher = batcher
         self._token = token
         self._lock = threading.Lock()
         self._results = None
         self._error: BaseException | None = None
         self._done = False
+        # (take, pack, launch) monotonic ns from the dispatcher thread;
+        # redeem/scatter are appended by whoever redeems: the journey stage
+        # tuple, the same shape as the dispatch loop's
+        self.stage_ns: tuple | None = stage_partial
 
     def redeem(self):
         with self._lock:
@@ -65,6 +76,9 @@ class _CollectTicket:
                     self._results = self._batcher._execute_collect(self._token)
                 except BaseException as e:  # noqa: BLE001 - memo + reraise
                     self._error = e
+                if self.stage_ns is not None and len(self.stage_ns) == 3:
+                    done_ns = time.monotonic_ns()
+                    self.stage_ns = (*self.stage_ns, done_ns, done_ns)
                 self._done = True
                 self._token = None
                 self._batcher._finish_one()
@@ -264,11 +278,29 @@ class MicroBatcher:
                 if self._overload is not None:
                     self._overload.observe_queue_wait(wait_ms)
                 self.launches += 1
-                # journey stages wait for tracing (ROADMAP A item 4)
+                # the caller is the owner here, and launch and readback are
+                # one execute: stamp the whole stage set around it (pinned
+                # by the arm parity test)
+                if journeys.recording():
+                    ns0 = time.monotonic_ns()
+                    for stage in ("publish", "take", "pack"):
+                        journeys.mark(stage, ns0)
+                    try:
+                        out = (
+                            self._execute([items])
+                            if self._block_mode
+                            else self._execute(list(items))
+                        )
+                    finally:
+                        ns1 = time.monotonic_ns()
+                        for stage in ("launch", "redeem", "scatter"):
+                            journeys.mark(stage, ns1)
+                    return out
                 if self._block_mode:
                     return self._execute([items])
                 return self._execute(list(items))
 
+        journeys.mark("publish")
         future: Future = Future()
         with self._lock:
             if self._closed:
@@ -308,6 +340,8 @@ class MicroBatcher:
             # first) runs the blocking readback right here
             _, ticket, start, count = out
             results = ticket.redeem()
+            if ticket.stage_ns is not None:
+                journeys.merge_owner_stages(ticket.stage_ns)
             return results[start : start + count]
         return out
 
@@ -479,6 +513,11 @@ class MicroBatcher:
                 # semaphore (held launch -> redemption) caps un-collected
                 # launches.
                 self._inflight_sem.acquire()
+                stage_partial = None
+                if journeys.recording():
+                    # take/pack here, launch after it returns; the
+                    # redeeming caller appends redeem/scatter
+                    stage_partial = (int(t_take * 1e9), time.monotonic_ns())
                 try:
                     token = self._execute_launch(items)
                 except BaseException as e:  # noqa: BLE001 - propagate
@@ -487,7 +526,9 @@ class MicroBatcher:
                             future.set_exception(e)
                     self._finish_one()
                 else:
-                    ticket = _CollectTicket(self, token)
+                    if stage_partial is not None:
+                        stage_partial = (*stage_partial, time.monotonic_ns())
+                    ticket = _CollectTicket(self, token, stage_partial)
                     for future, start, count in futures:
                         future.set_result((_TICKET, ticket, start, count))
                 continue

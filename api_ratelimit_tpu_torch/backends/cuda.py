@@ -26,8 +26,11 @@ With hotkey_lanes > 0 (HOTKEYS_ENABLED, the production default) every launch
 also updates the heavy-hitter sketch (ops/sketch.py), which the stats
 cadence drains (HotkeyStats); the cache's compiled-matcher path
 (do_limit_resolved) records the witness keys that /debug/hotkeys resolves
-fingerprints to. The victim tier, leases, mesh engine and persistence wait
-for later slices.
+fingerprints to, and after each drain the hot fingerprints (hot_fps) flag
+the journeys of requests that touch a hot key (FLAG_HOTKEY). The cache's
+lookups carry the active span's backend tag and events, and an over-limit
+decision marks its algorithm's journey stage (ALGO_JOURNEY_STAGES). The
+victim tier, leases, mesh engine and persistence wait for later slices.
 
 Every algorithm is served (fixed window, sliding window, GCRA, concurrency
 and its Release, do_release). The algorithm id rides bits 28-30 of the wire
@@ -65,6 +68,7 @@ from ..models.descriptors import RateLimitRequest
 from ..models.response import DoLimitResponse
 from ..models.units import unit_to_divider
 from ..ops.hashing import fingerprint_many, split_fingerprints
+from ..tracing import journeys, tag_do_limit_start
 from ..ops.sketch import (
     make_sketch,
     sketch_decay,
@@ -99,6 +103,16 @@ from .batcher import MicroBatcher
 from .dispatch import DispatchLoop
 
 _log = logging.getLogger("ratelimit.backends.cuda")
+
+# journey stage tags: which decision algorithm denied a request; the flight
+# recorder shows them so a slow or shed journey names the algorithm it hit
+# (tracing/journeys.py)
+ALGO_JOURNEY_STAGES = {
+    0: "algo_fixed_window",
+    1: "algo_sliding_window",
+    2: "algo_gcra",
+    3: "algo_concurrency",
+}
 
 
 def _loss_ppm(snap: dict) -> int:
@@ -275,6 +289,10 @@ class SlabDeviceEngine:
         self._sketch_ways = 0
         self._last_topk: list[tuple[int, int, int]] = []
         self._hotkey_drains = 0
+        # combined fingerprints the last drain ranked hot (rebound whole by
+        # each drain; the reference's drain listeners feed the mesh hot
+        # tier and come with it, ROADMAP item 10)
+        self._hot_fps: frozenset = frozenset()
         if int(hotkey_lanes) > 0:
             self._sketch_ways = sketch_ways(self._ways, hotkey_lanes)
             self._sketch = make_sketch(hotkey_lanes, self._device)
@@ -343,6 +361,12 @@ class SlabDeviceEngine:
             self.precompile()
 
     @property
+    def device(self) -> torch.device:
+        """Where the slab lives: a CUDA device, or the CPU (plain
+        versions)."""
+        return self._device
+
+    @property
     def ways(self) -> int:
         return self._ways
 
@@ -369,12 +393,18 @@ class SlabDeviceEngine:
     def hotkeys_enabled(self) -> bool:
         return self._sketch is not None
 
+    @property
+    def hot_fps(self) -> frozenset:
+        """Combined 64-bit fingerprints of the keys the last drain ranked
+        hot: the request path's journey-flag probe (a frozenset read, no
+        lock: drain_hotkeys rebinds it whole)."""
+        return self._hot_fps
+
     def drain_hotkeys(self) -> list[tuple[int, int, int]]:
         """Pull the sketch planes to the host, rank the top-K, halve the
-        counts and upload them again, under the state lock. Called on the
-        stats cadence by HotkeyStats, never per launch. The reference's
-        hot_fps set and drain listeners feed its mesh hot tier and journey
-        flags; they come with those consumers."""
+        counts and upload them again, under the state lock; then rebind
+        hot_fps. Called on the stats cadence by
+        HotkeyStats, never per launch."""
         if self._sketch is None:
             return []
         with self._state_lock:
@@ -382,6 +412,7 @@ class SlabDeviceEngine:
             top = sketch_topk(planes, self._hotkey_k)
             self._sketch = sketch_import_planes(sketch_decay(planes), self._device)
         self._last_topk = top
+        self._hot_fps = frozenset((hi << 32) | lo for lo, hi, _cnt in top)
         self._hotkey_drains += 1
         return top
 
@@ -924,6 +955,7 @@ class CudaRateLimitCache:
             ):
                 fps[pos] = fp_cache[key] = int(fp)
 
+        span = tag_do_limit_start("cuda", len(limits), len(cache_keys))
         # the wire divider carries the rule's algorithm id in bits 28-30 (0
         # for fixed_window), as do_limit_resolved's records do
         items = [
@@ -936,11 +968,23 @@ class CudaRateLimitCache:
             )
             for fp, (i, divider, jitter) in zip(fps, pending)
         ]
-        afters = (
-            self._engine_core.submit_rows(_items_to_block(items)).tolist() if items else ()
-        )
+        if span is not None:
+            span.log_kv(event="lookup.start", batch_items=len(items))
+        try:
+            afters = (
+                self._engine_core.submit_rows(_items_to_block(items)).tolist() if items else ()
+            )
+        except Exception as e:
+            # error-tag the span where the failure happened: a do_limit
+            # driven without the service must not leave a clean-looking
+            # span for a failed lookup
+            if span is not None:
+                span.set_error(e)
+            raise
         for after, (i, _d, _j) in zip(afters, pending):
             results[i] = after
+        if span is not None:
+            span.log_kv(event="cuda.lookup.done", client="slab")
 
         response = DoLimitResponse()
         for i, cache_key in enumerate(cache_keys):
@@ -1000,11 +1044,15 @@ class CudaRateLimitCache:
         now = time_source.unix_now()
         local_cache = base.local_cache
         n = len(resolved)
+        span = tag_do_limit_start("cuda", n, n)
         block = self._scratch_block(n)
         pending_count = 0
         keys = [None] * n if local_cache is not None else None
         over_local: list[bool] | None = None
+        # the witness and the hot-key journey probe (None and empty with
+        # the sketch off)
         witness = self._witness
+        hot_fps = self._engine_core.hot_fps if witness is not None else None
         for i in range(n):
             rec = resolved[i]
             if rec is None:
@@ -1016,6 +1064,9 @@ class CudaRateLimitCache:
                     if len(witness) >= self._witness_max:
                         witness.clear()
                     witness[wfp] = rec.key_prefix
+                if hot_fps and wfp in hot_fps:
+                    # this request touched a key the sketch ranks hot
+                    journeys.note_flag(journeys.FLAG_HOTKEY)
             divider = rec.divider
             if local_cache is not None:
                 key = rec.key_prefix + str((now // divider) * divider)
@@ -1043,11 +1094,21 @@ class CudaRateLimitCache:
             )
             pending_count += 1
 
-        afters = (
-            self._engine_core.submit_rows(block[:, :pending_count]).tolist()
-            if pending_count
-            else ()
-        )
+        if span is not None:
+            span.log_kv(event="lookup.start", batch_items=pending_count)
+        try:
+            afters = (
+                self._engine_core.submit_rows(block[:, :pending_count]).tolist()
+                if pending_count
+                else ()
+            )
+        except Exception as e:
+            # see do_limit: the exception path must error-tag the span
+            if span is not None:
+                span.set_error(e)
+            raise
+        if span is not None:
+            span.log_kv(event="cuda.lookup.done", client="slab")
 
         response = DoLimitResponse()
         statuses = response.descriptor_statuses
@@ -1079,6 +1140,8 @@ class CudaRateLimitCache:
                 dec_c.add(1)
                 if after > rec.requests_per_unit:
                     over_c.add(1)
+                    # the algorithm that decided this denial, on the journey
+                    journeys.mark(ALGO_JOURNEY_STAGES[rec.algorithm])
             info = LimitInfo(limit, after - hits_addend, after)
             if local_cache is not None:
                 key = keys[i]

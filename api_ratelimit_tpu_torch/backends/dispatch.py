@@ -31,9 +31,17 @@ Telemetry (scope `dispatch`): ring_wait_ms (publish -> take), launch_ms
 scatter), batch_size, and queue_depth / inflight / arena gauges on the
 stats-flush cadence.
 
-Not ported yet, each marked where it would sit: the trace-context sidecar,
-batch spans and journey stages (tracing, ROADMAP A item 4); the
-cross-process shm rings (attach_ring / detach_rings, item 8); the native
+Tracing: the request span's context rides the ring in a trace-context
+sidecar row beside the frame (contextvars do not cross into the owner
+thread). The owner opens one `dispatch.batch` span per launch, linked
+(followsFrom) to every request span it coalesced, gives the ring-wait,
+launch and redeem histograms a trace-id exemplar in their slow bucket, and
+hands the owner-side stage timestamps (take, pack, launch, redeem, scatter)
+back on the ticket: the caller merges them into its journey and closes its
+request span with dispatch.{ring_wait,pack,launch,redeem} child spans.
+
+Not ported yet, each marked where it would sit: the cross-process shm
+rings (attach_ring / detach_rings, item 8); the native
 rl_scatter_rows codec (item 8; numpy slice copies here); ShardRoutingStats
 and partition labels (items 9-10); the DISPATCH_PROFILE owner-thread
 cProfile hook (a tool of the reference's tools/hotpath_profile.py, item 11).
@@ -49,6 +57,7 @@ from collections import deque
 import numpy as np
 
 from ..limiter.cache import CacheError, DeadlineExceededError
+from ..tracing import active_span, global_tracer, journeys
 from ..utils.deadline import current_deadline
 from .overload import BrownoutError, QueueFullError
 
@@ -70,7 +79,7 @@ class _Ticket:
     One ticket per frontend thread, reused across submits (the thread blocks
     on the result, so it never has two outstanding)."""
 
-    __slots__ = ("event", "buf", "n", "error", "fresh")
+    __slots__ = ("event", "buf", "n", "error", "fresh", "stage_ns")
 
     def __init__(self):
         self.event = threading.Event()
@@ -80,6 +89,10 @@ class _Ticket:
         # fresh=True scatters into a NEW array the caller owns; False
         # reuses this ticket's buffer (valid until the thread's next submit)
         self.fresh = True
+        # owner-thread stage timestamps (take, pack, launch, redeem,
+        # scatter) in monotonic ns, set before resolve() when journeys or
+        # tracing are on
+        self.stage_ns: tuple | None = None
 
     def reserve(self, n: int) -> np.ndarray:
         if self.fresh:
@@ -131,8 +144,6 @@ class SubmitRing:
         # DispatchStats into dispatch.arena_overflow / ring.arena_hwm
         self.overflow_count = 0
         self.arena_hwm = 0
-        # the trace-context sidecar rides here once tracing is ported
-        # (ROADMAP A item 4)
         self.cursor = 0  # producer arena write position
         self.tail = 0  # producer-only: frames published
         self.head = 0  # consumer-only: frames consumed
@@ -150,11 +161,14 @@ class SubmitRing:
         return self.items_in - self.items_out
 
     def publish(self, block: np.ndarray, count: int, deadline, enq: float,
-                ticket: _Ticket) -> None:
-        """Copy `count` columns of `block` in and publish one frame. (The
-        reference's owned hand-off of one-shot sidecar frames comes with the
-        sidecar, ROADMAP A item 8.) Raises QueueFullError when the slot ring
-        is full: overflow must shed, never corrupt."""
+                ticket: _Ticket, ctx=None) -> None:
+        """Copy `count` columns of `block` in and publish one frame. ctx:
+        the request span's SpanContext (or None), carried in the frame so
+        span identity crosses the thread hop beside the row block. (The
+        reference's fixed-width context rows and owned hand-off of one-shot
+        sidecar frames come with the cross-process rings, ROADMAP A item
+        8.) Raises QueueFullError when the slot ring is full:
+        overflow must shed, never corrupt."""
         tail = self.tail
         if tail - self.head > self.mask:
             raise QueueFullError(
@@ -186,7 +200,7 @@ class SubmitRing:
         with self.lock:
             if self.closed:
                 raise CacheError("dispatch loop is closed")
-            self.slots[idx] = (rows, count, deadline, enq, ticket, arena_used)
+            self.slots[idx] = (rows, count, deadline, enq, ticket, arena_used, ctx)
             self.items_in += count
             self.tail = tail + 1
 
@@ -364,14 +378,52 @@ class DispatchLoop:
         ring = self._ring()
         ticket = ring.ticket
         ticket.error = None
+        ticket.stage_ns = None
         ticket.fresh = not reuse_out
         ticket.event.clear()
-        # the request span's context and journey stages ride the ring here
-        # once tracing is ported (ROADMAP A item 4)
-        ring.publish(block, count, deadline, time.monotonic(), ticket)
+        # the trace context rides the frame: the owner links the batch span
+        # to this request span and returns per-stage timestamps on the
+        # ticket. Tracing off and no recorder cost one contextvar read.
+        span = active_span()
+        ctx = None if span is None else span.context
+        publish_ns = 0
+        if span is not None or journeys.recording():
+            publish_ns = time.monotonic_ns()
+            journeys.mark("publish", publish_ns)
+        ring.publish(block, count, deadline, time.monotonic(), ticket, ctx)
         self._idle.clear()
         self._work.set()
-        return ticket.redeem()
+        out = ticket.redeem()
+        stages = ticket.stage_ns
+        if stages is not None:
+            journeys.merge_owner_stages(stages)
+            if span is not None and publish_ns:
+                self._record_stage_spans(span, publish_ns, stages)
+        return out
+
+    @staticmethod
+    def _record_stage_spans(span, publish_ns: int, stages: tuple) -> None:
+        """Close the request span's blind gap with child spans rebuilt
+        from the owner thread's stage timestamps."""
+        tracer = span.tracer
+        if tracer is None or not tracer.enabled:
+            return
+        take, pack, launch, redeem, scatter = stages
+        now_ns = time.monotonic_ns()
+        wall = time.time()
+
+        def record(name: str, begin_ns: int, end_ns: int) -> None:
+            tracer.record_span(
+                f"dispatch.{name}",
+                span,
+                wall - (now_ns - begin_ns) / 1e9,
+                (end_ns - begin_ns) / 1e9,
+            )
+
+        record("ring_wait", publish_ns, take)
+        record("pack", take, pack)
+        record("launch", pack, launch)
+        record("redeem", launch, scatter)
 
     def flush(self) -> None:
         """Block until everything published so far has been redeemed."""
@@ -432,7 +484,7 @@ class DispatchLoop:
         self._idle.set()
 
     def _run(self) -> None:
-        inflight: deque = deque()  # (token, frames, n_items)
+        inflight: deque = deque()  # (token, frames, n_items, stages, span)
         while True:
             if not inflight and not self._closed:
                 # cold pipeline: wait out the straggler train before the
@@ -452,10 +504,10 @@ class DispatchLoop:
                     ticket.fail(exc)
                 self._taken_items -= n_exp
             if frames:
-                n_items = sum(count for _, count, _ in frames)
+                n_items = sum(count for _, count, _, _ in frames)
                 if self._h_batch is not None:
                     self._h_batch.record(n_items)
-                launched = self._launch_frames(frames, pending_free, bool(inflight))
+                launched = self._launch_frames(frames, pending_free, t_take, bool(inflight))
                 if launched is not None:
                     inflight.append(launched)
             elif pending_free:
@@ -565,9 +617,9 @@ class DispatchLoop:
 
     def _take(self):
         """Drain every ring. Returns (frames, pending_free, expired,
-        t_take): frames = [(rows, count, ticket)] in ring order,
-        pending_free = [(ring, arena_rows)] to release once the rows are
-        packed, expired = [(ticket, count)] dropped at take time (their
+        t_take): frames = [(rows, count, ticket, span_ctx)] in ring order
+        (span_ctx is the frame's SpanContext, or None), pending_free =
+        [(ring, arena_rows)] to release once the rows are packed, expired = [(ticket, count)] dropped at take time (their
         arena rows are freed through pending_free too: arena release is
         FIFO)."""
         frames = []
@@ -601,7 +653,7 @@ class DispatchLoop:
             freed = 0
             while head != tail:
                 idx = head & ring.mask
-                rows, count, deadline, enq, ticket, arena_used = ring.slots[idx]
+                rows, count, deadline, enq, ticket, arena_used, sctx = ring.slots[idx]
                 ring.slots[idx] = None
                 freed += arena_used
                 # visible to flush() before the ring's head moves on
@@ -613,10 +665,15 @@ class DispatchLoop:
                     continue
                 wait_ms = (t_take - enq) * 1e3
                 if self._h_wait is not None:
-                    self._h_wait.record(wait_ms)
+                    # trace-id exemplar: a frame that waited into the
+                    # overflow bucket links to its span
+                    if sctx is not None and self._h_wait.is_slow(wait_ms):
+                        self._h_wait.record(wait_ms, exemplar=f"{sctx.trace_id:032x}")
+                    else:
+                        self._h_wait.record(wait_ms)
                 if wait_ms > head_wait_ms:
                     head_wait_ms = wait_ms
-                frames.append((rows, count, ticket))
+                frames.append((rows, count, ticket, sctx))
             ring.head = head
             if freed:
                 pending_free.append((ring, freed))
@@ -629,61 +686,118 @@ class DispatchLoop:
         for ring, freed in pending_free:
             ring.rows_out += freed
 
-    def _launch_frames(self, frames, pending_free, overlapped: bool):
+    def _batch_span(self, frames, n_items: int):
+        """Open the per-launch `dispatch.batch` span, linked (followsFrom)
+        to every request span this launch coalesced. (None, None) when no
+        frame carried a context: the untraced path builds nothing."""
+        links = [sctx for _, _, _, sctx in frames if sctx is not None]
+        if not links:
+            return None, None
+        tracer = global_tracer()
+        if not tracer.enabled:
+            return None, links
+        span = tracer.start_span(
+            "dispatch.batch",
+            links=links,
+            tags={
+                "span.kind": "internal",
+                "component": "dispatch",
+                "batch_items": n_items,
+                "batch_frames": len(frames),
+            },
+        )
+        return span, links
+
+    def _launch_frames(self, frames, pending_free, t_take: float, overlapped: bool):
         """Launch one batch (fault site first); on failure every ticket of
         the batch fails and None is returned. Arena rows are released as
         soon as the launch callable returns: the pack copied them into the
         padded operand. Returns the in-flight entry (token, frames,
-        n_items). `overlapped`: another launch is still in flight."""
-        n_items = sum(count for _, count, _ in frames)
-        # the per-launch dispatch.batch span opens here once tracing is
-        # ported (ROADMAP A item 4)
+        n_items, stages, batch_span). `overlapped`: another launch is still
+        in flight."""
+        n_items = sum(count for _, count, _, _ in frames)
+        span, links = self._batch_span(frames, n_items)
+        want_stages = journeys.recording() or links is not None
+        take_ns = int(t_take * 1e9) if want_stages else 0
+        exemplar = f"{links[0].trace_id:032x}" if links else None
         if self._faults is not None:
             action = self._faults.fire(FAULT_SITE_LAUNCH)
             if action == "error":
                 exc = CacheError("injected dispatch.launch fault")
-                for _, count, ticket in frames:
+                if span is not None:
+                    span.log_kv(event="fault", site=FAULT_SITE_LAUNCH, kind=action)
+                    span.set_error(exc)
+                    span.finish()
+                for _, count, ticket, _ in frames:
                     self._taken_items -= count
                     ticket.fail(exc)
                 self._free_arena(pending_free)
                 return None
+        pack_ns = time.monotonic_ns() if want_stages else 0
         t0 = time.perf_counter() if self._h_launch is not None else 0.0
         try:
-            token = self._launch([rows for rows, _, _ in frames])
+            token = self._launch([rows for rows, _, _, _ in frames])
         except BaseException as e:  # noqa: BLE001 - propagate to callers
-            for _, count, ticket in frames:
+            if span is not None:
+                span.set_error(e)
+                span.finish()
+            for _, count, ticket, _ in frames:
                 self._taken_items -= count
                 ticket.fail(e)
             self._free_arena(pending_free)
             return None
+        launch_ns = time.monotonic_ns() if want_stages else 0
         if self._h_launch is not None:
-            self._h_launch.record((time.perf_counter() - t0) * 1e3)
+            launch_ms = (time.perf_counter() - t0) * 1e3
+            if exemplar is not None and self._h_launch.is_slow(launch_ms):
+                self._h_launch.record(launch_ms, exemplar=exemplar)
+            else:
+                self._h_launch.record(launch_ms)
+        if span is not None:
+            span.log_kv(event="launch.dispatched", batch_items=n_items)
         self._free_arena(pending_free)
         self._inflight_count += 1
         self.launches += 1
         self.overlapped_launches += overlapped
-        return token, frames, n_items
+        stages = (take_ns, pack_ns, launch_ns) if want_stages else None
+        return token, frames, n_items, stages, span
 
-    def _redeem(self, token, frames, n_items: int) -> None:
+    def _redeem(self, token, frames, n_items: int, stages, span) -> None:
         """Blocking readback of one launch, then verdict scatter: each
-        parked ticket gets its slice copied into its own buffer and
-        wakes."""
+        parked ticket gets its slice copied into its own buffer and wakes
+        with the owner's stage timestamps on its ticket."""
         t0 = time.perf_counter() if self._h_redeem is not None else 0.0
         try:
             out = np.ascontiguousarray(self._collect(token), dtype=np.uint32)
+            redeem_ns = time.monotonic_ns() if stages is not None else 0
             off = 0
-            for _, count, ticket in frames:
+            for _, count, ticket, _ in frames:
                 ticket.reserve(count)[:count] = out[off : off + count]
                 off += count
         except BaseException as e:  # noqa: BLE001 - propagate to callers
             # collect OR scatter failure: every parked ticket must learn
             # about it; a stranded ticket blocks its caller forever
-            for _, _count, ticket in frames:
+            if span is not None:
+                span.set_error(e)
+                span.finish()
+            for _, _count, ticket, _ in frames:
                 ticket.fail(e)
             self._taken_items -= n_items
             return
-        for _, _, ticket in frames:
+        if stages is not None:
+            stage_ns = (*stages, redeem_ns, time.monotonic_ns())
+            for _, _, ticket, _ in frames:
+                ticket.stage_ns = stage_ns
+        for _, _, ticket, _ in frames:
             ticket.resolve()
         self._taken_items -= n_items
         if self._h_redeem is not None:
-            self._h_redeem.record((time.perf_counter() - t0) * 1e3)
+            redeem_ms = (time.perf_counter() - t0) * 1e3
+            sctx = next((c for _, _, _, c in frames if c is not None), None)
+            if sctx is not None and self._h_redeem.is_slow(redeem_ms):
+                self._h_redeem.record(redeem_ms, exemplar=f"{sctx.trace_id:032x}")
+            else:
+                self._h_redeem.record(redeem_ms)
+        if span is not None:
+            span.log_kv(event="redeem.done", batch_items=n_items)
+            span.finish()

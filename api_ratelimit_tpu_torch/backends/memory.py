@@ -21,6 +21,7 @@ from ..models.config import RateLimit
 from ..models.descriptors import RateLimitRequest
 from ..models.response import DescriptorStatus, DoLimitResponse
 from ..models.units import unit_to_divider
+from ..tracing import tag_do_limit_start
 
 
 class MemoryRateLimitCache:
@@ -67,6 +68,8 @@ class MemoryRateLimitCache:
         hits_addend = max(1, request.hits_addend)
         cache_keys = self._base.generate_cache_keys(request, limits, hits_addend)
         now = self._base.time_source.unix_now()
+
+        tag_do_limit_start("memory", len(limits), len(cache_keys))
 
         n = len(request.descriptors)
         over_local = [False] * n

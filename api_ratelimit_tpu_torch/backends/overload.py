@@ -9,12 +9,16 @@ Two shed triggers, one policy:
                         exits below OVERLOAD_BROWNOUT_EXIT_MS)
 
 Both subclass OverloadError (itself a CacheError, so layers that only know
-the generic failure contract stay safe). The reference's service maps a shed
-to a posture (OVERLOAD_SHED_MODE: unavailable, allow, deny); the port's
-service has no shed postures yet (they come with the runner and settings,
-ROADMAP A item 4), so a shed surfaces as the CacheError it is. The
-controller keeps `shed_mode` and the `overload.*` stats so that service can
-read them.
+the generic failure contract stay safe). The service maps a shed to the
+configured posture (OVERLOAD_SHED_MODE, service/ratelimit.py _shed_answer):
+
+    unavailable  the error surfaces as gRPC UNAVAILABLE / HTTP 503
+                 (retriable by Envoy), the default
+    allow        fail open: OK plus an `x-ratelimit-shed` header
+    deny         OVER_LIMIT for every descriptor
+
+The shed state is sticky until the next normally-admitted request, and is
+exported through the `overload.*` stats and the /healthcheck degraded body.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ transport exhausted its retries, circuit breaker open, device launch
 failure, closed batcher. That single typed channel is what the service's
 FAILURE_MODE_DENY degradation ladder keys off (backends/fallback.py):
 with a ladder configured the error becomes a policy decision (deny-all /
-fail-open / degraded local limiting) instead of a wire error, so backends
+fail-open) instead of a wire error, so backends
 must never let raw OSErrors or RuntimeErrors escape do_limit.
 """
 

@@ -3,27 +3,31 @@ of src/service_cmd/runner/runner.go.
 
 Run(): parse settings, refuse what this package does not serve
 (settings.py check_ported), configure logging, build the process clock, the
-local over-limit cache, the stats store and its sink, the transport server,
-the admission controller, the backend selected by BACKEND_TYPE (cuda: the
-H100 engine, backends/cuda.py; memory: the host backend), the slab and
-sketch stat generators, the runtime loader and the service; register v3 +
-v2 gRPC and /json (runner.go:115-121), hang /rlconfig and /debug/hotkeys on
-the debug port (runner.go:108-113), and serve.
+SIGUSR2 stack and journey dump, the tracer (K_TRACING_*) and the journey
+recorder (JOURNEY_*), the local over-limit cache, the stats store and its
+sink, the transport server (with /metrics, the debug suite and
+/debug/profile), the admission controller with its shed posture, the
+backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
+memory: the host backend), the ratelimit.build.* provenance gauges, the slab
+and sketch stat generators, the runtime loader, the failure-mode ladder
+(FAILURE_MODE_DENY) and the service; register v3 + v2 gRPC and /json
+(runner.go:115-121), hang /rlconfig and /debug/hotkeys on the debug port
+(runner.go:108-113), and serve.
 
 The device is a constructor argument and nothing else: Runner(settings,
 device="cuda") is what service_cmd builds, and no setting or environment
 variable moves a deployment onto the CPU. Tests pass device="cpu", which
-runs the kernels' plain versions. The reference's tracer, journey
-recorder, /metrics, fallback ladder, fault injector, leases, federation,
-snapshots, native codec and SIGUSR2 stack dump belong to ROADMAP items 4b
-and 6-11.
+runs the kernels' plain versions. The reference's fault injector, leases,
+federation, snapshots and native codec belong to ROADMAP items 6-11.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import logging
 import random
+import signal
 import sys
 import threading
 
@@ -39,6 +43,9 @@ from .service.ratelimit import RateLimitService
 from .settings import Settings, new_settings
 from .stats.sinks import NullSink, StatsdSink
 from .stats.store import Store
+from .tracing import global_tracer, reset_global_tracer, set_global_tracer, tracer_from_env
+from .tracing import journeys as journeys_mod
+from .utils import provenance
 from .utils.timeutil import process_time_source
 
 logger = logging.getLogger("ratelimit.runner")
@@ -158,17 +165,61 @@ class Runner:
         self.runtime: DirectoryRuntimeLoader | None = None
         self.cache: RateLimitCache | None = None
         self.overload: AdmissionController | None = None
+        self.tracer = None
+        self.journeys: journeys_mod.JourneyRecorder | None = None
+        self.fallback = None
         self._ready = threading.Event()
 
     def _build(self) -> None:
         settings = self.settings
         setup_logging(settings)
         settings.check_ported()
-        settings.warn_unserved_defaults(logger)
 
         # One clock authority per process (utils/timeutil.py): every
         # time-semantic component below shares it.
         self.time_source = process_time_source()
+
+        # Post-mortem: faulthandler dumps every thread's stack on a hard
+        # fault, and SIGUSR2 dumps them on demand with the journey
+        # recorder's retained tail. Signal handlers install from the main
+        # thread only (a background boot skips it).
+        try:
+            faulthandler.enable()
+        except (OSError, ValueError):
+            # sys.stderr is not a file (a host that captures it): no fault
+            # dumps, and serving goes on
+            logger.warning("faulthandler not enabled: sys.stderr has no file descriptor")
+        if hasattr(signal, "SIGUSR2") and threading.current_thread() is threading.main_thread():
+
+            def on_sigusr2(signum, frame):
+                faulthandler.dump_traceback(all_threads=True)
+                recorder = journeys_mod.global_recorder()
+                if recorder is not None:
+                    sys.stderr.write(recorder.dump_json())
+                    sys.stderr.flush()
+
+            signal.signal(signal.SIGUSR2, on_sigusr2)
+
+        # the tracer from K_TRACING_* in the mapping that built the
+        # settings, registered globally so the gRPC
+        # interceptor and the /json middleware pick it up (runner.go:90-95);
+        # closed with a bounded flush at teardown (runner.go:91)
+        self.tracer = tracer_from_env(environ=settings.environ)
+        set_global_tracer(self.tracer)
+
+        # the journey recorder: every request's stage itinerary,
+        # tail-sampled by outcome into /debug/journeys and the SIGUSR2 dump;
+        # global like the tracer so the service and every dispatch arm
+        # find it
+        jr_enabled, jr_slow_ms, jr_retain, jr_ring = settings.journey_config()
+        if jr_enabled:
+            self.journeys = journeys_mod.JourneyRecorder(
+                slow_ms=jr_slow_ms,
+                retain=jr_retain,
+                ring=jr_ring,
+                scope=self.scope.scope("journeys"),
+            )
+        journeys_mod.set_global_recorder(self.journeys)
 
         local_cache = None
         if settings.local_cache_size_in_bytes > 0:
@@ -209,6 +260,16 @@ class Runner:
             settings, base, self.stats_store, self.overload, device=self.device
         )
         engine = getattr(cache, "engine", None)
+        # ratelimit.build.*: the card's facts once the engine holds it; a
+        # runner on the CPU or the memory backend reports cpu and 0 devices
+        if engine is not None and engine.device.type == "cuda":
+            import torch
+
+            provenance.register_build_gauges(
+                self.scope, platform="gpu", device_count=torch.cuda.device_count()
+            )
+        else:
+            provenance.register_build_gauges(self.scope)
         if engine is not None:
             from .backends.cuda import HotkeyStats, SlabHealthStats
 
@@ -238,6 +299,17 @@ class Runner:
             watcher=settings.runtime_watcher,
             safety_rescan_seconds=settings.runtime_safety_rescan,
         )
+        # the failure-mode ladder (FAILURE_MODE_DENY): when a rung is named,
+        # a CacheError from the engine becomes a policy answer (deny /
+        # fail-open), counted, and /healthcheck names the degraded state
+        # while staying 200; empty raises through
+        failure_mode = settings.failure_mode()
+        if failure_mode is not None:
+            from .backends.fallback import FallbackLimiter
+
+            self.fallback = FallbackLimiter(failure_mode, scope=self.scope)
+            self.server.health.set_degraded_probe(self.fallback.degraded_reason)
+
         # the config loader carries the validated concurrency idle TTL,
         # stamped into rules at load and on every hot reload
         service_scope = self.scope.scope("service")
@@ -253,6 +325,11 @@ class Runner:
             config_loader=lambda files: load_config(
                 files, rl_scope, concurrency_ttl_s=concurrency_ttl
             ),
+            fallback=self.fallback,
+            overload=self.overload,
+            # drain-aware pacing: once health flips for shutdown, throttle
+            # sleeps shed instead of pinning workers through the drain
+            draining_probe=lambda: not self.server.health.ok(),
             host_fast_path=settings.host_fast_path,
         )
 
@@ -286,7 +363,8 @@ class Runner:
 
     def stop(self) -> None:
         """Fail health, then close the listeners on the server's own thread
-        (Server.stop), and stop the watcher and the stats flush."""
+        (Server.stop), and stop the watcher, the stats flush and the
+        tracer's exporter."""
         if self.server is not None:
             self.server.stop()
         self._teardown()
@@ -295,3 +373,13 @@ class Runner:
         if self.runtime is not None:
             self.runtime.stop()
         self.stats_store.stop_flushing()
+        # unregister only this runner's tracer and recorder: in-process
+        # boots share the module globals, and a later Runner may own them
+        if self.tracer is not None:
+            self.tracer.close()
+            if global_tracer() is self.tracer:
+                reset_global_tracer()
+        if self.journeys is not None:
+            if journeys_mod.global_recorder() is self.journeys:
+                journeys_mod.set_global_recorder(None)
+            self.journeys = None

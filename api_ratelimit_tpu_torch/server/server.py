@@ -9,7 +9,9 @@ away (server_impl.go:255-269, health.go:28-35). start() blocks serving the
 main HTTP listener (server_impl.go:129-136); start_background() serves
 everything on daemon threads, for in-process boots (the reference boots its
 real runner in-process the same way, test/integration/integration_test.go:
-251-274). The reference's tracing interceptor is ROADMAP item 4b.
+251-274). Server spans enter through the gRPC tracing interceptor
+(tracing/middleware.py, runner.go:95), which resolves the global tracer per
+call, and through the /json middleware span.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import grpc
 
 from ..pb import rls_grpc
 from ..service.ratelimit import RateLimitService
+from ..tracing.middleware import OpenTracingServerInterceptor
 from .grpc_service import RateLimitServicerV2, RateLimitServicerV3
 from .health import HealthChecker
 from .http_server import HttpServer, new_debug_server
@@ -42,7 +45,12 @@ class Server:
         debug_port: int,
         stats_store,
         deadline_propagation: bool = True,
+        enable_metrics: bool = True,
+        profile_dir: str = "",
     ):
+        """enable_metrics (DEBUG_METRICS_ENABLED) mounts GET /metrics and
+        profile_dir (TPU_PROFILE_DIR) enables GET /debug/profile on the
+        debug port (http_server.py new_debug_server)."""
         self.health = HealthChecker()
         self.stats_store = stats_store
         # OVERLOAD_DEADLINE_PROPAGATION: capture the client deadline at the
@@ -53,13 +61,17 @@ class Server:
                 max_workers=GRPC_MAX_WORKERS, thread_name_prefix="grpc"
             ),
             options=[("grpc.so_reuseport", 1)],
+            # a no-op until the runner registers an enabled tracer
+            interceptors=[OpenTracingServerInterceptor()],
         )
         self._grpc_bound_port = self.grpc_server.add_insecure_port(
             f"{host or '[::]'}:{grpc_port}"
         )
         self.health.add_to_grpc_server(self.grpc_server)
         self.http = HttpServer(host=host, port=port, health=self.health)
-        self.debug = new_debug_server(stats_store, host, debug_port)
+        self.debug = new_debug_server(
+            stats_store, host, debug_port, enable_metrics=enable_metrics, profile_dir=profile_dir
+        )
         self._stopped = threading.Event()
         self._closed = threading.Event()
 
@@ -84,9 +96,9 @@ class Server:
 
     def register_service(self, service: RateLimitService, stats_scope) -> None:
         """Register v3 + legacy v2 RLS and the /json route
-        (runner.go:115-121). The gRPC receive histogram
-        (<scope>.transport.grpc_ms) and the v2 error counters hang off
-        stats_scope."""
+        (runner.go:115-121). The transport receive histograms
+        (<scope>.transport.{grpc_ms,json_ms}) and the v2 error counters
+        hang off stats_scope."""
         rls_grpc.add_v3_servicer(
             RateLimitServicerV3(
                 service, stats_scope, deadline_propagation=self._deadline_propagation
@@ -99,7 +111,9 @@ class Server:
             ),
             self.grpc_server,
         )
-        self.http.register_service(service)
+        self.http.register_service(
+            service, stats_scope, deadline_propagation=self._deadline_propagation
+        )
 
     def install_signal_handlers(self) -> None:
         """SIGTERM/SIGINT/SIGHUP -> drain + stop (server_impl.go:255-269).
@@ -174,4 +188,6 @@ def new_server(settings, stats_store) -> Server:
         debug_port=settings.debug_port,
         stats_store=stats_store,
         deadline_propagation=settings.overload_deadline_propagation,
+        enable_metrics=settings.debug_metrics_enabled,
+        profile_dir=settings.tpu_profile_dir,
     )

@@ -9,9 +9,14 @@ typed exceptions; should_rate_limit counts them (`redis_error` /
 With host_fast_path (the default, HOST_FAST_PATH) each descriptor resolves
 through the config's compiled matcher into a ResolvedLimit record and the
 cache's do_limit_resolved; host_fast_path=False keeps the trie walk and
-do_limit. Not ported yet, and therefore absent rather than stubbed:
-admission control and shedding, the failure-mode fallback ladder, leases,
-deadlines, request journeys and tracing spans.
+do_limit.
+
+Around the cache call, as in the reference: the deadline abort and the
+brownout shed before any config work, the shed postures (OVERLOAD_SHED_MODE)
+for an OverloadError, the failure-mode ladder (FAILURE_MODE_DENY) for any
+other CacheError, the request's journey (tracing/journeys.py) and the
+active span's events and error tags, and the latency exemplar. The
+reference's lease consultation comes with leases (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -24,12 +29,20 @@ import time
 from typing import Callable, Protocol, Sequence
 
 from ..assertx import assert_
+from ..backends.overload import (
+    SHED_MODE_ALLOW,
+    SHED_MODE_DENY,
+    BrownoutError,
+    OverloadError,
+)
 from ..config.loader import ConfigFile, RateLimitConfig, load_config
-from ..limiter.cache import CacheError, RateLimitCache
+from ..limiter.cache import CacheError, DeadlineExceededError, RateLimitCache
 from ..models.config import ConfigError, RateLimit
 from ..models.descriptors import RateLimitRequest
-from ..models.response import Code, DoLimitResponse, HeaderValue
+from ..models.response import Code, DescriptorStatus, DoLimitResponse, HeaderValue
 from ..stats.store import HOST_STAGE_BUCKETS_MS
+from ..tracing import active_span, journeys
+from ..utils import deadline as request_deadline
 from ..utils.sampler import BurstSampler, RandomSampler, Sampler
 from ..utils.timeutil import TimeSource
 
@@ -72,6 +85,15 @@ class _ServiceStats:
         )
 
 
+def _limits_of(limits, resolved) -> Sequence[RateLimit | None]:
+    """Materialize the per-descriptor RateLimit list on the cold paths
+    that still need one (shed / fallback answers); the fast path carries
+    ResolvedLimit records instead and skips the allocation."""
+    if limits is not None:
+        return limits
+    return [r.limit if r is not None else None for r in resolved]
+
+
 class RateLimitService:
     def __init__(
         self,
@@ -83,10 +105,28 @@ class RateLimitService:
         max_sleeping_routines: int = 0,
         config_loader: Callable[[list[ConfigFile]], RateLimitConfig] | None = None,
         report_detail_sampler: Sampler | None = None,
+        fallback=None,
+        overload=None,
+        draining_probe: Callable[[], bool] | None = None,
         host_fast_path: bool = True,
     ):
         """config_loader turns the runtime's files into a RateLimitConfig;
         the default parses them as YAML (config/loader.py load_config).
+
+        fallback: optional backends.fallback.FallbackLimiter, the
+        FAILURE_MODE_DENY ladder. When set, a backend CacheError no longer
+        propagates: redis_error is still counted, and the fallback answers
+        the request (deny-all / fail-open). None
+        keeps the raise-through.
+
+        overload: optional backends.overload.AdmissionController. Requests
+        arriving during a brownout are shed before any descriptor work,
+        and an OverloadError from the backend (queue full) is answered by
+        the configured shed posture instead of the failure ladder. None
+        treats OverloadError like any CacheError.
+
+        draining_probe: () -> True while the server is draining (health
+        flipped for shutdown); throttle pacing sleeps are skipped then.
 
         host_fast_path: resolve descriptors through the config's compiled
         matcher and answer through cache.do_limit_resolved when the cache
@@ -96,6 +136,9 @@ class RateLimitService:
         self._do_limit_resolved = (
             getattr(cache, "do_limit_resolved", None) if host_fast_path else None
         )
+        self._fallback = fallback
+        self._overload = overload
+        self._draining_probe = draining_probe
         self._stats = _ServiceStats(stats_scope)
         # per-rule stats live under <scope>.rate_limit.<domain>.<composite>
         self._rl_stats_scope = stats_scope.scope("rate_limit")
@@ -116,6 +159,10 @@ class RateLimitService:
         self._report_detail_sampler = report_detail_sampler or BurstSampler(
             burst=100, period_seconds=1.0, next_sampler=RandomSampler(100)
         )
+        # Test hook: extra seconds slept inside every should_rate_limit,
+        # which forces a request into the latency histogram's top bucket to
+        # exercise exemplar capture and span force-sampling
+        self.debug_inject_latency_s: float = 0.0
         runtime.add_update_callback(self.reload_config)
         self.reload_config()
 
@@ -149,33 +196,133 @@ class RateLimitService:
 
     def should_rate_limit(self, request: RateLimitRequest):
         """Returns (overall_code, statuses, response_headers). Raises
-        CacheError / ServiceError after counting them; every call lands in
-        the latency_ms histogram."""
+        CacheError / ServiceError after counting them.
+
+        Every call, success or error, lands in the latency_ms histogram. A
+        request that falls in the top (overflow) bucket attaches its trace
+        id as an exemplar and force-samples the active span, so the p99
+        tail in /metrics links to a span in /debug/traces. When a journey
+        recorder is registered (tracing/journeys.py) the request's stage
+        itinerary is recorded here too, tail-sampled by outcome into
+        /debug/journeys."""
         t_start = time.perf_counter()
+        journey = None
+        recorder = journeys.global_recorder()
+        if recorder is not None:
+            span0 = active_span()
+            if span0 is not None:
+                ctx = span0.context
+                journey = recorder.begin(
+                    "request", trace_id=ctx.trace_id, span_id=ctx.span_id
+                )
+            else:
+                journey = recorder.begin("request")
+        journey_flag = None
+        overall_code = None
         try:
-            return self._worker(request)
-        except CacheError:
-            self._stats.redis_error.add(1)
+            result = self._worker(request)
+            overall_code = result[0]
+            return result
+        except DeadlineExceededError as e:
+            # shed, not a backend failure: no redis_error (the drop is
+            # counted in overload.deadline_expired where it happened); the
+            # transport maps it to DEADLINE_EXCEEDED / 504
+            journey_flag = journeys.FLAG_DEADLINE
+            span = active_span()
+            if span is not None:
+                span.set_error(e)
             raise
-        except ServiceError:
+        except OverloadError as e:
+            # the unavailable posture (or no controller): UNAVAILABLE / 503,
+            # counted in overload.shed at the shed decision, never as
+            # redis_error
+            journey_flag = journeys.FLAG_SHED
+            span = active_span()
+            if span is not None:
+                span.set_error(e)
+            raise
+        except CacheError as e:
+            self._stats.redis_error.add(1)
+            journey_flag = journeys.FLAG_FAULT
+            span = active_span()
+            if span is not None:
+                span.set_error(e)
+            raise
+        except ServiceError as e:
             self._stats.service_error.add(1)
+            journey_flag = journeys.FLAG_FAULT
+            span = active_span()
+            if span is not None:
+                span.set_error(e)
             raise
         except Exception as e:
             # the reference's recovery counts any panic as serviceError and
             # returns a typed error (ratelimit.go:260-290)
             self._stats.service_error.add(1)
+            journey_flag = journeys.FLAG_FAULT
+            span = active_span()
+            if span is not None:
+                span.set_error(e)
             logger.exception("unexpected error in should_rate_limit")
             raise ServiceError(f"unexpected error: {e}") from e
         finally:
-            self._stats.latency.record((time.perf_counter() - t_start) * 1e3)
+            if self.debug_inject_latency_s > 0:  # test hook (see __init__)
+                self._time_source.sleep(self.debug_inject_latency_s)
+            ms = (time.perf_counter() - t_start) * 1e3
+            exemplar = None
+            if self._stats.latency.is_slow(ms):
+                span = active_span()
+                if span is not None and span.tracer is not None:
+                    exemplar = f"{span.context.trace_id:032x}"
+                    span.force_sample()
+            self._stats.latency.record(ms, exemplar=exemplar)
+            if journey is not None:
+                flags = [journey_flag] if journey_flag else []
+                if overall_code == Code.OVER_LIMIT:
+                    flags.append(journeys.FLAG_OVER_LIMIT)
+                recorder.finish(journey, ms, flags)
 
     def _worker(
+        self, request: RateLimitRequest
+    ) -> tuple[Code, list, list[HeaderValue]]:
+        span = active_span()
+        if span is not None:
+            span.log_kv(event="shouldRateLimitWorker.start")
+        try:
+            result = self._worker_inner(request)
+        except BaseException:
+            if span is not None:
+                span.log_kv(event="shouldRateLimitWorker.done")
+            raise
+        if span is not None:
+            span.log_kv(
+                event="shouldRateLimitWorker.done",
+                response_code=int(result[0]),
+            )
+        return result
+
+    def _worker_inner(
         self, request: RateLimitRequest
     ) -> tuple[Code, list, list[HeaderValue]]:
         if request.domain == "":
             raise ServiceError("rate limit domain must not be empty")
         if not request.descriptors:
             raise ServiceError("rate limit descriptor list must not be empty")
+        # admission control, cheapest first (backends/overload.py): a
+        # request whose propagated deadline already passed aborts now, and
+        # a brownout sheds before any config or descriptor work
+        if request_deadline.expired():
+            if self._overload is not None:
+                self._overload.note_deadline_expired()
+            raise DeadlineExceededError(
+                "request deadline expired before dispatch"
+            )
+        if self._overload is not None and self._overload.should_shed():
+            return self._shed_answer(
+                request,
+                (),
+                BrownoutError("admission brownout: shedding pre-dispatch"),
+            )
         config = self.get_current_config()
         if config is None:
             raise ServiceError("no rate limit configuration loaded")
@@ -183,9 +330,12 @@ class RateLimitService:
         sleep_on_throttle = False
         report_details = False
         debug = logger.isEnabledFor(logging.DEBUG)
+        resolved = None
+        limits: list[RateLimit | None] | None = None
         if self._do_limit_resolved is not None:
             # one memoized matcher lookup per descriptor yields the full
-            # precomputed record
+            # precomputed record; `limits` is materialized only on the
+            # cold paths that need it (_limits_of)
             t0 = time.perf_counter()
             resolve = config.compiled.resolve
             domain = request.domain
@@ -203,9 +353,8 @@ class RateLimitService:
                         )
                 elif debug:
                     logger.debug("descriptor does not match any limit")
-            do_limit_response = self._do_limit_resolved(request, resolved)
         else:
-            limits: list[RateLimit | None] = []
+            limits = []
             for descriptor in request.descriptors:
                 limit = config.get_limit(request.domain, descriptor)
                 if debug:
@@ -221,7 +370,44 @@ class RateLimitService:
                 if limit is not None:
                     sleep_on_throttle = sleep_on_throttle or limit.sleep_on_throttle
                     report_details = report_details or limit.report_details
-            do_limit_response = self._cache.do_limit(request, limits)
+
+        try:
+            if resolved is not None:
+                do_limit_response = self._do_limit_resolved(request, resolved)
+            else:
+                do_limit_response = self._cache.do_limit(request, limits)
+        except DeadlineExceededError:
+            # expired in the batcher queue or the dispatch ring: abort,
+            # never answer late, and never consult the failure ladder (its
+            # answer would still be late)
+            raise
+        except OverloadError as e:
+            # pressure, not failure: answered by the OVERLOAD_SHED_MODE
+            # posture; without a controller it surfaces (UNAVAILABLE).
+            # Overload never reaches the failure ladder, which would misread
+            # pressure as a dead card.
+            if self._overload is None:
+                raise
+            return self._shed_answer(request, _limits_of(limits, resolved), e)
+        except CacheError as e:
+            # the failure ladder (FAILURE_MODE_DENY): a failed launch
+            # degrades to a policy decision instead of an error storm.
+            # redis_error is counted here because the exception no longer
+            # reaches the boundary counter in should_rate_limit.
+            if self._fallback is None:
+                raise
+            self._stats.redis_error.add(1)
+            span = active_span()
+            if span is not None:
+                span.log_kv(event="fallback", failure_mode=self._fallback.mode)
+            do_limit_response = self._fallback.do_limit(
+                request, _limits_of(limits, resolved), e
+            )
+        else:
+            if self._fallback is not None:
+                self._fallback.note_success()
+            if self._overload is not None:
+                self._overload.note_ok()
         assert_(
             len(request.descriptors)
             == len(do_limit_response.descriptor_statuses)
@@ -262,22 +448,101 @@ class RateLimitService:
         resolved = [config.compiled.resolve(request.domain, d) for d in request.descriptors]
         return do_release(request, resolved)
 
+    def _shed_answer(
+        self,
+        request: RateLimitRequest,
+        limits: Sequence[RateLimit | None],
+        error: OverloadError,
+    ) -> tuple[Code, list, list[HeaderValue]]:
+        """Answer one shed request by the configured posture
+        (OVERLOAD_SHED_MODE): `unavailable` re-raises (a retriable
+        UNAVAILABLE), `allow` fails open with an `x-ratelimit-shed` header
+        so upstreams can tell a shed OK from an enforced one, `deny` answers
+        OVER_LIMIT for every descriptor. The statuses mirror
+        FallbackLimiter's: the two ladders share response semantics and
+        differ in their cause."""
+        overload = self._overload
+        overload.note_shed(error)
+        # the allow and deny postures answer without raising, so the
+        # journey's shed flag is noted here (the unavailable posture
+        # re-raises and is flagged at the should_rate_limit boundary)
+        journeys.note_flag(journeys.FLAG_SHED)
+        span = active_span()
+        if span is not None:
+            span.log_kv(
+                event="overload_shed",
+                shed_mode=overload.shed_mode,
+                cause=error.token,
+            )
+        if overload.shed_mode == SHED_MODE_ALLOW:
+            code = Code.OK
+        elif overload.shed_mode == SHED_MODE_DENY:
+            code = Code.OVER_LIMIT
+        else:  # unavailable: the wire error is the policy
+            raise error
+        statuses = []
+        for i in range(len(request.descriptors)):
+            limit = limits[i] if i < len(limits) else None
+            statuses.append(
+                DescriptorStatus(
+                    code=code,
+                    current_limit=limit.limit if limit is not None else None,
+                    limit_remaining=0,
+                )
+            )
+        return code, statuses, [HeaderValue("x-ratelimit-shed", error.token)]
+
     def _maybe_sleep(self, do_limit_response: DoLimitResponse) -> None:
         """Server-side pacing: sleep the handler instead of answering
-        immediately, bounded by the sleeper semaphore (ratelimit.go:180-205);
-        with every sleeper slot busy the sleep is shed and counted."""
-        sem = self._sleeper_semaphore
-        if sem is None:
-            return
-        if sem.acquire(blocking=False):
-            try:
-                self._time_source.sleep(do_limit_response.throttle_millis / 1000.0)
-            finally:
-                sem.release()
-            # throttled server-side by sleeping; don't also report it
-            do_limit_response.throttle_millis = 0
-        else:
-            self._stats.sleep_shed.inc()
+        immediately, bounded by the sleeper semaphore (ratelimit.go:180-205),
+        traced as a child span carrying the sleep duration, with an error
+        tag when the semaphore is exhausted (ratelimit.go:181-204). The
+        sleep is skipped (and sleep_shed counted) while the server drains
+        or the admission controller is browned out, and when every sleeper
+        slot is busy: pacing never pins worker threads."""
+        # as in the reference, the span opens before the semaphore check,
+        # so a missing semaphore still emits an (empty) pacing span
+        parent = active_span()
+        throttle_span = None
+        if parent is not None and parent.tracer is not None:
+            throttle_span = parent.tracer.start_span(
+                "sleep_on_throttle", child_of=parent
+            )
+            throttle_span.set_tag(
+                "throttling.sleep_ms", do_limit_response.throttle_millis
+            )
+        try:
+            if self._draining_probe is not None and self._draining_probe():
+                self._stats.sleep_shed.inc()
+                if throttle_span is not None:
+                    throttle_span.log_kv(event="throttling.drain_shed")
+                return
+            if self._overload is not None and self._overload.should_shed():
+                self._stats.sleep_shed.inc()
+                self._overload.note_sleep_shed()
+                if throttle_span is not None:
+                    throttle_span.log_kv(event="throttling.overload_shed")
+                return
+            sem = self._sleeper_semaphore
+            if sem is None:
+                return
+            if sem.acquire(blocking=False):
+                try:
+                    self._time_source.sleep(
+                        do_limit_response.throttle_millis / 1000.0
+                    )
+                finally:
+                    sem.release()
+                # throttled server-side by sleeping; don't also report it
+                do_limit_response.throttle_millis = 0
+            else:
+                self._stats.sleep_shed.inc()
+                if throttle_span is not None:
+                    throttle_span.log_kv(event="throttling.sem_exhausted")
+                    throttle_span.set_tag("error", True)
+        finally:
+            if throttle_span is not None:
+                throttle_span.finish()
 
     def _detail_headers(
         self, do_limit_response: DoLimitResponse

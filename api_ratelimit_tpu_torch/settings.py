@@ -17,18 +17,21 @@ Three differences:
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
   runs a mesh, a sidecar, snapshots or leases that are not there.
-* Where the JAX package's own default turns on a feature this package lacks
-  (DEBUG_METRICS_ENABLED -> GET /metrics, JOURNEY_RECORDER_ENABLED -> the
-  journey recorder and /debug/journeys), the boot logs one warning naming
-  item 4b (warn_unserved_defaults) instead: refusing the defaults would make
-  the process unbootable.
+
+Observability and shedding are served as in the JAX package: GET /metrics
+(DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
+K_TRACING_* variables, read from the mapping new_settings read by
+tracing/tracer.py tracer_from_env), the /debug/profile device trace (TPU_PROFILE_DIR), the
+failure-mode ladder (FAILURE_MODE_DENY deny or allow; empty, the default,
+raises through; degraded is refused)
+and the shed postures (OVERLOAD_SHED_MODE).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable
+from typing import Callable, ClassVar, Mapping
 
 
 def _parse_bool(raw: str) -> bool:
@@ -74,10 +77,6 @@ _SIDECAR_FIELDS = (
     ("sidecar_breaker_reset", "SIDECAR_BREAKER_RESET"),
 )
 
-# the tracer's enable switches (the JAX package's tracing/tracer.py reads
-# them from the environment, not from Settings): tracing is item 4b
-_TRACING_ENABLE_ENV = ("K_TRACING_ENABLED", "K_TRACING_LIGHTSTEP_ENABLED")
-
 
 def _unported(knob: str, feature: str, item: str) -> ValueError:
     return ValueError(
@@ -92,6 +91,11 @@ class Settings:
     BACKEND_TYPE's). What this package serves, and how: see check_ported
     for the refused knobs."""
 
+    # the mapping new_settings read (os.environ when None): the runner
+    # builds its tracer from it (K_TRACING_*); not a field, so not part of
+    # the JAX package's table
+    environ: ClassVar[Mapping[str, str] | None] = None
+
     # server (settings.go:14-16)
     port: int = 8080
     grpc_port: int = 8081
@@ -100,8 +104,8 @@ class Settings:
     use_statsd: bool = True
     statsd_host: str = "localhost"
     statsd_port: int = 8125
-    # GET /metrics (item 4b: warned at boot, not served) and the latency
-    # histogram ladder in ms (comma-separated floats; empty = the default)
+    # GET /metrics on the debug port and the latency histogram ladder in ms
+    # (comma-separated floats; empty = the default)
     debug_metrics_enabled: bool = True
     metrics_latency_buckets_ms: str = ""
     # runtime config dir (settings.go:20-23) and its watcher
@@ -159,8 +163,8 @@ class Settings:
     tpu_buckets: str = ""
     host_fast_path: bool = True  # compiled matcher -> row-block submit
     dispatch_loop: bool = True  # windowed mode: the device-owner loop
-    tpu_profile_dir: str = ""  # /debug/profile (item 4b)
-    # --- the journey flight recorder (item 4b: warned at boot) ---
+    tpu_profile_dir: str = ""  # /debug/profile's trace directory
+    # --- the journey flight recorder (tracing/journeys.py) ---
     journey_recorder_enabled: bool = True
     journey_slow_ms: float = 0.0
     journey_retain: int = 256
@@ -177,7 +181,8 @@ class Settings:
     repl_role: str = ""
     repl_interval_ms: float = 100.0
     repl_max_lag_ms: float = 0.0
-    # --- the fallback ladder (item 4b: any value but empty is refused) ---
+    # --- the failure-mode ladder (backends/fallback.py; empty raises
+    # through) ---
     failure_mode_deny: str = ""
     sidecar_connect_timeout: float = 5.0
     sidecar_rpc_deadline: float = 30.0
@@ -187,8 +192,7 @@ class Settings:
     sidecar_breaker_threshold: int = 5
     sidecar_breaker_reset: float = 5.0
     # --- admission control (backends/overload.py) ---
-    # the shed posture: "unavailable" (gRPC UNAVAILABLE) is served; the
-    # service's "allow" and "deny" postures are item 4b
+    # the shed posture: unavailable (gRPC UNAVAILABLE), allow or deny
     overload_shed_mode: str = "unavailable"
     overload_max_queue: int = 0  # 0 = unbounded
     overload_brownout_target_ms: float = 0.0  # 0 disables the brownout
@@ -375,6 +379,25 @@ class Settings:
             )
         return bool(self.hotkeys_enabled), k, lanes
 
+    def journey_config(self) -> tuple[bool, float, int, int]:
+        """Validated (enabled, slow_ms, retain, ring) for the journey
+        flight recorder. Junk fails the boot like every other knob — a
+        typo'd buffer size must not silently become 'no tail capture'."""
+        slow_ms = float(self.journey_slow_ms)
+        retain = int(self.journey_retain)
+        ring = int(self.journey_ring)
+        if slow_ms < 0:
+            raise ValueError(
+                f"JOURNEY_SLOW_MS must be >= 0, got {slow_ms}"
+            )
+        if retain <= 0:
+            raise ValueError(
+                f"JOURNEY_RETAIN must be > 0, got {retain}"
+            )
+        if ring <= 0:
+            raise ValueError(f"JOURNEY_RING must be > 0, got {ring}")
+        return bool(self.journey_recorder_enabled), slow_ms, retain, ring
+
     def concurrency_ttl(self) -> int:
         """Validated CONCURRENCY_TTL_S idle TTL. Junk (<= 0, or past the
         divider word's 28-bit field) fails the boot like every other knob —
@@ -426,6 +449,13 @@ class Settings:
                 "kernels; this package has no plain path on the card (a "
                 "CUDA tensor launches its kernel or raises)"
             )
+        if self.failure_mode() == "degraded":
+            raise ValueError(
+                "FAILURE_MODE_DENY=degraded answers a failed launch from a "
+                "process-local limiter on the CPU; this package moves no "
+                "decision off the card (ROADMAP \"Deliberate departures\"): "
+                "use deny, allow or empty"
+            )
         if self.frontend_procs < 1:
             raise ValueError(
                 f"FRONTEND_PROCS must be >= 1, got {self.frontend_procs}"
@@ -457,34 +487,6 @@ class Settings:
             )
         if self.fault_inject.strip():
             raise _unported("FAULT_INJECT", "fault injection", "11")
-        if self.failure_mode() is not None:
-            raise _unported(
-                f"FAILURE_MODE_DENY={self.failure_mode_deny}",
-                "the failure-mode fallback ladder", "4b",
-            )
-        if self.shed_mode() != "unavailable":
-            raise _unported(
-                f"OVERLOAD_SHED_MODE={self.overload_shed_mode}",
-                "the service's shed postures", "4b",
-            )
-        if self.tpu_profile_dir.strip():
-            raise _unported(
-                "TPU_PROFILE_DIR", "the /debug/profile device trace", "4b"
-            )
-
-    def warn_unserved_defaults(self, log) -> None:
-        """One warning per JAX-package default that turns on a feature this
-        package does not serve yet (ROADMAP item 4b); logged at boot."""
-        if self.debug_metrics_enabled:
-            log.warning(
-                "DEBUG_METRICS_ENABLED=true: GET /metrics is not served yet "
-                "(ROADMAP item 4b); /stats on the debug port has the values"
-            )
-        if self.journey_recorder_enabled:
-            log.warning(
-                "JOURNEY_RECORDER_ENABLED=true: the journey recorder and "
-                "/debug/journeys are not served yet (ROADMAP item 4b)"
-            )
 
 
 _FIELD_ENV: list[tuple[str, str, Callable]] = [
@@ -639,8 +641,7 @@ _FIELD_ENV: list[tuple[str, str, Callable]] = [
 
 def new_settings(environ: dict[str, str] | None = None) -> Settings:
     """Build Settings from the environment (settings.go:52-61), then
-    refuse what this package cannot serve (check_ported), the tracer's
-    enable switches included."""
+    refuse what this package cannot serve (check_ported)."""
     env = os.environ if environ is None else environ
     s = Settings()
     for field, var, parse in _FIELD_ENV:
@@ -652,8 +653,5 @@ def new_settings(environ: dict[str, str] | None = None) -> Settings:
         except ValueError as e:
             raise ValueError(f"bad env var {var}={raw!r}: {e}") from e
     s.check_ported()
-    for var in _TRACING_ENABLE_ENV:
-        raw = env.get(var, "")
-        if raw and _parse_bool(raw):
-            raise _unported(f"{var}={raw}", "tracing", "4b")
+    s.environ = env
     return s

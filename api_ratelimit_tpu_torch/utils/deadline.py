@@ -3,9 +3,10 @@
 Per-request deadline propagation (the Go context.Context deadline twin): a
 contextvar holding the ABSOLUTE monotonic deadline, set by the transport for
 the duration of one request and readable by any layer on the same thread of
-execution. The micro-batcher and the dispatch loop read it at enqueue time
-and drop already-expired work before packing a device launch
-(backends/batcher.py, backends/dispatch.py).
+execution. The service aborts a request that arrives already expired
+(service/ratelimit.py), and the micro-batcher and the dispatch loop read it
+at enqueue time and drop already-expired work before packing a device
+launch (backends/batcher.py, backends/dispatch.py).
 
 Monotonic clock only: deadlines are durations from "now", so they must be
 immune to wall-clock steps.
@@ -35,6 +36,12 @@ def time_remaining() -> float | None:
     if deadline is None:
         return None
     return deadline - time.monotonic()
+
+
+def expired() -> bool:
+    """True when a deadline is set and has already passed."""
+    deadline = _DEADLINE.get()
+    return deadline is not None and time.monotonic() >= deadline
 
 
 @contextlib.contextmanager

@@ -165,7 +165,39 @@ Phases, each of which must pass (nothing is caught):
            environment boots, answers client_cmd (a subprocess too) with
            the in-process runner's verdict, and on SIGTERM fails health and
            exits 0 within 30 s. Prints one "process:" JSON line.
-10. report per-kernel median device times (torch.profiler) and CUDA-event
+10. observability the layers around the served engine, at phase 9's
+           deployment with the reference's defaults for /metrics and the
+           journey recorder, the tracer on (K_TRACING_ENABLED, exporting to
+           a Zipkin collector this phase serves on 127.0.0.1),
+           TPU_PROFILE_DIR set, FAILURE_MODE_DENY=deny and
+           OVERLOAD_SHED_MODE=allow. 1024 v3 calls (1-3 descriptors,
+           Zipf(1.1) keys over 2^16) byte-identical to a memory-backend
+           Runner's on one fake clock, each launching the way scan, the
+           apply and the fused sketch update once; the ladder's and the
+           shed's counters and the degraded gauge read 0 and /healthcheck
+           is plain OK; GET /metrics parses, its rules' total_hits sum to
+           the stream's hits and ratelimit.build.{platform_id,device_count}
+           read 2 and 1; /debug/journeys retains journeys with the pipeline's
+           stages in order; after a stats flush drains the sketch, a call on
+           the hottest descriptor carries the hotkey flag; the collector
+           holds one server span per call. GET /debug/profile?ms=500 while a
+           client thread drives calls answers 200, a second capture during
+           it 429, and the trace it writes names way_scan_kernel,
+           slab_apply_kernel and sketch_update_kernel. A second runner with
+           TPU_BATCH_WINDOW=200us (the dispatch loop) and the in-process
+           recording tracer takes 8 client threads: a server span per call
+           in /debug/traces, dispatch.batch spans linking exactly those,
+           four dispatch.* stage spans under each, every journey with the
+           batcher and owner stages in order, one launch of each kernel a
+           batch. Last, sequential gRPC requests/s, p50 and p99 with
+           tracing, journeys and exemplars on and off: two runners booted
+           alike and warmed on the same calls take turns over one list of
+           512 calls, 16 at a time in A B B A order, each serving the same
+           calls; the on-off gap per block pair with its spread; the card's
+           busy share of four profiled runs of 64 calls (A B B A); printed
+           with the card's name and power limit, not claimed. Prints one
+           "observability:" line.
+11. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -178,8 +210,8 @@ Phases, each of which must pass (nothing is caught):
            that step's before/after); the standalone sketch scan, now on no
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
-           kernel; the process phase's line, the card's name and power limit, then the
-           ok line.
+           kernel; the process and observability phases' lines, the card's
+           name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -2965,6 +2997,480 @@ def phase_process(K) -> dict:
     return out
 
 
+# -- phase 10: observability and shedding around the engine ------------------
+
+OBS_CALLS = 1024  # the verdict stream, v3 calls of 1-3 descriptors
+OBS_WINDOW = "200us"  # the windowed runner's TPU_BATCH_WINDOW
+OBS_WINDOW_THREADS = 8
+OBS_WINDOW_CALLS = 256
+OBS_PROFILE_MS = 500  # the /debug/profile capture
+OBS_TIMED_CALLS = 512  # each arm's calls in the cost comparison
+OBS_COST_BLOCK = 16  # the calls an arm serves before the other takes its turn
+OBS_PROFILED_CALLS = 64  # each profiled run of the cost comparison: the busy share
+OBS_KERNELS = ("way_scan_kernel", "slab_apply_kernel", "sketch_update_kernel")
+OBS_TRACE_ID = 0xC0FFEE  # the hot-key check call's B3 trace id
+
+
+class ZipkinCollector:
+    """A Zipkin v2 collector on 127.0.0.1: records every POSTed span batch.
+    stop() closes it."""
+
+    def __init__(self):
+        import http.server
+
+        self.spans: list = []
+        lock = threading.Lock()
+        spans = self.spans
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802
+                batch = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                with lock:
+                    spans.extend(batch)
+                self.send_response(202)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *_a):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever, name="zipkin-collector", daemon=True)
+        self._thread.start()
+        self.url = f"http://127.0.0.1:{self._server.server_port}"
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(10)
+
+
+def obs_tracing(collector) -> dict:
+    """The tracer's variables: on, exporting to the phase's collector."""
+    return {"K_TRACING_ENABLED": "true", "K_TRACING_ZIPKIN_URL": collector.url}
+
+
+def obs_register(runner=None) -> None:
+    """Make `runner`'s tracer and journey recorder the process's (None: the
+    no-op tracer and no recorder). The tracer and the recorder are process
+    globals, as in the reference: with several runners in one process, the
+    one registered last serves every runner, so this phase registers the
+    runner it is about to call before each call or run."""
+    from api_ratelimit_tpu_torch.tracing import NoopTracer, journeys, set_global_tracer
+
+    set_global_tracer(runner.tracer if runner is not None else NoopTracer())
+    journeys.set_global_recorder(runner.journeys if runner is not None else None)
+
+
+def descriptor_hits(reqs: list) -> tuple[int, collections.Counter]:
+    """The hits a stream of v3 requests adds, and the hits per descriptor."""
+    per = collections.Counter()
+    for req in reqs:
+        for d in req.descriptors:
+            per[tuple((e.key, e.value) for e in d.entries)] += max(1, req.hits_addend)
+    return sum(per.values()), per
+
+
+def obs_stream(card, host, clock, n_calls: int, n_keys: int, seed: int = 13) -> dict:
+    """n_calls v3 calls through `card` (observability registered) and
+    `host` (the memory backend, nothing registered), one to each in turn on
+    the one fake clock: every response byte-identical."""
+    import grpc
+
+    rng = np.random.default_rng(seed)
+    reqs = process_requests(rng, n_calls, n_keys)
+    with grpc.insecure_channel(f"localhost:{card.server.grpc_port}") as cc, grpc.insecure_channel(
+        f"localhost:{host.server.grpc_port}"
+    ) as hc:
+        c_call, h_call = raw_caller(cc, V3_PATH), raw_caller(hc, V3_PATH)
+        for i, req in enumerate(reqs):
+            if i and i % PROCESS_CLOCK_EVERY == 0:
+                clock.advance(int(rng.choice([1, 7, 61])))
+            obs_register(card)
+            got = c_call(req, timeout=60)
+            obs_register(None)
+            want = h_call(req, timeout=60)
+            check(got == want, f"observability stream call {i}: the card's response differs from the memory backend's")
+    obs_register(card)
+    hits, per = descriptor_hits(reqs)
+    return {"calls": n_calls, "hits": hits, "descriptors": sum(len(r.descriptors) for r in reqs), "hottest": per.most_common(1)[0][0]}
+
+
+def obs_counters(runner) -> dict:
+    """The ladder's and the shed's counters and gauge."""
+    snap = runner.stats_store.debug_snapshot()
+    keys = [f"ratelimit.fallback.{k}" for k in ("allow", "deny", "degraded")] + ["ratelimit.overload.shed"]
+    return {k: snap.get(k, 0) for k in keys}
+
+
+def obs_metrics(runner, hits: int, platform_id: int, device_count: int) -> dict:
+    """GET /metrics parses as the text exposition with no line dropped; the
+    rules' total_hits counters sum to the stream's hits; the build gauges
+    name the card."""
+    from api_ratelimit_tpu_torch.stats import prometheus
+
+    status, body = http_call(runner.server.debug_port, "GET", "/metrics")
+    check(status == 200, f"/metrics answered {status}")
+    report: dict = {}
+    types_, families = prometheus.parse_exposition(body.decode(), report)
+    check(report["dropped_lines"] == 0, f"/metrics held {report['dropped_lines']} unparseable lines")
+    check(all(types_.get(name) for name in families), "a /metrics sample has no TYPE line")
+    total_hits = sum(
+        v for name, samples in families.items()
+        if name.startswith("ratelimit_service_rate_limit_") and name.endswith("_total_hits")
+        for v in samples.values()
+    )
+    check(total_hits == hits, f"/metrics counts {total_hits} hits, the stream sent {hits}")
+    build = {name: next(iter(s.values())) for name, s in families.items() if name.startswith("ratelimit_build_")}
+    check(
+        (build["ratelimit_build_platform_id"], build["ratelimit_build_device_count"]) == (platform_id, device_count),
+        f"the build gauges say {build}",
+    )
+    check(prometheus.CONTENT_TYPE.startswith("text/plain; version=0.0.4"), "the exposition content type moved")
+    return {"families": len(families), "total_hits": total_hits, "build": build}
+
+
+def stage_order_ok(stages: dict, order) -> bool:
+    """The journey holds every stage of `order`, stamped in that order."""
+    return all(s in stages for s in order) and [stages[s] for s in order] == sorted(stages[s] for s in order)
+
+
+def obs_journeys(runner) -> dict:
+    """GET /debug/journeys: retained journeys, each holding the pipeline's
+    stages in the reference's order (tracing/journeys.py STAGES, held equal
+    to the JAX package's by tests/test_torch_journeys.py)."""
+    from api_ratelimit_tpu_torch.tracing import journeys
+
+    doc = json.loads(http_call(runner.server.debug_port, "GET", "/debug/journeys")[1])
+    check(doc["enabled"] and doc["retained"], "/debug/journeys retained no journey")
+    device = [j for j in doc["retained"] if "publish" in j["stages"]]
+    check(device, "no retained journey reached the engine")
+    bad = [j for j in device if not stage_order_ok(j["stages"], journeys.STAGES)]
+    check(not bad, f"journeys with stages out of order: {bad[:2]}")
+    flags = collections.Counter(f for j in doc["retained"] for f in j["flags"])
+    return {"retained": len(doc["retained"]), "flags": dict(flags)}
+
+
+def obs_hotkey(runner, hottest) -> dict:
+    """After a stats flush drains the sketch, one call on the stream's
+    hottest descriptor carries FLAG_HOTKEY in its journey."""
+    import grpc
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    runner.stats_store.flush()  # HotkeyStats: the drain
+    check(runner.cache.engine.hot_fps, "the drain ranked no key hot")
+    req = rls_v3.RateLimitRequest(domain="proc")
+    entry = req.descriptors.add()
+    for k, v in hottest:
+        entry.entries.add(key=k, value=v)
+    meta = [("x-b3-traceid", f"{OBS_TRACE_ID:032x}"), ("x-b3-spanid", f"{OBS_TRACE_ID:016x}"), ("x-b3-sampled", "1")]
+    with grpc.insecure_channel(f"localhost:{runner.server.grpc_port}") as ch:
+        raw_caller(ch, V3_PATH)(req, timeout=60, metadata=meta)
+    doc = json.loads(http_call(runner.server.debug_port, "GET", "/debug/journeys")[1])
+    mine = [j for j in doc["retained"] if j["trace_id"] == f"{OBS_TRACE_ID:032x}"]
+    check(mine and "hotkey" in mine[-1]["flags"], f"the hottest descriptor's call was not flagged hotkey: {mine}")
+    return {"hot_keys": len(runner.cache.engine.hot_fps), "flags": mine[-1]["flags"]}
+
+
+def obs_collector_spans(collector, want: int, timeout: float = 15.0) -> dict:
+    """The Zipkin collector received one server span for each sampled v3
+    call (the exporter flushes once a second)."""
+    deadline = time.perf_counter() + timeout
+
+    def server_spans():
+        return [s for s in list(collector.spans) if s["name"] == V3_PATH and s["tags"].get("span.kind") == "server"]
+
+    while len(server_spans()) < want and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    got = server_spans()
+    check(len(got) == want, f"the collector holds {len(got)} server spans for {want} calls")
+    return {"server_spans": len(got), "spans": len(collector.spans)}
+
+
+def obs_windowed(env: dict, n_keys: int, device: str = "cuda", on_boot=None) -> dict:
+    """The windowed arm (TPU_BATCH_WINDOW > 0, the dispatch loop) with the
+    in-process recording tracer: 8 client threads; /debug/traces holds a
+    server span for each call, dispatch.batch spans link exactly those
+    request spans, each request span has its dispatch.* stage children, and
+    every journey holds the batcher and owner stages in order. on_boot()
+    runs once the runner serves (the launch counters' reset); returns the
+    batches launched."""
+    from api_ratelimit_tpu_torch.tracing import journeys
+
+    runner, boot_s = process_boot(dict(env, TPU_BATCH_WINDOW=OBS_WINDOW, K_TRACING_ENABLED="true"), device=device)
+    try:
+        obs_register(runner)
+        loop = runner.cache.engine.dispatch_loop
+        check(loop is not None, "TPU_BATCH_WINDOW > 0 built no dispatch loop")
+        if on_boot is not None:
+            on_boot()
+        launches0 = loop.launches
+        rng = np.random.default_rng(17)
+        reqs = process_requests(rng, OBS_WINDOW_CALLS, n_keys)
+        grpc_load(runner.server.grpc_port, reqs, OBS_WINDOW_THREADS)
+        calls = OBS_WINDOW_CALLS + OBS_WINDOW_THREADS  # each thread's connecting call
+        batches = loop.launches - launches0
+        spans = json.loads(http_call(runner.server.debug_port, "GET", "/debug/traces")[1])["spans"]
+        server = {s["span_id"] for s in spans if s["operation_name"] == V3_PATH}
+        check(len(server) == calls, f"/debug/traces holds {len(server)} server spans for {calls} calls")
+        batch = [s for s in spans if s["operation_name"] == "dispatch.batch"]
+        linked = {link["span_id"] for s in batch for link in s["links"]}
+        check(linked == server, f"the batch spans link {len(linked)} request spans of {len(server)}")
+        staged = collections.Counter(s["parent_id"] for s in spans if s["operation_name"].startswith("dispatch.") and s["parent_id"])
+        check(all(staged[sid] == 4 for sid in server), "a request span lacks its four dispatch.* stage spans")
+        doc = json.loads(http_call(runner.server.debug_port, "GET", "/debug/journeys")[1])
+        recent = [j for ring in doc["recent"].values() for j in ring]
+        check(recent and all(stage_order_ok(j["stages"], journeys.STAGES) for j in recent), "a windowed journey lacks the batcher and owner stages in order")
+        return {
+            "boot_s": boot_s, "calls": calls, "batches": batches, "batch_spans": len(batch),
+            "max_links": max(len(s["links"]) for s in batch), "journeys": len(recent),
+        }
+    finally:
+        runner.stop()
+
+
+def trace_kernel_names(profile_dir: str, names) -> dict:
+    """How often each of `names` appears in the Chrome trace(s) under
+    profile_dir."""
+    text = ""
+    for f in sorted(os.listdir(profile_dir)):
+        with open(os.path.join(profile_dir, f)) as fh:
+            text += fh.read()
+    return {name: text.count(name) for name in names}
+
+
+def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS) -> dict:
+    """GET /debug/profile?ms=500 while a client thread drives calls: 200
+    and {profile_dir, ms}; a second capture during the first answers 429;
+    the trace written names every served kernel."""
+    rng = np.random.default_rng(19)
+    reqs = process_requests(rng, 4096, n_keys)
+    stop = threading.Event()
+    sent = [0]
+    errors = []
+
+    def drive():
+        import grpc
+
+        try:
+            with grpc.insecure_channel(f"localhost:{runner.server.grpc_port}") as ch:
+                call = raw_caller(ch, V3_PATH)
+                for req in reqs:
+                    if stop.is_set():
+                        break
+                    call(req, timeout=60)
+                    sent[0] += 1
+        except Exception as e:  # noqa: BLE001 (re-raised by the check below)
+            errors.append(repr(e))
+
+    result = {}
+
+    def capture():
+        result["first"] = http_call(runner.server.debug_port, "GET", f"/debug/profile?ms={OBS_PROFILE_MS}")
+
+    driver = threading.Thread(target=drive, name="obs-driver")
+    capturer = threading.Thread(target=capture, name="obs-capture")
+    driver.start()
+    time.sleep(0.2)
+    capturer.start()
+    time.sleep(OBS_PROFILE_MS / 1e3 / 4)
+    second = http_call(runner.server.debug_port, "GET", "/debug/profile?ms=10")
+    capturer.join(120)
+    stop.set()
+    driver.join(120)
+    check(not errors, f"the client thread failed: {errors}")
+    check(not capturer.is_alive() and not driver.is_alive(), "the capture or the client thread hung")
+    status, body = result["first"]
+    check(status == 200, f"/debug/profile answered {status}: {body[:200]}")
+    doc = json.loads(body)
+    check(doc == {"profile_dir": profile_dir, "ms": float(OBS_PROFILE_MS)}, f"/debug/profile answered {doc}")
+    check(second[0] == 429, f"a second capture during the first answered {second[0]}")
+    counts = trace_kernel_names(profile_dir, kernels)
+    check(all(counts.values()), f"the device trace misses a served kernel: {counts}")
+    return {"calls_during": sent[0], "kernel_mentions": counts, "second_capture": second[0], "files": len(os.listdir(profile_dir))}
+
+
+def obs_busy(runner, reqs: list) -> float:
+    """The card's busy share of the wall time of reqs, sequential on one
+    channel, under torch.profiler (CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_trace()
+        wall, _lat = grpc_load(runner.server.grpc_port, reqs, 1)
+        torch.cuda.synchronize()
+    return sum(us for _name, us in device_activities(prof)) / 1e3 / (wall * 1e3)
+
+
+def obs_cost(on, off, n_keys: int, profiled: bool = True) -> dict:
+    """Sequential gRPC v3 requests/s, p50 and p99 with tracing, journeys
+    and exemplars on (runner `on`, the phase's tracer and recorder) and off
+    (runner `off`: the no-op tracer, no recorder), two runners booted alike
+    for this comparison and warmed on the same calls. The arms take turns
+    over one request list, OBS_COST_BLOCK calls at a time in A B B A order,
+    each serving the same calls, so a drift within the process falls on
+    both alike; the gap is kept with its spread over the block pairs. Then,
+    when `profiled`, the card's busy share of four profiled runs of
+    OBS_PROFILED_CALLS in A B B A order. Printed, not claimed: only these
+    runs compare with one another."""
+    import grpc
+
+    arms = {"on": on, "off": off}
+    rng = np.random.default_rng(23)
+    warm = process_requests(rng, 4 * OBS_COST_BLOCK, n_keys)
+    reqs = process_requests(rng, OBS_TIMED_CALLS, n_keys)
+    lat = {"on": [], "off": []}
+    blocks = []  # (on, off) mean call ms of each block pair
+    with contextlib.ExitStack() as stack:
+        calls = {}
+        for arm, runner in arms.items():
+            channel = stack.enter_context(grpc.insecure_channel(f"localhost:{runner.server.grpc_port}"))
+            calls[arm] = raw_caller(channel, V3_PATH)
+
+        def serve(arm: str, block: list) -> list:
+            obs_register(arms[arm])
+            out = []
+            for req in block:
+                t0 = time.perf_counter()
+                calls[arm](req, timeout=60)
+                out.append(time.perf_counter() - t0)
+            return out
+
+        for arm in arms:
+            serve(arm, warm)
+        for b, at in enumerate(range(0, OBS_TIMED_CALLS, OBS_COST_BLOCK)):
+            block = reqs[at : at + OBS_COST_BLOCK]
+            mean = {}
+            for arm in ("on", "off") if b % 2 == 0 else ("off", "on"):
+                took = serve(arm, block)
+                lat[arm] += took
+                mean[arm] = sum(took) / len(took) * 1e3
+            blocks.append((mean["on"], mean["off"]))
+    obs_register(None)
+    gaps = np.array([a - b for a, b in blocks])
+    ratios = np.array([a / b for a, b in blocks])
+    out = {
+        "block": OBS_COST_BLOCK,
+        "arms": {arm: rate_line(sum(lat[arm]), lat[arm]) for arm in arms},
+        "gap_ms": {q: float(np.percentile(gaps, p)) for q, p in (("p10", 10), ("p50", 50), ("p90", 90))},
+        "ratio": {q: float(np.percentile(ratios, p)) for q, p in (("p10", 10), ("p50", 50), ("p90", 90))},
+    }
+    if profiled:
+        prof_reqs = process_requests(rng, OBS_PROFILED_CALLS, n_keys)
+        busy = []
+        for arm in ("on", "off", "off", "on"):
+            obs_register(arms[arm])
+            busy.append({"arm": arm, "device_busy_share": obs_busy(arms[arm], prof_reqs)})
+        obs_register(None)
+        out["busy"] = busy
+    return out
+
+
+def phase_observability(K) -> dict:
+    """Observability and shedding around the served engine (module
+    docstring, phase 10)."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    runners = []
+    collector = ZipkinCollector()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as scratch:
+        runtime_root = os.path.join(scratch, "runtime")
+        process_runtime(runtime_root)
+        profile_dir = os.path.join(scratch, "profiles")
+        clock = FakeTimeSource(NOW0)
+        install_process_time_source(clock)
+        try:
+            env = process_env(
+                runtime_root, FAILURE_MODE_DENY="deny", OVERLOAD_SHED_MODE="allow", TPU_PROFILE_DIR=profile_dir
+            )
+            host, _ = process_boot(process_env(runtime_root, backend="memory", JOURNEY_RECORDER_ENABLED="false"))
+            runners.append(host)
+            card, boot_s = process_boot(dict(env, **obs_tracing(collector)))
+            runners.append(card)
+            check(card.settings.debug_metrics_enabled and card.journeys is not None, "the defaults did not turn on /metrics and the recorder")
+            check(card.fallback is not None and card.overload.shed_mode == "allow", "the ladder or the allow posture is missing")
+            lap("boot")
+
+            K.reset_launch_counts()
+            stream = obs_stream(card, host, clock, OBS_CALLS, PROCESS_KEYS)
+            launches = {k: K.LAUNCHES[k] for k in ("way_scan", "slab_apply", "sketch_update")}
+            check(all(v == OBS_CALLS for v in launches.values()), f"{OBS_CALLS} calls launched {launches}")
+            metrics = obs_metrics(card, stream["hits"], 2, 1)
+            journey_doc = obs_journeys(card)
+            spans = obs_collector_spans(collector, OBS_CALLS)
+            hot = obs_hotkey(card, stream["hottest"])
+            lap("stream")
+
+            trace = obs_device_trace(card, profile_dir, PROCESS_KEYS)
+            lap("device_trace")
+            counters = obs_counters(card)
+            check(not any(counters.values()), f"the ladder or the shed answered while the card served: {counters}")
+            health = http_call(card.server.http_port, "GET", "/healthcheck")
+            check(health == (200, b"OK"), f"/healthcheck answered {health} while the card served")
+
+            windowed = obs_windowed(env, PROCESS_KEYS, on_boot=K.reset_launch_counts)
+            windowed["launches"] = {k: K.LAUNCHES[k] for k in ("way_scan", "slab_apply", "sketch_update")}
+            check(
+                all(v == windowed["batches"] for v in windowed["launches"].values()),
+                f"{windowed['batches']} batches launched {windowed['launches']}",
+            )
+            lap("windowed")
+
+            on, _ = process_boot(dict(env, **obs_tracing(collector)))
+            runners.append(on)
+            off, _ = process_boot(dict(env, JOURNEY_RECORDER_ENABLED="false"))
+            runners.append(off)
+            cost = obs_cost(on, off, PROCESS_KEYS)
+            lap("cost")
+            counters = obs_counters(card)
+            check(not any(counters.values()), f"the ladder or the shed answered while the card served: {counters}")
+        finally:
+            obs_register(None)
+            for r in runners:
+                r.stop()
+            collector.stop()
+            install_process_time_source(RealTimeSource())
+    check(
+        not any(t.name == "tracing-flush" and t.is_alive() for t in threading.enumerate()),
+        "the tracer's exporter thread outlived Runner.stop()",
+    )
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    )
+    out = {
+        "boot_s": boot_s,
+        "launches": launches,
+        "stream": {k: v for k, v in stream.items() if k != "hottest"},
+        "fallback_and_shed": counters,
+        "metrics": metrics,
+        "journeys": journey_doc,
+        "hotkey": hot,
+        "collector": spans,
+        "device_trace": trace,
+        "windowed": windowed,
+        "cost": cost,
+        "card": smi.stdout.strip(),
+        "phase_s": time.perf_counter() - t_phase,
+        "step_s": steps,
+    }
+    arms = cost["arms"]
+    log(
+        "observability: " + ", ".join(
+            f"{arm} {r['requests_per_s']:.1f}/s p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms" for arm, r in arms.items()
+        ) + f"; on-off per block {cost['gap_ms']['p50']:.3f} ms (p10 {cost['gap_ms']['p10']:.3f}, p90 {cost['gap_ms']['p90']:.3f}); busy "
+        + " ".join(f"{b['arm']} {b['device_busy_share']:.4f}" for b in cost.get("busy", [])) + f" ({out['phase_s']:.1f} s)"
+    )
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -3028,6 +3534,7 @@ def main() -> int:
         errs | select_errs | algo["errs"], algo,
     )
     process = phase_process(K)
+    observability = phase_observability(K)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3035,6 +3542,7 @@ def main() -> int:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log("process:", json.dumps(process | {"card": smi.stdout.strip()}))
+    log("observability:", json.dumps(observability))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

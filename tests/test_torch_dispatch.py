@@ -72,8 +72,8 @@ class TestSubmitRing:
             ring.publish(_block([i] * n), n, None, time.monotonic(), ticket)
             slot = ring.slots[ring.head & ring.mask]
             ring.slots[ring.head & ring.mask] = None
-            rows, count, _dl, _enq, _t, arena_used = slot
-            assert rows[2].tolist() == [i] * n
+            rows, count, _dl, _enq, _t, arena_used, ctx = slot
+            assert rows[2].tolist() == [i] * n and ctx is None
             assert count == n
             ring.head += 1
             ring.items_out += count

@@ -5,14 +5,18 @@ and hot reload.
   from the v3 over-limit sequence through the kept-old-config reload) run
   unchanged against the port's Runner, with the memory backend and with the
   CUDA engine on the CPU (BACKEND_TYPE=cuda, device="cpu"): this module
-  imports them and overrides their `running_server` fixture. Their debug
-  endpoints test reads /debug/pprof (ROADMAP item 4b); the port's debug
-  surface has its own test here.
+  imports them and overrides their `running_server` fixture; their debug
+  endpoints test (/debug/pprof, the CPU sampler, the heap snapshot) runs as
+  test_reference_debug_endpoints. The port's own debug test adds /metrics,
+  /debug/journeys, /debug/traces, /debug/profile and /debug/hotkeys.
 * The JAX Runner (BACKEND_TYPE=tpu on the CPU: the XLA twin) and the port's
   Runner (cuda on the CPU) take the same v3/v2//json stream under one fake
   process clock: the serialized responses and /json bodies are identical
   byte for byte, the slab tables equal, and an empty domain, an unknown
-  domain and a backend failure give the same gRPC codes.
+  domain and a backend failure give the same gRPC codes. /json answers 504
+  on an expired Envoy deadline and 503 on an unavailable-posture shed as
+  the JAX Runner does, and with FAILURE_MODE_DENY set a failing engine gets
+  the JAX Runner's answers, counters and /healthcheck body.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ grpc = pytest.importorskip("grpc")
 import test_server_integration as ref_it  # noqa: E402
 from test_server_integration import (  # noqa: E402,F401 (collected here)
     test_config_error_keeps_old_config,
+    test_debug_endpoints as test_reference_debug_endpoints,
     test_duration_until_reset_decays,
     test_grpc_health_watch_cap,
     test_grpc_health_watch_streams_transition,
@@ -95,17 +100,37 @@ def http_call(port, method, path, body=None):
 
 
 def test_debug_endpoints(running_server):
-    """The port's debug port: the index, /stats, /rlconfig, /debug/hotkeys
-    with the CUDA engine's sketch, and 404 elsewhere (the JAX test's
-    /debug/pprof is ROADMAP item 4b)."""
+    """The port's debug port: the index, /stats, /rlconfig, /metrics (the
+    service's counters and the build gauges), /debug/journeys (the default
+    recorder, holding the over-limit journey of a served call),
+    /debug/traces (tracing off: no spans), /debug/profile (404 with
+    TPU_PROFILE_DIR empty), /debug/hotkeys with the CUDA engine's sketch,
+    and 404 elsewhere."""
     runner, _ = running_server
     port = runner.server.debug_port
     status, text = http_call(port, "GET", "/")
     assert status == 200 and b"/stats" in text and b"/rlconfig" in text
+    for path in (b"/metrics", b"/debug/journeys", b"/debug/traces", b"/debug/profile", b"/debug/pprof/"):
+        assert path in text
     status, text = http_call(port, "GET", "/stats")
     assert status == 200 and b"config_load_success" in text
     status, text = http_call(port, "GET", "/rlconfig")
     assert status == 200 and b"basic" in text and b"one_per_minute" in text
+    with grpc.insecure_channel(f"localhost:{runner.server.grpc_port}") as ch:
+        stub = rls_grpc.RateLimitServiceV3Stub(ch)
+        for _ in range(2):
+            stub.ShouldRateLimit(ref_it.v3_request("basic", [[("one_per_minute", "dbg")]]))
+    status, text = http_call(port, "GET", "/metrics")
+    assert status == 200
+    assert b"# TYPE ratelimit_service_config_load_success counter" in text
+    assert b"ratelimit_build_platform_id 0\n" in text and b"ratelimit_build_device_count 0\n" in text
+    assert b"ratelimit_service_call_should_rate_limit_latency_ms_count 2\n" in text
+    status, text = http_call(port, "GET", "/debug/journeys")
+    doc = json.loads(text)
+    assert status == 200 and doc["enabled"] is True
+    assert [j["flags"] for j in doc["retained"]] == [["over_limit"]]
+    assert http_call(port, "GET", "/debug/traces") == (200, b'{"spans": []}\n')
+    assert http_call(port, "GET", "/debug/profile?ms=10")[0] == 404
     status, text = http_call(port, "GET", "/debug/hotkeys")
     if runner.settings.backend_type == "cuda":
         assert status == 200 and json.loads(text)["lanes"] == 128
@@ -288,12 +313,13 @@ def _grpc_call(port, service, req):
             return ("error", e.code())
 
 
-@pytest.fixture
-def twin_runners(tmp_path):
+def _twin_runners(tmp_path, **extra_env):
+    """The JAX Runner (tpu, the XLA twin) and the port's (cuda on the CPU)
+    over one runtime directory and one fake process clock."""
     config_dir = tmp_path / "ratelimit" / "config"
     config_dir.mkdir(parents=True)
     (config_dir / "par.yaml").write_text(PARITY_RULES)
-    env = dict(PARITY_ENV, RUNTIME_ROOT=str(tmp_path))
+    env = dict(PARITY_ENV, RUNTIME_ROOT=str(tmp_path), **extra_env)
     clock = FakeTimeSource(NOW)
     jax_time.install_process_time_source(clock)
     port_time.install_process_time_source(clock)
@@ -309,6 +335,11 @@ def twin_runners(tmp_path):
                 r.stop()
         jax_time.install_process_time_source(jax_time.RealTimeSource())
         port_time.install_process_time_source(RealTimeSource())
+
+
+@pytest.fixture
+def twin_runners(tmp_path):
+    yield from _twin_runners(tmp_path)
 
 
 def test_jax_runner_and_port_runner_answer_alike(twin_runners):
@@ -446,3 +477,155 @@ def test_chip_smoke_process_phase_on_the_cpu(tmp_path):
         host.stop()
     finally:
         port_time.install_process_time_source(RealTimeSource())
+
+
+def _json_with_headers(port, body, headers):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST", "/json", body=body, headers={"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _fail_engines(jr, pr, port_error, jax_error):
+    """Make the port runner's engine submit raise port_error and the JAX
+    runner's raise jax_error."""
+
+    def raiser(error):
+        def fail(*_a, **_k):
+            raise error
+
+        return fail
+
+    pr.cache.engine.submit_rows = raiser(port_error)
+    jr.service._cache._submit_rows = raiser(jax_error)
+
+
+@pytest.mark.parametrize(
+    "case, headers",
+    [("expired_deadline", {"x-envoy-expected-rq-timeout-ms": "0"}), ("negative_deadline", {"x-envoy-expected-rq-timeout-ms": "-5"}),
+     ("junk_deadline", {"x-envoy-expected-rq-timeout-ms": "soon"}), ("queue_full", {})],
+)
+def test_json_deadline_and_shed_answers_match_the_jax_runner(twin_runners, case, headers):
+    """/json: an expired x-envoy-expected-rq-timeout-ms answers 504 before
+    dispatch, a junk one is no deadline (200), and an unavailable-posture
+    shed (the engine's queue is full) answers 503, each with the JAX
+    Runner's status and body."""
+    from api_ratelimit_tpu.backends.overload import QueueFullError as JaxQueueFull
+    from api_ratelimit_tpu_torch.backends.overload import QueueFullError
+
+    jr, pr, _clock = twin_runners
+    body = _json([[("user", "deadline")]], 0)
+    if case == "queue_full":
+        _fail_engines(jr, pr, QueueFullError("ring full"), JaxQueueFull("ring full"))
+    got = _json_with_headers(pr.server.http_port, body, headers)
+    want = _json_with_headers(jr.server.http_port, body, headers)
+    assert got == want
+    assert got[0] == {"expired_deadline": 504, "negative_deadline": 504, "junk_deadline": 200, "queue_full": 503}[case]
+    snap = pr.stats_store.debug_snapshot()
+    assert snap.get("ratelimit.service.call.should_rate_limit.redis_error", 0) == 0
+    if case == "queue_full":
+        assert snap["ratelimit.overload.shed"] == jr.stats_store.debug_snapshot()["ratelimit.overload.shed"] == 1
+
+
+@pytest.fixture(params=["deny", "allow"])
+def ladder_runners(request, tmp_path):
+    yield from _twin_runners(tmp_path, FAILURE_MODE_DENY=request.param, OVERLOAD_SHED_MODE="allow")
+
+
+def test_failure_ladder_answers_like_the_jax_runner(ladder_runners):
+    """FAILURE_MODE_DENY set and the engine failing: the same v3 and /json
+    answers from both runners, the same ratelimit.fallback.* counters and
+    gauge, and the degraded /healthcheck body (200); after the engine
+    recovers, /healthcheck is plain OK again."""
+    jr, pr, _clock = ladder_runners
+    bodies = [_json([[("user", f"u{i % 2}")], [("tier", "free")]], 0) for i in range(4)]
+    reqs = [_v3([[("user", f"v{i % 2}")]], 0, False) for i in range(4)]
+    for r in (jr, pr):
+        assert http_call(r.server.http_port, "GET", "/healthcheck") == (200, b"OK")
+    saved = (pr.cache.engine.submit_rows, jr.service._cache._submit_rows)
+    _fail_engines(jr, pr, CacheError("engine launch failed"), JaxCacheError("engine launch failed"))
+    for body in bodies:
+        assert http_call(pr.server.http_port, "POST", "/json", body) == http_call(jr.server.http_port, "POST", "/json", body)
+    for req in reqs:
+        assert _grpc_call(pr.server.grpc_port, "v3", req) == _grpc_call(jr.server.grpc_port, "v3", req)
+    health = [http_call(r.server.http_port, "GET", "/healthcheck") for r in (pr, jr)]
+    assert health[0] == health[1]
+    assert health[0][0] == 200 and b"degraded: mode=" in health[0][1]
+
+    def ladder_stats(r):
+        snap = r.stats_store.debug_snapshot()
+        return {k: v for k, v in snap.items() if ".fallback." in k or k.endswith(".redis_error")}
+
+    # the reference's degraded rung counts into fallback.local; the port
+    # has no such rung and no such counter
+    want = ladder_stats(jr)
+    assert want.pop("ratelimit.fallback.local") == 0
+    assert ladder_stats(pr) == want
+    mode = pr.settings.failure_mode()
+    assert ladder_stats(pr)[f"ratelimit.fallback.{mode}"] == 8
+    assert ladder_stats(pr)["ratelimit.fallback.degraded"] == 1
+    pr.cache.engine.submit_rows, jr.service._cache._submit_rows = saved
+    for r in (pr, jr):
+        assert _grpc_call(r.server.grpc_port, "v3", reqs[0])[0] == "ok"
+        assert http_call(r.server.http_port, "GET", "/healthcheck") == (200, b"OK")
+
+
+def test_chip_smoke_observability_phase_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's observability phase, rehearsed on the CPU at a small
+    size: the stream against the memory backend, /metrics (platform cpu, no
+    device), the journeys' stage order, the Zipkin collector's server
+    spans, the hot-key flag after a drain, /debug/profile's 200 and 429
+    (no kernel names on the CPU), the windowed runner's linked batch spans
+    and journeys, and the block-interleaved cost runs; the ladder and the shed never
+    answer, and the exporter thread ends with the runners."""
+    import threading
+
+    import chip_smoke as CS
+
+    monkeypatch.setattr(CS, "OBS_TIMED_CALLS", 16)
+    monkeypatch.setattr(CS, "OBS_COST_BLOCK", 4)
+    monkeypatch.setattr(CS, "OBS_WINDOW_CALLS", 48)
+    root = str(tmp_path / "runtime")
+    CS.process_runtime(root)
+    profile_dir = str(tmp_path / "profiles")
+    clock = FakeTimeSource(NOW)
+    port_time.install_process_time_source(clock)
+    small = {"TPU_SLAB_SLOTS": 1 << 14, "SLAB_WAYS": 4, "TPU_BUCKETS": "128,1024"}
+    env = CS.process_env(root, FAILURE_MODE_DENY="allow", OVERLOAD_SHED_MODE="allow", TPU_PROFILE_DIR=profile_dir, **small)
+    collector = CS.ZipkinCollector()
+    runners = []
+    try:
+        host, _ = CS.process_boot(CS.process_env(root, backend="memory", JOURNEY_RECORDER_ENABLED="false"), device="cpu")
+        runners.append(host)
+        card, _ = CS.process_boot(dict(env, **CS.obs_tracing(collector)), device="cpu")
+        runners.append(card)
+        stream = CS.obs_stream(card, host, clock, 96, 512)
+        metrics = CS.obs_metrics(card, stream["hits"], 0, 0)
+        assert metrics["total_hits"] == stream["hits"] > stream["calls"]
+        assert CS.obs_journeys(card)["flags"]["over_limit"] > 0
+        assert CS.obs_collector_spans(collector, 96)["server_spans"] == 96
+        assert "hotkey" in CS.obs_hotkey(card, stream["hottest"])["flags"]
+        trace = CS.obs_device_trace(card, profile_dir, 512, kernels=())
+        assert trace["second_capture"] == 429 and trace["files"] == 1
+        assert not any(CS.obs_counters(card).values())
+        windowed = CS.obs_windowed(env, 512, device="cpu")
+        assert windowed["calls"] == 48 + CS.OBS_WINDOW_THREADS and windowed["batches"] >= 1
+        on, _ = CS.process_boot(dict(env, **CS.obs_tracing(collector)), device="cpu")
+        runners.append(on)
+        off, _ = CS.process_boot(dict(env, JOURNEY_RECORDER_ENABLED="false"), device="cpu")
+        runners.append(off)
+        # the tracer comes from each runner's settings mapping
+        assert (type(on.tracer).__name__, type(off.tracer).__name__) == ("ZipkinTracer", "NoopTracer")
+        cost = CS.obs_cost(on, off, 512, profiled=False)
+        assert [r["calls"] for r in cost["arms"].values()] == [16, 16] and "busy" not in cost
+        assert cost["gap_ms"]["p10"] <= cost["gap_ms"]["p50"] <= cost["gap_ms"]["p90"]
+    finally:
+        CS.obs_register(None)
+        for r in runners:
+            r.stop()
+        collector.stop()
+        port_time.install_process_time_source(RealTimeSource())
+    assert not any(t.name == "tracing-flush" and t.is_alive() for t in threading.enumerate())

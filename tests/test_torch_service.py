@@ -220,7 +220,10 @@ def test_port_imports_no_jax_and_no_reference():
         "new = ('ops.sketch', 'ops.sketch_kernels', 'config.compiled', 'server.http_server', "
         "'pb', 'pb.rls_grpc', 'settings', 'runner', 'backends.memory', 'server.server', "
         "'server.grpc_service', 'server.health', 'server.runtime_loader', "
-        "'cmd.service_cmd', 'cmd.client_cmd', 'cmd.config_check_cmd')\n"
+        "'cmd.service_cmd', 'cmd.client_cmd', 'cmd.config_check_cmd', "
+        "'tracing', 'tracing.tracer', 'tracing.propagation', 'tracing.middleware', "
+        "'tracing.journeys', 'stats.prometheus', 'utils.provenance', "
+        "'backends.fallback')\n"
         "missing = [m for m in new if 'api_ratelimit_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules if m.startswith('api_ratelimit_tpu_torch')]))\n"

@@ -2,10 +2,12 @@
 parses into the same fields (BACKEND_TYPE's cuda standing for tpu), a bad
 value raises the same message, the boot validators agree, and every knob
 that turns on a feature the port has not ported is refused at boot with its
-ROADMAP item."""
+ROADMAP item. The observability and shedding knobs (FAILURE_MODE_DENY,
+OVERLOAD_SHED_MODE, TPU_PROFILE_DIR, the tracer's switches, the journey
+recorder) parse as the reference's, and the default boot warns of nothing
+unserved."""
 
 import dataclasses
-import logging
 
 import pytest
 
@@ -34,6 +36,11 @@ ENVS = [
     ("watermark", {"SLAB_WATERMARK_HIGH": "0.9", "SLAB_WATERMARK_CRITICAL": "0.95"}),
     ("metrics", {"DEBUG_METRICS_ENABLED": "false", "METRICS_LATENCY_BUCKETS_MS": "1,5,25"}),
     ("journeys", {"JOURNEY_RECORDER_ENABLED": "0", "JOURNEY_SLOW_MS": "12.5", "JOURNEY_RETAIN": "32", "JOURNEY_RING": "8"}),
+    ("failure_mode_deny", {"FAILURE_MODE_DENY": "true", "OVERLOAD_SHED_MODE": "deny"}),
+    ("failure_mode_allow", {"FAILURE_MODE_DENY": "false"}),
+    ("profile_dir", {"TPU_PROFILE_DIR": "/tmp/prof"}),
+    ("tracing_on", {"K_TRACING_ENABLED": "true", "K_TRACING_ZIPKIN_URL": "http://127.0.0.1:9411"}),
+    ("lightstep_on", {"K_TRACING_LIGHTSTEP_ENABLED": "1"}),
     ("redis_knobs", {"REDIS_URL": "localhost:6379", "REDIS_POOL_SIZE": "4", "REDIS_PERSECOND": "1"}),
     ("memory_backend", {"BACKEND_TYPE": "memory"}),
     ("tpu_backend", {"BACKEND_TYPE": "tpu"}),
@@ -62,6 +69,7 @@ VALIDATORS = (
     "hotkey_config",
     "concurrency_ttl",
     "gcra_burst",
+    "journey_config",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -77,8 +85,14 @@ VALIDATOR_ENVS = [
     ("latency_buckets_negative", {"METRICS_LATENCY_BUCKETS_MS": "-1,2"}),
     ("shed_mode_junk", {"OVERLOAD_SHED_MODE": "drop"}),
     ("failure_mode_junk", {"FAILURE_MODE_DENY": "sometimes"}),
+    # parsed as the reference parses it; the port refuses the rung at boot
+    # (test_degraded_failure_mode_is_refused)
+    ("failure_mode_degraded", {"FAILURE_MODE_DENY": "degraded", "OVERLOAD_SHED_MODE": "allow"}),
     ("ways_negative", {"SLAB_WAYS": "-4"}),
     ("lanes_zero", {"HOTKEY_LANES": "0"}),
+    ("journey_slow_negative", {"JOURNEY_SLOW_MS": "-1"}),
+    ("journey_retain_zero", {"JOURNEY_RETAIN": "0"}),
+    ("journey_ring_negative", {"JOURNEY_RING": "-8"}),
 ]
 
 
@@ -141,11 +155,6 @@ UNPORTED = [
     ({"REPL_ROLE": "primary"}, "9"),
     ({"VICTIM_TIER_ENABLED": "true"}, "6"),
     ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
-    ({"FAILURE_MODE_DENY": "true"}, "4b"),
-    ({"FAILURE_MODE_DENY": "degraded"}, "4b"),
-    ({"OVERLOAD_SHED_MODE": "allow"}, "4b"),
-    ({"TPU_PROFILE_DIR": "/tmp/prof"}, "4b"),
-    ({"K_TRACING_ENABLED": "true"}, "4b"),
     ({"BACKEND_TYPE": "redis"}, "4c"),
     ({"BACKEND_TYPE": "memcache"}, "4c"),
 ]
@@ -169,27 +178,75 @@ def test_plain_path_is_refused():
         P.new_settings({"TPU_USE_PALLAS": "false"})
 
 
+@pytest.mark.parametrize("backend", ["cuda", "memory"])
+def test_degraded_failure_mode_is_refused(backend):
+    """The reference's degraded rung decides on the CPU when the card
+    fails; the port refuses it for every backend, and takes deny and
+    allow."""
+    env = {"FAILURE_MODE_DENY": "degraded", "BACKEND_TYPE": backend}
+    assert R.new_settings(dict(env, BACKEND_TYPE="tpu" if backend == "cuda" else backend)).failure_mode() == "degraded"
+    with pytest.raises(ValueError, match="moves no decision off the card"):
+        P.new_settings(env)
+    for value, mode in (("deny", "deny"), ("allow", "allow"), ("true", "deny"), ("false", "allow")):
+        assert P.new_settings(dict(env, FAILURE_MODE_DENY=value)).failure_mode() == mode
+
+
+def test_runner_traces_as_its_settings_mapping_says(tmp_path, monkeypatch):
+    """The tracer reads K_TRACING_* from the mapping new_settings read: a
+    dict-booted Runner traces as its dict says, whatever os.environ
+    holds."""
+    from api_ratelimit_tpu_torch import tracing
+    from api_ratelimit_tpu_torch.runner import Runner
+
+    monkeypatch.delenv("K_TRACING_ENABLED", raising=False)
+    monkeypatch.delenv("LIGHTSTEP_ENABLED", raising=False)
+    (tmp_path / "rl" / "config").mkdir(parents=True)
+    env = {
+        "BACKEND_TYPE": "memory", "RUNTIME_ROOT": str(tmp_path), "RUNTIME_SUBDIRECTORY": "rl",
+        "USE_STATSD": "false", "PORT": "0", "GRPC_PORT": "0", "DEBUG_PORT": "0",
+    }
+    for extra, kind in (({"K_TRACING_ENABLED": "true"}, tracing.RecordingTracer), ({}, tracing.NoopTracer)):
+        settings = P.new_settings(dict(env, **extra))
+        assert settings.environ == dict(env, **extra)
+        runner = Runner(settings, device="cpu")
+        runner.run_background()
+        try:
+            assert type(runner.tracer) is kind and tracing.global_tracer() is runner.tracer
+        finally:
+            runner.stop()
+    assert P.Settings().environ is None and "environ" not in dataclasses.asdict(P.Settings())
+
+
 def test_unknown_backend_is_invalid():
     with pytest.raises(ValueError, match="invalid backend type: 'gpu'"):
         P.new_settings({"BACKEND_TYPE": "gpu"})
 
 
-def test_defaults_boot_with_warnings_for_item_4b(caplog):
+def test_defaults_boot_with_warnings_for_item_4b(tmp_path, capsys):
     """The reference's own defaults turn on /metrics and the journey
-    recorder: the port boots with them and warns once each, naming item
-    4b; turning them off silences the warnings."""
-    log = logging.getLogger("test.settings")
-    with caplog.at_level(logging.WARNING, logger="test.settings"):
-        P.new_settings({}).warn_unserved_defaults(log)
-    assert [r.getMessage().split("=")[0] for r in caplog.records] == [
-        "DEBUG_METRICS_ENABLED",
-        "JOURNEY_RECORDER_ENABLED",
-    ]
-    assert all("ROADMAP item 4b" in r.getMessage() for r in caplog.records)
-    caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="test.settings"):
-        P.new_settings({"DEBUG_METRICS_ENABLED": "false", "JOURNEY_RECORDER_ENABLED": "false"}).warn_unserved_defaults(log)
-    assert not caplog.records
+    recorder, and the port now serves both: a Runner booted from the
+    default environment mounts /metrics, registers a recorder, and logs no
+    warning about DEBUG_METRICS_ENABLED, JOURNEY_RECORDER_ENABLED or item
+    4b."""
+    from api_ratelimit_tpu_torch.runner import Runner
+    from api_ratelimit_tpu_torch.tracing import journeys
+
+    (tmp_path / "rl" / "config").mkdir(parents=True)
+    env = {
+        "BACKEND_TYPE": "memory", "RUNTIME_ROOT": str(tmp_path), "RUNTIME_SUBDIRECTORY": "rl",
+        "USE_STATSD": "false", "PORT": "0", "GRPC_PORT": "0", "DEBUG_PORT": "0",
+    }
+    runner = Runner(P.new_settings(env), device="cpu")
+    runner.run_background()
+    try:
+        assert "/metrics" in runner.server.debug.endpoints()
+        assert journeys.global_recorder() is runner.journeys is not None
+    finally:
+        runner.stop()
+    assert journeys.global_recorder() is None
+    err = capsys.readouterr().err
+    for word in ("DEBUG_METRICS_ENABLED", "JOURNEY_RECORDER_ENABLED", "ROADMAP item 4b"):
+        assert word not in err
 
 
 def test_field_table_is_the_reference():
