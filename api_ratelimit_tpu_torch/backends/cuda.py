@@ -30,7 +30,9 @@ fingerprints to, and after each drain the hot fingerprints (hot_fps) flag
 the journeys of requests that touch a hot key (FLAG_HOTKEY). The cache's
 lookups carry the active span's backend tag and events, and an over-limit
 decision marks its algorithm's journey stage (ALGO_JOURNEY_STAGES). The
-victim tier, leases, mesh engine and persistence wait for later slices.
+victim tier, leases and the mesh engine wait for later slices; the
+warm-restart snapshotter (persist/) reads and restores the slab through
+export_tables/import_tables.
 
 Every algorithm is served (fixed window, sliding window, GCRA, concurrency
 and its Release, do_release). The algorithm id rides bits 28-30 of the wire
@@ -94,7 +96,8 @@ from ..ops.slab import (
     live_slot_count,
     make_slab,
     resolve_device,
-    slab_export_copy,
+    slab_export_device,
+    slab_export_host,
     slab_import_rows,
     slab_step_after,
     validate_ways,
@@ -311,6 +314,8 @@ class SlabDeviceEngine:
         # recent launch sizes (items per device launch): how much
         # coalescing the window buys
         self.launch_sizes: collections.deque = collections.deque(maxlen=4096)
+        # recent exports' (state lock held, host drain) in ms (export_tables)
+        self.export_times: collections.deque = collections.deque(maxlen=64)
         # per-bucket ping-pong pairs of operands (_packed_operand)
         self._operand_pool: dict = {}
         self._operand_lock = threading.Lock()
@@ -531,17 +536,43 @@ class SlabDeviceEngine:
             wire = np.array(block, dtype=np.uint32)
         return self._batcher.submit(wire)
 
+    # -- warm restart (persist/): the snapshotter's export/import --
+
+    @property
+    def shard_count(self) -> int:
+        """Snapshot shard layout: one file for the single-device slab."""
+        return 1
+
+    @property
+    def shard_slots(self) -> int:
+        """Rows per snapshot shard (the restore-time topology check)."""
+        return self._n_slots
+
     def export_tables(self) -> list[np.ndarray]:
-        """Host copy of the slab, uint32[n_slots, 8], under the state lock;
-        the copy orders after every launch already enqueued."""
+        """Quiesce-and-copy for the snapshotter: host copy of the slab,
+        uint32[n_slots, 8]. Under the state lock only a device-side clone
+        is enqueued; every launching thread (caller, batcher, dispatch
+        owner) launches on its device's default stream, so the clone
+        orders after every launch already enqueued. The drain to the host
+        runs against the clone after the lock is released, so launches
+        never wait on it. Each export's lock hold and drain (ms) go to
+        export_times."""
         with self._state_lock:
-            return [slab_export_copy(self._state)]
+            t1 = time.perf_counter()
+            copy, ready = slab_export_device(self._state)
+        t2 = time.perf_counter()
+        table = slab_export_host(copy, ready)
+        self.export_times.append(((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+        return [table]
 
     def import_tables(self, tables: list[np.ndarray]) -> None:
-        """Replace the slab with one host table, uint32[n_slots, 8] (the
-        reference's restore upload, without the snapshot layer). Rows whose
-        divider word carries a non-fixed algorithm id flip the guard before
-        any launch sees them, as in the reference."""
+        """Boot-time restore upload: replace the slab with one host table,
+        uint32[n_slots, 8] (persist/snapshotter.py validated the layout and
+        reconciled the rows). Rows whose divider word carries a non-fixed
+        algorithm id flip the guard before any launch sees them, as in the
+        reference. Every launch reads self._state under the state lock and
+        nothing else holds the table, so the first launch after this reads
+        the restored rows."""
         if len(tables) != 1:
             raise ValueError(f"single-device slab restores from 1 shard, got {len(tables)}")
         rows = np.asarray(tables[0], dtype=np.uint32)

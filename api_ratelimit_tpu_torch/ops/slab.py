@@ -800,9 +800,50 @@ def slab_update_and_decide(
     )
 
 
+# --- warm-restart export/import (persist/) ----------------------------------
+#
+# The snapshot path must never stall the launch pipeline: export enqueues a
+# DEVICE-SIDE clone (ordered after every launch already enqueued on the
+# stream) and hands it back; the caller drains it to the host outside any
+# lock, on a side stream, while later launches keep updating the live table.
+# Import is the boot-time inverse: one upload of a reconciled host table
+# (persist/snapshot.py reconcile_rows applies the expiry rules on the host,
+# where the restore-time clock lives).
+
+
+def slab_export_device(state: SlabState) -> tuple[torch.Tensor, object]:
+    """Detached device-side copy of the row table, enqueued on the current
+    stream, and on the card the CUDA event recorded after it (None on the
+    CPU). The reference's slab_export_copy; drain it with slab_export_host
+    once the state lock is released."""
+    copy = state.table.clone()
+    ready = None
+    if copy.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(copy.device))
+    return copy, ready
+
+
+def slab_export_host(copy: torch.Tensor, ready) -> np.ndarray:
+    """Host drain of a slab_export_device copy and its event,
+    uint32[n_slots, ROW_WIDTH]. On the card the copy to pinned memory runs
+    on a side stream that waits only for `ready`, so launches enqueued
+    meanwhile do not queue behind it; the caller blocks until it lands."""
+    if not copy.is_cuda:
+        return copy.numpy().view(np.uint32)
+    side = torch.cuda.Stream(copy.device)
+    side.wait_event(ready)
+    host = torch.empty(copy.shape, dtype=copy.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(copy, non_blocking=True)
+    side.synchronize()
+    return host.numpy().view(np.uint32)
+
+
 def slab_export_copy(state: SlabState) -> np.ndarray:
-    """Host copy of the row table as uint32[n_slots, ROW_WIDTH]."""
-    return state.table.cpu().numpy().view(np.uint32).copy()
+    """Host copy of the row table as uint32[n_slots, ROW_WIDTH]: the clone
+    and its drain in one call."""
+    return slab_export_host(*slab_export_device(state))
 
 
 def slab_import_rows(rows, device="cuda") -> SlabState:

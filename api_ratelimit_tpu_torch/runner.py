@@ -8,17 +8,20 @@ recorder (JOURNEY_*), the local over-limit cache, the stats store and its
 sink, the transport server (with /metrics, the debug suite and
 /debug/profile), the admission controller with its shed posture, the
 backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
-memory: the host backend), the ratelimit.build.* provenance gauges, the slab
-and sketch stat generators, the runtime loader, the failure-mode ladder
-(FAILURE_MODE_DENY) and the service; register v3 + v2 gRPC and /json
-(runner.go:115-121), hang /rlconfig and /debug/hotkeys on the debug port
-(runner.go:108-113), and serve.
+memory, redis and memcache: the host backends), the ratelimit.build.*
+provenance gauges, the slab and sketch stat generators, the warm-restart
+snapshotter (SLAB_SNAPSHOT_DIR: restore before serving, a periodic
+snapshot, the staleness probe, and a final snapshot at teardown), the
+runtime loader, the failure-mode ladder (FAILURE_MODE_DENY) and the
+service; register v3 + v2 gRPC and /json (runner.go:115-121), hang
+/rlconfig and /debug/hotkeys on the debug port (runner.go:108-113), and
+serve.
 
 The device is a constructor argument and nothing else: Runner(settings,
 device="cuda") is what service_cmd builds, and no setting or environment
 variable moves a deployment onto the CPU. Tests pass device="cpu", which
 runs the kernels' plain versions. The reference's fault injector, leases,
-federation, snapshots and native codec belong to ROADMAP items 6-11.
+federation and native codec belong to ROADMAP items 8-11.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ def create_limiter(
     in the store /stats reads; overload (the AdmissionController) wires
     the bounded queue and the brownout into its batcher or dispatch loop.
     device: where the engine runs ("cuda", or "cpu" for the plain
-    versions); the memory backend ignores it."""
+    versions); the host backends ignore it."""
     backend = settings.backend_type
     if backend == "cuda":
         from .backends.cuda import CudaRateLimitCache
@@ -141,6 +144,14 @@ def create_limiter(
         )
     if backend == "memory":
         return MemoryRateLimitCache(base)
+    if backend == "redis":
+        from .backends.redis import new_redis_cache_from_settings
+
+        return new_redis_cache_from_settings(settings, base, stats_store)
+    if backend == "memcache":
+        from .backends.memcache import new_memcache_cache_from_settings
+
+        return new_memcache_cache_from_settings(settings, base)
     raise ValueError(f"invalid backend type: {backend!r}")
 
 
@@ -168,6 +179,7 @@ class Runner:
         self.tracer = None
         self.journeys: journeys_mod.JourneyRecorder | None = None
         self.fallback = None
+        self.snapshotter = None
         self._ready = threading.Event()
 
     def _build(self) -> None:
@@ -291,6 +303,30 @@ class Runner:
             # overload reason
             self.server.health.add_degraded_probe(engine.watermark_reason)
 
+        # Warm restart (persist/): restore the slab from the last snapshot
+        # BEFORE serving (after precompile, so the first served launch
+        # reads the restored table), then re-snapshot on a cadence off the
+        # hot path; teardown takes a final copy so planned restarts lose
+        # ~0 state. The settings are validated whether or not a directory
+        # is set.
+        snap_dir, snap_interval_ms, snap_stale_ms = settings.snapshot_config()
+        if snap_dir and engine is not None:
+            from .persist.snapshotter import SlabSnapshotter
+
+            self.snapshotter = SlabSnapshotter(
+                engine,
+                snap_dir,
+                interval_ms=snap_interval_ms,
+                stale_after_ms=snap_stale_ms,
+                time_source=self.time_source,
+                scope=self.scope,
+            )
+            self.snapshotter.restore()
+            self.snapshotter.start()
+            # staleness is degraded-only: durability at risk must not
+            # drain an instance that is still serving fine from the card
+            self.server.health.add_degraded_probe(self.snapshotter.stale_reason)
+
         self.runtime = DirectoryRuntimeLoader(
             runtime_path=settings.runtime_path,
             runtime_subdirectory=settings.runtime_subdirectory,
@@ -363,8 +399,9 @@ class Runner:
 
     def stop(self) -> None:
         """Fail health, then close the listeners on the server's own thread
-        (Server.stop), and stop the watcher, the stats flush and the
-        tracer's exporter."""
+        (Server.stop), and stop the watcher, take the drain snapshot (with
+        SLAB_SNAPSHOT_DIR), stop the stats flush and the tracer's
+        exporter."""
         if self.server is not None:
             self.server.stop()
         self._teardown()
@@ -372,6 +409,11 @@ class Runner:
     def _teardown(self) -> None:
         if self.runtime is not None:
             self.runtime.stop()
+        if self.snapshotter is not None:
+            # drain handoff: quiesce the engine and take the final
+            # snapshot — the state the next process warm-boots from
+            snapshotter, self.snapshotter = self.snapshotter, None
+            snapshotter.drain()
         self.stats_store.stop_flushing()
         # unregister only this runner's tracer and recorder: in-process
         # boots share the module globals, and a later Runner may own them

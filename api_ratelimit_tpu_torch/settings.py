@@ -10,13 +10,13 @@ knobs this package reads are the JAX package's, word for word.
 Three differences:
 
 * BACKEND_TYPE defaults to `cuda`, the engine of this package
-  (backends/cuda.py); `memory` is the host backend. `tpu` and `tpu-sidecar`
-  are the JAX package's and raise an error naming `cuda`; `redis` and
-  `memcache` are ROADMAP item 4c.
+  (backends/cuda.py); `memory`, `redis` and `memcache` are the host
+  backends. `tpu` and `tpu-sidecar` are the JAX package's and raise an
+  error naming `cuda`.
 * A setting that turns on a feature this package has not ported is refused
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh, a sidecar, snapshots or leases that are not there.
+  runs a mesh, a sidecar, a victim tier or leases that are not there.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -24,7 +24,9 @@ K_TRACING_* variables, read from the mapping new_settings read by
 tracing/tracer.py tracer_from_env), the /debug/profile device trace (TPU_PROFILE_DIR), the
 failure-mode ladder (FAILURE_MODE_DENY deny or allow; empty, the default,
 raises through; degraded is refused)
-and the shed postures (OVERLOAD_SHED_MODE).
+and the shed postures (OVERLOAD_SHED_MODE). Warm restart is served as in the
+JAX package: SLAB_SNAPSHOT_DIR, _INTERVAL_MS and _STALE_AFTER_MS
+(snapshot_config) drive persist/snapshotter.py.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def _parse_duration_seconds(raw: str) -> float:
 
 
 # the backends this package serves
-BACKEND_TYPES = ("cuda", "memory")
+BACKEND_TYPES = ("cuda", "memory", "redis", "memcache")
 
 # sidecar transport knobs (ROADMAP item 8): any value but the default is
 # refused at boot
@@ -120,8 +122,7 @@ class Settings:
     # logging (settings.go:24-25)
     log_level: str = "WARN"
     log_format: str = "text"
-    # the redis backend (settings.go:26-42; item 4c, read by no backend
-    # this package has)
+    # the redis backend (settings.go:26-42; backends/redis.py)
     redis_socket_type: str = "unix"
     redis_type: str = "SINGLE"
     redis_url: str = "/var/run/nutcracker/ratelimit.sock"
@@ -143,7 +144,7 @@ class Settings:
     expiration_jitter_max_seconds: int = 300
     local_cache_size_in_bytes: int = 0
     near_limit_ratio: float = 0.8
-    # backends (settings.go:46-47; memcache is item 4c)
+    # backends (settings.go:46-47; memcache: backends/memcache.py)
     memcache_host_port: str = ""
     backend_type: str = "cuda"  # reference defaults to "redis"; here: cuda
     max_sleeping_routines: int = 0  # src/service/ratelimit.go:337-341
@@ -204,7 +205,7 @@ class Settings:
     # (0 = off); the critical watermark is deprecated and ignored
     slab_watermark_high: float = 0.0
     slab_watermark_critical: float = 0.0
-    # --- slab snapshots (item 7) ---
+    # --- slab snapshots (persist/; snapshot_config) ---
     slab_snapshot_dir: str = ""
     slab_snapshot_interval_ms: float = 10_000.0
     slab_snapshot_stale_after_ms: float = 0.0
@@ -398,6 +399,29 @@ class Settings:
             raise ValueError(f"JOURNEY_RING must be > 0, got {ring}")
         return bool(self.journey_recorder_enabled), slow_ms, retain, ring
 
+    def snapshot_config(self) -> tuple[str, float, float]:
+        """Validated (dir, interval_ms, stale_after_ms) for the warm-
+        restart snapshotter; dir == "" disables. Junk fails the boot like
+        every other knob: a typo'd interval must not silently become "no
+        durability". stale_after 0 defaults to three intervals."""
+        directory = self.slab_snapshot_dir.strip()
+        interval = float(self.slab_snapshot_interval_ms)
+        stale = float(self.slab_snapshot_stale_after_ms)
+        if interval <= 0:
+            raise ValueError(
+                f"SLAB_SNAPSHOT_INTERVAL_MS must be > 0, got {interval}"
+            )
+        if stale < 0:
+            raise ValueError(
+                f"SLAB_SNAPSHOT_STALE_AFTER_MS must be >= 0, got {stale}"
+            )
+        if 0 < stale < interval:
+            raise ValueError(
+                f"SLAB_SNAPSHOT_STALE_AFTER_MS ({stale}) must not sit "
+                f"below SLAB_SNAPSHOT_INTERVAL_MS ({interval})"
+            )
+        return directory, interval, stale if stale > 0 else 3.0 * interval
+
     def concurrency_ttl(self) -> int:
         """Validated CONCURRENCY_TTL_S idle TTL. Junk (<= 0, or past the
         divider word's 28-bit field) fails the boot like every other knob —
@@ -431,10 +455,6 @@ class Settings:
                 f"BACKEND_TYPE={backend!r} is the JAX package's TPU engine; "
                 f"this package serves BACKEND_TYPE=cuda (the H100 engine) "
                 f"or memory"
-            )
-        if backend in ("redis", "memcache"):
-            raise _unported(
-                f"BACKEND_TYPE={backend}", f"the {backend} host backend", "4c"
             )
         if backend not in BACKEND_TYPES:
             raise ValueError(f"invalid backend type: {backend!r}")
@@ -471,8 +491,6 @@ class Settings:
                 raise _unported(var, "the sidecar transport", "8")
         if self.lease_enabled:
             raise _unported("LEASE_ENABLED=true", "quota leasing", "8")
-        if self.slab_snapshot_dir.strip():
-            raise _unported("SLAB_SNAPSHOT_DIR", "slab snapshots", "7")
         if self.victim_tier_enabled:
             raise _unported("VICTIM_TIER_ENABLED=true", "the victim tier", "6")
         if self.fed_enabled:

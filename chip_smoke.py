@@ -197,7 +197,33 @@ Phases, each of which must pass (nothing is caught):
            busy share of four profiled runs of 64 calls (A B B A); printed
            with the card's name and power limit, not claimed. Prints one
            "observability:" line.
-11. report per-kernel median device times (torch.profiler) and CUDA-event
+11. warm restart and the redis oracle, at phase 9's deployment with
+           SLAB_SNAPSHOT_DIR set (the periodic snapshot too rare to fire).
+           (a) Runner A serves 1024 v3 calls (1-3 descriptors, Zipf(1.1)
+           over 2^16 keys, one fake clock, limits crossed) beside a memory
+           Runner and stops: the drain snapshot slab.snap is 60 + 2^22 x 32
+           bytes and its payload equals the engine's last export_tables().
+           Runner B boots from it, restores exactly the live rows A left,
+           and its next 1024 calls are byte-identical to the memory Runner's,
+           which served all 2048 without a restart; each kernel launches
+           once a call. (b) Runner C calls snapshot_once() every 256 calls
+           and is abandoned 1000 calls in without a drain; Runner D
+           restores and serves 512 more beside a memory Runner that served
+           them all: D never refuses what the memory Runner admits, and
+           admits what it refuses at most as often for a key as the key's
+           hits the crash lost. (c) 8
+           client threads drive submit_rows at the 65536 bucket into a
+           served engine while snapshot_once runs 5 times: the state lock's
+           hold and the host drain of each export, each snapshot's ms,
+           submit_rows p50/p99 with a snapshot in flight and without, and
+           the restore of the last file to the first served launch (load
+           and CRC, reconcile, upload). (d) the port's FakeRedisServer on
+           127.0.0.1 (TCP) behind a BACKEND_TYPE=redis Runner and a cuda
+           Runner, EXPIRATION_JITTER_MAX_SECONDS=0: 1024 v3 calls
+           byte-identical, one launch of each kernel a call. Prints one
+           "warm_restart:" JSON line with the card's name and power limit;
+           nothing of it is claimed.
+12. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -210,8 +236,8 @@ Phases, each of which must pass (nothing is caught):
            that step's before/after); the standalone sketch scan, now on no
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
-           kernel; the process and observability phases' lines, the card's
-           name and power limit, then the ok line.
+           kernel; the process, observability and warm restart phases'
+           lines, the card's name and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -3471,6 +3497,440 @@ def phase_observability(K) -> dict:
     return out
 
 
+# -- phase 11: warm restart and the redis oracle ------------------------------
+
+WARM_CALLS = 1024  # v3 calls before the drain handoff, and as many after it
+WARM_SNAPSHOT_MS = 3_600_000  # the periodic snapshot never fires in a step
+CRASH_CALLS = 1000  # calls before the crash; snapshot_once every CRASH_EVERY
+CRASH_EVERY = 256
+CRASH_AFTER = 512  # calls after the crash restore
+UNDER_THREADS = 8  # client threads of the snapshot-under-traffic step
+UNDER_SNAPSHOTS = 5
+UNDER_GAP_S = 0.4  # traffic without a snapshot in flight, between snapshots
+UNDER_BATCH = 65536
+UNDER_KEYS = 1 << 20
+REDIS_CALLS = 1024
+
+
+def warm_env(runtime_root: str, snap_dir: str, **overrides) -> dict:
+    """Phase 9's deployment with SLAB_SNAPSHOT_DIR set."""
+    return process_env(
+        runtime_root, SLAB_SNAPSHOT_DIR=snap_dir, SLAB_SNAPSHOT_INTERVAL_MS=WARM_SNAPSHOT_MS, **overrides
+    )
+
+
+def warm_stream(seed: int, n: int) -> tuple[list, list]:
+    """n v3 requests (1-3 descriptors, Zipf(1.1) over PROCESS_KEYS) and the
+    fake clock's advance before each (1, 7 or 61 s every
+    PROCESS_CLOCK_EVERY calls, else 0)."""
+    rng = np.random.default_rng(seed)
+    reqs = process_requests(rng, n, PROCESS_KEYS)
+    steps = [int(rng.choice([1, 7, 61])) if i and i % PROCESS_CLOCK_EVERY == 0 else 0 for i in range(n)]
+    return reqs, steps
+
+
+def warm_calls(runners: list, clock, reqs: list, steps: list, lo: int, hi: int) -> list:
+    """Calls lo..hi-1 of the stream through each runner in turn, the clock
+    advancing by the stream's steps; each runner's response bytes."""
+    import grpc
+
+    channels = [grpc.insecure_channel(f"localhost:{r.server.grpc_port}") for r in runners]
+    try:
+        calls = [raw_caller(ch, V3_PATH) for ch in channels]
+        out = [[] for _ in runners]
+        for i in range(lo, hi):
+            if steps[i]:
+                clock.advance(steps[i])
+            for j, call in enumerate(calls):
+                out[j].append(call(reqs[i], timeout=60))
+    finally:
+        for ch in channels:
+            ch.close()
+    return out
+
+
+def served_launches(K) -> dict:
+    return {k: K.LAUNCHES[k] for k in ("way_scan", "slab_apply", "sketch_update")}
+
+
+def warm_handoff(K, runtime_root: str, scratch: str, clock, device: str, overrides: dict) -> dict:
+    """Step 1: runner A serves WARM_CALLS calls beside a memory runner and
+    stops (the drain snapshot); runner B boots from A's file and serves the
+    next WARM_CALLS calls, each response byte-identical to the memory
+    runner's, which never restarted; the kernels launch once a call."""
+    from api_ratelimit_tpu_torch.persist.snapshot import HEADER_SIZE, load_snapshot, reconcile_rows
+
+    snap_dir = os.path.join(scratch, "handoff")
+    reqs, steps = warm_stream(23, 2 * WARM_CALLS)
+    host, _ = process_boot(process_env(runtime_root, backend="memory"), device=device)
+    runners = [host]
+    try:
+        a, boot_a = process_boot(warm_env(runtime_root, snap_dir, **overrides), device=device)
+        runners.append(a)
+        check(a.snapshotter.restore_stats == {"restored": False, "reason": "no snapshot"}, "runner A found a snapshot")
+        got, want = warm_calls([a, host], clock, reqs, steps, 0, WARM_CALLS)
+        check(got == want, "runner A's responses differ from the memory runner's")
+        runners.remove(a)
+        a.stop()
+        path = os.path.join(snap_dir, "slab.snap")
+        n_slots = a.cache.engine.shard_slots
+        size = os.path.getsize(path)
+        check(size == HEADER_SIZE + n_slots * 32, f"slab.snap is {size} bytes for {n_slots} slots")
+        header, table = load_snapshot(path)
+        last = a.cache.engine.export_tables()[0]
+        check(np.array_equal(table, last), "the drain snapshot's payload differs from the engine's last export")
+        check(header.ways == a.cache.engine.ways, f"the header stamps {header.ways} ways")
+        live = reconcile_rows(last, int(clock.unix_now()))[1]["restored"]
+        check(live > 0, "runner A left no live row")
+        del a
+
+        t0 = time.perf_counter()
+        b, boot_b = process_boot(warm_env(runtime_root, snap_dir, **overrides), device=device)
+        runners.append(b)
+        restored = b.snapshotter.restore_stats
+        check(restored.get("restored") == live, f"runner B restored {restored} of A's {live} live rows")
+        K.reset_launch_counts()
+        got, want = warm_calls([b, host], clock, reqs, steps, WARM_CALLS, 2 * WARM_CALLS)
+        launches = served_launches(K)
+        check(got == want, "runner B's responses differ from the memory runner that never restarted")
+        if device == "cuda":
+            check(all(v == WARM_CALLS for v in launches.values()), f"{WARM_CALLS} calls after the restore launched {launches}")
+        check(not b.cache.engine.algos_seen, "the fixed-window rules flipped the guard")
+    finally:
+        for r in runners:
+            r.stop()
+    return {
+        "snapshot_bytes": size,
+        "live_rows": live,
+        "restore_stats": restored,
+        "boot_s": {"a": boot_a, "b": boot_b},
+        "launches_after_restore": launches,
+    }
+
+
+def verdicts(raw: bytes) -> list:
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    return [int(s.code) for s in rls_v3.RateLimitResponse.FromString(raw).statuses]
+
+
+def descriptor_keys(req) -> list:
+    return [tuple((e.key, e.value) for e in d.entries) for d in req.descriptors]
+
+
+def warm_crash(K, runtime_root: str, scratch: str, clock, device: str, overrides: dict) -> dict:
+    """Step 2: runner C snapshots every CRASH_EVERY calls and is abandoned
+    CRASH_CALLS calls in, without a drain; runner D restores and serves
+    CRASH_AFTER more. Against a memory runner that served every call, every
+    disagreement of D admits where the memory runner refuses (never the
+    other way), at most as often for a key as the key's hits the crash
+    lost."""
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    ok, over = rls_v3.RateLimitResponse.OK, rls_v3.RateLimitResponse.OVER_LIMIT
+    snap_dir = os.path.join(scratch, "crash")
+    reqs, steps = warm_stream(29, CRASH_CALLS + CRASH_AFTER)
+    host, _ = process_boot(process_env(runtime_root, backend="memory"), device=device)
+    runners = [host]
+    try:
+        c, _ = process_boot(warm_env(runtime_root, snap_dir, **overrides), device=device)
+        runners.append(c)
+        last_snapshot = 0
+        for lo in range(0, CRASH_CALLS, CRASH_EVERY):
+            hi = min(lo + CRASH_EVERY, CRASH_CALLS)
+            got, want = warm_calls([c, host], clock, reqs, steps, lo, hi)
+            check(got == want, f"runner C's calls {lo}..{hi} differ from the memory runner's")
+            if hi - lo == CRASH_EVERY:
+                check(c.snapshotter.snapshot_once() > 0, "snapshot_once failed")
+                last_snapshot = hi
+        # abandoned: no drain, no final snapshot (stop() below skips it)
+        snapshotter, c.snapshotter = c.snapshotter, None
+        snapshotter.stop()
+        lost = collections.Counter()
+        for req in reqs[last_snapshot:CRASH_CALLS]:
+            for key in descriptor_keys(req):
+                lost[key] += max(1, req.hits_addend)
+
+        d, _ = process_boot(warm_env(runtime_root, snap_dir, **overrides), device=device)
+        runners.append(d)
+        restored = d.snapshotter.restore_stats
+        check(restored.get("restored", 0) > 0, f"runner D restored nothing: {restored}")
+        K.reset_launch_counts()
+        got, want = warm_calls([d, host], clock, reqs, steps, CRASH_CALLS, CRASH_CALLS + CRASH_AFTER)
+        launches = served_launches(K)
+        over_admits, over_refusals = collections.Counter(), 0
+        for req, g, w in zip(reqs[CRASH_CALLS:], got, want):
+            for key, gc, wc in zip(descriptor_keys(req), verdicts(g), verdicts(w)):
+                if gc == ok and wc == over:
+                    over_admits[key] += 1
+                elif gc != wc:
+                    over_refusals += 1
+        check(over_refusals == 0, f"the crash restore refused {over_refusals} decisions the memory runner admitted")
+        beyond = {k: (n, lost[k]) for k, n in over_admits.items() if n > lost[k]}
+        check(not beyond, f"over-admission past the lost hits: {dict(list(beyond.items())[:5])}")
+        if device == "cuda":
+            check(all(v == CRASH_AFTER for v in launches.values()), f"{CRASH_AFTER} calls after the restore launched {launches}")
+    finally:
+        for r in runners:
+            r.stop()
+    return {
+        "last_snapshot_call": last_snapshot,
+        "lost_calls": CRASH_CALLS - last_snapshot,
+        "lost_hits": sum(lost.values()),
+        "restore_stats": restored,
+        "false_over": over_refusals,
+        "over_admits": sum(over_admits.values()),
+        "max_over_admits_per_key": max(over_admits.values(), default=0),
+        "identical_responses": sum(g == w for g, w in zip(got, want)),
+        "launches_after_restore": launches,
+    }
+
+
+def percentile_ms(xs: list) -> dict:
+    return {"n": len(xs), "p50_ms": float(np.percentile(xs, 50)) * 1e3, "p99_ms": float(np.percentile(xs, 99)) * 1e3} if xs else {"n": 0}
+
+
+def warm_under_traffic(M, scratch: str, clock, device: str, n_slots: int, ways: int) -> dict:
+    """Step 3: UNDER_THREADS client threads drive submit_rows at the
+    UNDER_BATCH bucket into a served engine while snapshot_once runs
+    UNDER_SNAPSHOTS times, UNDER_GAP_S apart: the state lock's hold and the
+    host drain of each export, each snapshot's time (snapshot.write_ms),
+    submit_rows p50/p99 with a snapshot in flight and without, and the
+    slowest submits with the snapshot and the interpreter's garbage
+    collections they overlapped (gc.callbacks). Then the restore of the
+    last file, timed from the file to the first served launch: load and
+    CRC, reconcile, upload, launch."""
+    import gc
+
+    from api_ratelimit_tpu_torch.persist.snapshot import load_snapshot, reconcile_rows
+    from api_ratelimit_tpu_torch.persist.snapshotter import SlabSnapshotter
+    from api_ratelimit_tpu_torch.stats.store import Store
+
+    def engine():
+        return M.cuda_mod.SlabDeviceEngine(
+            clock, n_slots=n_slots, ways=ways, buckets=BUCKETS, device=device,
+            hotkey_lanes=HOTKEY_LANES, hotkey_k=HOTKEY_K, precompile=True,
+        )
+
+    snap_dir = os.path.join(scratch, "under")
+    rng = np.random.default_rng(31)
+    blocks = [key_block(zipf_keys(rng, UNDER_BATCH, UNDER_KEYS)) for _ in range(UNDER_THREADS)]
+    eng = engine()
+    store = Store()
+    snap = SlabSnapshotter(eng, snap_dir, interval_ms=WARM_SNAPSHOT_MS, time_source=clock, scope=store.scope("ratelimit"))
+    for block in blocks:
+        eng.submit_rows(block)  # warm every thread's block once
+    stop = threading.Event()
+    spans: list = [[] for _ in blocks]
+    errors: list = []
+
+    def client(i):
+        try:
+            while not stop.is_set():
+                t = time.perf_counter()
+                eng.submit_rows(blocks[i])
+                spans[i].append((t, time.perf_counter()))
+        except Exception as e:  # noqa: BLE001 (re-raised by the check below)
+            errors.append(repr(e))
+
+    gc_open: dict = {}
+    gc_pauses: list = []  # (start, end, generation)
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_open[threading.get_ident()] = time.perf_counter()
+        elif threading.get_ident() in gc_open:
+            gc_pauses.append((gc_open.pop(threading.get_ident()), time.perf_counter(), info["generation"]))
+
+    pool = [threading.Thread(target=client, args=(i,)) for i in range(UNDER_THREADS)]
+    gc.callbacks.append(on_gc)
+    for t in pool:
+        t.start()
+    snapshots = []
+    try:
+        time.sleep(UNDER_GAP_S)
+        for _ in range(UNDER_SNAPSHOTS):
+            t = time.perf_counter()
+            wrote = snap.snapshot_once()
+            snapshots.append((t, time.perf_counter()))
+            check(wrote > 0, "snapshot_once failed under traffic")
+            time.sleep(UNDER_GAP_S)
+    finally:
+        stop.set()
+        for t in pool:
+            t.join()
+        gc.callbacks.remove(on_gc)
+    check(not errors, f"submit_rows failed under snapshots: {errors[:3]}")
+    during, outside = [], []
+    for s0, s1 in (s for per in spans for s in per):
+        (during if any(s0 < b and a < s1 for a, b in snapshots) else outside).append(s1 - s0)
+
+    def overlap_ms(s0, s1, windows):
+        return sum(max(0.0, min(s1, b) - max(s0, a)) for a, b, *_ in windows) * 1e3
+
+    slowest = sorted((s for per in spans for s in per), key=lambda x: x[0] - x[1])[:8]
+    slowest = [
+        {
+            "ms": (s1 - s0) * 1e3,
+            "snapshot": next((i for i, (a, b) in enumerate(snapshots) if s0 < b and a < s1), None),
+            "snapshot_overlap_ms": overlap_ms(s0, s1, snapshots),
+            "gc_ms": overlap_ms(s0, s1, gc_pauses),
+        }
+        for s0, s1 in slowest
+    ]
+    check(len(during) > 0 and len(outside) > 0, f"{len(during)} submits during snapshots, {len(outside)} outside")
+    exports = list(eng.export_times)[-UNDER_SNAPSHOTS:]
+    write_ms = [(b - a) * 1e3 for a, b in snapshots]
+    hist = store.metrics_snapshot()["histograms"].get("ratelimit.snapshot.write_ms", {})
+
+    path = os.path.join(snap_dir, "slab.snap")
+    fresh = engine()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _header, table = load_snapshot(path)
+    t1 = time.perf_counter()
+    table, stats = reconcile_rows(table, int(clock.unix_now()))
+    t2 = time.perf_counter()
+    fresh.import_tables([table])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    fresh.submit_rows(blocks[0][:, :128])
+    t4 = time.perf_counter()
+    check(stats["restored"] > 0, "the last snapshot holds no live row")
+    again = engine()
+    t5 = time.perf_counter()
+    whole = SlabSnapshotter(again, snap_dir, interval_ms=WARM_SNAPSHOT_MS, time_source=clock).restore()
+    t6 = time.perf_counter()
+    check(whole.get("restored") == stats["restored"], f"restore() restored {whole} against {stats['restored']}")
+    for e in (eng, fresh, again):
+        e.close()
+    return {
+        "client_threads": UNDER_THREADS,
+        "batch": UNDER_BATCH,
+        "snapshots": len(snapshots),
+        "lock_held_ms": [lock for lock, _drain in exports],
+        "host_drain_ms": [drain for _lock, drain in exports],
+        "write_ms": write_ms,
+        "write_ms_histogram": {k: hist.get(k) for k in ("count", "p50", "p99") if k in hist},
+        "submit_rows_during_snapshot": percentile_ms(during),
+        "submit_rows_without_snapshot": percentile_ms(outside),
+        "slowest_submits": slowest,
+        "gc_pauses": {
+            "count": len(gc_pauses),
+            "max_ms": max(((b - a) * 1e3 for a, b, _g in gc_pauses), default=0.0),
+            "gen2_count": sum(1 for *_ab, g in gc_pauses if g == 2),
+            "gen2_max_ms": max(((b - a) * 1e3 for a, b, g in gc_pauses if g == 2), default=0.0),
+        },
+        "restore": {
+            "load_crc_ms": (t1 - t0) * 1e3,
+            "reconcile_ms": (t2 - t1) * 1e3,
+            "upload_ms": (t3 - t2) * 1e3,
+            "first_launch_ms": (t4 - t3) * 1e3,
+            "file_to_first_launch_ms": (t4 - t0) * 1e3,
+            "restore_call_ms": (t6 - t5) * 1e3,
+            "rows": stats["restored"],
+        },
+    }
+
+
+def warm_redis_oracle(K, runtime_root: str, clock, device: str, overrides: dict) -> dict:
+    """Step 4: the port's FakeRedisServer on 127.0.0.1 (TCP, no TLS) on the
+    runner's fake clock behind a BACKEND_TYPE=redis runner, and a
+    BACKEND_TYPE=cuda runner, both with EXPIRATION_JITTER_MAX_SECONDS=0:
+    REDIS_CALLS v3 calls answered byte for byte alike, the cuda runner
+    launching each kernel once a call and the fake taking one INCRBY a
+    descriptor."""
+    from api_ratelimit_tpu_torch.testing.fake_redis import FakeRedisServer
+
+    fake = FakeRedisServer(clock=clock.unix_now)
+    reqs, steps = warm_stream(37, REDIS_CALLS)
+    runners = []
+    try:
+        redis, _ = process_boot(
+            process_env(
+                runtime_root, backend="redis", REDIS_SOCKET_TYPE="tcp", REDIS_URL=fake.addr,
+                EXPIRATION_JITTER_MAX_SECONDS=0,
+            ),
+            device=device,
+        )
+        runners.append(redis)
+        card, _ = process_boot(process_env(runtime_root, EXPIRATION_JITTER_MAX_SECONDS=0, **overrides), device=device)
+        runners.append(card)
+        K.reset_launch_counts()
+        got, want = warm_calls([card, redis], clock, reqs, steps, 0, REDIS_CALLS)
+        launches = served_launches(K)
+        check(got == want, "the card's responses differ from the redis backend's")
+        incrby = sum(1 for c in fake.commands_seen if c[0] == b"INCRBY")
+        descriptors = sum(len(r.descriptors) for r in reqs)
+        check(incrby == descriptors, f"the fake took {incrby} INCRBYs for {descriptors} descriptors")
+        if device == "cuda":
+            check(all(v == REDIS_CALLS for v in launches.values()), f"{REDIS_CALLS} calls launched {launches}")
+        codes = collections.Counter(v for raw in got for v in verdicts(raw))
+        check(len(codes) >= 2, f"the redis stream did not cross a limit: {dict(codes)}")
+    finally:
+        for r in runners:
+            r.stop()
+        fake.close()
+    return {"calls": REDIS_CALLS, "descriptors": descriptors, "incrby": incrby, "codes": dict(codes), "launches": launches}
+
+
+def phase_warm_restart(M, K, device: str = "cuda", **overrides) -> dict:
+    """Warm restart and the redis oracle at phase 9's deployment (module
+    docstring, phase 11). `overrides`: environment variables for the cuda
+    runners and the standalone engine (a small slab on the CPU)."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    n_slots = int(overrides.get("TPU_SLAB_SLOTS", N_SLOTS))
+    ways = int(overrides.get("SLAB_WAYS", 0)) or 128
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as scratch:
+        runtime_root = os.path.join(scratch, "runtime")
+        process_runtime(runtime_root)
+        clock = FakeTimeSource(NOW0)
+        install_process_time_source(clock)
+        try:
+            handoff = warm_handoff(K, runtime_root, scratch, clock, device, overrides)
+            lap("handoff")
+            crash = warm_crash(K, runtime_root, scratch, clock, device, overrides)
+            lap("crash")
+            under = warm_under_traffic(M, scratch, clock, device, n_slots, ways)
+            lap("under_traffic")
+            redis = warm_redis_oracle(K, runtime_root, clock, device, overrides)
+            lap("redis")
+        finally:
+            install_process_time_source(RealTimeSource())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    ) if device == "cuda" else None
+    out = {
+        "handoff": handoff,
+        "crash": crash,
+        "under_traffic": under,
+        "redis": redis,
+        "card": smi.stdout.strip() if smi is not None else "not measured (cpu)",
+        "phase_s": time.perf_counter() - t_phase,
+        "step_s": steps,
+    }
+    log(
+        f"warm restart: handoff {handoff['live_rows']} rows restored, crash false_over {crash['false_over']} "
+        f"over-admits {crash['over_admits']} (lost hits {crash['lost_hits']}), lock held "
+        f"{max(under['lock_held_ms']):.3f} ms max, drain {np.median(under['host_drain_ms']):.1f} ms, snapshot "
+        f"{np.median(under['write_ms']):.0f} ms, submit p99 {under['submit_rows_during_snapshot']['p99_ms']:.2f}/"
+        f"{under['submit_rows_without_snapshot']['p99_ms']:.2f} ms during/without, restore "
+        f"{under['restore']['file_to_first_launch_ms']:.0f} ms, redis {redis['calls']} calls equal ({out['phase_s']:.1f} s)"
+    )
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -3535,6 +3995,7 @@ def main() -> int:
     )
     process = phase_process(K)
     observability = phase_observability(K)
+    warm = phase_warm_restart(M, K)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3543,6 +4004,7 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log("process:", json.dumps(process | {"card": smi.stdout.strip()}))
     log("observability:", json.dumps(observability))
+    log("warm_restart:", json.dumps(warm))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

@@ -206,16 +206,42 @@ def test_runner_defaults_to_the_card(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize(
     "override, item",
-    [({"tpu_mesh_devices": 4}, "10"), ({"lease_enabled": True}, "8"), ({"backend_type": "redis"}, "4c")],
+    [
+        ({"tpu_mesh_devices": 4}, "10"),
+        ({"lease_enabled": True}, "8"),
+        # item 4c is ported: BACKEND_TYPE=redis boots (the case keeps its id)
+        pytest.param({"backend_type": "redis"}, None, id="override2-4c"),
+        ({"victim_tier_enabled": True}, "6"),
+    ],
 )
 def test_runner_refuses_unported_settings(tmp_path, override, item):
+    """A knob of an unported item stops the boot naming its item; a knob
+    whose item is ported boots and serves."""
+    from api_ratelimit_tpu_torch.testing.fake_redis import FakeRedisServer
+
     runtime_path, subdir, _ = ref_it.make_runtime(tmp_path)
+    fake = FakeRedisServer()
     settings = port_settings.Settings(
         port=0, grpc_port=0, debug_port=0, use_statsd=False, runtime_path=runtime_path,
-        runtime_subdirectory=subdir, log_level="ERROR", **SMALL_ENGINE, **override,
+        runtime_subdirectory=subdir, log_level="ERROR", redis_socket_type="tcp", redis_url=fake.addr,
+        **SMALL_ENGINE, **override,
     )
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-        port_runner.Runner(settings, device="cpu").run_background()
+    try:
+        if item is None:
+            runner = port_runner.Runner(settings, device="cpu")
+            runner.run_background()
+            try:
+                assert runner.wait_ready(10.0)
+                req = ref_it.v3_request("basic", [[("key1", "x")]])
+                assert _grpc_call(runner.server.grpc_port, "v3", req)[0] == "ok"
+                assert any(c[0] == b"INCRBY" for c in fake.commands_seen)
+            finally:
+                runner.stop()
+            return
+        with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+            port_runner.Runner(settings, device="cpu").run_background()
+    finally:
+        fake.close()
 
 
 # -- the JAX Runner against the port's, on one stream ------------------------

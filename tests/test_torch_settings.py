@@ -43,6 +43,10 @@ ENVS = [
     ("lightstep_on", {"K_TRACING_LIGHTSTEP_ENABLED": "1"}),
     ("redis_knobs", {"REDIS_URL": "localhost:6379", "REDIS_POOL_SIZE": "4", "REDIS_PERSECOND": "1"}),
     ("memory_backend", {"BACKEND_TYPE": "memory"}),
+    ("redis_backend", {"BACKEND_TYPE": "redis", "REDIS_URL": "127.0.0.1:6379", "REDIS_TYPE": "SENTINEL"}),
+    ("memcache_backend", {"BACKEND_TYPE": "memcache", "MEMCACHE_HOST_PORT": "127.0.0.1:11211"}),
+    ("snapshots", {"SLAB_SNAPSHOT_DIR": "/var/lib/rl", "SLAB_SNAPSHOT_INTERVAL_MS": "5000", "SLAB_SNAPSHOT_STALE_AFTER_MS": "20000"}),
+    ("snapshots_default_staleness", {"SLAB_SNAPSHOT_DIR": "/var/lib/rl", "SLAB_SNAPSHOT_INTERVAL_MS": "250"}),
     ("tpu_backend", {"BACKEND_TYPE": "tpu"}),
     ("empty_values_keep_defaults", {"PORT": "", "HOTKEY_K": "", "TPU_BATCH_WINDOW": ""}),
     ("mesh_one_chip", {"TPU_MESH_DEVICES": "1"}),
@@ -70,6 +74,7 @@ VALIDATORS = (
     "concurrency_ttl",
     "gcra_burst",
     "journey_config",
+    "snapshot_config",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -93,6 +98,10 @@ VALIDATOR_ENVS = [
     ("journey_slow_negative", {"JOURNEY_SLOW_MS": "-1"}),
     ("journey_retain_zero", {"JOURNEY_RETAIN": "0"}),
     ("journey_ring_negative", {"JOURNEY_RING": "-8"}),
+    ("snapshot_interval_zero", {"SLAB_SNAPSHOT_DIR": "/var/lib/rl", "SLAB_SNAPSHOT_INTERVAL_MS": "0"}),
+    ("snapshot_interval_negative", {"SLAB_SNAPSHOT_INTERVAL_MS": "-5"}),
+    ("snapshot_stale_negative", {"SLAB_SNAPSHOT_STALE_AFTER_MS": "-1"}),
+    ("snapshot_stale_below_interval", {"SLAB_SNAPSHOT_INTERVAL_MS": "10000", "SLAB_SNAPSHOT_STALE_AFTER_MS": "500"}),
 ]
 
 
@@ -141,28 +150,38 @@ def test_boot_validators_agree(env):
     assert _validated(got_settings) == _validated(want_settings)
 
 
-# (env, the ROADMAP item the refusal names)
+# (env, the ROADMAP item the refusal names; None: the item is ported, and
+# the knob that was refused now boots)
 UNPORTED = [
     ({"TPU_MESH_DEVICES": "4"}, "10"),
     ({"FRONTEND_PROCS": "2"}, "8"),
     ({"SIDECAR_SOCKET": "/run/owner.sock"}, "8"),
     ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "8"),
     ({"SIDECAR_RETRIES": "5"}, "8"),
-    ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, "7"),
+    ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, None),  # item 7
     ({"LEASE_ENABLED": "true"}, "8"),
     ({"FED_ENABLED": "true"}, "9"),
     ({"PARTITIONS": "2"}, "9"),
     ({"REPL_ROLE": "primary"}, "9"),
     ({"VICTIM_TIER_ENABLED": "true"}, "6"),
     ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
-    ({"BACKEND_TYPE": "redis"}, "4c"),
-    ({"BACKEND_TYPE": "memcache"}, "4c"),
+    ({"BACKEND_TYPE": "redis"}, None),  # item 4c
+    ({"BACKEND_TYPE": "memcache"}, None),  # item 4c
 ]
 
 
 @pytest.mark.parametrize("env, item", UNPORTED, ids=[next(iter(e)) + "=" + next(iter(e.values())) for e, _i in UNPORTED])
 def test_unported_knob_is_refused_with_its_item(env, item):
-    R.new_settings(env)  # the reference accepts it
+    """Each knob of an unported item is refused naming the item; a knob
+    whose item has been ported boots, with the reference's fields."""
+    want = R.new_settings(env)  # the reference accepts it
+    if item is None:
+        got = dataclasses.asdict(P.new_settings(env))
+        want = dataclasses.asdict(want)
+        assert got.pop("backend_type") == env.get("BACKEND_TYPE", "cuda")
+        assert want.pop("backend_type") == env.get("BACKEND_TYPE", "tpu")
+        assert got == want
+        return
     with pytest.raises(ValueError, match=f"ROADMAP item {item}\\)"):
         P.new_settings(env)
 
