@@ -30,9 +30,23 @@ fingerprints to, and after each drain the hot fingerprints (hot_fps) flag
 the journeys of requests that touch a hot key (FLAG_HOTKEY). The cache's
 lookups carry the active span's backend tag and events, and an over-limit
 decision marks its algorithm's journey stage (ALGO_JOURNEY_STAGES). The
-victim tier, leases and the mesh engine wait for later slices; the
 warm-restart snapshotter (persist/) reads and restores the slab through
-export_tables/import_tables.
+export_tables/import_tables. The mesh engine waits for a later slice.
+
+With victim_max_rows > 0 (VICTIM_TIER_ENABLED) every launch reads back the
+live in-window rows its way scan evicted (ops/slab.py slab_step_after
+victim=True) into a host-RAM tier (backends/victim.py), and a key that
+returns is promoted onto the slab ahead of its launch (slab_promote_rows),
+counter intact. As in the reference the promote pass runs under the state
+lock before the step, and the demote drain right after the launch, outside
+the lock, so the next launch's promote pass finds this launch's demotes:
+the tier-on arm waits on each launch's readback in the launch itself, and
+only the tier-off arm overlaps a launch with the previous collect.
+
+Quota leasing (LEASE_ENABLED, backends/lease.py): the cache's lease table
+plans a grant for a descriptor that missed the host-local answer, its row
+carries hits + lease_n through the same launch, and the engine's
+lease_registry records the liability the snapshotter persists (leases.snap).
 
 Every algorithm is served (fixed window, sliding window, GCRA, concurrency
 and its Release, do_release). The algorithm id rides bits 28-30 of the wire
@@ -63,6 +77,7 @@ from ..limiter.cache_key import generate_cache_key
 from ..models.config import (
     ALGO_ID_CONCURRENCY,
     ALGO_ID_FIXED_WINDOW,
+    ALGO_ID_GCRA,
     ALGORITHM_IDS,
     RateLimit,
 )
@@ -82,6 +97,9 @@ from ..ops.sketch import (
 from ..ops.slab import (
     ALGO_CONC_RELEASE,
     ALGO_SHIFT,
+    COL_EXPIRE,
+    COL_FP_HI,
+    COL_FP_LO,
     HEALTH_ALGO_RESETS,
     HEALTH_DROPS,
     HEALTH_EVICT_EXPIRED,
@@ -99,11 +117,14 @@ from ..ops.slab import (
     slab_export_device,
     slab_export_host,
     slab_import_rows,
+    slab_promote_rows,
     slab_step_after,
     validate_ways,
 )
 from .batcher import MicroBatcher
 from .dispatch import DispatchLoop
+from .lease import LeaseOps, LeaseRegistry, apply_lease_ops
+from .victim import VictimTier
 
 _log = logging.getLogger("ratelimit.backends.cuda")
 
@@ -193,7 +214,8 @@ class _Operand:
 class _Launch(NamedTuple):
     """One launch in flight: the device result, the pinned host buffer its
     non-blocking readback fills, the fence recorded after that readback,
-    and the count of live items."""
+    and the count of live items. With the victim tier on the launch has
+    already waited on its fence and drained its demotes."""
 
     device_out: torch.Tensor
     host_out: torch.Tensor
@@ -225,6 +247,8 @@ class SlabDeviceEngine:
         precompile: bool = False,
         gcra_burst_ratio: float = 1.0,
         watermark_high: float = 0.0,
+        victim_max_rows: int = 0,
+        victim_watermark: float = 0.85,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
@@ -246,7 +270,16 @@ class SlabDeviceEngine:
         False the leader-collects micro-batcher.
 
         max_queue / overload / fault_injector: admission control for
-        either arm (backends/batcher.py, backends/dispatch.py).
+        either arm (backends/batcher.py, backends/dispatch.py). The
+        injector (any object with fire(site) -> action) also serves the
+        victim tier's victim.demote and victim.promote sites.
+
+        victim_max_rows: row bound of the host-RAM victim tier
+        (backends/victim.py; VICTIM_MAX_ROWS). 0 disables it (the
+        VICTIM_TIER_ENABLED=false arm): every launch runs slab_step_after
+        with victim=False, exactly the tier-less step. victim_watermark
+        (VICTIM_WATERMARK) is the tier occupancy past which the sticky
+        degraded probe raises (victim_watermark_reason).
 
         scope: optional stats Scope rooted at the service prefix. When set
         the engine records <scope>.device.{pack_ms,launch_ms,readback_ms},
@@ -293,9 +326,12 @@ class SlabDeviceEngine:
         self._last_topk: list[tuple[int, int, int]] = []
         self._hotkey_drains = 0
         # combined fingerprints the last drain ranked hot (rebound whole by
-        # each drain; the reference's drain listeners feed the mesh hot
-        # tier and come with it, ROADMAP item 10)
+        # each drain): the journeys' hot-key flag, the victim tier's
+        # demotion refusal and, through add_hotkey_listener, the lease
+        # table's sizing
         self._hot_fps: frozenset = frozenset()
+        # fn(top, fps) after every drain (add_hotkey_listener)
+        self._hotkey_listeners: list = []
         if int(hotkey_lanes) > 0:
             self._sketch_ways = sketch_ways(self._ways, hotkey_lanes)
             self._sketch = make_sketch(hotkey_lanes, self._device)
@@ -359,6 +395,26 @@ class SlabDeviceEngine:
                 fault_injector=fault_injector,
                 max_queue=max_queue,
             )
+        # host-RAM victim tier (backends/victim.py): where the launches'
+        # live evictions drain and where the promote pass finds them. The
+        # fault injector serves its victim.demote / victim.promote sites.
+        self._fault = fault_injector
+        self._victim = None
+        self._victim_lock = threading.Lock()
+        # sketch-hot rows never demote: a hot row caught in a live
+        # eviction parks here and re-enters on the very next launch
+        self._promote_pending: dict = {}
+        self._victim_hot_refusals = 0
+        self._victim_demote_errors = 0
+        self._victim_promote_skips = 0
+        # recent demote drains' host ms (wait on the readback, absorb)
+        self.victim_drain_times: collections.deque = collections.deque(maxlen=4096)
+        if int(victim_max_rows) > 0:
+            self._victim = VictimTier(int(victim_max_rows), float(victim_watermark), time_source)
+        # the lease liability registry (backends/lease.py): always built,
+        # inert until lease traffic arrives; the snapshotter persists it
+        # as leases.snap so a warm restart never grants twice
+        self.lease_registry = LeaseRegistry(time_source)
         # (bucket, readback dtype name) -> True for every launch shape
         # warmed ahead of traffic
         self.precompiled: dict = {}
@@ -405,10 +461,16 @@ class SlabDeviceEngine:
         lock: drain_hotkeys rebinds it whole)."""
         return self._hot_fps
 
+    def add_hotkey_listener(self, fn) -> None:
+        """fn(top, fps) called after every drain with the fresh top-K
+        [(fp_lo, fp_hi, count)] and its combined-fp frozenset: the lease
+        table's sizing hook (backends/lease.py note_hot_fps)."""
+        self._hotkey_listeners.append(fn)
+
     def drain_hotkeys(self) -> list[tuple[int, int, int]]:
         """Pull the sketch planes to the host, rank the top-K, halve the
         counts and upload them again, under the state lock; then rebind
-        hot_fps. Called on the stats cadence by
+        hot_fps and call the listeners. Called on the stats cadence by
         HotkeyStats, never per launch."""
         if self._sketch is None:
             return []
@@ -419,6 +481,11 @@ class SlabDeviceEngine:
         self._last_topk = top
         self._hot_fps = frozenset((hi << 32) | lo for lo, hi, _cnt in top)
         self._hotkey_drains += 1
+        for fn in self._hotkey_listeners:
+            try:
+                fn(top, self._hot_fps)
+            except Exception:  # noqa: BLE001 - a listener must not break stats
+                _log.exception("hotkey listener failed")
         return top
 
     def hotkeys_snapshot(self) -> dict:
@@ -520,21 +587,172 @@ class SlabDeviceEngine:
             self._h_pack, self._h_launch, self._h_readback = saved
         return self.precompiled
 
-    def submit_rows(self, block: np.ndarray) -> np.ndarray:
+    def submit_rows(self, block: np.ndarray, lease_ops=None) -> np.ndarray:
         """One uint32[6, n] row block (fp_lo, fp_hi, hits, limit, divider,
         jitter) -> uint32[n] post-increment counters. The caller may pass a
         reusable scratch block: the dispatch ring copies it, and when the
         batcher would keep it (no row ring), an owned copy decouples it
         here. Through the dispatch loop the result is a view of this
-        thread's reusable ticket buffer, valid until its next submit."""
+        thread's reusable ticket buffer, valid until its next submit.
+
+        lease_ops: optional backends.lease.LeaseOps riding this submit:
+        grants registered against the liability registry with the rows'
+        post-increment counters as floors, settles applied. The grants'
+        INCRBY is already in the hits column; this is the host-side
+        bookkeeping."""
         if block.shape[1] == 0:
             return np.empty(0, dtype=np.uint32)
         if self._dispatch is not None:
-            return self._dispatch.submit(block, reuse_out=True)
-        wire = block
-        if not self._batcher.consumes_submits:
-            wire = np.array(block, dtype=np.uint32)
-        return self._batcher.submit(wire)
+            afters = self._dispatch.submit(block, reuse_out=True)
+        else:
+            wire = block
+            if not self._batcher.consumes_submits:
+                wire = np.array(block, dtype=np.uint32)
+            afters = self._batcher.submit(wire)
+        if lease_ops is not None:
+            self.apply_lease_ops(block, afters, lease_ops)
+        return afters
+
+    def apply_lease_ops(self, block, afters, ops) -> None:
+        """Register riding lease grants and settles (backends/lease.py)
+        against this engine's liability registry."""
+        apply_lease_ops(
+            self.lease_registry, block, afters, ops, int(self._time_source.unix_now())
+        )
+
+    def _launch(self, items: list[_Item]) -> list[int]:
+        """One synchronous launch of an _Item list (tests and tools), through
+        the block executors like everything else."""
+        return self._execute_blocks([_items_to_block(items)]).tolist()
+
+    # -- victim tier: demote drain and promote pass (backends/victim.py) --
+
+    @property
+    def victim_enabled(self) -> bool:
+        return self._victim is not None
+
+    @property
+    def victim_tier(self):
+        """The VictimTier, or None: the snapshotter's victim.snap hook."""
+        return self._victim
+
+    def _drain_victim(self, rows: np.ndarray) -> None:
+        """Absorb one launch's demote readback (host uint32[b, ROW_WIDTH],
+        sorted order, non-demoted lanes zero) into the tier, outside the
+        state lock (the tier has its own). A live row always carries a TTL,
+        so the filter is COL_EXPIRE != 0."""
+        rows = rows[rows[:, COL_EXPIRE] != 0]
+        if not rows.shape[0]:
+            return
+        if self._fault is not None:
+            action = self._fault.fire("victim.demote")
+            if action == "drop":
+                return  # the rows vanish: the chaos arm's loss
+            if action == "error":
+                # fail open as a live eviction without the tier does: the
+                # counters are lost, but counted; serving goes on
+                self._victim_demote_errors += 1
+                return
+        self._absorb_demoted(rows)
+
+    def _absorb_demoted(self, rows: np.ndarray) -> None:
+        """Route demoted rows: sketch-hot keys to the re-inject queue (a
+        hot key's next launch is now), the rest into the bounded tier."""
+        hot = self._hot_fps
+        if hot:
+            combined = (rows[:, COL_FP_HI].astype(np.uint64) << np.uint64(32)) | rows[
+                :, COL_FP_LO
+            ].astype(np.uint64)
+            mask = np.fromiter((int(fp) in hot for fp in combined), bool, rows.shape[0])
+            hot_rows = rows[mask]
+            if hot_rows.shape[0]:
+                self._victim_hot_refusals += int(hot_rows.shape[0])
+                with self._victim_lock:
+                    for r in hot_rows:
+                        self._promote_pending[(int(r[COL_FP_LO]), int(r[COL_FP_HI]))] = r.copy()
+            rows = rows[~mask]
+        if rows.shape[0]:
+            self._victim.insert(rows, int(self._time_source.unix_now()))
+
+    def _inject_promotes_locked(self, packed: np.ndarray, n: int) -> None:
+        """The promote pass before a step, under the state lock: any of
+        this launch's fingerprints found in the tier (and every parked hot
+        row) re-enters the slab through slab_promote_rows, so the step that
+        follows sees the resumed row. A row the promote displaces comes
+        back in `displaced` and demotes again: nothing is lost either way.
+        The rows are padded to the bucket ladder, as in the reference."""
+        tier = self._victim
+        if tier is None or n == 0:
+            return
+        with self._victim_lock:
+            pending = list(self._promote_pending.values())
+        if not tier.rows and not pending:
+            return
+        if self._fault is not None:
+            action = self._fault.fire("victim.promote")
+            if action in ("drop", "error"):
+                # skip the pass: the rows stay in the tier (promotion
+                # retries forever; the key misses until the site heals)
+                self._victim_promote_skips += 1
+                return
+        hits = tier.lookup_batch(packed[0, :n], packed[1, :n])
+        n_hits = 0 if hits is None else hits.shape[0]
+        if not n_hits and not pending:
+            return
+        parts = ([hits] if n_hits else []) + ([np.stack(pending)] if pending else [])
+        rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        k = rows.shape[0]
+        size = max(self._bucket_for(k), k)
+        padded = np.zeros((size, ROW_WIDTH), dtype=np.uint32)
+        padded[:k] = rows
+        landed_dev, displaced_dev = slab_promote_rows(
+            self._state, padded, int(packed[6, 0]), ways=self._ways
+        )
+        landed = landed_dev[:k].cpu().numpy()
+        if n_hits:
+            tier.retire(rows[:n_hits], landed[:n_hits])
+        if pending:
+            with self._victim_lock:
+                for row, ok in zip(pending, landed[n_hits:].tolist()):
+                    if ok:
+                        self._promote_pending.pop((int(row[COL_FP_LO]), int(row[COL_FP_HI])), None)
+        displaced = displaced_dev.cpu().numpy()
+        displaced = displaced[displaced[:, COL_EXPIRE] != 0]
+        if displaced.shape[0]:
+            self._absorb_demoted(displaced)
+
+    def _victim_doc(self, reclaim: bool) -> dict:
+        tier = self._victim
+        if tier is None:
+            return {"enabled": False}
+        now = int(self._time_source.unix_now())
+        if reclaim:
+            tier.reclaim(now)
+        snap = tier.describe(now)
+        snap["enabled"] = True
+        snap["hot_refusals"] = self._victim_hot_refusals
+        snap["demote_errors"] = self._victim_demote_errors
+        snap["promote_skips"] = self._victim_promote_skips
+        with self._victim_lock:
+            snap["pending_hot"] = len(self._promote_pending)
+        return snap
+
+    def victim_snapshot(self) -> dict:
+        """Tier health for the stats tree (VictimStats, which is the
+        tier's reclamation cadence): the TTL/window reclaim, then occupancy
+        and counters."""
+        return self._victim_doc(reclaim=True)
+
+    def victim_debug(self) -> dict:
+        """The GET /debug/victim document: victim_snapshot without the
+        reclaim (a debug poll must not advance the tier)."""
+        return self._victim_doc(reclaim=False)
+
+    def victim_watermark_reason(self) -> str | None:
+        """HealthChecker degraded-probe contract for the tier watermark."""
+        if self._victim is None:
+            return None
+        return self._victim.watermark_reason()
 
     # -- warm restart (persist/): the snapshotter's export/import --
 
@@ -687,12 +905,24 @@ class SlabDeviceEngine:
                 # later one run the multi-algorithm body
                 self._algos_seen = True
         dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
+        victim = self._victim is not None
         with self._state_lock:
+            # the promote pass rides before the step, so a demoted key's
+            # launch already sees its restored counter
+            self._inject_promotes_locked(op.array, n)
             outs = slab_step_after(
                 self._state, op.host, ways=self._ways, out_dtype=dtype,
                 sketch=self._sketch, sketch_ways=self._sketch_ways,
-                multi_algo=self._algos_seen,
+                multi_algo=self._algos_seen, victim=victim,
             )
+            if victim:
+                # the demote readback rides last (after the sketch); its
+                # padding lanes sort last, so the first n lanes hold every
+                # demote in the same sorted order
+                *outs, victim_dev = outs
+                victim_dev = victim_dev[:n] if n else victim_dev
+                victim_host = torch.empty(victim_dev.shape, dtype=victim_dev.dtype, pin_memory=self._pin)
+                victim_host.copy_(victim_dev, non_blocking=True)
             if self._sketch is not None:
                 after_dev, health, self._sketch = outs
             else:
@@ -707,6 +937,14 @@ class SlabDeviceEngine:
             self._decisions_total += n
             if len(self._pending_health) > 4096:
                 self._drain_health_locked()
+        if victim:
+            # the demote drain, outside the state lock and before the next
+            # launch can start its promote pass (the reference's order)
+            t0 = time.perf_counter()
+            fence.synchronize()
+            t1 = time.perf_counter()
+            self._drain_victim(victim_host.numpy())
+            self.victim_drain_times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
         if self._h_launch is not None:
             self._h_launch.record((time.perf_counter() - t_launch) * 1e3)
         return _Launch(after_dev, host_out, fence, n)
@@ -838,6 +1076,61 @@ class HotkeyStats:
         self._drains_seen = drains
 
 
+class VictimStats:
+    """StatGenerator exporting the victim tier on every stats flush
+    (SlabDeviceEngine.victim_snapshot — this generator IS the tier's
+    TTL/window reclamation cadence, like HotkeyStats is the sketch
+    drain):
+
+        ratelimit.victim.rows            rows currently parked in the tier
+        ratelimit.victim.demotes         cumulative demoted live rows
+                                         absorbed from eviction readbacks
+        ratelimit.victim.promotes        cumulative rows promoted back
+                                         onto the slab (retired landed)
+        ratelimit.victim.hot_refusals    sketch-hot rows that refused
+                                         demotion (parked for next-launch
+                                         re-inject instead)
+        ratelimit.victim.reclaimed       rows dropped by TTL/window-aware
+                                         reclamation (dead state, not loss)
+        ratelimit.victim.overflow_drops  value-ranked losses past
+                                         VICTIM_MAX_ROWS — the tier's ONLY
+                                         lossy behavior
+        ratelimit.victim.overflow_lost_count_sum
+                                         sum of the counter values those
+                                         drops forgot — the ledger the
+                                         differential false-admit bound
+                                         is stated against
+                                         (tests/test_torch_victim.py)
+        ratelimit.victim.watermark       0 normal / 1 past VICTIM_WATERMARK
+                                         (sticky degraded probe mirror)
+
+    The full document (age histogram, capacity, fault-site counters)
+    ships via GET /debug/victim; this exports the alarmable envelope."""
+
+    def __init__(self, engine, scope):
+        self._engine = engine
+        self._gauges = {
+            "rows": scope.gauge("rows"),
+            "demotes": scope.gauge("demotes"),
+            "promotes": scope.gauge("promotes"),
+            "hot_refusals": scope.gauge("hot_refusals"),
+            "reclaimed": scope.gauge("reclaimed"),
+            "overflow_drops": scope.gauge("overflow_drops"),
+            "overflow_lost_count_sum": scope.gauge("overflow_lost_count_sum"),
+            "watermark": scope.gauge("watermark"),
+        }
+
+    def generate_stats(self) -> None:
+        snap = self._engine.victim_snapshot()
+        if not snap.get("enabled"):
+            return
+        for k, g in self._gauges.items():
+            if k == "watermark":
+                g.set(snap.get("watermark_state", 0))
+            else:
+                g.set(snap.get(k, 0))
+
+
 class CudaRateLimitCache:
     """limiter.RateLimitCache implementation backed by the CUDA slab."""
 
@@ -860,32 +1153,53 @@ class CudaRateLimitCache:
         precompile: bool = False,
         gcra_burst_ratio: float = 1.0,
         watermark_high: float = 0.0,
+        victim_max_rows: int = 0,
+        victim_watermark: float = 0.85,
+        lease_table=None,
+        engine=None,
     ):
         """The engine's arguments pass through (SlabDeviceEngine);
         stats_scope becomes its `scope` and roots the per-algorithm decision
         counters <stats_scope>.algo.<name>.{decisions,over_limit}. A
         concurrency rule's idle TTL is the config loader's
-        concurrency_ttl_s (config/loader.py), carried in its divider."""
+        concurrency_ttl_s (config/loader.py), carried in its divider.
+
+        engine: an engine built by the caller (SlabDeviceEngine's
+        submit_rows, flush and close), in place of the one these arguments
+        would build.
+
+        lease_table: optional backends.lease.LeaseTable (LEASE_ENABLED).
+        do_limit_resolved then plans a lease grant for each descriptor that
+        missed the host-local answer: its row carries hits + lease_n
+        through the same launch, the returned counter registers the lease,
+        and the caller's own decision uses after - lease_n. Queued settles
+        ride the same submits. Only an engine whose submit_rows takes
+        lease_ops leases, as in the reference."""
         self._base = base_limiter
-        self._engine_core = SlabDeviceEngine(
-            time_source=base_limiter.time_source,
-            n_slots=n_slots,
-            ways=ways,
-            buckets=buckets,
-            device=device,
-            hotkey_lanes=hotkey_lanes,
-            hotkey_k=hotkey_k,
-            batch_window_seconds=batch_window_seconds,
-            max_batch=max_batch,
-            dispatch_loop=dispatch_loop,
-            max_queue=max_queue,
-            overload=overload,
-            fault_injector=fault_injector,
-            scope=stats_scope,
-            precompile=precompile,
-            gcra_burst_ratio=gcra_burst_ratio,
-            watermark_high=watermark_high,
-        )
+        if engine is not None:
+            self._engine_core = engine
+        else:
+            self._engine_core = SlabDeviceEngine(
+                time_source=base_limiter.time_source,
+                n_slots=n_slots,
+                ways=ways,
+                buckets=buckets,
+                device=device,
+                hotkey_lanes=hotkey_lanes,
+                hotkey_k=hotkey_k,
+                batch_window_seconds=batch_window_seconds,
+                max_batch=max_batch,
+                dispatch_loop=dispatch_loop,
+                max_queue=max_queue,
+                overload=overload,
+                fault_injector=fault_injector,
+                scope=stats_scope,
+                precompile=precompile,
+                gcra_burst_ratio=gcra_burst_ratio,
+                watermark_high=watermark_high,
+                victim_max_rows=victim_max_rows,
+                victim_watermark=victim_watermark,
+            )
         # per-algorithm decision counters (do_limit_resolved): which
         # algorithm carries the traffic and which one denies it
         self._algo_stats = None
@@ -918,12 +1232,27 @@ class CudaRateLimitCache:
         # hotkeys witness: combined fp -> descriptor key prefix, recorded by
         # do_limit_resolved so /debug/hotkeys can name a drained
         # fingerprint; clear-on-full, None with the sketch off
-        self._witness: dict | None = {} if self._engine_core.hotkeys_enabled else None
+        engine = self._engine_core
+        self._witness: dict | None = {} if getattr(engine, "hotkeys_enabled", False) else None
         self._witness_max = 1 << 15
+        # quota leasing: only engines with the row verb carry grant riders
+        self._lease = lease_table if hasattr(engine, "submit_rows") else None
+        # each sketch drain pre-sizes the lease table for the ranked-hot
+        # keys, so a hot key's first grant of a window is already large
+        if self._witness is not None and self._lease is not None:
+            engine.add_hotkey_listener(lambda _top, fps: self._lease.note_hot_fps(fps))
 
     @property
     def engine(self):
         return self._engine_core
+
+    def victim_debug(self) -> dict:
+        """The /debug/victim document: the engine's tier snapshot, or
+        {"enabled": False} for an engine without a tier."""
+        fn = getattr(self._engine_core, "victim_debug", None)
+        if fn is None:
+            return {"enabled": False}
+        return fn()
 
     def hotkeys_debug(self) -> dict:
         """The /debug/hotkeys document: the engine's last drained top-K,
@@ -1080,6 +1409,8 @@ class CudaRateLimitCache:
         pending_count = 0
         keys = [None] * n if local_cache is not None else None
         over_local: list[bool] | None = None
+        lease = self._lease
+        grants: list | None = None
         # the witness and the hot-key journey probe (None and empty with
         # the sketch off)
         witness = self._witness
@@ -1123,21 +1454,67 @@ class CudaRateLimitCache:
                 rec.wire_divider,
                 base.expiration_seconds(divider) - divider,
             )
+            if lease is not None:
+                # the lease grant rider: this descriptor missed the
+                # host-local answer, so its row carries the lease's INCRBY,
+                # hits + lease_n through the same launch
+                planned = lease.plan_grant(rec, hits_addend, now)
+                if planned is not None:
+                    block[2, pending_count] = hits_addend + planned.size
+                    if grants is None:
+                        grants = []
+                    grants.append((pending_count, planned))
             pending_count += 1
+
+        lease_ops = None
+        settles = ()
+        if lease is not None and pending_count:
+            settles = lease.drain_settles()
+            if grants or settles:
+                lease_ops = LeaseOps(
+                    grants=[(pos, p.size, p.window, p.ttl_s) for pos, p in grants or ()],
+                    settles=settles,
+                )
 
         if span is not None:
             span.log_kv(event="lookup.start", batch_items=pending_count)
         try:
-            afters = (
-                self._engine_core.submit_rows(block[:, :pending_count]).tolist()
-                if pending_count
-                else ()
-            )
+            if not pending_count:
+                afters = ()
+            elif lease_ops is not None:
+                afters = self._engine_core.submit_rows(
+                    block[:, :pending_count], lease_ops=lease_ops
+                ).tolist()
+            else:
+                afters = self._engine_core.submit_rows(block[:, :pending_count]).tolist()
         except Exception as e:
+            if settles:
+                # the settles never reached the card's owner: requeue them
+                # for the next submit (advisory, TTL-bounded)
+                lease.requeue_settles(settles)
+            if grants:
+                # riders whose answer was lost: release the in-flight marks
+                # so the next miss can plan a fresh grant
+                for _pos, planned in grants:
+                    lease.abort_grant(planned)
             # see do_limit: the exception path must error-tag the span
             if span is not None:
                 span.set_error(e)
             raise
+        if grants:
+            # install each granted lease and strip its rider from the
+            # caller's own post-increment position (after - lease_n)
+            for pos, planned in grants:
+                after_total = afters[pos]
+                if (int(block[4, pos]) >> ALGO_SHIFT) == ALGO_ID_GCRA and after_total > int(
+                    block[3, pos]
+                ):
+                    # a denied GCRA rider reserved nothing (a denial never
+                    # advances the TAT): abort, the next miss plans afresh
+                    lease.abort_grant(planned)
+                    afters[pos] = after_total - planned.size
+                else:
+                    afters[pos] = lease.register_grant(planned, after_total)
         if span is not None:
             span.log_kv(event="cuda.lookup.done", client="slab")
 

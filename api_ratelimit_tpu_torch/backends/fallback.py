@@ -25,9 +25,11 @@ instance running on fallback policy while it keeps taking traffic.
 
 The ladder is a policy answer, never a second execution: it computes no
 decision, on the card or on the CPU, and every answer it gives is counted
-(ratelimit.fallback.{deny,allow}). The reference's CircuitBreaker (for the
-sidecar client) comes with item 8; its lease and federation-share
-consultation before the rung with items 8 and 9.
+(ratelimit.fallback.{deny,allow}). With a lease table (LEASE_ENABLED) a
+descriptor that still holds a live lease is answered from that budget, which
+the card granted before it failed, and only the rest fall to the rung. The
+reference's CircuitBreaker (for the sidecar client) comes with item 8, its
+federation-share consultation with item 9.
 """
 
 from __future__ import annotations
@@ -56,14 +58,21 @@ class FallbackLimiter:
                                sticky until the next primary success)
     """
 
-    def __init__(self, mode: str, scope=None):
+    def __init__(self, mode: str, scope=None, lease_table=None):
         """mode: deny or allow (FAILURE_MODES); scope roots the
-        <scope>.fallback.* stats."""
+        <scope>.fallback.* stats.
+
+        lease_table: optional backends.lease.LeaseTable. When set, every
+        descriptor is first offered to its outstanding lease (the card
+        granted real budget for it before it failed) and only the rest are
+        answered by the rung, so an outage degrades lease by lease as TTLs
+        run out. An expired or exhausted lease falls through to the rung."""
         if mode not in FAILURE_MODES:
             raise ValueError(
                 f"failure mode must be one of {FAILURE_MODES}, got {mode!r}"
             )
         self.mode = mode
+        self._lease = lease_table
         self._lock = threading.Lock()
         self._degraded = False
         self._reason = ""
@@ -119,6 +128,23 @@ class FallbackLimiter:
                 error,
                 self.mode,
             )
+        # lease-backed degradation (backends/lease.py): descriptors whose
+        # (key, window) still holds an outstanding lease are answered from
+        # that granted budget, consuming what the primary path would have,
+        # so recovery continues the same counter
+        lease_statuses: dict[int, DescriptorStatus] = {}
+        lease_response = DoLimitResponse()
+        if self._lease is not None:
+            hits_addend = max(1, request.hits_addend)
+            for i, descriptor in enumerate(request.descriptors):
+                limit = limits[i] if i < len(limits) else None
+                if limit is None:
+                    continue
+                status = self._lease.consume_for_fallback(
+                    request.domain, descriptor, limit, hits_addend, lease_response
+                )
+                if status is not None:
+                    lease_statuses[i] = status
         if self.mode == FAILURE_MODE_DENY:
             if self._c_deny is not None:
                 self._c_deny.inc()
@@ -129,6 +155,10 @@ class FallbackLimiter:
             code = Code.OK
         statuses = []
         for i in range(len(request.descriptors)):
+            status = lease_statuses.get(i)
+            if status is not None:
+                statuses.append(status)
+                continue
             limit = limits[i] if i < len(limits) else None
             statuses.append(
                 DescriptorStatus(
@@ -137,4 +167,5 @@ class FallbackLimiter:
                     limit_remaining=0,
                 )
             )
-        return DoLimitResponse(descriptor_statuses=statuses)
+        lease_response.descriptor_statuses = statuses
+        return lease_response

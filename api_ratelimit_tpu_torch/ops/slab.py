@@ -7,8 +7,9 @@ unsigned compare or add is written out). A key lives only in set
 `fp_lo & (n_sets - 1)`; a full set evicts its least-valuable way in place
 (dead, then window-ended, then lowest-count live, rotation tiebreak).
 
-The port covers the reference's steps without the victim readback
-(`victim=False`), with the heavy-hitter sketch on or off, in two bodies:
+The port covers the reference's steps, with the heavy-hitter sketch on or
+off and slab_step_after's demote readback on or off (victim=True, the
+VICTIM_TIER_ENABLED arm), in two bodies:
 
     multi_algo=False (fixed window only; the engine's program until its
     sticky guard sees another algorithm):
@@ -33,6 +34,11 @@ and then, per entry point:
     slab_step_decided       the apply fuses only the code (lean kernel):
                             uint8 codes in arrival order
     slab_update_and_decide  the full decision, unsorted (SlabResult)
+
+slab_promote_rows re-inserts the victim tier's rows (backends/victim.py)
+ahead of a launch: the way scan's multi-algorithm form places them, and the
+gather, stable sort and scatter around it are torch ops, as they were XLA
+glue in the reference.
 
 On CUDA tables the fixed-window decided steps run the fused INCRBY+decide
 kernel, as the reference's use_pallas=True does on the TPU; on CPU tables the
@@ -591,12 +597,17 @@ def _slab_update_sorted(
     sketch_ways: int = 0,
     multi_algo: bool = False,
     burst_ratio: float = 1.0,
+    victim: bool = False,
 ):
     """The stateful core of every step: set scan, serialize duplicates,
     window rollover, increment, one row scatter, in place. Returns, in
     slot-sorted order, (s_before, s_after, (s_hits, s_limit, s_div), order,
-    health, decision), and the updated sketch planes as a seventh element
-    when `sketch` is given.
+    health, decision), the updated sketch planes as a next element when
+    `sketch` is given, and with victim=True the demote readback as the last
+    element: int32[b, ROW_WIDTH] in sorted order, each lane the stored row
+    a winning insert displaced from a live in-window way (EVICT_LIVE, the
+    only lossy eviction class) or all-zero. It is recomputed from the
+    eviction class, so it never depends on count_health.
 
     decide=True decides at `near_ratio`: `decision` is then the
     DecideResult (lean=True: the code alone, the other five fields None)
@@ -664,12 +675,18 @@ def _slab_update_sorted(
         if sketch is not None and not weight_from_apply:
             weight = _segment_weights(s_hits, seg_start)
     result = (s_before, s_after, (s_hits, s_limit if decide else None, s_div), order, health, decision)
-    if sketch is None:
-        return result
-    # one candidate per distinct-key segment, its last row (padding
-    # segments carry hits 0 there and drop out)
-    cand = torch.cat([~same_prev, true1]) & (s_hits != 0)
-    return (*result, sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways))
+    if victim:
+        # the demote readback: the reference's _finish_update, the winning
+        # write of each slot over a live in-window way
+        is_last = torch.cat([s_slot[1:] != s_slot[:-1], true1])
+        demote = (s_hits != 0) & is_last & (evict_class[order] == EVICT_LIVE)
+        victim_rows = torch.where(demote[:, None], st_rows, 0)
+    if sketch is not None:
+        # one candidate per distinct-key segment, its last row (padding
+        # segments carry hits 0 there and drop out)
+        cand = torch.cat([~same_prev, true1]) & (s_hits != 0)
+        result = (*result, sketch_update(sketch, s_fp_lo, s_fp_hi, weight, cand, sketch_ways))
+    return (*result, victim_rows) if victim else result
 
 
 def slab_step_after(
@@ -680,6 +697,7 @@ def slab_step_after(
     sketch: torch.Tensor | None = None,
     sketch_ways: int = 0,
     multi_algo: bool = False,
+    victim: bool = False,
 ):
     """One launch: stateful update only. `packed` is the host operand
     uint32[7, b] (fp_lo, fp_hi, hits, limit, divider, jitter, scalars with
@@ -693,17 +711,25 @@ def slab_step_after(
 
     A non-None `sketch` (hotkey planes, ops/sketch.py; the HOTKEYS_ENABLED
     arm) appends the updated planes as a third element, with `sketch_ways`
-    its set associativity. None runs exactly the sketch-free step."""
+    its set associativity. None runs exactly the sketch-free step.
+
+    victim=True (the VICTIM_TIER_ENABLED arm) appends the demote readback
+    as the last element: uint32[b, ROW_WIDTH] in slot-sorted order, each
+    nonzero lane the full stored row this launch displaced from a live
+    in-window way, for the host to drain into the victim tier
+    (backends/victim.py). False runs exactly the step without it."""
     batch, now, _near_ratio, burst_ratio = _unpack(packed, state.device)
-    _before, s_after, _inputs, order, health, _none, *new_sketch = _slab_update_sorted(
+    _before, s_after, _inputs, order, health, _none, *extra = _slab_update_sorted(
         state, batch, now, ways, sketch=sketch, sketch_ways=sketch_ways,
-        multi_algo=multi_algo, burst_ratio=burst_ratio,
+        multi_algo=multi_algo, burst_ratio=burst_ratio, victim=victim,
     )
     after = _u32(_unsort(s_after, order))
     out_dtype = np.dtype(out_dtype)
     cap = int(np.iinfo(out_dtype).max)
     out = torch.clamp(after, max=cap).to(_TORCH_UNSIGNED[out_dtype])
-    return (out, health, *new_sketch)
+    if victim:
+        extra[-1] = extra[-1].view(torch.uint32)
+    return (out, health, *extra)
 
 
 def _slab_step_sorted(
@@ -798,6 +824,73 @@ def slab_update_and_decide(
         decision=DecideResult(*(_unsort(f, order) for f in d)),
         health=health,
     )
+
+
+def slab_promote_rows(state: SlabState, rows, now: int, ways: int = DEFAULT_WAYS):
+    """Re-insert demoted rows from the host-RAM victim tier
+    (backends/victim.py) ahead of a launch that is about to touch their
+    keys, in place: the reference's slab_promote_rows. `rows` is uint32[k,
+    ROW_WIDTH] (numpy, or a tensor of uint32/int32 bits), all-zero lanes
+    padding. A row lands with its counter, window, divider, algorithm bits
+    and sliding/GCRA words intact, so a demoted key resumes mid-window.
+
+    Placement rides the hot path's way scan in its multi-algorithm form
+    (the reference's _choose_ways default), so a promoted row lands where a
+    request for its key will look, and the sliding grace classifies ended
+    windows as the reference does. Per lane:
+
+      * fp match: keep-the-newest (greater window wins, equal windows keep
+        the greater count); either way the lane reports landed;
+      * no match: the row overwrites the scan's victim way, and a live
+        in-window row it displaces comes back in `displaced`.
+
+    Lanes picking one slot serialize on (slot << 1) | matched, a stable
+    sort with the reference's two-field key (not the hot path's packed
+    key): the run's last lane writes if it wants to, the others report
+    landed False and stay in the tier. Padding lanes, and rows whose own
+    expire_at has passed, choose the scratch row n and report landed False.
+
+    Returns (bool[k] landed in arrival order, uint32[k, ROW_WIDTH]
+    displaced rows in sorted order, nonzero lanes only), device tensors."""
+    n = state.n_slots
+    dev = state.device
+    if isinstance(rows, torch.Tensor):
+        rows = rows.to(dev).view(torch.int32)
+    else:
+        rows = np.ascontiguousarray(rows, dtype=np.uint32)
+        rows = torch.from_numpy(rows.view(np.int32)).to(dev)
+    k = rows.shape[0]
+    now = ((int(now) + (1 << 31)) & _M32) - (1 << 31)  # int32, as the reference's
+    valid = rows[:, COL_EXPIRE] > now
+    fp_lo, fp_hi = rows[:, COL_FP_LO].contiguous(), rows[:, COL_FP_HI].contiguous()
+    chosen, evict_class, matched, picked = _choose_ways(
+        state, fp_lo, fp_hi, valid.to(torch.int32), now, ways, multi_algo=True
+    )
+    # keep-the-newest against a matched live row (unsigned compares)
+    r_window, p_window = _u32(rows[:, COL_WINDOW]), _u32(picked[:, COL_WINDOW])
+    newer = (r_window > p_window) | (
+        (r_window == p_window) & (_u32(rows[:, COL_COUNT]) > _u32(picked[:, COL_COUNT]))
+    )
+    stale = matched & valid & ~newer
+    want_write = valid & ~stale
+    # same-slot collisions serialize as on the hot path: matched lanes
+    # order after evicting lanes, so a contended way's winning write is
+    # the fp match
+    key = (chosen << 1) | matched.long()
+    order = torch.sort(key, stable=True).indices
+    s_chosen = chosen[order]
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    is_last = torch.cat([s_chosen[1:] != s_chosen[:-1], true1])
+    s_wrote = want_write[order] & is_last
+    write_idx = torch.where(s_wrote, s_chosen, n)
+    state.rows.index_put_((write_idx,), rows[order])
+    # the swap's far side: a winning write over a live in-window way hands
+    # that row back for re-demotion
+    s_displaced = s_wrote & (evict_class[order] == EVICT_LIVE)
+    displaced = torch.where(s_displaced[:, None], picked[order], 0).view(torch.uint32)
+    # landed: written, or matched a row already fresher than the copy
+    landed = _unsort(s_wrote | stale[order], order)
+    return landed, displaced
 
 
 # --- warm-restart export/import (persist/) ----------------------------------

@@ -22,13 +22,16 @@ the file set (counted in snapshot.load_rejected) and the slab starts cold
 — the pre-warm-restart behavior, and the same fail-open posture as the
 rest of the resilience ladder.
 
-The reference's snapshot set also carries a lease (leases.snap), a
-federation (fed.snap) and a victim-tier (victim.snap) section. The port's
-engine has none of those yet (ROADMAP items 8, 9 and 6), so it writes only
-the slab shards and, finding one of those files at boot, logs a warning
-naming its item and restores the slab alone, as the reference does for an
-engine without them. Files move between the two packages in both
-directions.
+Beside the slab shards the set carries the lease liabilities (leases.snap,
+FLAG_LEASE_TABLE: restore floors each restored counter at its live grant's
+watermark, so a restart never grants twice) and the victim tier
+(victim.snap, FLAG_VICTIM: demoted rows re-seed the tier and resume
+mid-window), each written with the reference's rule: when it has rows or
+the file already exists. A bad section file degrades to a slab-only restore,
+counted in load_rejected. The reference's federation section (fed.snap)
+comes with the cluster (ROADMAP item 9): finding one at boot, the port logs
+a warning naming its item and restores the rest without it. Files move
+between the two packages in both directions.
 
 This module is numpy + stdlib only (the engine owns all device work).
 """
@@ -43,11 +46,16 @@ import time
 import numpy as np
 
 from .snapshot import (
+    FLAG_LEASE_TABLE,
+    FLAG_VICTIM,
+    LEASE_ROW_WIDTH,
     ROW_WIDTH,
     SNAPSHOT_VERSION,
     SnapshotError,
+    apply_lease_floors,
     load_snapshot,
     migrate_rows_to_sets,
+    reconcile_leases,
     reconcile_rows,
     write_snapshot,
 )
@@ -93,21 +101,10 @@ def victim_snapshot_path(directory: str) -> str:
 
 # the sections the port does not restore yet, with the ROADMAP item that
 # ports each; restore() warns once for each file it finds
-_UNPORTED_SECTIONS = (
-    (lease_snapshot_path, "lease liabilities", "8"),
-    (fed_snapshot_path, "federation shares", "9"),
-    (victim_snapshot_path, "the victim tier", "6"),
-)
+_UNPORTED_SECTIONS = ((fed_snapshot_path, "federation shares", "9"),)
 # their restore counters, always 0 here; kept so restore_stats has the
 # reference's keys
-_SECTION_STATS = {
-    "restored_leases": 0,
-    "dropped_leases": 0,
-    "restored_fed_shares": 0,
-    "dropped_fed_shares": 0,
-    "restored_victim_rows": 0,
-    "dropped_victim_rows": 0,
-}
+_SECTION_STATS = {"restored_fed_shares": 0, "dropped_fed_shares": 0}
 
 
 class SlabSnapshotter:
@@ -121,6 +118,9 @@ class SlabSnapshotter:
         ways                                 stamped into each header
         drain()                              optional: quiesce before the
                                              final drain snapshot
+        lease_registry                       optional: leases.snap
+        victim_tier                          optional (None: no tier):
+                                             victim.snap
 
     scope: optional stats Scope rooted at the service prefix; registers
     the snapshot.* telemetry (the reference's counters, gauges and the
@@ -174,6 +174,8 @@ class SlabSnapshotter:
         self._c_writes = self._c_errors = self._c_rejected = None
         self._g_bytes = self._g_age = None
         self._g_rows = self._g_dropped_expired = self._g_dropped_window = None
+        self._g_leases = self._g_dropped_leases = None
+        self._g_victim = self._g_dropped_victim = None
         self._h_write = None
         if scope is not None:
             snap = scope.scope("snapshot")
@@ -185,17 +187,14 @@ class SlabSnapshotter:
             self._g_rows = snap.gauge("restore_rows")
             self._g_dropped_expired = snap.gauge("restore_dropped_expired")
             self._g_dropped_window = snap.gauge("restore_dropped_window")
-            # the sections' gauges, registered as the reference does; they
-            # read 0 until their items are ported
-            for name in (
-                "restore_leases",
-                "restore_dropped_leases",
-                "restore_fed_shares",
-                "restore_dropped_fed_shares",
-                "restore_victim_rows",
-                "restore_dropped_victim_rows",
-            ):
-                snap.gauge(name)
+            self._g_leases = snap.gauge("restore_leases")
+            self._g_dropped_leases = snap.gauge("restore_dropped_leases")
+            # the federation section's gauges, registered as the reference
+            # does; they read 0 until item 9 is ported
+            snap.gauge("restore_fed_shares")
+            snap.gauge("restore_dropped_fed_shares")
+            self._g_victim = snap.gauge("restore_victim_rows")
+            self._g_dropped_victim = snap.gauge("restore_dropped_victim_rows")
             self._h_write = snap.histogram("write_ms")
             scope.add_stat_generator(self)
         os.makedirs(directory, exist_ok=True)
@@ -257,6 +256,44 @@ class SlabSnapshotter:
                         fault_injector=self._faults,
                         ways=ways,
                     )
+                # lease-liability section: outstanding grants ride the
+                # same snapshot set so a restart never double-grants
+                # (backends/lease.py). Lease-free deployments keep the
+                # exact pre-lease snapshot set (no extra file/fault-site
+                # firing); once liabilities exist the file is maintained
+                # even when they drain back to zero — a stale liability
+                # file must never floor a fresh slab.
+                registry = getattr(self._engine, "lease_registry", None)
+                if registry is not None:
+                    rows = registry.export_rows(now)
+                    lease_path = lease_snapshot_path(self._dir)
+                    if rows.shape[0] or os.path.exists(lease_path):
+                        total += write_snapshot(
+                            lease_path,
+                            rows,
+                            created_at=now,
+                            fault_injector=self._faults,
+                            flags=FLAG_LEASE_TABLE,
+                        )
+                # victim-tier section: demoted live rows ride the same
+                # snapshot set so a restart resumes them mid-window
+                # instead of re-serving a fresh window to every demoted
+                # key (backends/victim.py). Tier-less deployments keep
+                # the exact pre-tier snapshot set; once the file exists
+                # it is maintained even when the tier drains empty — a
+                # stale victim file must never re-seed dead counters.
+                victim = getattr(self._engine, "victim_tier", None)
+                if victim is not None:
+                    victim_rows = victim.export_rows()
+                    victim_path = victim_snapshot_path(self._dir)
+                    if victim_rows.shape[0] or os.path.exists(victim_path):
+                        total += write_snapshot(
+                            victim_path,
+                            victim_rows,
+                            created_at=now,
+                            fault_injector=self._faults,
+                            flags=FLAG_VICTIM,
+                        )
             except Exception as e:
                 self.write_errors_total += 1
                 if self._c_errors is not None:
@@ -331,6 +368,8 @@ class SlabSnapshotter:
                 for k in stats:
                     totals[k] += stats[k]
                 tables.append(table)
+            lease_stats = self._restore_leases(tables, now)
+            victim_stats = self._restore_victim(now)
             self._warn_unported_sections()
             self._engine.import_tables(tables)
         except (SnapshotError, OSError, ValueError) as e:
@@ -365,20 +404,135 @@ class SlabSnapshotter:
                 max(0, now - created_at) if created_at is not None else -1
             ),
             **totals,
+            **lease_stats,
             **_SECTION_STATS,
+            **victim_stats,
         }
         return self.restore_stats
 
+    def _restore_leases(self, tables: list[np.ndarray], now: int) -> dict:
+        """The lease-liability half of restore: reconcile leases.snap
+        against the clock (TTL-dead and fully-settled liabilities drop —
+        snapshot.restore_dropped_leases), floor the reconciled slab
+        counters at each live liability's post-grant watermark (a restart
+        must never double-grant budget frontends still hold), and re-seed
+        the engine's registry. A bad lease file degrades to a slab-only
+        restore (counted in load_rejected), never a cold boot."""
+        registry = getattr(self._engine, "lease_registry", None)
+        path = lease_snapshot_path(self._dir)
+        stats = {"restored_leases": 0, "dropped_leases": 0}
+        if registry is None or not os.path.exists(path):
+            return stats
+        try:
+            header, rows = load_snapshot(path, fault_injector=self._faults)
+            if header.flags != FLAG_LEASE_TABLE:
+                raise SnapshotError(
+                    f"{path}: flags {header.flags} is not a lease table"
+                )
+            if header.row_width != LEASE_ROW_WIDTH:
+                raise SnapshotError(
+                    f"{path}: lease row width {header.row_width} != "
+                    f"{LEASE_ROW_WIDTH}"
+                )
+            kept, rec = reconcile_leases(rows, now)
+        except (SnapshotError, OSError, ValueError) as e:
+            self.load_rejected_total += 1
+            if self._c_rejected is not None:
+                self._c_rejected.inc()
+            _log.warning(
+                "lease liability snapshot rejected (slab restores without "
+                "floors): %s",
+                e,
+            )
+            return stats
+        floored, unmatched = apply_lease_floors(tables, kept)
+        registry.import_rows(kept)
+        stats = {
+            "restored_leases": rec["restored"],
+            "dropped_leases": rec["dropped"],
+        }
+        if self._g_leases is not None:
+            self._g_leases.set(rec["restored"])
+            self._g_dropped_leases.set(rec["dropped"])
+        if rec["restored"] or rec["dropped"]:
+            _log.info(
+                "lease liabilities restored: %d live (%d TTL-dead/settled "
+                "dropped), %d slab counters floored, %d liabilities "
+                "unmatched",
+                rec["restored"],
+                rec["dropped"],
+                floored,
+                unmatched,
+            )
+        return stats
+
+    def _restore_victim(self, now: int) -> dict:
+        """The victim-tier half of restore: reconcile victim.snap against
+        the clock (the SAME reconcile_rows rules the slab shards get —
+        dead and window-ended demoted rows carry no decision state and
+        drop; snapshot.restore_dropped_victim_rows), then re-seed the
+        engine's tier so every surviving demoted key still resumes
+        mid-window across the restart. import_rows re-applies the running
+        config's bounds, so a snapshot written under a larger
+        VICTIM_MAX_ROWS can never overflow a smaller tier. A bad victim
+        file degrades to a tier-less restore (counted in load_rejected),
+        never a cold boot."""
+        victim = getattr(self._engine, "victim_tier", None)
+        path = victim_snapshot_path(self._dir)
+        stats = {"restored_victim_rows": 0, "dropped_victim_rows": 0}
+        if victim is None or not os.path.exists(path):
+            return stats
+        try:
+            header, rows = load_snapshot(path, fault_injector=self._faults)
+            if header.flags != FLAG_VICTIM:
+                raise SnapshotError(
+                    f"{path}: flags {header.flags} is not a victim tier"
+                )
+            if header.row_width != ROW_WIDTH:
+                raise SnapshotError(
+                    f"{path}: victim row width {header.row_width} != "
+                    f"{ROW_WIDTH}"
+                )
+            kept, rec = reconcile_rows(rows, now)
+        except (SnapshotError, OSError, ValueError) as e:
+            self.load_rejected_total += 1
+            if self._c_rejected is not None:
+                self._c_rejected.inc()
+            _log.warning(
+                "victim tier snapshot rejected (slab restores without the "
+                "tier's demoted rows): %s",
+                e,
+            )
+            return stats
+        kept = kept[kept.any(axis=1)]  # compact: the tier stores occupied
+        absorbed = victim.import_rows(kept, now)
+        dropped = rec["dropped_expired"] + rec["dropped_window"]
+        stats = {
+            "restored_victim_rows": absorbed,
+            "dropped_victim_rows": dropped,
+        }
+        if self._g_victim is not None:
+            self._g_victim.set(absorbed)
+            self._g_dropped_victim.set(dropped)
+        if absorbed or dropped:
+            _log.info(
+                "victim tier restored: %d demoted rows re-seeded (%d "
+                "dead/window-ended dropped)",
+                absorbed,
+                dropped,
+            )
+        return stats
+
     def _warn_unported_sections(self) -> None:
-        """One warning for each section file this engine cannot restore
-        (a snapshot set written by the reference with leases, federation
-        or the victim tier on): the slab restores without it."""
+        """One warning for each section file this package cannot restore
+        (a snapshot set written by the reference with federation on): the
+        rest restores without it."""
         for path_of, what, item in _UNPORTED_SECTIONS:
             path = path_of(self._dir)
             if os.path.exists(path):
                 _log.warning(
                     "%s: %s are not restored by this package (ROADMAP item "
-                    "%s); the slab restores alone",
+                    "%s); the rest restores without them",
                     path,
                     what,
                     item,

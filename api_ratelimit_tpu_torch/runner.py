@@ -9,7 +9,10 @@ sink, the transport server (with /metrics, the debug suite and
 /debug/profile), the admission controller with its shed posture, the
 backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
 memory, redis and memcache: the host backends), the ratelimit.build.*
-provenance gauges, the slab and sketch stat generators, the warm-restart
+provenance gauges, the slab and sketch stat generators, the victim tier
+(VICTIM_TIER_ENABLED: ratelimit.victim.*, GET /debug/victim and its
+watermark probe), quota leasing (LEASE_ENABLED: the lease table, its
+lease.degraded probe and ratelimit.lease.*), the warm-restart
 snapshotter (SLAB_SNAPSHOT_DIR: restore before serving, a periodic
 snapshot, the staleness probe, and a final snapshot at teardown), the
 runtime loader, the failure-mode ladder (FAILURE_MODE_DENY) and the
@@ -20,8 +23,8 @@ serve.
 The device is a constructor argument and nothing else: Runner(settings,
 device="cuda") is what service_cmd builds, and no setting or environment
 variable moves a deployment onto the CPU. Tests pass device="cpu", which
-runs the kernels' plain versions. The reference's fault injector, leases,
-federation and native codec belong to ROADMAP items 8-11.
+runs the kernels' plain versions. The reference's fault injector,
+federation, sidecar and native codec belong to ROADMAP items 8-11.
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ def create_limiter(
     stats_store: Store,
     overload=None,
     device="cuda",
+    lease_table=None,
 ) -> RateLimitCache:
     """BackendType switch (runner.go:43-64). The CUDA engine gets the
     `ratelimit` scope, so its per-stage histograms (batcher.queue_wait_ms,
@@ -111,7 +115,7 @@ def create_limiter(
     in the store /stats reads; overload (the AdmissionController) wires
     the bounded queue and the brownout into its batcher or dispatch loop.
     device: where the engine runs ("cuda", or "cpu" for the plain
-    versions); the host backends ignore it."""
+    versions); the host backends ignore it, and lease_table too."""
     backend = settings.backend_type
     if backend == "cuda":
         from .backends.cuda import CudaRateLimitCache
@@ -122,6 +126,7 @@ def create_limiter(
         if ladder is not None:
             kwargs["buckets"] = ladder
         hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
+        v_enabled, v_max_rows, v_watermark = settings.victim_config()
         return CudaRateLimitCache(
             base,
             n_slots=settings.tpu_slab_slots,
@@ -140,6 +145,9 @@ def create_limiter(
             precompile=settings.tpu_precompile,
             gcra_burst_ratio=settings.gcra_burst(),
             watermark_high=settings.slab_watermark(),
+            victim_max_rows=v_max_rows if v_enabled else 0,
+            victim_watermark=v_watermark,
+            lease_table=lease_table,
             **kwargs,
         )
     if backend == "memory":
@@ -180,6 +188,7 @@ class Runner:
         self.journeys: journeys_mod.JourneyRecorder | None = None
         self.fallback = None
         self.snapshotter = None
+        self.lease_table = None
         self._ready = threading.Event()
 
     def _build(self) -> None:
@@ -268,8 +277,32 @@ class Runner:
         )
         self.server.health.add_degraded_probe(self.overload.degraded_reason)
 
+        # quota leasing (LEASE_ENABLED; backends/lease.py): the lease table
+        # answers hot-key decisions on the host from budget the card
+        # granted. Only the in-process engine leases, and only on the
+        # compiled-matcher path: other backends, and HOST_FAST_PATH=false,
+        # boot unleased, as in the reference.
+        self.lease_table = None
+        lease_on, lease_min, lease_max, lease_ttl, lease_near = settings.lease_config()
+        if lease_on and settings.backend_type == "cuda":
+            if not settings.host_fast_path:
+                logger.warning("LEASE_ENABLED requires HOST_FAST_PATH; leasing disabled")
+            else:
+                from .backends.lease import LeaseTable
+
+                self.lease_table = LeaseTable(
+                    base,
+                    min_size=lease_min,
+                    max_size=lease_max,
+                    ttl_fraction=lease_ttl,
+                    near_limit_ratio=lease_near,
+                    scope=self.scope.scope("lease"),
+                )
+                self.server.health.add_degraded_probe(self.lease_table.degraded_reason)
+
         cache = self.cache = create_limiter(
-            settings, base, self.stats_store, self.overload, device=self.device
+            settings, base, self.stats_store, self.overload, device=self.device,
+            lease_table=self.lease_table,
         )
         engine = getattr(cache, "engine", None)
         # ratelimit.build.*: the card's facts once the engine holds it; a
@@ -289,6 +322,14 @@ class Runner:
             self.stats_store.add_stat_generator(
                 SlabHealthStats(engine, self.scope.scope("slab"))
             )
+            # the outstanding leased budget: the crash-overshoot bound's
+            # sum of budgets (backends/lease.py)
+            if self.lease_table is not None:
+                from .backends.lease import LeaseRegistryStats
+
+                self.stats_store.add_stat_generator(
+                    LeaseRegistryStats(engine.lease_registry, self.scope.scope("lease"))
+                )
             # the HotkeyStats generator is the sketch's drain cadence:
             # ratelimit.hotkeys.* and the ranked top-K of /debug/hotkeys
             if engine.hotkeys_enabled:
@@ -299,9 +340,23 @@ class Runner:
                     "/debug/hotkeys",
                     lambda: json.dumps(cache.hotkeys_debug(), indent=2),
                 )
+            # the VictimStats generator is the tier's reclamation cadence:
+            # ratelimit.victim.* on every flush, the document on
+            # /debug/victim
+            if engine.victim_enabled:
+                from .backends.cuda import VictimStats
+
+                self.stats_store.add_stat_generator(
+                    VictimStats(engine, self.scope.scope("victim"))
+                )
+            self.server.add_debug_endpoint(
+                "/debug/victim",
+                lambda: json.dumps(cache.victim_debug(), indent=2),
+            )
             # slab pressure shows in the /healthcheck body beside the
-            # overload reason
+            # overload reason, and the tier's own watermark beside it
             self.server.health.add_degraded_probe(engine.watermark_reason)
+            self.server.health.add_degraded_probe(engine.victim_watermark_reason)
 
         # Warm restart (persist/): restore the slab from the last snapshot
         # BEFORE serving (after precompile, so the first served launch
@@ -343,7 +398,11 @@ class Runner:
         if failure_mode is not None:
             from .backends.fallback import FallbackLimiter
 
-            self.fallback = FallbackLimiter(failure_mode, scope=self.scope)
+            # outstanding leases answer before the rung does: budget the
+            # card granted outlives the card's failure (lease.py)
+            self.fallback = FallbackLimiter(
+                failure_mode, scope=self.scope, lease_table=self.lease_table
+            )
             self.server.health.set_degraded_probe(self.fallback.degraded_reason)
 
         # the config loader carries the validated concurrency idle TTL,
@@ -367,6 +426,7 @@ class Runner:
             # sleeps shed instead of pinning workers through the drain
             draining_probe=lambda: not self.server.health.ok(),
             host_fast_path=settings.host_fast_path,
+            lease=self.lease_table,
         )
 
         def dump_config() -> str:

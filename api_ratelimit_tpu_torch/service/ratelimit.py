@@ -15,8 +15,9 @@ Around the cache call, as in the reference: the deadline abort and the
 brownout shed before any config work, the shed postures (OVERLOAD_SHED_MODE)
 for an OverloadError, the failure-mode ladder (FAILURE_MODE_DENY) for any
 other CacheError, the request's journey (tracing/journeys.py) and the
-active span's events and error tags, and the latency exemplar. The
-reference's lease consultation comes with leases (ROADMAP item 8).
+active span's events and error tags, and the latency exemplar. With a
+lease table (LEASE_ENABLED, backends/lease.py) a request whose descriptors
+live leases cover is answered before the cache, on the host.
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ class RateLimitService:
         overload=None,
         draining_probe: Callable[[], bool] | None = None,
         host_fast_path: bool = True,
+        lease=None,
     ):
         """config_loader turns the runtime's files into a RateLimitConfig;
         the default parses them as YAML (config/loader.py load_config).
@@ -130,7 +132,15 @@ class RateLimitService:
 
         host_fast_path: resolve descriptors through the config's compiled
         matcher and answer through cache.do_limit_resolved when the cache
-        has one (HOST_FAST_PATH); False keeps the trie walk and do_limit."""
+        has one (HOST_FAST_PATH); False keeps the trie walk and do_limit.
+
+        lease: optional backends.lease.LeaseTable (LEASE_ENABLED), the
+        frontend half of quota leasing, consulted before do_limit_resolved:
+        a request whose matched descriptors live leases (or the over-limit
+        cache) all cover is answered on the host and never reaches the
+        card; misses take the device path, which plans grants for them.
+        Rides the compiled-matcher path only (host_fast_path)."""
+        self._lease = lease if host_fast_path else None
         self._runtime = runtime
         self._cache = cache
         self._do_limit_resolved = (
@@ -371,43 +381,63 @@ class RateLimitService:
                     sleep_on_throttle = sleep_on_throttle or limit.sleep_on_throttle
                     report_details = report_details or limit.report_details
 
-        try:
-            if resolved is not None:
-                do_limit_response = self._do_limit_resolved(request, resolved)
+        # quota leasing (backends/lease.py): a request whose matched
+        # descriptors live leases (or the over-limit cache) all cover is
+        # answered here, on the host; misses take the device path below,
+        # which plans grants for them
+        do_limit_response = None
+        if self._lease is not None and resolved is not None:
+            do_limit_response = self._lease.try_answer(request, resolved)
+            if do_limit_response is not None:
+                journeys.mark(journeys.STAGE_LEASE_LOCAL)
+
+        # a leased answer skips the backend call and the ladder bookkeeping
+        if do_limit_response is None:
+            try:
+                if resolved is not None:
+                    do_limit_response = self._do_limit_resolved(request, resolved)
+                else:
+                    do_limit_response = self._cache.do_limit(request, limits)
+            except DeadlineExceededError:
+                # expired in the batcher queue or the dispatch ring: abort,
+                # never answer late, and never consult the failure ladder
+                # (its answer would still be late)
+                raise
+            except OverloadError as e:
+                # pressure, not failure: answered by the OVERLOAD_SHED_MODE
+                # posture; without a controller it surfaces (UNAVAILABLE).
+                # Overload never reaches the failure ladder, which would
+                # misread pressure as a dead card.
+                if self._overload is None:
+                    raise
+                return self._shed_answer(request, _limits_of(limits, resolved), e)
+            except CacheError as e:
+                # the failure ladder (FAILURE_MODE_DENY): a failed launch
+                # degrades to a policy decision instead of an error storm.
+                # redis_error is counted here because the exception no
+                # longer reaches the boundary counter in should_rate_limit.
+                # The lease table flips its sticky lease.degraded probe
+                # first: descriptors still holding live leases keep being
+                # answered on the host until their TTLs run out, and the
+                # fallback consults them per descriptor before its rung.
+                if self._lease is not None:
+                    self._lease.note_device_failure(e)
+                if self._fallback is None:
+                    raise
+                self._stats.redis_error.add(1)
+                span = active_span()
+                if span is not None:
+                    span.log_kv(event="fallback", failure_mode=self._fallback.mode)
+                do_limit_response = self._fallback.do_limit(
+                    request, _limits_of(limits, resolved), e
+                )
             else:
-                do_limit_response = self._cache.do_limit(request, limits)
-        except DeadlineExceededError:
-            # expired in the batcher queue or the dispatch ring: abort,
-            # never answer late, and never consult the failure ladder (its
-            # answer would still be late)
-            raise
-        except OverloadError as e:
-            # pressure, not failure: answered by the OVERLOAD_SHED_MODE
-            # posture; without a controller it surfaces (UNAVAILABLE).
-            # Overload never reaches the failure ladder, which would misread
-            # pressure as a dead card.
-            if self._overload is None:
-                raise
-            return self._shed_answer(request, _limits_of(limits, resolved), e)
-        except CacheError as e:
-            # the failure ladder (FAILURE_MODE_DENY): a failed launch
-            # degrades to a policy decision instead of an error storm.
-            # redis_error is counted here because the exception no longer
-            # reaches the boundary counter in should_rate_limit.
-            if self._fallback is None:
-                raise
-            self._stats.redis_error.add(1)
-            span = active_span()
-            if span is not None:
-                span.log_kv(event="fallback", failure_mode=self._fallback.mode)
-            do_limit_response = self._fallback.do_limit(
-                request, _limits_of(limits, resolved), e
-            )
-        else:
-            if self._fallback is not None:
-                self._fallback.note_success()
-            if self._overload is not None:
-                self._overload.note_ok()
+                if self._lease is not None:
+                    self._lease.note_success()
+                if self._fallback is not None:
+                    self._fallback.note_success()
+                if self._overload is not None:
+                    self._overload.note_ok()
         assert_(
             len(request.descriptors)
             == len(do_limit_response.descriptor_statuses)

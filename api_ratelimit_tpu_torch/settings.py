@@ -16,7 +16,7 @@ Three differences:
 * A setting that turns on a feature this package has not ported is refused
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh, a sidecar, a victim tier or leases that are not there.
+  runs a mesh, a sidecar, federation or replication that are not there.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -26,7 +26,11 @@ failure-mode ladder (FAILURE_MODE_DENY deny or allow; empty, the default,
 raises through; degraded is refused)
 and the shed postures (OVERLOAD_SHED_MODE). Warm restart is served as in the
 JAX package: SLAB_SNAPSHOT_DIR, _INTERVAL_MS and _STALE_AFTER_MS
-(snapshot_config) drive persist/snapshotter.py.
+(snapshot_config) drive persist/snapshotter.py. The victim tier
+(VICTIM_TIER_ENABLED, VICTIM_MAX_ROWS, VICTIM_WATERMARK: victim_config) and
+in-process quota leasing (LEASE_ENABLED and LEASE_*: lease_config) serve on
+BACKEND_TYPE=cuda; with a host backend LEASE_ENABLED boots unleased, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -399,6 +403,55 @@ class Settings:
             raise ValueError(f"JOURNEY_RING must be > 0, got {ring}")
         return bool(self.journey_recorder_enabled), slow_ms, retain, ring
 
+    def lease_config(self) -> tuple[bool, int, int, float, float]:
+        """Validated (enabled, min, max, ttl_fraction, near_limit_ratio)
+        for hierarchical quota leasing. Junk fails the boot like every
+        other knob — a typo'd lease bound must not silently become a
+        different overshoot contract."""
+        lease_min = int(self.lease_min)
+        lease_max = int(self.lease_max)
+        ttl_fraction = float(self.lease_ttl_fraction)
+        near_ratio = float(self.lease_near_limit_ratio)
+        if lease_min < 1:
+            raise ValueError(f"LEASE_MIN must be >= 1, got {lease_min}")
+        if lease_max < lease_min:
+            raise ValueError(
+                f"LEASE_MAX ({lease_max}) must not sit below LEASE_MIN "
+                f"({lease_min})"
+            )
+        if not 0.0 < ttl_fraction <= 1.0:
+            raise ValueError(
+                f"LEASE_TTL_FRACTION must be in (0, 1], got {ttl_fraction}"
+            )
+        if not 0.0 < near_ratio <= 1.0:
+            raise ValueError(
+                f"LEASE_NEAR_LIMIT_RATIO must be in (0, 1], got {near_ratio}"
+            )
+        return (
+            bool(self.lease_enabled),
+            lease_min,
+            lease_max,
+            ttl_fraction,
+            near_ratio,
+        )
+
+    def victim_config(self) -> tuple[bool, int, float]:
+        """Validated (enabled, max_rows, watermark) for the host-RAM
+        victim tier. Junk fails the boot like every other knob — a typo'd
+        row bound must not silently become 'no tier' (counters would go
+        back to vanishing on live eviction)."""
+        max_rows = int(self.victim_max_rows)
+        watermark = float(self.victim_watermark)
+        if max_rows < 1:
+            raise ValueError(
+                f"VICTIM_MAX_ROWS must be >= 1, got {max_rows}"
+            )
+        if not 0.0 < watermark <= 1.0:
+            raise ValueError(
+                f"VICTIM_WATERMARK must be in (0, 1], got {watermark}"
+            )
+        return bool(self.victim_tier_enabled), max_rows, watermark
+
     def snapshot_config(self) -> tuple[str, float, float]:
         """Validated (dir, interval_ms, stale_after_ms) for the warm-
         restart snapshotter; dir == "" disables. Junk fails the boot like
@@ -489,10 +542,6 @@ class Settings:
         for field, var in _SIDECAR_FIELDS:
             if getattr(self, field) != getattr(defaults, field):
                 raise _unported(var, "the sidecar transport", "8")
-        if self.lease_enabled:
-            raise _unported("LEASE_ENABLED=true", "quota leasing", "8")
-        if self.victim_tier_enabled:
-            raise _unported("VICTIM_TIER_ENABLED=true", "the victim tier", "6")
         if self.fed_enabled:
             raise _unported("FED_ENABLED=true", "quota federation", "9")
         if self.partitions != 1 or self.partition_addrs.strip():

@@ -1,6 +1,6 @@
 """Host oracles of the slab step, numpy only: copies of
-api_ratelimit_tpu/testing/oracle.py SetSlabOracle, occurrence_rank and
-parity_report.
+api_ratelimit_tpu/testing/oracle.py SetSlabOracle, occurrence_rank,
+parity_report and VictimOracle.
 
 SetSlabOracle is the exact sequential model of the W-way slab step for every
 algorithm (fixed window, sliding window, GCRA, concurrency and its release
@@ -371,3 +371,63 @@ def parity_report(
         "false_ok": int(np.sum(~got_over & want_over)),
         "oracle_over_frac": float(np.mean(want_over)),
     }
+
+
+class VictimOracle:
+    """Exact UNBOUNDED per-key fixed-window reference for the tiered-slab
+    differential bound (tests/test_torch_victim.py, chip_smoke.py's tiers
+    phase). Unlike SetSlabOracle this
+    model has no sets, no ways, and no capacity — it never evicts, so it
+    never loses a live counter. That makes it the reference the victim
+    tier is measured against: with the tier ON, the engine's false admits
+    (engine says OK where this oracle says OVER) are bounded by exactly
+    the losses the hierarchy still takes —
+
+        false_admits <= slab in-batch contention drops (HEALTH drops)
+                        + tier overflow_lost_count_sum
+                        + tier TTL/window reclamation of still-live rows
+
+    and a structured stream (one key per slab set per batch, keyspace
+    within VICTIM_MAX_ROWS, fixed clock) drives every term to zero, so
+    the test asserts false_admits == 0 outright. The tier-OFF control
+    under the identical stream pins a NON-zero false-admit count — the
+    measured silent loss the tier ends."""
+
+    def __init__(self):
+        # (fp_lo, fp_hi) -> [window_start, count]
+        self._rows: dict = {}
+
+    def step_batch(self, items, now: int):
+        """items: (fp_lo, fp_hi, hits, limit, divider, jitter) — the
+        SetSlabOracle item tuple, fixed-window rows only. Duplicates in a
+        batch serialize in arrival order (the slab's own discipline).
+        Returns codes (1 = OK, 2 = OVER when after > limit, 0 = padding)
+        in arrival order."""
+        now = int(now)
+        codes = []
+        for fp_lo, fp_hi, hits, limit, raw_div, _jit in items:
+            hits = int(hits)
+            if hits <= 0:
+                codes.append(0)
+                continue
+            algo = (int(raw_div) >> ALGO_SHIFT) & 7
+            if algo != ALGO_FIXED_WINDOW:
+                raise AssertionError(
+                    "VictimOracle models fixed_window only: the victim "
+                    "differential test constructs fixed-window streams"
+                )
+            div = max(int(raw_div) & ALGO_DIV_MASK, 1)
+            window = (now // div) * div
+            key = (int(fp_lo), int(fp_hi))
+            row = self._rows.get(key)
+            if row is None or row[0] != window:
+                row = [window, 0]
+                self._rows[key] = row
+            row[1] += hits
+            codes.append(2 if row[1] > int(limit) else 1)
+        return codes
+
+    def count(self, fp_lo: int, fp_hi: int) -> int:
+        """The key's exact current-window count (0 when never seen)."""
+        row = self._rows.get((int(fp_lo), int(fp_hi)))
+        return int(row[1]) if row else 0

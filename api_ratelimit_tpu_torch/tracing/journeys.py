@@ -50,6 +50,10 @@ import time
 STAGES = ("publish", "take", "pack", "launch", "redeem", "scatter")
 # the owner-thread half of the itinerary, as carried by dispatch tickets
 OWNER_STAGES = ("take", "pack", "launch", "redeem", "scatter")
+# requests answered on the host from a leased budget slice
+# (backends/lease.py) mark this single stage instead of the device set:
+# /debug/journeys shows which requests never reached the card
+STAGE_LEASE_LOCAL = "lease_local"
 # per-algorithm decision tags (backends/cuda.py ALGO_JOURNEY_STAGES marks
 # one on every over-limit decision): a slow or shed journey shows which
 # decision kernel — fixed/sliding window, GCRA, concurrency — denied it
@@ -69,8 +73,8 @@ FLAG_OVER_LIMIT = "over_limit"
 # last drain (backends/cuda.py drain_hotkeys): "slow AND hot" is the gold
 # tail-sample — contention on the hot head, not a cold-path stall
 FLAG_HOTKEY = "hotkey"
-# the reference's lease_local stage and failover / fed flags come with
-# leases, the sidecar and federation (ROADMAP items 8 and 9)
+# the reference's failover and fed flags come with the sidecar and
+# federation (ROADMAP items 8 and 9)
 
 
 class Journey:

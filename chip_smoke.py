@@ -223,7 +223,45 @@ Phases, each of which must pass (nothing is caught):
            byte-identical, one launch of each kernel a call. Prints one
            "warm_restart:" JSON line with the card's name and power limit;
            nothing of it is claimed.
-12. report per-kernel median device times (torch.profiler) and CUDA-event
+12. tiers  the victim tier and in-process leases at the default deployment
+           (2^22 slots, W = 128, the production sketch, VICTIM_MAX_ROWS
+           2^20, VICTIM_WATERMARK 0.85). (a) bench.py
+           bench_keyspace_overload's structure at this geometry: one key a
+           set a launch over 1024 of the 32768 sets, each set
+           round-robining 5 x 128 = 640 keys (655,360 keys, 5x those sets'
+           ways), limit 1, divider 3600, one clock, 1600 launches of 1024
+           items, through a tier-off and a tier-on engine in turns, every
+           decision held against VictimOracle: tier on, false admits <=
+           drops + overflow_lost_count_sum, here exactly 0; tier off, false
+           admits > 0; false overs 0 on both; the tier holds 1024 x 512
+           rows, under its watermark. A plain-kernel twin of the tier-on
+           engine (the way scan, apply and sketch update swapped for their
+           plain versions) over 64 launches from launch 0 and 64 from
+           launch 640 (from the kernel engine's table and tier there; every
+           one promotes): afters every launch, then table bytes and tier
+           rows identical. Launch counts: each launch one way scan, apply
+           and sketch update, and each promote pass one way scan in its
+           multi-algorithm instantiation (the reference's default). Prints
+           demotes, promotes, tier rows, launch ms on each arm, the gap per
+           tier event and the promote passes; the kernels line gains the
+           multi way scan at a promote's shape. (b) phase 3's Zipf(1.1)
+           stream at the 65536 bucket, tier on against off in A B B A
+           order: submit_rows medians, the demote drain's host ms, the
+           device activities of a submit in each arm with the added ones
+           named. (c) snapshot_once of the tier-on engine, restore() into a
+           fresh one: the restored tier equals the exported rows after
+           reconcile_rows. (d) two Runners at phase 9's deployment,
+           LEASE_ENABLED true and false, one fake clock that does not move:
+           2048 sequential single-hit v3 calls on six hot keys, limits
+           crossed, byte-identical; the lease arm answers some on the host,
+           launches less and holds liabilities. Its drain snapshot's
+           leases.snap restores into a third Runner, and per key the calls
+           admitted before and after the restart stay within the limit.
+           Last, LEASE_ENABLED with TPU_BATCH_WINDOW=200us (the dispatch
+           loop) against the lease-off Runner on fresh keys. Prints one
+           "tiers:" JSON line with the card's name and power limit;
+           nothing of it is claimed.
+13. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -236,8 +274,9 @@ Phases, each of which must pass (nothing is caught):
            that step's before/after); the standalone sketch scan, now on no
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
-           kernel; the process, observability and warm restart phases'
-           lines, the card's name and power limit, then the ok line.
+           kernel; the process, observability, warm restart and tiers
+           phases' lines, the card's name and power limit, then the ok
+           line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -3931,6 +3970,447 @@ def phase_warm_restart(M, K, device: str = "cuda", **overrides) -> dict:
     return out
 
 
+# the tiers phase (12): bench.py bench_keyspace_overload's structure at the
+# default deployment's geometry (2^22 slots, W = 128, the production sketch,
+# the VICTIM_MAX_ROWS and VICTIM_WATERMARK defaults)
+TIER_SETS = 1024  # the sets the stream touches, of 2^22 / 128 = 32768
+TIER_WAYS = 128
+TIER_POOL = 5 * TIER_WAYS  # the keys a set round-robins: 5x its ways
+TIER_ROUNDS = 1600  # launches of TIER_SETS items, one key a set
+TIER_LIMIT, TIER_DIVIDER = 1, 3600
+TIER_MAX_ROWS, TIER_WATERMARK = 1 << 20, 0.85
+TIER_PLAIN_ROUNDS = 64  # each window of the plain-kernel twin
+TIER_PLAIN_FROM = (0, TIER_POOL)  # the first launches; the first second-pass launches, which promote
+TIER_COST_BLOCKS = 16  # phase 3's 65536-item Zipf blocks, tier on against off
+LEASE_CALLS = 2048  # the sequential v3 stream on a few hot keys
+LEASE_AFTER_CALLS = 512  # the calls after the restart
+LEASE_WINDOW_CALLS = 256  # the dispatch loop's run
+LEASE_KEYS = (  # (descriptor, the rule's limit in the phase's one window)
+    ([("user", "u1")], 20), ([("user", "u2")], 20), ([("user", "u3")], 20),
+    ([("tenant", "t1"), ("path", "/p1")], 400), ([("tenant", "t2"), ("path", "/p2")], 400),
+    ([("ip", "10.0.0.1")], 10),
+)
+
+
+def launch_counts(K) -> collections.Counter:
+    """Every launch counter: LAUNCHES by kernel, and the way scan's form
+    counters under way_scan/<form> and way_scan_multi/<form>."""
+    out = collections.Counter(K.LAUNCHES)
+    out.update({f"way_scan/{k}": v for k, v in K.WAY_SCAN_FORMS.items()})
+    out.update({f"way_scan_multi/{k}": v for k, v in K.WAY_SCAN_MULTI_FORMS.items()})
+    return out
+
+
+def tier_block(r: int, n_sets: int) -> np.ndarray:
+    """Launch r of the overload stream: one key a set over TIER_SETS sets
+    spread across the slab, each set round-robining TIER_POOL keys. The set
+    is fp_lo's low bits, the key's id the bits above them and fp_hi's top 16
+    bits (colliding keys need distinct top bits, as in bench.py)."""
+    uid = np.uint64(r % TIER_POOL)
+    sets = np.arange(TIER_SETS, dtype=np.uint64) * np.uint64(n_sets // TIER_SETS)
+    block = np.empty((6, TIER_SETS), np.uint32)
+    block[0] = sets | (uid << np.uint64(n_sets.bit_length() - 1))
+    block[1] = (int(uid) + 1) << 16
+    block[2] = 1
+    block[3] = TIER_LIMIT
+    block[4] = TIER_DIVIDER
+    block[5] = 0
+    return block
+
+
+def tier_engine(M, clock, device, n_slots: int, victim_max_rows: int):
+    return M.cuda_mod.SlabDeviceEngine(
+        clock, n_slots=n_slots, ways=TIER_WAYS, buckets=BUCKETS, device=device,
+        hotkey_lanes=HOTKEY_LANES, hotkey_k=HOTKEY_K,
+        victim_max_rows=victim_max_rows, victim_watermark=TIER_WATERMARK,
+    )
+
+
+def sorted_rows(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def tier_overload(M, K, device: str, n_slots: int, rounds: int) -> dict:
+    """Step (a): the overload stream through the tier-off and tier-on
+    engines, in turns (which goes first alternates), each decision held
+    against VictimOracle; a plain-kernel twin of the tier-on engine over
+    TIER_PLAIN_ROUNDS launches from each of TIER_PLAIN_FROM, from the
+    kernel engine's state there; per-arm launch counts."""
+    from api_ratelimit_tpu_torch.testing.oracle import VictimOracle
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource
+
+    n_sets = n_slots // TIER_WAYS
+    clocks = {name: FakeTimeSource(NOW0) for name in ("off", "on", "plain")}
+    arms = {"off": tier_engine(M, clocks["off"], device, n_slots, 0),
+            "on": tier_engine(M, clocks["on"], device, n_slots, TIER_MAX_ROWS)}
+    oracle = VictimOracle()
+    stats = {name: {"false_admits": 0, "false_overs": 0, "launch_ms": []} for name in arms}
+    launches = {name: collections.Counter() for name in arms}
+    promote_rounds = oracle_overs = 0
+    plain, plain_checks = None, []
+    K.reset_launch_counts()
+    for r in range(rounds):
+        block = tier_block(r, n_sets)
+        items = [(lo, hi, 1, TIER_LIMIT, TIER_DIVIDER, 0) for lo, hi in zip(block[0].tolist(), block[1].tolist())]
+        over = np.asarray(oracle.step_batch(items, NOW0)) == 2
+        oracle_overs += int(over.sum())
+        promotes_before = arms["on"].victim_tier.promotes_total
+        got = {}
+        for name in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            before = launch_counts(K)
+            t0 = time.perf_counter()
+            got[name] = arms[name].submit_rows(block).copy()
+            stats[name]["launch_ms"].append((time.perf_counter() - t0) * 1e3)
+            launches[name] += launch_counts(K) - before
+            admitted = got[name] <= TIER_LIMIT
+            stats[name]["false_admits"] += int((over & admitted).sum())
+            stats[name]["false_overs"] += int((~over & ~admitted).sum())
+        promote_rounds += arms["on"].victim_tier.promotes_total > promotes_before
+        if r in TIER_PLAIN_FROM:
+            # the twin starts from the kernel engine's state before launch r
+            plain = tier_engine(M, clocks["plain"], device, n_slots, TIER_MAX_ROWS)
+            plain_start = r
+            if r:
+                plain.import_tables(plain_tables)
+                plain.victim_tier.import_rows(plain_tier, NOW0)
+        if plain is not None:
+            with plain_kernels(M):
+                want = plain.submit_rows(block).copy()
+            check(np.array_equal(got["on"], want), f"the plain-kernel twin's afters differ at launch {r}")
+            if r == plain_start + TIER_PLAIN_ROUNDS - 1:
+                check(np.array_equal(arms["on"].export_tables()[0], plain.export_tables()[0]), f"the plain twin's table differs after launch {r}")
+                check(np.array_equal(sorted_rows(arms["on"].victim_tier.export_rows()), sorted_rows(plain.victim_tier.export_rows())),
+                      f"the plain twin's tier differs after launch {r}")
+                plain_checks.append({"from": plain_start, "launches": TIER_PLAIN_ROUNDS,
+                                     "tier_rows": plain.victim_tier.rows, "promotes": plain.victim_tier.promotes_total})
+                plain.close()
+                plain = None
+        if r + 1 in TIER_PLAIN_FROM:
+            plain_tables = arms["on"].export_tables()
+            plain_tier = arms["on"].victim_tier.export_rows()
+    on, off = arms["on"], arms["off"]
+    tier = on.victim_tier
+    h_on, h_off = on.health_snapshot(), off.health_snapshot()
+    bound = h_on["drops"] + tier.overflow_lost_count_sum
+    check(stats["on"]["false_admits"] <= bound and bound == 0, f"tier on: {stats['on']['false_admits']} false admits, bound {bound}")
+    check(stats["off"]["false_admits"] > 0, "the tier-off control admitted nothing the oracle refused: the stream lost its teeth")
+    check(stats["on"]["false_overs"] == stats["off"]["false_overs"] == 0, f"false overs: {stats['on']['false_overs']} on, {stats['off']['false_overs']} off")
+    want_rows = TIER_SETS * (TIER_POOL - TIER_WAYS) if rounds >= TIER_POOL else None
+    if want_rows is not None:
+        check(tier.rows == want_rows, f"the tier holds {tier.rows} rows, expected {want_rows}")
+    check(tier.rows < TIER_MAX_ROWS * TIER_WATERMARK and tier.watermark_reason() is None, "the tier passed its watermark")
+    check(promote_rounds > 0 or rounds <= TIER_POOL, "no launch promoted")
+    if device == "cuda":  # the plain versions on the CPU count no launch
+        multi = sum(launches["on"][f"way_scan_multi/{f}"] for f in ("set_major", "per_item"))
+        check(multi == promote_rounds, f"{promote_rounds} promote passes ran {multi} multi-algorithm way scans")
+        check(launches["on"]["way_scan"] == rounds + multi, f"tier-on way scans: {launches['on']['way_scan']} for {rounds} launches + {multi} promotes")
+        for name in arms:
+            for kernel in ("slab_apply", "sketch_update"):
+                check(launches[name][kernel] == rounds, f"{name}: {kernel} launched {launches[name][kernel]} times in {rounds} launches")
+        check(launches["off"]["way_scan"] == rounds and not any(launches["off"][f"way_scan_multi/{f}"] for f in ("set_major", "per_item")),
+              f"tier-off launches: {dict(launches['off'])}")
+    events = tier.demotes_total + tier.promotes_total + tier.overflow_drops_total
+    on_s, off_s = sum(stats["on"]["launch_ms"]) / 1e3, sum(stats["off"]["launch_ms"]) / 1e3
+    out = {
+        "n_slots": n_slots, "ways": TIER_WAYS, "sets": TIER_SETS, "pool": TIER_POOL,
+        "keyspace": TIER_SETS * TIER_POOL, "multiplier": TIER_POOL // TIER_WAYS, "launches": rounds,
+        "items_per_launch": TIER_SETS, "decisions": rounds * TIER_SETS, "oracle_overs": oracle_overs,
+        "victim_max_rows": TIER_MAX_ROWS,
+        "on": {
+            "false_admits": stats["on"]["false_admits"], "false_overs": stats["on"]["false_overs"],
+            "drops": h_on["drops"], "overflow_lost_count_sum": tier.overflow_lost_count_sum,
+            "evictions_live": h_on["evictions_live"], "demotes": tier.demotes_total,
+            "promotes": tier.promotes_total, "tier_rows": tier.rows, "overflow_drops": tier.overflow_drops_total,
+            "promote_passes": promote_rounds, "launch_s": on_s,
+            "launch_ms_median": float(np.median(stats["on"]["launch_ms"])),
+            "drain_ms_median": [float(np.median([w for w, _a in on.victim_drain_times])),
+                                float(np.median([a for _w, a in on.victim_drain_times]))],
+        },
+        "off": {
+            "false_admits": stats["off"]["false_admits"], "false_overs": stats["off"]["false_overs"],
+            "evictions_live": h_off["evictions_live"], "loss_ppm": h_off["loss_ppm"], "launch_s": off_s,
+            "launch_ms_median": float(np.median(stats["off"]["launch_ms"])),
+        },
+        "tier_event_us": (on_s - off_s) / events * 1e6 if events else None,
+        "launch_counts": {name: dict(c) for name, c in launches.items()},
+        "plain_twin": plain_checks,
+    }
+    return out, arms
+
+
+def tier_promote_row(M, dev, eng, n_slots: int, err: dict) -> dict:
+    """The kernels line's row of the way scan's multi-algorithm
+    instantiation at a promote's shape: the fingerprints the tier-on
+    engine's next launch promotes, padded to their bucket as the engine
+    pads them, over its table; kernel against the plain version."""
+    K = M.K
+    block = tier_block(TIER_ROUNDS, n_slots // TIER_WAYS)
+    rows = eng.victim_tier.lookup_batch(block[0], block[1])
+    check(rows is not None, "the next launch would promote nothing")
+    k = rows.shape[0]
+    padded = np.zeros((eng._bucket_for(k), 8), np.uint32)
+    padded[:k] = rows
+    lo, hi = i32(padded[:, 0], dev), i32(padded[:, 1], dev)
+    table = eng._state.table
+    args = (table, lo, hi, NOW0, TIER_WAYS)
+    err["way_scan_multi_promote"] = max_abs_err(K.way_scan(*args, multi_algo=True), K.way_scan_plain(*args, multi_algo=True))
+    check(err["way_scan_multi_promote"] == 0, "the promote's multi-algorithm way scan differs from its plain version")
+    b = lo.shape[0]
+    sets = int(torch.unique(lo & (table.shape[0] // TIER_WAYS - 1)).numel())
+    return {
+        "name": "way_scan_multi",
+        "route": "cuda",
+        "source": SOURCES["way_scan_multi"],
+        "replaces": REPLACES["way_scan_multi"],
+        "shape": f"b={b}, W={TIER_WAYS}, {table.shape[0]}-slot table, a victim-tier promote ({k} rows)",
+        "max_abs_err": err["way_scan_multi_promote"],
+        "ms": device_ms(lambda: K.way_scan(*args, multi_algo=True)),
+        "plain_ms": device_ms(lambda: K.way_scan_plain(*args, multi_algo=True), iters=5),
+        "bound_ms": (sets * TIER_WAYS * 32 + b * (8 + 4 + 1 + 32)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "call_ms": call_ms(lambda: K.way_scan(*args, multi_algo=True)),
+        "plain_call_ms": call_ms(lambda: K.way_scan_plain(*args, multi_algo=True), iters=5),
+        "form": K.way_scan_form(b, table.shape[0] // TIER_WAYS, TIER_WAYS),
+        "path": "victim_tier",
+    }
+
+
+def tier_cost(M, K, device: str, n_slots: int, profiled: bool = True) -> dict:
+    """Step (b): phase 3's Zipf(1.1) stream (2^20 keys) at the 65536
+    bucket into a tier-on and a tier-off engine, each block to both in A B
+    B A order: submit_rows medians, the demote drain's host ms, and (on the
+    card) the device activities of a submit in each arm with the ones the
+    tier adds, by name. Printed, not claimed."""
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource
+
+    rng = np.random.default_rng(2)
+    arms = {"on": tier_engine(M, FakeTimeSource(NOW0), device, n_slots, TIER_MAX_ROWS),
+            "off": tier_engine(M, FakeTimeSource(NOW0), device, n_slots, 0)}
+    blocks = [key_block(zipf_keys(rng, BUCKETS[-1])) for _ in range(TIER_COST_BLOCKS)]
+    ms = {name: [] for name in arms}
+    for i, block in enumerate(blocks):
+        for name in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            t0 = time.perf_counter()
+            got = arms[name].submit_rows(block)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "on":
+                want_on = got.copy()
+            else:
+                want_off = got.copy()
+        check(np.array_equal(want_on, want_off) or arms["on"].victim_tier.demotes_total, f"block {i}: the tier changed afters without a demote")
+    drains = list(arms["on"].victim_drain_times)[-TIER_COST_BLOCKS:]
+    out = {
+        "blocks": TIER_COST_BLOCKS, "batch": BUCKETS[-1],
+        "submit_rows_ms_median": {name: float(np.median(v)) for name, v in ms.items()},
+        "drain_wait_ms_median": float(np.median([w for w, _a in drains])),
+        "drain_absorb_ms_median": float(np.median([a for _w, a in drains])),
+        "demotes": arms["on"].victim_tier.demotes_total,
+    }
+    if profiled:
+        block = blocks[0]
+        (on, on_us), (off, off_us) = (traced_calls(lambda e=arms[n]: e.submit_rows(block), 5) for n in ("on", "off"))
+        extra = collections.Counter(on) - collections.Counter(off)
+        out["activities"] = {
+            "on": sum(on.values()), "off": sum(off.values()),
+            "device_ms_on": summed_ms(on, on_us), "device_ms_off": summed_ms(off, off_us),
+            "added": sorted((name[:60], n) for name, n in extra.items()),
+            "removed": sorted((name[:60], n) for name, n in (collections.Counter(off) - collections.Counter(on)).items()),
+        }
+    for eng in arms.values():
+        eng.close()
+    return out
+
+
+def tier_snapshot(M, device: str, n_slots: int, eng) -> dict:
+    """Step (c): snapshot_once of the tier-on engine after (a), then
+    restore() into a fresh tier-on engine: its tier holds exactly the
+    exported rows after reconcile_rows, and its slab the exported table."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.persist.snapshot import reconcile_rows
+    from api_ratelimit_tpu_torch.persist.snapshotter import SlabSnapshotter
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource
+
+    clock = FakeTimeSource(NOW0 + 30)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiers_") as snap_dir:
+        t0 = time.perf_counter()
+        wrote = SlabSnapshotter(eng, snap_dir, interval_ms=WARM_SNAPSHOT_MS, time_source=clock).snapshot_once()
+        t1 = time.perf_counter()
+        check(wrote > 0 and os.path.exists(os.path.join(snap_dir, "victim.snap")), "snapshot_once wrote no victim.snap")
+        victim_bytes = os.path.getsize(os.path.join(snap_dir, "victim.snap"))
+        fresh = tier_engine(M, clock, device, n_slots, TIER_MAX_ROWS)
+        t2 = time.perf_counter()
+        stats = SlabSnapshotter(fresh, snap_dir, interval_ms=WARM_SNAPSHOT_MS, time_source=clock).restore()
+        t3 = time.perf_counter()
+    want, rec = reconcile_rows(eng.victim_tier.export_rows(), int(clock.unix_now()))
+    want = want[want.any(axis=1)]
+    got = fresh.victim_tier.export_rows()
+    check(np.array_equal(sorted_rows(got), sorted_rows(want)), "the restored tier differs from the exported rows after reconcile_rows")
+    check(stats["restored_victim_rows"] == want.shape[0] > 0, f"restore_stats {stats}")
+    check(np.array_equal(fresh.export_tables()[0], reconcile_rows(eng.export_tables()[0], int(clock.unix_now()))[0]), "the restored slab differs")
+    fresh.close()
+    return {
+        "victim_snap_bytes": victim_bytes, "rows": int(want.shape[0]), "reconcile": rec,
+        "snapshot_once_ms": (t1 - t0) * 1e3, "restore_ms": (t3 - t2) * 1e3,
+        "restored_victim_rows": stats["restored_victim_rows"], "dropped_victim_rows": stats["dropped_victim_rows"],
+    }
+
+
+def lease_requests(rng, n: int, salt: str = "") -> list:
+    """n single-descriptor v3 requests of one hit over LEASE_KEYS (a
+    hot-skewed choice), `salt` appended to every value."""
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    picks = rng.choice(len(LEASE_KEYS), n, p=np.array([8, 4, 2, 6, 3, 1]) / 24)
+    out = []
+    for i in picks.tolist():
+        req = rls_v3.RateLimitRequest(domain="proc")
+        entry = req.descriptors.add()
+        for k, v in LEASE_KEYS[i][0]:
+            entry.entries.add(key=k, value=v + salt)
+        out.append(req)
+    return out
+
+
+def lease_run(K, runner, reqs: list) -> tuple[list, collections.Counter]:
+    """The requests through runner in order, with the launches they ran."""
+    K.reset_launch_counts()
+    got = warm_calls([runner], None, reqs, [0] * len(reqs), 0, len(reqs))[0]
+    return got, launch_counts(K)
+
+
+def admitted_per_key(reqs: list, raws: list) -> collections.Counter:
+    out = collections.Counter()
+    for req, raw in zip(reqs, raws):
+        if verdicts(raw) == [1]:
+            out[descriptor_keys(req)[0]] += 1
+    return out
+
+
+def tier_leases(K, device: str, overrides: dict) -> dict:
+    """Step (d): two Runners at phase 9's deployment, LEASE_ENABLED true
+    and false, on one fake clock that does not move: the same sequential
+    stream of single-hit v3 calls on LEASE_KEYS, limits crossed, answered
+    byte for byte alike, the lease arm with local answers, fewer launches
+    and outstanding liabilities. The lease arm stops (its drain snapshot
+    writes leases.snap); a Runner booted from the files restores the
+    liabilities, and per key the restart admits no more than the limit in
+    the window. Last, LEASE_ENABLED with TPU_BATCH_WINDOW=200us (the
+    dispatch loop) against the lease-off Runner on fresh keys."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    rng = np.random.default_rng(41)
+    reqs = lease_requests(rng, LEASE_CALLS)
+    after_reqs = lease_requests(rng, LEASE_AFTER_CALLS)
+    window_reqs = lease_requests(rng, LEASE_WINDOW_CALLS, salt="w")
+    limits = {tuple(tuple(p) for p in d): lim for d, lim in LEASE_KEYS}
+    runners = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_leases_") as scratch:
+        root, snap_dir = os.path.join(scratch, "runtime"), os.path.join(scratch, "snap")
+        process_runtime(root)
+        clock = FakeTimeSource(NOW0)
+        install_process_time_source(clock)
+        try:
+            off, _ = process_boot(process_env(root, LEASE_ENABLED="false", **overrides), device=device)
+            runners.append(off)
+            on, _ = process_boot(warm_env(root, snap_dir, LEASE_ENABLED="true", **overrides), device=device)
+            runners.append(on)
+            check(on.lease_table is not None and off.lease_table is None, "LEASE_ENABLED did not build the lease table")
+            got_off, launches_off = lease_run(K, off, reqs)
+            got_on, launches_on = lease_run(K, on, reqs)
+            check(got_on == got_off, "the lease arm's answers differ from the lease-off arm's")
+            codes = collections.Counter(v for raw in got_on for v in verdicts(raw))
+            check(codes[1] > 0 and codes[2] > 0, f"the lease stream did not cross a limit: {dict(codes)}")
+            counters = on.stats_store.debug_snapshot()
+            local_hits = counters.get("ratelimit.lease.local_hits", 0)
+            entries, tokens = on.cache.engine.lease_registry.outstanding()
+            check(local_hits > 0, f"no call was answered from a lease: {counters}")
+            if device == "cuda":
+                check(launches_on["slab_apply"] < launches_off["slab_apply"] == len(reqs),
+                      f"launches: {launches_on['slab_apply']} with leases, {launches_off['slab_apply']} without")
+            check(entries > 0 and tokens > 0, "no lease liability is outstanding")
+            before = admitted_per_key(reqs, got_on)
+            on.stop()
+            runners.remove(on)
+            back, _ = process_boot(warm_env(root, snap_dir, LEASE_ENABLED="true", **overrides), device=device)
+            runners.append(back)
+            restored = back.snapshotter.restore_stats
+            check(restored.get("restored_leases", 0) > 0, f"leases.snap restored nothing: {restored}")
+            got_after, _ = lease_run(K, back, after_reqs)
+            after = admitted_per_key(after_reqs, got_after)
+            totals = {str(k): (before[k], after[k], limits[k]) for k in limits}
+            over = {k: v for k, v in totals.items() if v[0] + v[1] > v[2]}
+            check(not over, f"the restart admitted past a limit: {over}")
+            win, _ = process_boot(process_env(root, LEASE_ENABLED="true", TPU_BATCH_WINDOW="200us", **overrides), device=device)
+            runners.append(win)
+            check(win.cache.engine.dispatch_loop is not None, "TPU_BATCH_WINDOW=200us did not start the dispatch loop")
+            got_win, _ = lease_run(K, win, window_reqs)
+            want_win, _ = lease_run(K, off, window_reqs)
+            check(got_win == want_win, "the dispatch loop's lease answers differ from the lease-off runner's")
+            win_local = win.stats_store.debug_snapshot().get("ratelimit.lease.local_hits", 0)
+            check(win_local > 0 and win.cache.engine.lease_registry.outstanding()[0] > 0, "the dispatch loop's leases did not answer locally")
+        finally:
+            for r in runners:
+                r.stop()
+            install_process_time_source(RealTimeSource())
+    return {
+        "calls": len(reqs), "codes": dict(codes), "local_hits": local_hits,
+        "slab_apply_launches": {"lease_on": launches_on["slab_apply"], "lease_off": launches_off["slab_apply"]},
+        "outstanding": [entries, tokens],
+        "restore_stats": {k: restored.get(k) for k in ("restored", "restored_leases", "dropped_leases")},
+        "admitted_before_after_limit": totals,
+        "dispatch_loop": {"calls": len(window_reqs), "local_hits": win_local},
+    }
+
+
+def phase_tiers(M, K, device: str = "cuda", n_slots: int = N_SLOTS, rounds: int = TIER_ROUNDS, profiled: bool = True, **overrides) -> dict:
+    """The victim tier and leases at the default deployment (module
+    docstring, phase 12). `overrides`: environment variables for the
+    runners of step (d) (a small slab on the CPU)."""
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def lap(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    dev = torch.device(device)
+    overload, arms = tier_overload(M, K, device, n_slots, rounds)
+    lap("overload")
+    err: dict = {}
+    row = tier_promote_row(M, dev, arms["on"], n_slots, err) if device == "cuda" else None
+    if row is not None:
+        row["launches"] = overload["on"]["promote_passes"]
+    lap("promote_row")
+    snap = tier_snapshot(M, device, n_slots, arms["on"])
+    lap("snapshot")
+    for eng in arms.values():
+        eng.close()
+    del arms
+    cost = tier_cost(M, K, device, n_slots, profiled=profiled)
+    lap("cost")
+    leases = tier_leases(K, device, overrides)
+    lap("leases")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    ) if device == "cuda" else None
+    out = {
+        "overload": overload, "snapshot": snap, "cost": cost, "leases": leases,
+        "card": smi.stdout.strip() if smi is not None else "not measured (cpu)",
+        "phase_s": time.perf_counter() - t_phase, "step_s": steps,
+    }
+    on, off = overload["on"], overload["off"]
+    log(
+        f"tiers: {overload['keyspace']} keys ({overload['multiplier']}x the touched sets' ways), false admits "
+        f"{on['false_admits']} on / {off['false_admits']} off, {on['demotes']} demotes, {on['promotes']} promotes, "
+        f"{on['tier_rows']} tier rows, launch {on['launch_ms_median']:.3f}/{off['launch_ms_median']:.3f} ms on/off, "
+        f"leases {leases['local_hits']} local hits ({out['phase_s']:.1f} s)"
+    )
+    return out, row
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -3996,6 +4476,8 @@ def main() -> int:
     process = phase_process(K)
     observability = phase_observability(K)
     warm = phase_warm_restart(M, K)
+    tiers, promote_row = phase_tiers(M, K)
+    kernels.append(promote_row)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4005,6 +4487,7 @@ def main() -> int:
     log("process:", json.dumps(process | {"card": smi.stdout.strip()}))
     log("observability:", json.dumps(observability))
     log("warm_restart:", json.dumps(warm))
+    log("tiers:", json.dumps(tiers))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

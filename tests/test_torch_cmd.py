@@ -156,7 +156,7 @@ def test_service_cmd_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_service_cmd_refuses_an_unported_knob(tmp_path):
-    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", LEASE_ENABLED="true"))
+    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", FED_ENABLED="true"))
     _out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
-    assert "ROADMAP item 8" in err
+    assert "ROADMAP item 9" in err

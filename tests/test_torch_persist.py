@@ -528,22 +528,48 @@ class TestSnapshotter:
     )
     def test_unported_section_warns_and_restores_the_slab(self, tmp_path, caplog, section, item):
         """A snapshot set from a reference deployment with leases,
-        federation or the victim tier: one warning naming the item, and the
-        slab restores alone with the reference's (zero) section counts."""
+        federation or the victim tier. fed.snap (item 9, unported): one
+        warning naming the item, and the slab restores alone with the
+        reference's (zero) section counts. leases.snap (item 8's in-process
+        half, ported): restored as the JAX snapshotter restores the same
+        files, with its restore_stats, its floors and its registry.
+        victim.snap (item 6, ported) into a tier-less engine: ignored
+        without a warning, as the reference's tier-less engine ignores it."""
         ts = FakeTimeSource(NOW)
         eng = _engine(ts)
         _hit(eng, n=3)
         _snapshotter(eng, tmp_path, ts).snapshot_once()
-        write_snapshot(str(tmp_path / section), _lease_rows(np.random.default_rng(0)), created_at=NOW, flags=1)
+        rows = _lease_rows(np.random.default_rng(0))
+        if section == "leases.snap":
+            # one live liability on the slab's own row, its floor (9) above
+            # the restored count (3)
+            rows[0] = (0xBEEF, 0, NOW - NOW % 1000, 8, 0, 9, NOW + 10, 0)
+        write_snapshot(str(tmp_path / section), rows, created_at=NOW, flags=1)
         eng2 = _engine(ts)
         with caplog.at_level("WARNING", logger="ratelimit.persist"):
             stats = _snapshotter(eng2, tmp_path, ts).restore()
         warnings = [r.getMessage() for r in caplog.records if section in r.getMessage()]
-        assert len(warnings) == 1 and f"ROADMAP item {item}" in warnings[0]
         assert stats["restored"] == 1
-        for key in ("restored_leases", "restored_fed_shares", "restored_victim_rows"):
-            assert stats[key] == 0
-        assert _hit(eng2) == [4]
+        if section == "fed.snap":
+            assert len(warnings) == 1 and f"ROADMAP item {item}" in warnings[0]
+            for key in ("restored_leases", "restored_fed_shares", "restored_victim_rows"):
+                assert stats[key] == 0
+            assert _hit(eng2) == [4]
+            return
+        assert warnings == []
+        if section == "victim.snap":
+            assert eng2.victim_tier is None
+            assert stats["restored_victim_rows"] == stats["dropped_victim_rows"] == 0
+            assert _hit(eng2) == [4]
+            return
+        jax_eng = JaxEngine(JaxClock(NOW), n_slots=1 << 10, buckets=(128,), use_pallas=False)
+        jax_stats = jax_snapshotter.SlabSnapshotter(
+            jax_eng, str(tmp_path), interval_ms=1000, time_source=JaxClock(NOW)
+        ).restore()
+        assert stats == jax_stats and stats["restored_leases"] > 0
+        assert np.array_equal(eng2.export_tables()[0], jax_eng.export_tables()[0])
+        assert np.array_equal(eng2.lease_registry.export_rows(NOW), jax_eng.lease_registry.export_rows(NOW))
+        assert _hit(eng2) == [10]  # floored at the liability's 9
 
 
 class TestSnapshotFaultInjection:

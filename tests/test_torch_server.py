@@ -208,10 +208,13 @@ def test_runner_defaults_to_the_card(tmp_path, monkeypatch):
     "override, item",
     [
         ({"tpu_mesh_devices": 4}, "10"),
-        ({"lease_enabled": True}, "8"),
+        # item 8's in-process half is ported: LEASE_ENABLED boots (the
+        # case keeps its id)
+        pytest.param({"lease_enabled": True}, None, id="override1-8"),
         # item 4c is ported: BACKEND_TYPE=redis boots (the case keeps its id)
         pytest.param({"backend_type": "redis"}, None, id="override2-4c"),
-        ({"victim_tier_enabled": True}, "6"),
+        # item 6 is ported: VICTIM_TIER_ENABLED boots (the case keeps its id)
+        pytest.param({"victim_tier_enabled": True}, None, id="override3-6"),
     ],
 )
 def test_runner_refuses_unported_settings(tmp_path, override, item):
@@ -234,7 +237,13 @@ def test_runner_refuses_unported_settings(tmp_path, override, item):
                 assert runner.wait_ready(10.0)
                 req = ref_it.v3_request("basic", [[("key1", "x")]])
                 assert _grpc_call(runner.server.grpc_port, "v3", req)[0] == "ok"
-                assert any(c[0] == b"INCRBY" for c in fake.commands_seen)
+                if settings.backend_type == "redis":
+                    assert any(c[0] == b"INCRBY" for c in fake.commands_seen)
+                else:
+                    engine = runner.cache.engine
+                    assert (runner.lease_table is not None) == settings.lease_enabled
+                    assert engine.victim_enabled == settings.victim_tier_enabled
+                    assert engine.victim_debug()["enabled"] == settings.victim_tier_enabled
             finally:
                 runner.stop()
             return

@@ -159,11 +159,11 @@ UNPORTED = [
     ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "8"),
     ({"SIDECAR_RETRIES": "5"}, "8"),
     ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, None),  # item 7
-    ({"LEASE_ENABLED": "true"}, "8"),
+    ({"LEASE_ENABLED": "true"}, None),  # item 8, its in-process half
     ({"FED_ENABLED": "true"}, "9"),
     ({"PARTITIONS": "2"}, "9"),
     ({"REPL_ROLE": "primary"}, "9"),
-    ({"VICTIM_TIER_ENABLED": "true"}, "6"),
+    ({"VICTIM_TIER_ENABLED": "true"}, None),  # item 6
     ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
     ({"BACKEND_TYPE": "redis"}, None),  # item 4c
     ({"BACKEND_TYPE": "memcache"}, None),  # item 4c
