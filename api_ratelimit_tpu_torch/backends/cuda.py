@@ -43,6 +43,13 @@ the lock, so the next launch's promote pass finds this launch's demotes:
 the tier-on arm waits on each launch's readback in the launch itself, and
 only the tier-off arm overlaps a launch with the previous collect.
 
+block_mode=True is the device-owner process's engine (cmd/sidecar_cmd.py,
+backends/sidecar.py): its public verb is submit_block, which hands a wire
+frame to the dispatch loop without an arena copy (or to the batcher, which
+then keeps no row ring of its own), and submit_rows raises. The same
+dispatch loop drains the shared-memory rings of other frontend processes
+(backends/shm_ring.py).
+
 Quota leasing (LEASE_ENABLED, backends/lease.py): the cache's lease table
 plans a grant for a descriptor that missed the host-local answer, its row
 carries hits + lease_n through the same launch, and the engine's
@@ -249,6 +256,7 @@ class SlabDeviceEngine:
         watermark_high: float = 0.0,
         victim_max_rows: int = 0,
         victim_watermark: float = 0.85,
+        block_mode: bool = False,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
@@ -288,6 +296,9 @@ class SlabDeviceEngine:
 
         precompile: warm every bucket and readback width at construction
         (see precompile()).
+
+        block_mode: the sidecar server's engine (the device-owner process):
+        submit_block is the public verb, and submit_rows raises.
 
         watermark_high: slab-occupancy fraction in (0, 1]; 0 disables
         (SLAB_WATERMARK_HIGH). health_snapshot() compares the occupancy
@@ -363,12 +374,22 @@ class SlabDeviceEngine:
             self._h_launch = device_scope.histogram("launch_ms")
             self._h_readback = device_scope.histogram("readback_ms")
             batcher_scope = scope.scope("batcher")
+        self._block_batcher = bool(block_mode)
+        # the native row-block gather (rl_pack_rows) for the pack stage;
+        # None keeps the numpy per-block copies
+        try:
+            from ..ops import native
+
+            self._pack_rows = native.pack_rows if native.available() else None
+        except Exception:  # noqa: BLE001 - the codec is optional
+            self._pack_rows = None
         use_loop = bool(dispatch_loop) and batch_window_seconds > 0
         # the batcher's unit is a uint32[6, n] row block. With the dispatch
         # loop active no submit reaches it (its dispatcher thread never
         # starts); flush/drain/close still pass through. Its row ring copies
         # each windowed submit under the enqueue lock, so callers may reuse
-        # a thread-local scratch block.
+        # a thread-local scratch block; in block mode the sidecar's wire
+        # frames are one-shot buffers and the batcher keeps them as they are.
         self._batcher = MicroBatcher(
             self._execute_blocks,
             window_seconds=0.0 if use_loop else batch_window_seconds,
@@ -380,7 +401,7 @@ class SlabDeviceEngine:
             max_queue=max_queue,
             overload=overload,
             fault_injector=fault_injector,
-            arena_rows=min(2 * int(max_batch), 1 << 17),
+            arena_rows=0 if block_mode else min(2 * int(max_batch), 1 << 17),
         )
         self._dispatch = None
         if use_loop:
@@ -587,6 +608,24 @@ class SlabDeviceEngine:
             self._h_pack, self._h_launch, self._h_readback = saved
         return self.precompiled
 
+    @property
+    def block_mode(self) -> bool:
+        """The sidecar server routes wire payloads through submit_block
+        when this is True."""
+        return self._block_batcher
+
+    def submit_block(self, block: np.ndarray) -> np.ndarray:
+        """uint32[n] post-increment counters of one uint32[6, n] wire block
+        (fp_lo, fp_hi, hits, limit, divider, jitter): the sidecar server's
+        verb. The block is a one-shot buffer, so the dispatch loop takes it
+        without an arena copy, and the result is an array the caller owns.
+        Requires block_mode=True."""
+        if not self._block_batcher:
+            raise RuntimeError("engine not in block_mode")
+        if self._dispatch is not None:
+            return self._dispatch.submit(block, owned=True)
+        return self._batcher.submit(block)
+
     def submit_rows(self, block: np.ndarray, lease_ops=None) -> np.ndarray:
         """One uint32[6, n] row block (fp_lo, fp_hi, hits, limit, divider,
         jitter) -> uint32[n] post-increment counters. The caller may pass a
@@ -600,6 +639,8 @@ class SlabDeviceEngine:
         post-increment counters as floors, settles applied. The grants'
         INCRBY is already in the hits column; this is the host-side
         bookkeeping."""
+        if self._block_batcher:
+            raise RuntimeError("engine is in block_mode; use submit_block")
         if block.shape[1] == 0:
             return np.empty(0, dtype=np.uint32)
         if self._dispatch is not None:
@@ -862,15 +903,19 @@ class SlabDeviceEngine:
         aggregate is concatenated and cut into fresh operands. Padding
         lanes carry hits == 0, the only gate the device reads. The cap uses
         max(limit) + max(hits) over the chunk, so the saturating readback
-        stays exact."""
+        stays exact. Several blocks gather through the native codec's
+        rl_pack_rows when it is built."""
         total = sum(b.shape[1] for b in blocks)
         if total <= self._max_bucket:
             op = self._packed_operand(self._bucket_for(total))
             packed = op.array
-            off = 0
-            for b in blocks:
-                packed[:6, off : off + b.shape[1]] = b
-                off += b.shape[1]
+            if self._pack_rows is not None and len(blocks) > 1:
+                self._pack_rows(blocks, packed, total)
+            else:
+                off = 0
+                for b in blocks:
+                    packed[:6, off : off + b.shape[1]] = b
+                    off += b.shape[1]
             packed[ROW_HITS, total:] = 0
             chunks = [(op, total)]
         else:
@@ -1164,9 +1209,9 @@ class CudaRateLimitCache:
         concurrency rule's idle TTL is the config loader's
         concurrency_ttl_s (config/loader.py), carried in its divider.
 
-        engine: an engine built by the caller (SlabDeviceEngine's
-        submit_rows, flush and close), in place of the one these arguments
-        would build.
+        engine: an engine built by the caller (a SlabDeviceEngine, or a
+        device owner's backends/sidecar.py SidecarEngineClient: submit_rows,
+        flush and close), in place of the one these arguments would build.
 
         lease_table: optional backends.lease.LeaseTable (LEASE_ENABLED).
         do_limit_resolved then plans a lease grant for each descriptor that

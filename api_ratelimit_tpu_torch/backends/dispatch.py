@@ -14,8 +14,15 @@ device-owner dispatch loop (DISPATCH_LOOP, default on in windowed mode).
     handshake and is never taken by the consumer).
 
   * The caller parks on its per-thread reusable ticket until the owner
-    scatters the batch's verdicts back (numpy slice copies) and sets the
-    ticket event.
+    scatters the batch's verdicts back (the native codec's rl_scatter_rows
+    when built, numpy slice copies otherwise) and sets the ticket event.
+
+  * Frontend PROCESSES feed it too: a shared-memory ring
+    (backends/shm_ring.py ShmRingConsumer) speaks the same slot protocol,
+    is attached by the shm control server (attach_ring), drained by the
+    same take, and detached when its producer process dies
+    (detach_rings). The sidecar server hands its one-shot wire frames over
+    without an arena copy (submit(owned=True)).
 
 Admission parity with the leader-collects arm (backends/batcher.py): the
 same 'batcher.submit' fault site and brownout shed run before any ring work,
@@ -31,20 +38,19 @@ Telemetry (scope `dispatch`): ring_wait_ms (publish -> take), launch_ms
 scatter), batch_size, and queue_depth / inflight / arena gauges on the
 stats-flush cadence.
 
-Tracing: the request span's context rides the ring in a trace-context
-sidecar row beside the frame (contextvars do not cross into the owner
-thread). The owner opens one `dispatch.batch` span per launch, linked
+Tracing: the request span's context rides the ring in a fixed-width
+trace-context row beside the frame (trace id hi/lo, span id, flags: four
+uint64 words, the same words a cross-process ring carries in its slot
+record), since contextvars do not cross into the owner thread. The owner opens one `dispatch.batch` span per launch, linked
 (followsFrom) to every request span it coalesced, gives the ring-wait,
 launch and redeem histograms a trace-id exemplar in their slow bucket, and
 hands the owner-side stage timestamps (take, pack, launch, redeem, scatter)
 back on the ticket: the caller merges them into its journey and closes its
 request span with dispatch.{ring_wait,pack,launch,redeem} child spans.
 
-Not ported yet, each marked where it would sit: the cross-process shm
-rings (attach_ring / detach_rings, item 8); the native
-rl_scatter_rows codec (item 8; numpy slice copies here); ShardRoutingStats
-and partition labels (items 9-10); the DISPATCH_PROFILE owner-thread
-cProfile hook (a tool of the reference's tools/hotpath_profile.py, item 11).
+Not ported yet, each marked where it would sit: ShardRoutingStats and
+partition labels (items 9-10); the DISPATCH_PROFILE owner-thread cProfile
+hook (a tool of the reference's tools/hotpath_profile.py, item 11).
 """
 
 from __future__ import annotations
@@ -57,11 +63,16 @@ from collections import deque
 import numpy as np
 
 from ..limiter.cache import CacheError, DeadlineExceededError
-from ..tracing import active_span, global_tracer, journeys
+from ..tracing import SpanContext, active_span, global_tracer, journeys
 from ..utils.deadline import current_deadline
 from .overload import BrownoutError, QueueFullError
 
 logger = logging.getLogger("ratelimit.dispatch")
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+# ctx row flags (uint64 word 3): bit 0 = context present, bit 1 = sampled
+_CTX_PRESENT = 1
+_CTX_SAMPLED = 2
 
 # shared with MicroBatcher so one fault spec rehearses both arms
 FAULT_SITE_SUBMIT = "batcher.submit"
@@ -126,12 +137,13 @@ class SubmitRing:
     operand. Every index is written by exactly one thread, so nothing more
     than CPython's sequentially consistent attribute stores is needed;
     `lock` guards only the close handshake and is never taken by the
-    consumer."""
+    consumer. A slot holds (rows, count, deadline, enq, ticket,
+    arena_used); the frame's span identity sits in `ctx[slot]`."""
 
     __slots__ = (
-        "slots", "mask", "arena", "cursor", "tail", "head", "rows_in",
+        "slots", "mask", "arena", "ctx", "cursor", "tail", "head", "rows_in",
         "rows_out", "items_in", "items_out", "lock", "closed", "ticket",
-        "overflow_count", "arena_hwm",
+        "overflow_count", "arena_hwm", "dead",
     )
 
     def __init__(self, slots: int = RING_SLOTS, arena_rows: int = RING_ROWS):
@@ -144,6 +156,14 @@ class SubmitRing:
         # DispatchStats into dispatch.arena_overflow / ring.arena_hwm
         self.overflow_count = 0
         self.arena_hwm = 0
+        # shm parity: the owner skips rings whose producer process died
+        # (ShmRingConsumer flips this on control-socket EOF); in-process
+        # rings never die apart from the loop
+        self.dead = False
+        # the trace-context row of each slot (trace_id hi/lo, span_id,
+        # flags), written before the frame publishes; flags == 0 (the
+        # untraced case) is one scalar store
+        self.ctx = np.zeros((slots, 4), dtype=np.uint64)
         self.cursor = 0  # producer arena write position
         self.tail = 0  # producer-only: frames published
         self.head = 0  # consumer-only: frames consumed
@@ -161,14 +181,13 @@ class SubmitRing:
         return self.items_in - self.items_out
 
     def publish(self, block: np.ndarray, count: int, deadline, enq: float,
-                ticket: _Ticket, ctx=None) -> None:
-        """Copy `count` columns of `block` in and publish one frame. ctx:
-        the request span's SpanContext (or None), carried in the frame so
-        span identity crosses the thread hop beside the row block. (The
-        reference's fixed-width context rows and owned hand-off of one-shot
-        sidecar frames come with the cross-process rings, ROADMAP A item
-        8.) Raises QueueFullError when the slot ring is full:
-        overflow must shed, never corrupt."""
+                ticket: _Ticket, owned: bool = False, ctx=None) -> None:
+        """Copy `count` columns of `block` in and publish one frame.
+        owned=True hands the block over without a copy (one-shot sidecar
+        wire frames). ctx: optional (trace_hi, trace_lo, span_id, flags)
+        span identity, written to the ctx row before the frame publishes.
+        Raises QueueFullError when the slot ring is full: overflow must
+        shed, never corrupt."""
         tail = self.tail
         if tail - self.head > self.mask:
             raise QueueFullError(
@@ -182,7 +201,9 @@ class SubmitRing:
             waste = arena_rows - cursor  # skip the tail remainder
             cursor = 0
         free = arena_rows - (self.rows_in - self.rows_out)
-        if count <= arena_rows and waste + count <= free:
+        if owned:
+            rows = block
+        elif count <= arena_rows and waste + count <= free:
             rows = self.arena[:, cursor : cursor + count]
             rows[...] = block[:, :count]
             self.cursor = cursor + count
@@ -197,10 +218,14 @@ class SubmitRing:
             self.overflow_count += 1
             rows = np.array(block[:, :count], dtype=np.uint32)
         idx = tail & self.mask
+        if ctx is not None:
+            self.ctx[idx] = ctx
+        else:
+            self.ctx[idx, 3] = 0
         with self.lock:
             if self.closed:
                 raise CacheError("dispatch loop is closed")
-            self.slots[idx] = (rows, count, deadline, enq, ticket, arena_used, ctx)
+            self.slots[idx] = (rows, count, deadline, enq, ticket, arena_used)
             self.items_in += count
             self.tail = tail + 1
 
@@ -256,6 +281,7 @@ class DispatchLoop:
         overload=None,
         fault_injector=None,
         max_queue: int = 0,
+        ring_rows: int = RING_ROWS,
     ):
         self._launch = launch
         self._collect = collect
@@ -272,10 +298,18 @@ class DispatchLoop:
         self._overload = overload
         self._faults = fault_injector
         self._max_queue = int(max_queue)
+        self._ring_rows = int(ring_rows)
         self._rings: list[SubmitRing] = []
         self._rings_lock = threading.Lock()  # ring registration only
-        # cross-process shm rings attach here in the reference
-        # (attach_ring / detach_rings; ROADMAP A item 8)
+        # cross-process rings (backends/shm_ring.py ShmRingConsumer):
+        # attached by the control server, drained by the same _take as the
+        # in-process rings; listed apart only for the doorbell protocol
+        self._ext_rings: list = []
+        self._detach_pending: list = []
+        # dead shm rings whose mapping could not close yet (frames of
+        # theirs still riding an in-flight batch); retried as batches
+        # drain and once more at close
+        self._ring_graveyard: list = []
         self._tls = threading.local()
         self._work = threading.Event()
         self._idle = threading.Event()
@@ -307,8 +341,14 @@ class DispatchLoop:
             self._h_launch = ds.histogram("launch_ms")
             self._h_redeem = ds.histogram("redeem_ms")
             ds.add_stat_generator(DispatchStats(self, ds))
-        # the native rl_scatter_rows codec replaces the numpy slice copies
-        # of _redeem once it is ported (ROADMAP A item 8)
+        # the native verdict scatter (rl_scatter_rows) for _redeem; None
+        # keeps the numpy slice copies
+        try:
+            from ..ops import native
+
+            self._scatter = native.scatter_rows if native.available() else None
+        except Exception:  # noqa: BLE001 - the codec is optional
+            self._scatter = None
         self._thread = threading.Thread(
             target=self._loop, name="cuda-dispatch-owner", daemon=True
         )
@@ -329,13 +369,48 @@ class DispatchLoop:
     def _ring(self) -> SubmitRing:
         ring = getattr(self._tls, "ring", None)
         if ring is None:
-            ring = SubmitRing()
+            ring = SubmitRing(arena_rows=self._ring_rows)
             with self._rings_lock:
                 if self._closed:
                     raise CacheError("dispatch loop is closed")
                 self._rings.append(ring)
             self._tls.ring = ring
         return ring
+
+    # -- cross-process rings (backends/shm_ring.py) --
+
+    def kick(self) -> None:
+        """Doorbell from the shm control server: a frontend process
+        published into a ring while the owner was parked."""
+        self._idle.clear()
+        self._work.set()
+
+    def attach_ring(self, ring) -> None:
+        """Register an external (shm consumer) ring with the drain loop. The
+        ring speaks the SubmitRing slot protocol; the owner thread starts
+        taking its frames on its next cycle."""
+        with self._rings_lock:
+            if self._closed:
+                with ring.lock:
+                    ring.closed = True
+                raise CacheError("dispatch loop is closed")
+            self._rings.append(ring)
+            self._ext_rings.append(ring)
+        self._work.set()
+
+    def detach_rings(self, rings) -> None:
+        """Mark external rings dead (their producer process is gone) and
+        hand them to the owner thread for removal: pending frames are
+        dropped (nobody is parked on them), their segments unlinked, and
+        every other ring's traffic goes on untouched."""
+        for ring in rings:
+            ring.dead = True
+        with self._rings_lock:
+            self._detach_pending.extend(rings)
+        self._work.set()
+        if not self._thread.is_alive():
+            # the owner already exited: nobody else will remove them
+            self._process_detach()
 
     def arena_pressure(self) -> tuple[int, int]:
         """(total overflow count, max arena rows high-water) across every
@@ -351,13 +426,16 @@ class DispatchLoop:
     def submit(
         self,
         block: np.ndarray,
+        owned: bool = False,
         reuse_out: bool = False,
     ) -> np.ndarray:
         """One uint32[6, n] row block -> uint32[n] post-increment counters.
         Blocks until the owner thread redeems the frame's launch. The rows
-        are copied into this thread's ring. reuse_out=True returns a view of this thread's reusable
-        ticket buffer, valid only until this thread's next submit; the
-        default allocates a result the caller owns."""
+        are copied into this thread's ring, unless owned=True hands over a
+        one-shot buffer (a sidecar wire frame). reuse_out=True returns a
+        view of this thread's reusable ticket buffer, valid only until this
+        thread's next submit; the default allocates a result the caller
+        owns."""
         count = block.shape[1]
         if count == 0:
             return np.empty(0, dtype=np.uint32)
@@ -385,12 +463,20 @@ class DispatchLoop:
         # to this request span and returns per-stage timestamps on the
         # ticket. Tracing off and no recorder cost one contextvar read.
         span = active_span()
-        ctx = None if span is None else span.context
+        ctx = None
         publish_ns = 0
+        if span is not None:
+            c = span.context
+            ctx = (
+                c.trace_id >> 64,
+                c.trace_id & _MASK64,
+                c.span_id,
+                _CTX_PRESENT | (_CTX_SAMPLED if c.sampled else 0),
+            )
         if span is not None or journeys.recording():
             publish_ns = time.monotonic_ns()
             journeys.mark("publish", publish_ns)
-        ring.publish(block, count, deadline, time.monotonic(), ticket, ctx)
+        ring.publish(block, count, deadline, time.monotonic(), ticket, owned, ctx)
         self._idle.clear()
         self._work.set()
         out = ticket.redeem()
@@ -447,6 +533,19 @@ class DispatchLoop:
         self._close_rings()
         self._work.set()
         self._thread.join(timeout=5.0)
+        if self._detach_pending:
+            self._process_detach()
+        # shm teardown: unlink every still-attached external segment (the
+        # closed word in each header tells its producer to stop) and retry
+        # the mappings in-flight batches pinned
+        with self._rings_lock:
+            ext, self._ext_rings = self._ext_rings, []
+            self._rings = [r for r in self._rings if r not in ext]
+        for ring in ext:
+            ring.dead = True
+            if not ring.release():
+                self._ring_graveyard.append(ring)
+        self._ring_graveyard = [r for r in self._ring_graveyard if not r.release()]
 
     def _close_rings(self) -> None:
         with self._rings_lock:
@@ -483,9 +582,55 @@ class DispatchLoop:
             ring.head = head
         self._idle.set()
 
+    def _process_detach(self) -> None:
+        """Owner thread: remove the rings whose producer process died (the
+        control connection's EOF). Untaken frames are dropped with the ring
+        (their producers are gone, and the seqno discipline already hid any
+        torn frame) and the segment name is unlinked; a mapping that frames
+        of an in-flight batch still read waits in the graveyard."""
+        with self._rings_lock:
+            pending, self._detach_pending = self._detach_pending, []
+            for ring in pending:
+                if ring in self._rings:
+                    self._rings.remove(ring)
+                if ring in self._ext_rings:
+                    self._ext_rings.remove(ring)
+        for ring in pending:
+            dropped = ring.tail - ring.head
+            if dropped:
+                logger.warning(
+                    "dead shm ring %s: dropping %d untaken frame(s)",
+                    getattr(ring, "name", "?"), dropped,
+                )
+            release = getattr(ring, "release", None)
+            if release is not None and not release():
+                self._ring_graveyard.append(ring)
+        self._ring_graveyard = [r for r in self._ring_graveyard if not r.release()]
+
+    def _wait_work(self, timeout: float) -> None:
+        """Park on the work event with the shm doorbell raised: external
+        producers see it and kick the control socket, whose reader sets
+        the event. The depth re-check after raising closes the
+        publish-before-doorbell race; the timeout backstops a missed
+        doorbell (one tick of added latency, never a lost frame)."""
+        ext = self._ext_rings
+        if ext:
+            for ring in tuple(ext):
+                ring.set_doorbell(True)
+            if self.queue_depth:
+                for ring in tuple(ext):
+                    ring.set_doorbell(False)
+                return
+        self._work.wait(timeout=timeout)
+        if ext:
+            for ring in tuple(self._ext_rings):
+                ring.set_doorbell(False)
+
     def _run(self) -> None:
         inflight: deque = deque()  # (token, frames, n_items, stages, span)
         while True:
+            if self._detach_pending:
+                self._process_detach()
             if not inflight and not self._closed:
                 # cold pipeline: wait out the straggler train before the
                 # take so concurrent submitters share one launch. With a
@@ -550,10 +695,10 @@ class DispatchLoop:
             # take and the clear
             if self.queue_depth:
                 continue
-            self._work.wait(timeout=0.05)
+            self._wait_work(0.05)
 
     def _pending_frames(self) -> int:
-        return sum(r.tail - r.head for r in self._rings)
+        return sum(r.tail - r.head for r in self._rings if not r.dead)
 
     def _await_work_or_ready(self, token) -> bool:
         """With one launch in flight, a free buffer, and empty rings: park
@@ -577,7 +722,7 @@ class DispatchLoop:
             self._work.clear()
             if self.queue_depth:
                 return False
-            self._work.wait(timeout=delay)
+            self._wait_work(delay)
             delay = min(delay * 2, 1e-3)
         return True
 
@@ -613,12 +758,13 @@ class DispatchLoop:
             self._work.clear()
             # a publish may have landed before the clear: re-check via the
             # depth comparison at the top rather than trusting the event
-            self._work.wait(timeout=min(deadline - now, lull))
+            self._wait_work(min(deadline - now, lull))
 
     def _take(self):
-        """Drain every ring. Returns (frames, pending_free, expired,
+        """Drain every live ring. Returns (frames, pending_free, expired,
         t_take): frames = [(rows, count, ticket, span_ctx)] in ring order
-        (span_ctx is the frame's SpanContext, or None), pending_free =
+        (span_ctx is the frame's SpanContext from its ctx row, or None),
+        pending_free =
         [(ring, arena_rows)] to release once the rows are packed, expired = [(ticket, count)] dropped at take time (their
         arena rows are freed through pending_free too: arena release is
         FIFO)."""
@@ -634,6 +780,8 @@ class DispatchLoop:
         seq = self._take_seq
         active = 0
         for ring in self._rings:
+            if ring.dead:
+                continue
             entry = self._ring_activity.get(id(ring))
             if entry is None:
                 entry = self._ring_activity[id(ring)] = [ring.items_in, seq]
@@ -644,6 +792,10 @@ class DispatchLoop:
                 active += 1
         self._expect_frames = max(1, active)
         for ring in self._rings:
+            if ring.dead:
+                # producer process gone (shm control EOF): its untaken
+                # frames are dropped at detach; nobody would redeem them
+                continue
             tail = ring.tail
             head = ring.head
             if head == tail:
@@ -653,8 +805,16 @@ class DispatchLoop:
             freed = 0
             while head != tail:
                 idx = head & ring.mask
-                rows, count, deadline, enq, ticket, arena_used, sctx = ring.slots[idx]
+                rows, count, deadline, enq, ticket, arena_used = ring.slots[idx]
                 ring.slots[idx] = None
+                sctx = None
+                flags = int(ring.ctx[idx, 3])
+                if flags & _CTX_PRESENT:
+                    sctx = SpanContext(
+                        trace_id=(int(ring.ctx[idx, 0]) << 64) | int(ring.ctx[idx, 1]),
+                        span_id=int(ring.ctx[idx, 2]),
+                        sampled=bool(flags & _CTX_SAMPLED),
+                    )
                 freed += arena_used
                 # visible to flush() before the ring's head moves on
                 self._taken_items += count
@@ -764,16 +924,21 @@ class DispatchLoop:
 
     def _redeem(self, token, frames, n_items: int, stages, span) -> None:
         """Blocking readback of one launch, then verdict scatter: each
-        parked ticket gets its slice copied into its own buffer and wakes
-        with the owner's stage timestamps on its ticket."""
+        parked ticket gets its slice copied into its own buffer (native
+        rl_scatter_rows when built) and wakes with the owner's stage
+        timestamps on its ticket."""
         t0 = time.perf_counter() if self._h_redeem is not None else 0.0
         try:
             out = np.ascontiguousarray(self._collect(token), dtype=np.uint32)
             redeem_ns = time.monotonic_ns() if stages is not None else 0
-            off = 0
-            for _, count, ticket, _ in frames:
-                ticket.reserve(count)[:count] = out[off : off + count]
-                off += count
+            bufs = [t.reserve(count) for _, count, t, _ in frames]
+            if self._scatter is not None and len(frames) > 1:
+                self._scatter(out, bufs, [count for _, count, _, _ in frames])
+            else:
+                off = 0
+                for buf, (_, count, _, _) in zip(bufs, frames):
+                    buf[:count] = out[off : off + count]
+                    off += count
         except BaseException as e:  # noqa: BLE001 - propagate to callers
             # collect OR scatter failure: every parked ticket must learn
             # about it; a stranded ticket blocks its caller forever

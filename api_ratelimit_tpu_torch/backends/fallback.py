@@ -28,8 +28,11 @@ decision, on the card or on the CPU, and every answer it gives is counted
 (ratelimit.fallback.{deny,allow}). With a lease table (LEASE_ENABLED) a
 descriptor that still holds a live lease is answered from that budget, which
 the card granted before it failed, and only the rest fall to the rung. The
-reference's CircuitBreaker (for the sidecar client) comes with item 8, its
-federation-share consultation with item 9.
+reference's federation-share consultation comes with item 9.
+
+CircuitBreaker is the sidecar client's transport breaker
+(backends/sidecar.py): while the device owner is dark it fails fast, and
+the CacheError it raises lands on this ladder.
 """
 
 from __future__ import annotations
@@ -47,6 +50,100 @@ logger = logging.getLogger("ratelimit.fallback")
 FAILURE_MODE_DENY = "deny"
 FAILURE_MODE_ALLOW = "allow"
 FAILURE_MODES = (FAILURE_MODE_DENY, FAILURE_MODE_ALLOW)
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker: closed -> open after
+    `threshold` consecutive failures; open fails fast for `reset_seconds`;
+    then one half-open probe is let through: success closes the breaker,
+    failure re-opens it for another reset window. threshold <= 0 disables
+    (always allows, records nothing).
+
+    on_transition(old_state, new_state) is invoked on every state change
+    (stat gauges); it must be cheap: it runs under the breaker lock."""
+
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half_open"
+
+    # numeric codes for the breaker_state gauge (gauges are ints)
+    STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+    def __init__(self, threshold: int, reset_seconds: float, clock=None, on_transition=None):
+        self._threshold = int(threshold)
+        self._reset = float(reset_seconds)
+        if clock is None:
+            # reset windows are time-semantic: the process clock authority
+            from ..utils.timeutil import process_time_source
+
+            clock = process_time_source().monotonic
+        self._clock = clock
+        self._on_transition = on_transition
+        self._lock = threading.Lock()
+        self._failures = 0
+        self._state = self.CLOSED
+        self._open_until = 0.0
+        self._probe_in_flight = False
+
+    @property
+    def enabled(self) -> bool:
+        return self._threshold > 0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def allow(self) -> bool:
+        """True when a request may proceed. While open, False until the
+        reset window elapses; the first caller after that becomes the
+        half-open probe (others keep failing fast until it resolves)."""
+        if not self.enabled:
+            return True
+        with self._lock:
+            if self._state == self.CLOSED:
+                return True
+            if self._state == self.OPEN and self._clock() >= self._open_until:
+                self._transition(self.HALF_OPEN)
+                self._probe_in_flight = True
+                return True
+            if self._state == self.HALF_OPEN and not self._probe_in_flight:
+                self._probe_in_flight = True
+                return True
+            return False
+
+    def record_success(self) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._failures = 0
+            self._probe_in_flight = False
+            if self._state != self.CLOSED:
+                self._transition(self.CLOSED)
+
+    def record_failure(self) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._failures += 1
+            self._probe_in_flight = False
+            if self._state == self.HALF_OPEN or (
+                self._state == self.CLOSED and self._failures >= self._threshold
+            ):
+                self._open_until = self._clock() + self._reset
+                self._transition(self.OPEN)
+            elif self._state == self.OPEN:
+                # failures while open (requests racing the transition)
+                # push the probe window out: the backend is still dark
+                self._open_until = self._clock() + self._reset
+
+    def _transition(self, state: str) -> None:
+        prev, self._state = self._state, state
+        if self._on_transition is not None:
+            try:
+                self._on_transition(prev, state)
+            except Exception:  # noqa: BLE001 - stats must never take the breaker down
+                pass
 
 
 class FallbackLimiter:

@@ -27,9 +27,9 @@ from ..assertx import assert_
 from ..models.config import RateLimit
 from ..models.descriptors import RateLimitRequest
 from ..models.response import Code, DescriptorStatus, DoLimitResponse
-from ..models.units import unit_to_divider
+from ..models.units import Unit, unit_to_divider
 from ..utils.timeutil import TimeSource, calculate_reset
-from .cache_key import CacheKey, generate_cache_key
+from .cache_key import EMPTY, CacheKey, generate_cache_key
 from .local_cache import LocalCache
 
 
@@ -102,8 +102,26 @@ class BaseRateLimiter:
         for i in checked:
             limits[i].stats.total_hits.add(hits_addend)
 
-        # The reference's batched native key composition is byte-identical
-        # to this Python codec; the native codec is not ported yet.
+        # batched native key composition (ops/native.py) when the request
+        # is big enough to amortize the FFI call; byte-identical to the
+        # Python codec below
+        if len(checked) >= 8:
+            from ..ops import native
+
+            if native.available():
+                records, windows = [], []
+                for i in checked:
+                    divider = unit_to_divider(limits[i].unit)
+                    records.append(
+                        native.record_strings(request.domain, request.descriptors[i].entries)
+                    )
+                    windows.append((now // divider) * divider)
+                composed = native.compose_keys_batch(records, windows)
+                keys = [EMPTY] * len(limits)
+                for key_str, i in zip(composed, checked):
+                    keys[i] = CacheKey(key_str, limits[i].unit == Unit.SECOND)
+                return keys
+
         return [
             generate_cache_key(request.domain, descriptor, limit, now)
             for descriptor, limit in zip(request.descriptors, limits)

@@ -8,8 +8,9 @@ alias across field boundaries.
 
 The xxh64 here is the package's own, in pure Python: it matches
 `xxhash.xxh64(data, seed=divider).intdigest()` bit for bit (pinned by
-tests/test_torch_hashing.py), so the port needs no `xxhash` package. The
-reference's native batch codec (ops/native.py) is not ported yet.
+tests/test_torch_hashing.py), so the port needs no `xxhash` package.
+fingerprint_many hands batches of four or more to the native codec
+(ops/native.py) when it is built, with identical output.
 """
 
 from __future__ import annotations
@@ -94,7 +95,16 @@ def fingerprint64(domain: str, entries, divider: int) -> int:
 
 def fingerprint_many(records, dividers) -> np.ndarray:
     """Batch fingerprinting: `records` is a sequence of (domain, entries)
-    and `dividers` the per-record window divider (= hash seed)."""
+    and `dividers` the per-record window divider (= hash seed). Uses the
+    native codec (ops/native.py) when it is available and the batch is big
+    enough to amortize the FFI call; otherwise the per-record Python path,
+    with identical output."""
+    from . import native
+
+    if len(records) >= 4 and native.available():
+        return native.fingerprint_batch(
+            [native.record_strings(d, e) for d, e in records], dividers
+        )
     return np.array(
         [fingerprint64(d, e, int(s)) for (d, e), s in zip(records, dividers)],
         dtype=np.uint64,

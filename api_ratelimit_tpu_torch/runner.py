@@ -8,7 +8,9 @@ recorder (JOURNEY_*), the local over-limit cache, the stats store and its
 sink, the transport server (with /metrics, the debug suite and
 /debug/profile), the admission controller with its shed posture, the
 backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
-memory, redis and memcache: the host backends), the ratelimit.build.*
+cuda-sidecar: a frontend of a device-owner process, backends/sidecar.py;
+memory, redis and memcache: the host backends), the native host codec's
+prewarm and its ratelimit.native.available gauge, the ratelimit.build.*
 provenance gauges, the slab and sketch stat generators, the victim tier
 (VICTIM_TIER_ENABLED: ratelimit.victim.*, GET /debug/victim and its
 watermark probe), quota leasing (LEASE_ENABLED: the lease table, its
@@ -23,8 +25,10 @@ serve.
 The device is a constructor argument and nothing else: Runner(settings,
 device="cuda") is what service_cmd builds, and no setting or environment
 variable moves a deployment onto the CPU. Tests pass device="cpu", which
-runs the kernels' plain versions. The reference's fault injector,
-federation, sidecar and native codec belong to ROADMAP items 8-11.
+runs the kernels' plain versions. A cuda-sidecar frontend holds no card:
+it reports platform cpu and 0 devices, and only the device owner
+(cmd/sidecar_cmd.py) reports the card. The reference's fault injector,
+replication and federation belong to ROADMAP items 9-11.
 """
 
 from __future__ import annotations
@@ -115,7 +119,8 @@ def create_limiter(
     in the store /stats reads; overload (the AdmissionController) wires
     the bounded queue and the brownout into its batcher or dispatch loop.
     device: where the engine runs ("cuda", or "cpu" for the plain
-    versions); the host backends ignore it, and lease_table too."""
+    versions); cuda-sidecar and the host backends ignore it, and the host
+    backends lease_table too."""
     backend = settings.backend_type
     if backend == "cuda":
         from .backends.cuda import CudaRateLimitCache
@@ -149,6 +154,13 @@ def create_limiter(
             victim_watermark=v_watermark,
             lease_table=lease_table,
             **kwargs,
+        )
+    if backend == "cuda-sidecar":
+        from .backends.sidecar import new_sidecar_cache_from_settings
+
+        return new_sidecar_cache_from_settings(
+            settings, base, stats_scope=stats_store.scope("ratelimit"),
+            lease_table=lease_table,
         )
     if backend == "memory":
         return MemoryRateLimitCache(base)
@@ -264,6 +276,24 @@ class Runner:
             near_limit_ratio=settings.near_limit_ratio,
         )
 
+        # prewarm the native host codec (ops/native.py) at boot, for every
+        # backend: its first use builds it with g++, which must not land
+        # inside a request. The outcome is logged and exported as
+        # ratelimit.native.available, so the Python fallback never runs
+        # unseen.
+        from .ops import native
+
+        info = native.build_info()
+        self.scope.scope("native").gauge("available").set(1 if info["available"] else 0)
+        if info["available"]:
+            logger.info("native host codec loaded: %s", info["so_path"])
+        else:
+            logger.warning(
+                "native host codec UNAVAILABLE (so=%s, source_present=%s): "
+                "fingerprint/match/pack/scatter run on the Python path",
+                info["so_path"], info["source_present"],
+            )
+
         # Overload admission control (backends/overload.py): always built;
         # the default knobs (no queue bound, no brownout) leave it inert on
         # the hot path while keeping the overload.* stats defined.
@@ -279,12 +309,13 @@ class Runner:
 
         # quota leasing (LEASE_ENABLED; backends/lease.py): the lease table
         # answers hot-key decisions on the host from budget the card
-        # granted. Only the in-process engine leases, and only on the
-        # compiled-matcher path: other backends, and HOST_FAST_PATH=false,
-        # boot unleased, as in the reference.
+        # granted. The card's engines lease (in process, or over the sidecar
+        # wire's lease trailer), and only on the compiled-matcher path: the
+        # host backends, and HOST_FAST_PATH=false, boot unleased, as in the
+        # reference.
         self.lease_table = None
         lease_on, lease_min, lease_max, lease_ttl, lease_near = settings.lease_config()
-        if lease_on and settings.backend_type == "cuda":
+        if lease_on and settings.backend_type in ("cuda", "cuda-sidecar"):
             if not settings.host_fast_path:
                 logger.warning("LEASE_ENABLED requires HOST_FAST_PATH; leasing disabled")
             else:
@@ -306,8 +337,11 @@ class Runner:
         )
         engine = getattr(cache, "engine", None)
         # ratelimit.build.*: the card's facts once the engine holds it; a
-        # runner on the CPU or the memory backend reports cpu and 0 devices
-        if engine is not None and engine.device.type == "cuda":
+        # runner on the CPU, a host backend or a cuda-sidecar frontend (its
+        # engine is the owner's client and has no device) reports cpu and 0
+        # devices
+        device = getattr(engine, "device", None)
+        if device is not None and device.type == "cuda":
             import torch
 
             provenance.register_build_gauges(
@@ -315,7 +349,9 @@ class Runner:
             )
         else:
             provenance.register_build_gauges(self.scope)
-        if engine is not None:
+        # the slab's stat generators and probes attach to an engine that
+        # owns the slab; a cuda-sidecar frontend's owner exports them
+        if engine is not None and hasattr(engine, "health_snapshot"):
             from .backends.cuda import HotkeyStats, SlabHealthStats
 
             # ratelimit.slab.* on every stats flush
@@ -365,7 +401,7 @@ class Runner:
         # ~0 state. The settings are validated whether or not a directory
         # is set.
         snap_dir, snap_interval_ms, snap_stale_ms = settings.snapshot_config()
-        if snap_dir and engine is not None:
+        if snap_dir and hasattr(engine, "export_tables"):
             from .persist.snapshotter import SlabSnapshotter
 
             self.snapshotter = SlabSnapshotter(

@@ -35,6 +35,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import socket
+import socketserver
 import sys
 import threading
 import time
@@ -181,13 +183,30 @@ class _Handler(BaseHTTPRequestHandler):
         self._write(200, json.dumps({"released": released}).encode(), content_type="application/json")
 
 
+class _ReusePortHTTPServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer bound with SO_REUSEPORT (and SO_REUSEADDR), as
+    the reference's listeners are (server_impl.go:115,131,141): the
+    processes of a FRONTEND_PROCS fleet bind one PORT together and the
+    kernel spreads the connections over them."""
+
+    daemon_threads = True
+    allow_reuse_address = True
+
+    def server_bind(self):
+        if hasattr(socket, "SO_REUSEPORT"):
+            try:
+                self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            except OSError:
+                pass
+        socketserver.TCPServer.server_bind(self)
+
+
 class _Listener:
-    """One stdlib ThreadingHTTPServer; serve_background() runs it in a
-    daemon thread, shutdown() stops it."""
+    """One SO_REUSEPORT ThreadingHTTPServer; serve_background() runs it in
+    a daemon thread, shutdown() stops it."""
 
     def __init__(self, handler: type, host: str, port: int, name: str):
-        self._server = ThreadingHTTPServer((host, port), handler)
-        self._server.daemon_threads = True
+        self._server = _ReusePortHTTPServer((host, port), handler)
         self._thread: threading.Thread | None = None
         self._name = name
 

@@ -10,13 +10,15 @@ knobs this package reads are the JAX package's, word for word.
 Three differences:
 
 * BACKEND_TYPE defaults to `cuda`, the engine of this package
-  (backends/cuda.py); `memory`, `redis` and `memcache` are the host
-  backends. `tpu` and `tpu-sidecar` are the JAX package's and raise an
-  error naming `cuda`.
+  (backends/cuda.py); `cuda-sidecar` is a frontend of a device-owner
+  process (backends/sidecar.py, cmd/sidecar_cmd.py); `memory`, `redis` and
+  `memcache` are the host backends. `tpu` and `tpu-sidecar` are the JAX
+  package's and raise an error naming `cuda` and `cuda-sidecar`.
 * A setting that turns on a feature this package has not ported is refused
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh, a sidecar, federation or replication that are not there.
+  runs a mesh, a failover standby, federation or replication that are not
+  there.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -30,7 +32,11 @@ JAX package: SLAB_SNAPSHOT_DIR, _INTERVAL_MS and _STALE_AFTER_MS
 (VICTIM_TIER_ENABLED, VICTIM_MAX_ROWS, VICTIM_WATERMARK: victim_config) and
 in-process quota leasing (LEASE_ENABLED and LEASE_*: lease_config) serve on
 BACKEND_TYPE=cuda; with a host backend LEASE_ENABLED boots unleased, as in
-the reference.
+the reference. The multi-process edge is served as in the JAX package:
+FRONTEND_PROCS (frontend_procs_count) with BACKEND_TYPE cuda or
+cuda-sidecar, the SIDECAR_* transport (sidecar_addresses, one address) and
+the shared-memory rings (SHM_RINGS, SHM_CONTROL_SOCK, SHM_RING_ROWS:
+shm_control_path, shm_ring_rows_count).
 """
 
 from __future__ import annotations
@@ -62,26 +68,7 @@ def _parse_duration_seconds(raw: str) -> float:
 
 
 # the backends this package serves
-BACKEND_TYPES = ("cuda", "memory", "redis", "memcache")
-
-# sidecar transport knobs (ROADMAP item 8): any value but the default is
-# refused at boot
-_SIDECAR_FIELDS = (
-    ("sidecar_socket", "SIDECAR_SOCKET"),
-    ("sidecar_socket_mode", "SIDECAR_SOCKET_MODE"),
-    ("sidecar_tls_cert", "SIDECAR_TLS_CERT"),
-    ("sidecar_tls_key", "SIDECAR_TLS_KEY"),
-    ("sidecar_tls_ca", "SIDECAR_TLS_CA"),
-    ("sidecar_tls_server_name", "SIDECAR_TLS_SERVER_NAME"),
-    ("sidecar_addrs", "SIDECAR_ADDRS"),
-    ("sidecar_connect_timeout", "SIDECAR_CONNECT_TIMEOUT"),
-    ("sidecar_rpc_deadline", "SIDECAR_RPC_DEADLINE"),
-    ("sidecar_retries", "SIDECAR_RETRIES"),
-    ("sidecar_retry_backoff", "SIDECAR_RETRY_BACKOFF"),
-    ("sidecar_retry_backoff_max", "SIDECAR_RETRY_BACKOFF_MAX"),
-    ("sidecar_breaker_threshold", "SIDECAR_BREAKER_THRESHOLD"),
-    ("sidecar_breaker_reset", "SIDECAR_BREAKER_RESET"),
-)
+BACKEND_TYPES = ("cuda", "cuda-sidecar", "memory", "redis", "memcache")
 
 
 def _unported(knob: str, feature: str, item: str) -> ValueError:
@@ -174,7 +161,7 @@ class Settings:
     journey_slow_ms: float = 0.0
     journey_retain: int = 256
     journey_ring: int = 64
-    # --- the sidecar transport (item 8: any non-default is refused) ---
+    # --- the sidecar transport (backends/sidecar.py) ---
     sidecar_socket: str = "/tmp/api-ratelimit-tpu-sidecar.sock"
     sidecar_socket_mode: int = 0o600
     sidecar_tls_cert: str = ""
@@ -213,17 +200,18 @@ class Settings:
     slab_snapshot_dir: str = ""
     slab_snapshot_interval_ms: float = 10_000.0
     slab_snapshot_stale_after_ms: float = 0.0
-    # --- quota leasing (item 8) ---
+    # --- quota leasing (backends/lease.py) ---
     lease_enabled: bool = False
     lease_min: int = 8
     lease_max: int = 1024
     lease_ttl_fraction: float = 0.25
     lease_near_limit_ratio: float = 0.9
-    # --- shared-memory submit rings (item 8; read only with a sidecar) ---
+    # --- shared-memory submit rings (backends/shm_ring.py; read by the
+    # device owner and its cuda-sidecar frontends) ---
     shm_rings: bool = True
     shm_control_sock: str = ""
     shm_ring_rows: int = 4096
-    frontend_procs: int = 1  # > 1 is the frontend fleet (item 8)
+    frontend_procs: int = 1  # > 1 is the frontend fleet (cmd/service_cmd.py)
     # --- the partitioned cluster (item 9) ---
     partitions: int = 1
     partition_addrs: str = ""
@@ -498,16 +486,82 @@ class Settings:
             )
         return ratio
 
+    def sidecar_addresses(self) -> list[str]:
+        """The frontend's device-owner address list: parsed SIDECAR_ADDRS,
+        or [SIDECAR_SOCKET] when unset. Junk (empty entries only, malformed
+        tcp:// or tls:// authorities) fails the boot like every other knob.
+        check_ported refuses more than one address (the failover waits for
+        replication, ROADMAP item 9)."""
+        raw = self.sidecar_addrs.strip()
+        if not raw:
+            return [self.sidecar_socket]
+        from .backends.sidecar import parse_sidecar_address
+
+        addrs = [a.strip() for a in raw.split(",") if a.strip()]
+        if not addrs:
+            raise ValueError(
+                f"SIDECAR_ADDRS must hold at least one address, "
+                f"got {self.sidecar_addrs!r}"
+            )
+        for addr in addrs:
+            try:
+                parse_sidecar_address(addr)
+            except ValueError as e:
+                raise ValueError(f"bad SIDECAR_ADDRS entry {addr!r}: {e}") from e
+        return addrs
+
+    def shm_control_path(self) -> str:
+        """The shm-ring control socket path, or "" when shm rings are off
+        or underivable. Explicit SHM_CONTROL_SOCK wins; otherwise a unix
+        SIDECAR_SOCKET derives <socket>.shmctl (same host by construction),
+        and a tcp:// or tls:// owner disables shm: shared memory cannot
+        cross hosts."""
+        if not self.shm_rings:
+            return ""
+        explicit = self.shm_control_sock.strip()
+        if explicit:
+            return explicit
+        if "://" in self.sidecar_socket:
+            return ""
+        return self.sidecar_socket + ".shmctl"
+
+    def shm_ring_rows_count(self) -> int:
+        """Validated SHM_RING_ROWS arena capacity: a typo'd arena size
+        must not silently become a shed-everything ring."""
+        rows = int(self.shm_ring_rows)
+        if rows < 64:
+            raise ValueError(f"SHM_RING_ROWS must be >= 64, got {rows}")
+        return rows
+
+    def frontend_procs_count(self) -> int:
+        """Validated FRONTEND_PROCS worker count (1 = the single-process
+        boot)."""
+        n = int(self.frontend_procs)
+        if n < 1:
+            raise ValueError(f"FRONTEND_PROCS must be >= 1, got {n}")
+        if n > 1 and self.backend_type not in ("cuda", "cuda-sidecar"):
+            raise ValueError(
+                f"FRONTEND_PROCS={n} requires BACKEND_TYPE cuda or "
+                f"cuda-sidecar, got {self.backend_type!r}"
+            )
+        return n
+
     def check_ported(self) -> None:
         """Refuse, with the ROADMAP item that ports it, every setting that
         turns on a feature this package lacks, and a backend it does not
         have. Called by new_settings and at boot (runner.py)."""
         backend = self.backend_type
-        if backend in ("tpu", "tpu-sidecar"):
+        if backend == "tpu":
             raise ValueError(
                 f"BACKEND_TYPE={backend!r} is the JAX package's TPU engine; "
                 f"this package serves BACKEND_TYPE=cuda (the H100 engine) "
                 f"or memory"
+            )
+        if backend == "tpu-sidecar":
+            raise ValueError(
+                f"BACKEND_TYPE={backend!r} is a frontend of the JAX package's "
+                f"TPU owner; this package's frontend of its device owner is "
+                f"BACKEND_TYPE=cuda-sidecar"
             )
         if backend not in BACKEND_TYPES:
             raise ValueError(f"invalid backend type: {backend!r}")
@@ -533,15 +587,11 @@ class Settings:
             raise ValueError(
                 f"FRONTEND_PROCS must be >= 1, got {self.frontend_procs}"
             )
-        if self.frontend_procs > 1:
+        if len([a for a in self.sidecar_addrs.split(",") if a.strip()]) > 1:
             raise _unported(
-                f"FRONTEND_PROCS={self.frontend_procs}",
-                "the multi-process frontend fleet", "8",
+                "SIDECAR_ADDRS with a standby",
+                "the failover to a warm standby (replication)", "9",
             )
-        defaults = Settings()
-        for field, var in _SIDECAR_FIELDS:
-            if getattr(self, field) != getattr(defaults, field):
-                raise _unported(var, "the sidecar transport", "8")
         if self.fed_enabled:
             raise _unported("FED_ENABLED=true", "quota federation", "9")
         if self.partitions != 1 or self.partition_addrs.strip():

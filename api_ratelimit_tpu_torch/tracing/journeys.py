@@ -73,8 +73,8 @@ FLAG_OVER_LIMIT = "over_limit"
 # last drain (backends/cuda.py drain_hotkeys): "slow AND hot" is the gold
 # tail-sample — contention on the hot head, not a cold-path stall
 FLAG_HOTKEY = "hotkey"
-# the reference's failover and fed flags come with the sidecar and
-# federation (ROADMAP items 8 and 9)
+# the reference's failover and fed flags come with the sidecar client's
+# failover to a standby and with federation (ROADMAP item 9)
 
 
 class Journey:

@@ -58,3 +58,22 @@ def extract(carrier) -> SpanContext | None:
     sampled = sampled_raw in ("1", "true")
     return SpanContext(trace_id=trace_id, span_id=span_id, sampled=sampled)
 
+
+
+def encode_textmap(context: SpanContext) -> bytes:
+    """Serialize a context as a newline-joined B3 TextMap carrier: the
+    trace trailer of a sidecar SUBMIT frame (backends/sidecar.py), built by
+    the same inject the HTTP and gRPC transports use."""
+    carrier: dict[str, str] = {}
+    inject(context, carrier)
+    return "\n".join(f"{k}:{v}" for k, v in sorted(carrier.items())).encode()
+
+
+def decode_textmap(raw: bytes) -> SpanContext | None:
+    """Inverse of encode_textmap; malformed input returns None (a bad
+    trace trailer must never fail the carrying request)."""
+    try:
+        items = [line.split(":", 1) for line in raw.decode().splitlines() if ":" in line]
+    except UnicodeDecodeError:
+        return None
+    return extract(items)

@@ -71,9 +71,10 @@ def register_build_gauges(
 ) -> None:
     """Export the regime as ``ratelimit.build.*`` gauges (host_cpus,
     device_count, platform_id, git_rev_hash) on whatever scope the
-    caller serves /metrics from. Fleet note: the reference's fleet merge
-    (ROADMAP item 8 here) takes these by MAX, not sum — every member
-    reports the same box, and a summed host_cpus would invent cores."""
+    caller serves /metrics from. The fleet merge (stats/fleet.py) takes
+    these by MAX, not sum: every member reports the same box, a summed
+    host_cpus would invent cores, and the device owner's gpu platform_id
+    and device_count win over the frontends' cpu/0."""
     build = scope.scope("build")
     build.gauge("host_cpus").set(host_cpus())
     build.gauge("device_count").set(int(device_count))

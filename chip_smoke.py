@@ -261,7 +261,50 @@ Phases, each of which must pass (nothing is caught):
            loop) against the lease-off Runner on fresh keys. Prints one
            "tiers:" JSON line with the card's name and power limit;
            nothing of it is claimed.
-13. report per-kernel median device times (torch.profiler) and CUDA-event
+13. fleet  the multi-process edge at the default deployment (2^22 slots, W =
+           128, the production sketch, HOST_FAST_PATH, TPU_PRECOMPILE,
+           TPU_BATCH_WINDOW=200us: the dispatch loop), driven by 8 client
+           processes of 16 threads each (api_ratelimit_tpu_torch/tools/
+           fleet_client.py: phase 9's stream of 1-3 descriptors, Zipf(1.1)
+           over 2^16 keys; one call in eight also carries one descriptor,
+           one hit, on one of 16 shared keys whose rule is a fixed window
+           per hour, limit 8). (a) FRONTEND_PROCS=4, BACKEND_TYPE=cuda,
+           SHM_RINGS=true: the master spawns the owner (cmd/sidecar_cmd.py)
+           and four cuda-sidecar workers; 6 s of load measured, 5 s more
+           for the owner's trace: no call fails, each shared key admits
+           exactly min(8, calls) and gets more; only
+           the owner (and this script) has a /dev/nvidia* file open, and
+           nvidia-smi lists no other fleet process; a /debug/profile trace
+           on the owner's debug port (its tracer warmed before the load)
+           names way_scan_kernel<false>,
+           slab_apply_kernel and sketch_update_kernel, and its /metrics
+           counts their launches and the items its shm rings carried;
+           GET /metrics?fleet=1 on the master counts the calls the clients
+           sent, ratelimit_native_available reads 1 on every member and the
+           build gauges name the card for the owner only. A second wave
+           without shared keys: SIGKILL a worker mid-wave; the master
+           restarts it, the owner detaches its rings, and the failed calls
+           are at most the killed worker's connections, all at the kill.
+           SIGTERM to the master: exit 0, no shm segment of its workers
+           (the restarted one too) left, and the
+           owner's drain snapshot restores into a fresh engine on the card
+           with each shared key's counter its calls admitted plus refused.
+           (b) an external sidecar_cmd, and a cuda-sidecar master of four
+           workers against it with SHM_RINGS=false and a concurrency rule
+           (acquire only, cap 4) on 16 more shared keys: both rules exact,
+           the owner's trace names way_scan_kernel<true> once the guard has
+           flipped. (c) the same load on the single-process Runner and on
+           one cuda-sidecar worker against (b)'s owner (rings attached, its
+           segments gone at its exit), beside (a)'s fleet: requests/s,
+           p50/p99 per call, the busy share of the process holding the
+           card, the mean batch per launch; printed,
+           not claimed. (d) a cuda-sidecar Runner with LEASE_ENABLED true
+           and false, each against its own owner served in this process on
+           one fake clock: a sequential stream on phase 12's hot keys
+           answered byte for byte alike, the lease arm's owner launching
+           less and holding liabilities. Prints one "fleet:" JSON line with
+           the card's name and power limit.
+14. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -275,8 +318,8 @@ Phases, each of which must pass (nothing is caught):
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
            kernel; the process, observability, warm restart and tiers
-           phases' lines, the card's name and power limit, then the ok
-           line.
+           phases' lines, the fleet's, the card's name and power limit,
+           then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -4411,6 +4454,743 @@ def phase_tiers(M, K, device: str = "cuda", n_slots: int = N_SLOTS, rounds: int 
     return out, row
 
 
+FLEET_WORKERS = 4  # FRONTEND_PROCS of arms (a) and (b)
+FLEET_CLIENT_PROCS = 8
+FLEET_CLIENT_THREADS = 16
+# the phase's run times, cut to keep the script within its time (three
+# processes boot on the card: arm (a)'s owner, (c)'s single-process Runner,
+# and the external owner that (b) and (c)'s one-worker run share); the
+# deployment's width is not cut
+FLEET_ARM_S = 6.0  # each arm's measured load
+# the same load on after the measured seconds, for the owner's trace: a
+# warmed capture took 2.6 s from its request to its end in arm (a)
+FLEET_TAIL_S = 5.0
+FLEET_KILL_S = 3.0  # arm (a)'s second wave, a worker SIGKILLed in it
+FLEET_C_S = 4.0  # each of (c)'s single-process and one-worker runs
+FLEET_SHARED_KEYS = 16
+# fixed window, per hour: low enough that every shared key crosses it in an
+# arm at the fleet's rate on the card (the socket arm's ~700 calls/s, 1 in
+# 256 of them on a key)
+FLEET_SHARED_LIMIT = 8
+FLEET_CONC_KEYS = 16
+FLEET_CONC_CAP = 4  # concurrency, acquire only
+FLEET_SHARED_EVERY = 8  # one call in eight carries a shared key
+FLEET_PROFILE_MS = 500
+FLEET_LEASE_CALLS = 1024
+FLEET_BOOT_S = 300.0
+FLEET_RULES = PROCESS_RULES + f"""\
+  - key: shared
+    rate_limit: {{unit: hour, requests_per_unit: {FLEET_SHARED_LIMIT}}}
+"""
+FLEET_CONC_RULE = f"""\
+  - key: conc
+    rate_limit: {{requests_per_unit: {FLEET_CONC_CAP}, algorithm: concurrency}}
+"""
+SERVICE_CMD = "api_ratelimit_tpu_torch.cmd.service_cmd"
+SIDECAR_CMD = "api_ratelimit_tpu_torch.cmd.sidecar_cmd"
+
+
+def port_run(n: int) -> int:
+    """The first of n consecutive free ports (the fleet's debug layout)."""
+    import socket
+
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(20000, 60000 - n))
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no run of {n} free ports")
+
+
+def fleet_runtime(root: str, conc: bool = False) -> None:
+    config = os.path.join(root, "ratelimit", "config")
+    os.makedirs(config, exist_ok=True)
+    write_text(os.path.join(config, "proc.yaml"), FLEET_RULES + (FLEET_CONC_RULE if conc else ""))
+
+
+def fleet_env(root: str, scratch: str, tag: str, backend: str = "cuda", **overrides) -> dict:
+    """The default deployment (process_env) with the dispatch loop
+    (TPU_BATCH_WINDOW=200us), the owner's socket, profile and snapshot
+    directories under scratch, and its own ports; `overrides` replace any;
+    the whole of os.environ beneath it."""
+    http, grpc_port = free_ports(2)
+    debug = port_run(FLEET_WORKERS + 2)
+    prof = os.path.join(scratch, tag + "_profile")
+    os.makedirs(prof, exist_ok=True)
+    env = dict(os.environ)
+    env.update(process_env(root, backend, **{
+        "TPU_BATCH_WINDOW": "200us",
+        "TPU_PROFILE_DIR": prof,
+        "SIDECAR_SOCKET": os.path.join(scratch, tag + ".sock"),
+        "SLAB_SNAPSHOT_DIR": os.path.join(scratch, tag + "_snap"),
+        "SLAB_SNAPSHOT_INTERVAL_MS": str(WARM_SNAPSHOT_MS),
+        "PORT": str(http), "GRPC_PORT": str(grpc_port), "DEBUG_PORT": str(debug),
+        "PYTHONPATH": REPO_ROOT,
+        **overrides,
+    }))
+    return env
+
+
+def fleet_spawn(module: str, env: dict, log_path: str, **extra) -> subprocess.Popen:
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module], cwd=REPO_ROOT, env={**env, **extra},
+        stdout=log_file, stderr=subprocess.STDOUT,
+    )
+    proc.log_path = log_path
+    log_file.close()
+    return proc
+
+
+def log_tail(proc, n: int = 3000) -> str:
+    try:
+        with open(proc.log_path) as f:
+            return f.read()[-n:]
+    except (OSError, AttributeError):
+        return ""
+
+
+def children(pid: int) -> dict:
+    """pid -> command line of every live child of pid (/proc)."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != pid:
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                out[int(d)] = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def holds_card(pid: int) -> bool:
+    """True when the process has a /dev/nvidia* file open (a CUDA context
+    opens the control and device nodes)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def tcp_conns(pid: int, port: int) -> tuple[int, int]:
+    """(connections the process holds on local `port`, connections on that
+    port no process has accepted yet): every state but LISTEN, from its
+    fd table and /proc/net/tcp{,6}. A connection still in the accept queue
+    may be any of the port's listeners'."""
+    inodes = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if link.startswith("socket:["):
+                inodes.add(link[8:-1])
+    except OSError:
+        return 0, 0
+    held = queued = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if int(cols[1].rsplit(":", 1)[1], 16) != port or cols[3] == "0A":
+                continue
+            if cols[9] in inodes:
+                held += 1
+            elif cols[9] == "0":
+                queued += 1
+    return held, queued
+
+
+def wait_for(pred, what: str, timeout: float, proc=None) -> None:
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            if pred():
+                return
+        except (OSError, ConnectionError, http.client.HTTPException):
+            pass
+        if proc is not None:
+            check(proc.poll() is None, f"{what}: the process exited with {proc.returncode}:\n{log_tail(proc)}")
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def http_ok(port: int, path: str = "/") -> bool:
+    return http_call(port, "GET", path)[0] == 200
+
+
+def metrics_of(port: int, path: str = "/metrics") -> dict:
+    """A /metrics exposition as {sample: value}."""
+    from api_ratelimit_tpu_torch.stats.prometheus import parse_exposition
+
+    status, body = http_call(port, "GET", path)
+    check(status == 200, f"GET {path} on {port} answered {status}")
+    _types, families = parse_exposition(body.decode())
+    return {k: v for samples in families.values() for k, v in samples.items()}
+
+
+def fleet_up(env: dict, scratch: str, tag: str, workers: int, owner: bool):
+    """The master (service_cmd, FRONTEND_PROCS=workers) booted until the
+    owner's /healthcheck and every worker's debug port answer. Returns
+    (master, {"owner": pid or None, "workers": [pids]}, seconds)."""
+    t0 = time.perf_counter()
+    master = fleet_spawn(SERVICE_CMD, env, os.path.join(scratch, tag + "_master.log"), FRONTEND_PROCS=str(workers))
+    debug = int(env["DEBUG_PORT"])
+    if owner:
+        wait_for(lambda: http_ok(debug + 1 + workers, "/healthcheck"), f"{tag}: the owner", FLEET_BOOT_S, master)
+    for i in range(workers):
+        wait_for(lambda i=i: http_ok(debug + 1 + i), f"{tag}: worker {i}", FLEET_BOOT_S, master)
+    wait_for(lambda: http_ok(debug, "/"), f"{tag}: the aggregator", 30, master)
+    pids = fleet_pids(master)
+    check(len(pids["workers"]) == workers and (pids["owner"] is not None) == owner, f"{tag}: fleet processes {pids}")
+    return master, pids, time.perf_counter() - t0
+
+
+def fleet_pids(master) -> dict:
+    kids = children(master.pid)
+    return {
+        "owner": next((p for p, c in kids.items() if SIDECAR_CMD in c), None),
+        "workers": sorted(p for p, c in kids.items() if SERVICE_CMD in c),
+    }
+
+
+def fleet_down(master, what: str, timeout: float = 90.0) -> int:
+    """SIGTERM to the master, which takes its workers and owner down; a
+    master that hangs is killed with every child it left."""
+    master.send_signal(signal.SIGTERM)
+    try:
+        rc = master.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        for pid in children(master.pid):
+            os.kill(pid, signal.SIGKILL)
+        master.kill()
+        master.wait()
+        check(False, f"{what}: the master did not exit within {timeout} s of SIGTERM:\n{log_tail(master)}")
+    return rc
+
+
+def fleet_clients(port: int, seconds: float, scratch: str, tag: str, seed: int, **flags) -> list:
+    """FLEET_CLIENT_PROCS load processes (tools/fleet_client.py), each of
+    FLEET_CLIENT_THREADS threads, started together a few seconds from now
+    (streams built, channels not yet open). Returns the handles."""
+    start_at = time.time() + 3.0
+    procs = []
+    for i in range(FLEET_CLIENT_PROCS):
+        out = os.path.join(scratch, f"{tag}_client{i}.json")
+        args = ["--port", str(port), "--seconds", str(seconds), "--threads", str(FLEET_CLIENT_THREADS),
+                "--seed", str(seed * 100 + i), "--start-at", repr(start_at), "--out", out,
+                "--shared-every", str(FLEET_SHARED_EVERY), "--shared-keys", str(FLEET_SHARED_KEYS)]
+        for k, v in flags.items():
+            args += ["--" + k.replace("_", "-"), str(v)]
+        env = {**os.environ, "PYTHONPATH": REPO_ROOT, "CUDA_VISIBLE_DEVICES": ""}
+        log_file = open(os.path.join(scratch, f"{tag}_client{i}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "api_ratelimit_tpu_torch.tools.fleet_client", *args],
+            cwd=REPO_ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        )
+        log_file.close()
+        proc.out, proc.log_path, proc.start_at = out, log_file.name, start_at
+        procs.append(proc)
+    return procs
+
+
+def fleet_collect(procs: list, seconds: float, measure_s: float | None = None) -> dict:
+    """Wait for the load processes and merge their results: calls, hits,
+    failures and shared keys over the whole run; requests/s and p50/p99 per
+    call over the calls started in its first measure_s seconds (all when
+    None), so a trace taken after them stays out of the figures."""
+    merged = {"calls": 0, "descriptors": 0, "hits": 0, "failures": [], "shared": collections.Counter(), "over": collections.Counter()}
+    lat, wall = [], 0.0
+    start = procs[0].start_at
+    for proc in procs:
+        try:
+            rc = proc.wait(timeout=seconds + 120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        check(rc == 0, f"a load process exited {rc}:\n{log_tail(proc)}")
+        with open(proc.out) as f:
+            doc = json.load(f)
+        for k in ("calls", "descriptors", "hits"):
+            merged[k] += doc[k]
+        merged["failures"] += doc["failures"]
+        for key, (ok, over) in doc["shared"].items():
+            merged["shared"][key] += ok
+            merged["over"][key] += over
+        lat += [ms for t, ms in doc["lat_ms"] if measure_s is None or t < start + measure_s]
+        wall = max(wall, doc["seconds"])
+    window = wall if measure_s is None else measure_s
+    merged["measured_calls"] = len(lat)
+    merged["requests_per_s"] = len(lat) / window if window else 0.0
+    merged["p50_ms"] = float(np.percentile(lat, 50)) if lat else None
+    merged["p99_ms"] = float(np.percentile(lat, 99)) if lat else None
+    merged["seconds"] = wall
+    return merged
+
+
+def trace_busy(profile_dir: str, window_ms: float) -> tuple[float, dict]:
+    """The device's busy share of a /debug/profile capture (the union of
+    its kernel and copy intervals over the capture) and each kernel name's
+    count, from the Chrome trace(s) in profile_dir."""
+    spans, names = [], collections.Counter()
+    for name in sorted(os.listdir(profile_dir)):
+        with open(os.path.join(profile_dir, name)) as f:
+            doc = json.load(f)
+        for ev in doc.get("traceEvents", []):
+            cat = str(ev.get("cat", "")).lower()
+            if ev.get("ph") == "X" and cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+                spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0))))
+                if cat == "kernel":
+                    names[ev.get("name", "")] += 1
+    busy, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / (window_ms * 1e3), dict(names)
+
+
+def owner_profile(debug_port: int, profile_dir: str, ms: float = FLEET_PROFILE_MS, load_end: float = 0.0) -> dict:
+    """One GET /debug/profile?ms=N on a debug port, into an empty
+    profile_dir: the busy share and the kernels named. A process's first
+    capture pays the tracer's start-up (seconds on the card, the process
+    stalled meanwhile): warm it with a short capture before the load.
+    load_end: the unix time the load stops; the capture must end before."""
+    for name in os.listdir(profile_dir):
+        os.remove(os.path.join(profile_dir, name))
+    status, body = http_call(debug_port, "GET", f"/debug/profile?ms={ms}")
+    check(not load_end or time.time() < load_end, f"the {ms} ms capture ended {time.time() - load_end:.1f} s after the load")
+    check(status == 200, f"/debug/profile answered {status}: {body[:200]}")
+    busy, names = trace_busy(profile_dir, ms)
+    return {"busy_share": busy, "kernels": names}
+
+
+def named(names: dict, fragment: str) -> int:
+    return sum(n for k, n in names.items() if fragment in k)
+
+
+def batch_mean(before: dict, after: dict, prefix: str = "ratelimit_dispatch_batch_size") -> float:
+    items = after.get(prefix + "_sum", 0) - before.get(prefix + "_sum", 0)
+    launches = after.get(prefix + "_count", 0) - before.get(prefix + "_count", 0)
+    return items / launches if launches else 0.0
+
+
+def owner_launches(before: dict, after: dict) -> dict:
+    pre = "ratelimit_owner_launches_"
+    return {k[len(pre):]: int(after[k] - before.get(k, 0)) for k in after if k.startswith(pre)}
+
+
+def shared_exact(load: dict, prefix: str, limit: int, keys: int) -> dict:
+    """Each shared key of `prefix` admitted exactly min(limit, calls), and
+    every one got more calls than its limit."""
+    got = {}
+    for j in range(keys):
+        key = f"{prefix}{j}"
+        ok, over = load["shared"][key], load["over"][key]
+        got[key] = [ok, over]
+        check(ok + over > limit, f"shared key {key} got {ok + over} calls, not more than its limit {limit}")
+        check(ok == min(limit, ok + over), f"shared key {key} admitted {ok} of {ok + over} calls, limit {limit}")
+    return got
+
+
+def wait_hour_margin(seconds: float) -> float:
+    """The shared rule counts per clock hour: wait out an hour boundary
+    that would fall inside the next `seconds`. Returns the wait."""
+    left = 3600 - time.time() % 3600
+    if left > seconds:
+        return 0.0
+    time.sleep(left + 1.0)
+    return left + 1.0
+
+
+def fleet_arm_a(root: str, scratch: str) -> dict:
+    """Arm (a): FRONTEND_PROCS=4, BACKEND_TYPE=cuda, SHM_RINGS=true, fixed
+    rules. The load's exactness, the rings, the processes on the card, the
+    owner's kernels in its trace, the fleet's /metrics, a SIGKILLed worker,
+    the teardown and the drain snapshot's restore."""
+    fleet_runtime(root)
+    env = fleet_env(root, scratch, "a", SHM_RINGS="true")
+    waited = wait_hour_margin(FLEET_ARM_S + FLEET_KILL_S + 120)
+    master, pids, boot_s = fleet_up(env, scratch, "a", FLEET_WORKERS, owner=True)
+    debug, grpc_port = int(env["DEBUG_PORT"]), int(env["GRPC_PORT"])
+    owner_debug = debug + 1 + FLEET_WORKERS
+    out = {"boot_s": boot_s, "hour_wait_s": waited}
+    try:
+        owner_profile(owner_debug, env["TPU_PROFILE_DIR"], ms=10)
+        before = metrics_of(owner_debug)
+        procs = fleet_clients(grpc_port, FLEET_ARM_S + FLEET_TAIL_S, scratch, "a1", seed=1)
+        time.sleep(max(0.0, procs[0].start_at - time.time()) + FLEET_ARM_S / 2)
+        # one process on the card: the owner (and this script)
+        holders = [p for p in [master.pid, *pids["workers"], *(c.pid for c in procs)] if holds_card(p)]
+        check(not holders, f"fleet processes other than the owner hold the card: {holders}")
+        check(holds_card(pids["owner"]), "the owner holds no /dev/nvidia* file")
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        listed = {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+        ours = {master.pid, *pids["workers"], *(c.pid for c in procs)}
+        check(not (listed & ours), f"nvidia-smi lists fleet processes other than the owner: {listed & ours}")
+        out["compute_apps"] = sorted(listed)
+        out["compute_apps_known"] = sorted(listed & {pids["owner"], os.getpid()})
+        time.sleep(max(0.0, procs[0].start_at + FLEET_ARM_S - time.time()) + 0.2)
+        t_prof = time.time()
+        prof = owner_profile(owner_debug, env["TPU_PROFILE_DIR"], load_end=procs[0].start_at + FLEET_ARM_S + FLEET_TAIL_S)
+        out["profile_at_s"] = [t_prof - procs[0].start_at, time.time() - procs[0].start_at]
+        load = fleet_collect(procs, FLEET_ARM_S + FLEET_TAIL_S, FLEET_ARM_S)
+        after = metrics_of(owner_debug)
+        check(not load["failures"], f"calls failed: {load['failures'][:5]}")
+        out["exact"] = shared_exact(load, "shared:s", FLEET_SHARED_LIMIT, FLEET_SHARED_KEYS)
+        for kernel in ("way_scan_kernel<false>", "slab_apply_kernel", "sketch_update_kernel"):
+            check(named(prof["kernels"], kernel) > 0, f"the owner's trace names no {kernel}: {prof['kernels']}")
+        launches = owner_launches(before, after)
+        for kernel in ("way_scan", "slab_apply", "sketch_update"):
+            check(launches.get(kernel, 0) > 0, f"the owner launched no {kernel}: {launches}")
+        check(launches.get("way_scan_multi_per_item", 0) + launches.get("way_scan_multi_set_major", 0) == 0,
+              f"a fixed-only fleet ran the multi way scan: {launches}")
+        rings = {k: after.get(f"ratelimit_owner_shm_{k}", 0) for k in ("rings", "items_in", "items_out")}
+        check(rings["rings"] >= FLEET_WORKERS and rings["items_in"] > 0 and rings["items_out"] == rings["items_in"],
+              f"the shm rings did not carry the frames: {rings}")
+        # the fleet's /metrics: the calls, the codec on every member, the
+        # build gauges naming the card for the owner only
+        merged = metrics_of(debug, "/metrics?fleet=1")
+        calls_metric = int(merged.get("ratelimit_service_call_should_rate_limit_latency_ms_count", -1))
+        check(calls_metric == load["calls"], f"/metrics?fleet=1 counts {calls_metric} calls, the clients sent {load['calls']}")
+        members = {f"worker{i}": metrics_of(debug + 1 + i) for i in range(FLEET_WORKERS)} | {"owner": after}
+        native = {m: v.get("ratelimit_native_available") for m, v in members.items()}
+        check(all(v == 1 for v in native.values()), f"ratelimit_native_available is not 1 on every member: {native}")
+        build = {m: (v.get("ratelimit_build_platform_id"), v.get("ratelimit_build_device_count")) for m, v in members.items()}
+        check(build.pop("owner") == (2, 1) and all(b == (0, 0) for b in build.values()),
+              f"the build gauges name the card on another member: {build}")
+        check((merged.get("ratelimit_build_platform_id"), merged.get("ratelimit_build_device_count")) == (2, 1),
+              "the merged build gauges do not name the card")
+        out |= {
+            "load": {k: load[k] for k in ("calls", "measured_calls", "hits", "requests_per_s", "p50_ms", "p99_ms", "seconds")},
+            "owner_busy_share": prof["busy_share"], "owner_kernels": prof["kernels"],
+            "owner_launches": launches, "batch_mean": batch_mean(before, after), "rings": rings,
+            "native_available": native, "fleet_calls_metric": calls_metric,
+        }
+        out["kill"] = fleet_kill(master, pids, env, scratch)
+    finally:
+        if master.poll() is None:
+            rc = fleet_down(master, "arm (a)")
+        else:
+            rc = master.returncode
+    check(rc == 0, f"the fleet master exited {rc} on SIGTERM:\n{log_tail(master)}")
+    left = ring_segments(pids["workers"] + ([out["kill"]["restarted_pid"]] if "kill" in out else []))
+    check(not left, f"the teardown left shm segments: {left}")
+    out["restore"] = fleet_restore(env, out["exact"])
+    return out
+
+
+def ring_segments(pids) -> list:
+    """The shm ring segments in /dev/shm that the processes `pids` made: a
+    producer names its segments rlring_<pid>_*."""
+    return [p for p in os.listdir("/dev/shm") if any(p.startswith(f"rlring_{pid}_") for pid in pids)]
+
+
+def fleet_kill(master, pids: dict, env: dict, scratch: str) -> dict:
+    """The second wave of arm (a), without shared keys: SIGKILL worker 0
+    in its middle. The master restarts it, the owner detaches its rings
+    (its segments vanish), and the calls that fail are at most the killed
+    worker's connections, each at the kill: no other worker's call fails."""
+    debug, grpc_port = int(env["DEBUG_PORT"]), int(env["GRPC_PORT"])
+    procs = fleet_clients(grpc_port, FLEET_KILL_S, scratch, "a2", seed=2, shared_until=0)
+    time.sleep(max(0.0, procs[0].start_at - time.time()) + FLEET_KILL_S / 3)
+    victim = pids["workers"][0]
+    # the most connections it held in the last ~50 ms before the kill
+    held, queued = max(tcp_conns(victim, grpc_port) for _ in range(5))
+    os.kill(victim, signal.SIGKILL)
+    t_kill = time.time()
+    wait_for(lambda: len(fleet_pids(master)["workers"]) == FLEET_WORKERS and victim not in fleet_pids(master)["workers"],
+             "the master to restart the killed worker", 30, master)
+    restart_s = time.time() - t_kill
+    wait_for(lambda: all(http_ok(debug + 1 + i) for i in range(FLEET_WORKERS)), "the restarted worker's debug port", 120, master)
+    ready_s = time.time() - t_kill
+    restarted = next(p for p in fleet_pids(master)["workers"] if p not in pids["workers"])
+    wait_for(lambda: not ring_segments([victim]), "the owner to detach the killed worker's rings", 30, master)
+    load = fleet_collect(procs, FLEET_KILL_S)
+    fails = load["failures"]
+    codes = collections.Counter(f[3] for f in fails)
+    # one thread a channel, one channel a connection, one call in flight
+    # on each: a call can fail only on a connection the killed worker held
+    # (or one still queued to a listener when it died)
+    check(len(fails) <= held + queued, f"{len(fails)} calls failed, the killed worker held {held} connections "
+          f"({queued} queued): {[(round(f[1] - t_kill, 3), f[3]) for f in fails[:20]]}")
+    check(set(codes) <= {"UNAVAILABLE"}, f"calls failed otherwise than UNAVAILABLE: {dict(codes)}")
+    check(all(t_kill - 1.0 <= f[1] <= t_kill + 5.0 for f in fails), "a call failed away from the kill")
+    return {
+        "killed_pid": victim, "restarted_pid": restarted, "killed_connections": held, "queued_connections": queued,
+        "failed_calls": len(fails), "failure_codes": dict(codes),
+        "restart_s": restart_s, "ready_s": ready_s, "calls": load["calls"], "requests_per_s": load["requests_per_s"],
+    }
+
+
+def fleet_restore(env: dict, exact: dict) -> dict:
+    """The owner's drain snapshot restored into a fresh engine on the card:
+    each shared key's counter is its calls admitted plus refused."""
+    from api_ratelimit_tpu_torch.backends.cuda import SlabDeviceEngine
+    from api_ratelimit_tpu_torch.models.descriptors import Entry
+    from api_ratelimit_tpu_torch.ops.hashing import fingerprint64
+    from api_ratelimit_tpu_torch.persist.snapshot import COL_COUNT, COL_FP_HI, COL_FP_LO
+    from api_ratelimit_tpu_torch.persist.snapshotter import SlabSnapshotter
+    from api_ratelimit_tpu_torch.utils import RealTimeSource
+
+    engine = SlabDeviceEngine(RealTimeSource(), n_slots=int(env["TPU_SLAB_SLOTS"]), ways=0, device="cuda",
+                              buckets=BUCKETS, hotkey_lanes=HOTKEY_LANES, hotkey_k=HOTKEY_K)
+    try:
+        snap = SlabSnapshotter(engine, env["SLAB_SNAPSHOT_DIR"], interval_ms=WARM_SNAPSHOT_MS, time_source=RealTimeSource())
+        stats = snap.restore()
+        rows = np.concatenate(engine.export_tables())
+        u = rows.view(np.uint32)
+        index = {(int(lo), int(hi)): int(c) for lo, hi, c in zip(u[:, COL_FP_LO], u[:, COL_FP_HI], u[:, COL_COUNT])}
+        counters = {}
+        for key, (ok, over) in exact.items():
+            name, value = key.split(":", 1)
+            fp = fingerprint64("proc", (Entry(name, value),), 3600)
+            count = index.get((fp & 0xFFFFFFFF, fp >> 32))
+            counters[key] = count
+            check(count == ok + over, f"restored counter of {key} is {count}, its calls {ok + over}")
+    finally:
+        engine.close()
+    return {"restored": stats.get("restored"), "counters": counters}
+
+
+def fleet_owner_up(root: str, scratch: str, tag: str):
+    """An external device owner (sidecar_cmd) with SHM_RINGS=true, booted
+    until its /healthcheck answers: (process, its env, its debug port,
+    seconds)."""
+    t0 = time.perf_counter()
+    env = fleet_env(root, scratch, tag, SHM_RINGS="true")
+    owner_debug = int(env["DEBUG_PORT"]) + 1 + FLEET_WORKERS
+    owner = fleet_spawn(SIDECAR_CMD, env, os.path.join(scratch, tag + "_owner.log"), DEBUG_PORT=str(owner_debug))
+    try:
+        wait_for(lambda: http_ok(owner_debug, "/healthcheck"), f"{tag}: the owner", FLEET_BOOT_S, owner)
+    except BaseException:
+        stop_procs([owner], tag)
+        raise
+    return owner, env, owner_debug, time.perf_counter() - t0
+
+
+def stop_procs(procs: list, tag: str) -> None:
+    """SIGTERM each live process in turn and wait for it (killed after 60
+    s); each must exit 0."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    for proc in procs:
+        check(proc.returncode == 0, f"{tag}: a process exited {proc.returncode} on SIGTERM:\n{log_tail(proc)}")
+
+
+def fleet_arm_b(root: str, scratch: str, owner_env: dict, owner_debug: int) -> dict:
+    """Arm (b): FRONTEND_PROCS=4, BACKEND_TYPE=cuda-sidecar against the
+    external owner, the socket RPC only (SHM_RINGS=false), with a
+    concurrency rule beside the fixed one: exactness on both, the owner's
+    trace names the multi instantiation of the way scan once the guard has
+    flipped."""
+    fleet_runtime(root, conc=True)
+    env = fleet_env(root, scratch, "b", "cuda-sidecar", SHM_RINGS="false", SIDECAR_SOCKET=owner_env["SIDECAR_SOCKET"])
+    waited = wait_hour_margin(FLEET_ARM_S + 120)
+    master, pids, boot_s = fleet_up(env, scratch, "b", FLEET_WORKERS, owner=False)
+    debug, grpc_port = int(env["DEBUG_PORT"]), int(env["GRPC_PORT"])
+    try:
+        owner_profile(owner_debug, owner_env["TPU_PROFILE_DIR"], ms=10)
+        before = metrics_of(owner_debug)
+        procs = fleet_clients(grpc_port, FLEET_ARM_S + FLEET_TAIL_S, scratch, "b", seed=3, conc_keys=FLEET_CONC_KEYS)
+        time.sleep(max(0.0, procs[0].start_at + FLEET_ARM_S - time.time()) + 0.2)
+        prof = owner_profile(owner_debug, owner_env["TPU_PROFILE_DIR"], load_end=procs[0].start_at + FLEET_ARM_S + FLEET_TAIL_S)
+        load = fleet_collect(procs, FLEET_ARM_S + FLEET_TAIL_S, FLEET_ARM_S)
+        after = metrics_of(owner_debug)
+        check(not load["failures"], f"calls failed: {load['failures'][:5]}")
+        exact = shared_exact(load, "shared:s", FLEET_SHARED_LIMIT, FLEET_SHARED_KEYS)
+        exact |= shared_exact(load, "conc:c", FLEET_CONC_CAP, FLEET_CONC_KEYS)
+        check(named(prof["kernels"], "way_scan_kernel<true>") > 0, f"the owner's trace names no multi way scan: {prof['kernels']}")
+        launches = owner_launches(before, after)
+        check(launches.get("way_scan_multi_per_item", 0) + launches.get("way_scan_multi_set_major", 0) > 0,
+              f"the owner ran no multi way scan: {launches}")
+        check(after.get("ratelimit_owner_shm_rings", 0) == 0, "SHM_RINGS=false attached rings")
+        shm_active = [metrics_of(debug + 1 + i).get("ratelimit_sidecar_shm_active") for i in range(FLEET_WORKERS)]
+        check(all(v == 0 for v in shm_active), f"a worker used the shm rings: {shm_active}")
+    finally:
+        rc = fleet_down(master, "arm (b)") if master.poll() is None else master.returncode
+    check(rc == 0, f"the fleet master exited {rc} on SIGTERM:\n{log_tail(master)}")
+    return {
+        "boot_s": boot_s, "hour_wait_s": waited, "exact": exact,
+        "load": {k: load[k] for k in ("calls", "measured_calls", "hits", "requests_per_s", "p50_ms", "p99_ms", "seconds")},
+        "owner_busy_share": prof["busy_share"], "owner_kernels": prof["kernels"], "owner_launches": launches,
+        "batch_mean": batch_mean(before, after),
+    }
+
+
+def fleet_single(root: str, scratch: str, tag: str, owner_env: dict | None = None, owner_debug: int = 0) -> dict:
+    """One run of (c) under arm (a)'s client load: the single-process
+    Runner (service_cmd, BACKEND_TYPE=cuda), or, given an external owner's
+    env and debug port, one cuda-sidecar worker against it (its segments
+    gone after its SIGTERM). requests/s, p50/p99 per call, the card's busy
+    share in a trace of the process holding it, the mean batch per
+    launch."""
+    fleet_runtime(root)
+    if owner_env is None:
+        env = fleet_env(root, scratch, tag)
+        owner_debug, profile_dir = int(env["DEBUG_PORT"]), env["TPU_PROFILE_DIR"]
+        worker_env = {}
+    else:
+        env = fleet_env(root, scratch, tag, "cuda-sidecar", SHM_RINGS="true", SIDECAR_SOCKET=owner_env["SIDECAR_SOCKET"])
+        profile_dir = owner_env["TPU_PROFILE_DIR"]
+        worker_env = {"CUDA_VISIBLE_DEVICES": ""}
+    debug, grpc_port = int(env["DEBUG_PORT"]), int(env["GRPC_PORT"])
+    worker = fleet_spawn(SERVICE_CMD, env, os.path.join(scratch, tag + "_worker.log"), **worker_env)
+    try:
+        wait_for(lambda: http_ok(debug), f"{tag}: the server", FLEET_BOOT_S, worker)
+        wait_for(lambda: grpc_health(grpc_port) == 1, f"{tag}: gRPC SERVING", 60, worker)
+        owner_profile(owner_debug, profile_dir, ms=10)
+        before = metrics_of(owner_debug)
+        procs = fleet_clients(grpc_port, FLEET_C_S + FLEET_TAIL_S, scratch, tag, seed=4)
+        time.sleep(max(0.0, procs[0].start_at + FLEET_C_S - time.time()) + 0.2)
+        prof = owner_profile(owner_debug, profile_dir, load_end=procs[0].start_at + FLEET_C_S + FLEET_TAIL_S)
+        load = fleet_collect(procs, FLEET_C_S + FLEET_TAIL_S, FLEET_C_S)
+        after = metrics_of(owner_debug)
+        check(not load["failures"], f"{tag}: calls failed: {load['failures'][:5]}")
+    finally:
+        stop_procs([worker], tag)
+    if owner_env is not None:
+        check(after.get("ratelimit_owner_shm_rings", 0) > 0, f"{tag}: the worker attached no shm ring")
+        left = ring_segments([worker.pid])
+        check(not left, f"{tag}: the worker's teardown left shm segments: {left}")
+    return {
+        "requests_per_s": load["requests_per_s"], "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
+        "calls": load["measured_calls"], "busy_share": prof["busy_share"], "batch_mean": batch_mean(before, after),
+    }
+
+
+def fleet_leases(K, root: str, scratch: str) -> dict:
+    """(d): one cuda-sidecar frontend with LEASE_ENABLED true and the same
+    with it false, each against its own device owner on the card (served
+    in this process, so its launches count here), one fake clock that does
+    not move: one sequential stream of single-hit v3 calls on LEASE_KEYS,
+    limits crossed, answered byte for byte alike; the lease arm launches
+    less and its owner's registry holds liabilities."""
+    from api_ratelimit_tpu_torch.backends.sidecar import SlabSidecarServer
+    from api_ratelimit_tpu_torch.cmd.sidecar_cmd import build_engine
+    from api_ratelimit_tpu_torch.settings import new_settings
+    from api_ratelimit_tpu_torch.stats import Store
+    from api_ratelimit_tpu_torch.stats.sinks import NullSink
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    process_runtime(root)
+    reqs = lease_requests(np.random.default_rng(43), FLEET_LEASE_CALLS)
+    install_process_time_source(FakeTimeSource(NOW0))
+    owners, runners, got, launches = {}, [], {}, {}
+    try:
+        for arm, lease in (("lease_off", "false"), ("lease_on", "true")):
+            sock = os.path.join(scratch, f"d_{arm}.sock")
+            env = process_env(root, SIDECAR_SOCKET=sock)
+            engine = build_engine(new_settings(env), Store(NullSink()).scope("ratelimit"))
+            owners[arm] = SlabSidecarServer(sock, engine, shm_control_path=sock + ".shmctl")
+            owners[arm].engine = engine
+            runner, _ = process_boot(process_env(root, backend="cuda-sidecar", SIDECAR_SOCKET=sock, LEASE_ENABLED=lease))
+            runners.append(runner)
+            check((runner.lease_table is not None) == (lease == "true"), f"{arm}: LEASE_ENABLED={lease} built the wrong table")
+            first = len(engine.launch_sizes)
+            got[arm], launches[arm] = lease_run(K, runner, reqs)
+            launches[arm]["engine"] = len(engine.launch_sizes) - first
+        check(got["lease_on"] == got["lease_off"], "the lease arm's answers over the wire differ from the lease-off arm's")
+        codes = collections.Counter(v for raw in got["lease_on"] for v in verdicts(raw))
+        check(codes[1] > 0 and codes[2] > 0, f"the lease stream did not cross a limit: {dict(codes)}")
+        on, off = launches["lease_on"]["engine"], launches["lease_off"]["engine"]
+        check(on < off == len(reqs), f"owner launches: {on} with leases, {off} without")
+        if engine.device.type == "cuda":
+            # the owner serves in this process: its kernels count here
+            applies = launches["lease_on"]["slab_apply"], launches["lease_off"]["slab_apply"]
+            check(applies == (on, off), f"the owner's apply launches {applies}, its launches {(on, off)}")
+        local_hits = runners[1].stats_store.debug_snapshot().get("ratelimit.lease.local_hits", 0)
+        outstanding = owners["lease_on"].engine.lease_registry.outstanding()
+        check(local_hits > 0 and outstanding[0] > 0 and outstanding[1] > 0,
+              f"no lease answered or none is outstanding: {local_hits} {outstanding}")
+    finally:
+        for r in runners:
+            r.stop()
+        for server in owners.values():
+            server.close()
+        install_process_time_source(RealTimeSource())
+    return {"calls": len(reqs), "codes": dict(codes), "owner_slab_apply": {"lease_on": on, "lease_off": off},
+            "local_hits": local_hits, "outstanding": list(outstanding)}
+
+
+def phase_fleet(K) -> dict:
+    """Phase 13 (module docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as scratch:
+        root = os.path.join(scratch, "runtime")
+        t = time.perf_counter()
+        out["a"] = fleet_arm_a(root, scratch)
+        out["a"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        single = fleet_single(root, scratch, "c1")
+        single["seconds"] = time.perf_counter() - t
+        # one external owner serves (b), then (c)'s one-worker run: (b)
+        # counts its shared keys from zero, (c) checks no key's exactness
+        t = time.perf_counter()
+        owner, owner_env, owner_debug, owner_boot_s = fleet_owner_up(root, scratch, "bc")
+        try:
+            out["b"] = fleet_arm_b(root, scratch, owner_env, owner_debug)
+            out["b"]["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            one_worker = fleet_single(root, scratch, "c2", owner_env, owner_debug)
+        finally:
+            stop_procs([owner], "the external owner")
+        one_worker["seconds"] = time.perf_counter() - t
+        out["b"]["owner_boot_s"] = owner_boot_s
+        out["c"] = {
+            "single_process": single,
+            "one_worker_sidecar": one_worker,
+            "fleet_4": {
+                "requests_per_s": out["a"]["load"]["requests_per_s"], "p50_ms": out["a"]["load"]["p50_ms"],
+                "p99_ms": out["a"]["load"]["p99_ms"], "calls": out["a"]["load"]["measured_calls"],
+                "busy_share": out["a"]["owner_busy_share"], "batch_mean": out["a"]["batch_mean"],
+            },
+        }
+        out["d"] = fleet_leases(K, os.path.join(scratch, "runtime_d"), scratch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -4478,6 +5258,7 @@ def main() -> int:
     warm = phase_warm_restart(M, K)
     tiers, promote_row = phase_tiers(M, K)
     kernels.append(promote_row)
+    fleet = phase_fleet(K)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4488,6 +5269,7 @@ def main() -> int:
     log("observability:", json.dumps(observability))
     log("warm_restart:", json.dumps(warm))
     log("tiers:", json.dumps(tiers))
+    log("fleet:", json.dumps(fleet | {"card": smi.stdout.strip()}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

@@ -160,3 +160,188 @@ def test_service_cmd_refuses_an_unported_knob(tmp_path):
     _out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert "ROADMAP item 9" in err
+
+
+def test_sidecar_cmd_without_a_card_exits_1(tmp_path):
+    """The device owner has no CPU switch: without a card it exits 1."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the owner would boot")
+    env = _service_env(tmp_path, SIDECAR_SOCKET=str(tmp_path / "owner.sock"))
+    out = subprocess.run(
+        [sys.executable, "-m", "api_ratelimit_tpu_torch.cmd.sidecar_cmd"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=60,
+    )
+    assert out.returncode == 1
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert not os.path.exists(tmp_path / "owner.sock")
+
+
+def test_fleet_without_a_card_exits_nonzero(tmp_path):
+    """FRONTEND_PROCS=2 with BACKEND_TYPE=cuda: the master spawns the owner
+    first, and when the owner cannot hold the card the master exits
+    non-zero before any worker starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fleet would boot")
+    env = _service_env(tmp_path, FRONTEND_PROCS="2", SIDECAR_SOCKET=str(tmp_path / "owner.sock"))
+    proc = _service(env)
+    _out, err = proc.communicate(timeout=120)
+    assert proc.returncode != 0
+    assert "device owner exited with 1" in err
+    assert "spawned frontend worker" not in err
+
+
+def test_fleet_needs_a_card_backend(tmp_path):
+    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", FRONTEND_PROCS="2"))
+    _out, err = proc.communicate(timeout=60)
+    assert proc.returncode != 0
+    assert "FRONTEND_PROCS=2 requires BACKEND_TYPE cuda or cuda-sidecar" in err
+
+
+def test_fleet_restarts_a_killed_worker(tmp_path):
+    """A cuda-sidecar master over an owner served here on the CPU: SIGKILL
+    one worker, and the master spawns a new one on the same debug port
+    while the owner detaches the dead worker's rings; SIGTERM then takes
+    the fleet down with exit 0."""
+    import glob
+    import json
+
+    from api_ratelimit_tpu_torch.backends.cuda import SlabDeviceEngine
+    from api_ratelimit_tpu_torch.backends.sidecar import SlabSidecarServer
+    from api_ratelimit_tpu_torch.utils.timeutil import RealTimeSource
+
+    sock = str(tmp_path / "owner.sock")
+    engine = SlabDeviceEngine(
+        RealTimeSource(), n_slots=1 << 12, ways=4, buckets=(8, 128), device="cpu",
+        batch_window_seconds=0.0005, max_batch=512, block_mode=True,
+    )
+    owner = SlabSidecarServer(sock, engine, shm_control_path=sock + ".shmctl")
+    env = _service_env(
+        tmp_path, BACKEND_TYPE="cuda-sidecar", FRONTEND_PROCS="2", SIDECAR_SOCKET=sock, LOG_LEVEL="WARN",
+    )
+    master = _service(env)
+    debug = int(env["DEBUG_PORT"])
+
+    def worker_pid(i):
+        url = f"http://127.0.0.1:{debug + 1 + i}/debug/pprof/"
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.status
+
+    def post():
+        body = json.dumps({"domain": "d", "descriptors": [{"entries": [{"key": "k", "value": "x"}]}]})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{env['PORT']}/json", data=body.encode(), headers={"Content-Type": "application/json"},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status
+        except urllib.error.HTTPError as e:  # 429 once over the limit
+            return e.code
+
+    def wait(cond, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                if cond():
+                    return True
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+            assert master.poll() is None, master.communicate()
+            time.sleep(0.2)
+        return False
+
+    try:
+        assert wait(lambda: worker_pid(0) == 200 and worker_pid(1) == 200)
+        for _ in range(8):
+            assert post() in (200, 429)
+        loop = engine.dispatch_loop
+        assert wait(lambda: len(loop._ext_rings) >= 1)
+        out = subprocess.run(
+            ["pgrep", "-f", "-P", str(master.pid), "api_ratelimit_tpu_torch.cmd.service_cmd"],
+            capture_output=True, text=True,
+        )
+        pids = [int(p) for p in out.stdout.split()]
+        assert len(pids) == 2
+        os.kill(pids[0], signal.SIGKILL)
+        # the master restarts it and the owner detaches its rings
+        assert wait(lambda: len(subprocess.run(
+            ["pgrep", "-P", str(master.pid)], capture_output=True, text=True
+        ).stdout.split()) == 2 and pids[0] not in [
+            int(p) for p in subprocess.run(["pgrep", "-P", str(master.pid)], capture_output=True, text=True).stdout.split()
+        ])
+        assert wait(lambda: worker_pid(0) == 200 and worker_pid(1) == 200)
+        assert wait(lambda: not glob.glob(f"/dev/shm/rlring_{pids[0]}_*"))
+        for _ in range(8):
+            assert post() in (200, 429)
+        master.send_signal(signal.SIGTERM)
+        assert master.wait(timeout=60) == 0
+    finally:
+        if master.poll() is None:
+            # SIGTERM takes the workers down with the master
+            master.send_signal(signal.SIGTERM)
+            try:
+                master.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                master.kill()
+                master.wait()
+        owner.close()
+
+
+def test_chip_smoke_fleet_helpers_on_the_cpu(tmp_path):
+    """Phase 13's readers on synthetic inputs: the trace's busy share is the
+    union of its device intervals over the capture and counts kernels by
+    name; the process and connection readers see this process's children
+    and sockets; the ring segments read are the named producers'; the
+    exactness check takes min(limit, calls)."""
+    import json
+
+    import chip_smoke as CS
+
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "void way_scan_kernel<false>(int)", "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "Kernel", "name": "void way_scan_kernel<true>(int)", "ts": 50, "dur": 100},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 400, "dur": 100},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 0, "dur": 1000},
+    ]}
+    (tmp_path / "t.json").write_text(json.dumps(trace))
+    busy, names = CS.trace_busy(str(tmp_path), 1.0)  # a 1 ms capture
+    assert busy == pytest.approx(0.25)
+    assert CS.named(names, "way_scan_kernel<true>") == 1 and CS.named(names, "way_scan_kernel") == 2
+
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(30)"])
+    try:
+        assert child.pid in CS.children(os.getpid())
+        assert not CS.holds_card(child.pid)
+    finally:
+        child.kill()
+        child.wait()
+    server = socket.socket()
+    server.bind(("127.0.0.1", 0))
+    server.listen(4)
+    port = server.getsockname()[1]
+    client = socket.create_connection(("127.0.0.1", port))
+    accepted, _ = server.accept()
+    try:
+        assert CS.tcp_conns(os.getpid(), port) == (1, 0)
+    finally:
+        for s in (client, accepted, server):
+            s.close()
+
+    seg = f"/dev/shm/rlring_{os.getpid()}_0_{os.urandom(3).hex()}"
+    with open(seg, "wb"):
+        pass
+    try:  # a producer's segments only, not a pid that starts alike
+        assert CS.ring_segments([os.getpid()]) == [os.path.basename(seg)]
+        assert CS.ring_segments([os.getpid() // 10]) == []
+    finally:
+        os.remove(seg)
+
+    import collections
+
+    load = {"shared": collections.Counter({"k:0": 8, "k:1": 5}), "over": collections.Counter({"k:0": 4, "k:1": 0})}
+    assert CS.shared_exact({**load, "shared": collections.Counter({"k:0": 8})}, "k:", 8, 1) == {"k:0": [8, 4]}
+    with pytest.raises(RuntimeError, match="not more than its limit"):
+        CS.shared_exact(load, "k:", 8, 2)
+    assert CS.batch_mean({"m_sum": 10, "m_count": 2}, {"m_sum": 40, "m_count": 4}, "m") == 15.0
+    assert CS.owner_launches(
+        {"ratelimit_owner_launches_way_scan": 3}, {"ratelimit_owner_launches_way_scan": 10, "x": 1}
+    ) == {"way_scan": 7}

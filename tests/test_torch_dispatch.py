@@ -72,8 +72,10 @@ class TestSubmitRing:
             ring.publish(_block([i] * n), n, None, time.monotonic(), ticket)
             slot = ring.slots[ring.head & ring.mask]
             ring.slots[ring.head & ring.mask] = None
-            rows, count, _dl, _enq, _t, arena_used, ctx = slot
-            assert rows[2].tolist() == [i] * n and ctx is None
+            rows, count, _dl, _enq, _t, arena_used = slot
+            assert rows[2].tolist() == [i] * n
+            # an untraced frame clears its ctx row's flags word
+            assert int(ring.ctx[ring.head & ring.mask, 3]) == 0
             assert count == n
             ring.head += 1
             ring.items_out += count

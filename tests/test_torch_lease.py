@@ -6,9 +6,11 @@ the JAX package's.
 * The JAX package's tests/test_lease.py runs on the port class by class
   (reference_tests_on_the_port): the wire codec, the lease table, the
   service's local answers, the registry snapshots and the inspect tool on a
-  port-written file, the overshoot bound across a restart, the Runner and
-  the dispatch loop. TestSidecarLeaseWire waits for the sidecar (ROADMAP
-  item 8) and TestLeaseAcrossFailover for replication (item 9).
+  port-written file, the overshoot bound across a restart, the Runner, the
+  dispatch loop, and the lease trailer on the sidecar wire
+  (TestSidecarLeaseWire: grants and settles ride a port client's frames
+  into a port owner's registry, and a sidecar-backed service answers from
+  its leases). TestLeaseAcrossFailover waits for replication (item 9).
 * One request stream through the JAX stack and the port's (direct engine,
   leases on, one fake clock each): the decisions, the ratelimit.lease.*
   counters and LeaseRegistry.export_rows equal; with leases off the port's
@@ -74,6 +76,7 @@ TestRegistrySnapshot = _REF.TestRegistrySnapshot
 TestOvershootBound = _REF.TestOvershootBound
 TestRunnerIntegration = _REF.TestRunnerIntegration
 TestDispatchLoopArm = _REF.TestDispatchLoopArm
+TestSidecarLeaseWire = _REF.TestSidecarLeaseWire
 
 NOW = 1_000_000
 

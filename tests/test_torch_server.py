@@ -664,3 +664,32 @@ def test_chip_smoke_observability_phase_on_the_cpu(tmp_path, monkeypatch):
         collector.stop()
         port_time.install_process_time_source(RealTimeSource())
     assert not any(t.name == "tracing-flush" and t.is_alive() for t in threading.enumerate())
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_two_listeners_share_one_port(pkg):
+    """The fleet's workers bind one PORT (C6): a second HTTP listener binds
+    a port the first holds, through SO_REUSEPORT, as the JAX package's
+    _ReusePortHTTPServer does (api_ratelimit_tpu/server/http_server.py:53-60),
+    and the kernel spreads connections over both."""
+    if pkg == "jax":
+        from api_ratelimit_tpu.server.http_server import HttpServer as JaxHttp
+
+        first = JaxHttp("127.0.0.1", 0, "a")
+        servers = [first, JaxHttp("127.0.0.1", first.port, "b")]
+    else:
+        from api_ratelimit_tpu_torch.server.http_server import DebugServer, HttpServer
+
+        first = HttpServer(host="127.0.0.1", port=0)
+        servers = [first, HttpServer(host="127.0.0.1", port=first.port), DebugServer("127.0.0.1", first.port)]
+    for server in servers:
+        server.serve_background()
+    try:
+        assert {server.port for server in servers} == {first.port}
+        if pkg == "port":
+            for _ in range(4):
+                status, _body = http_call(first.port, "GET", "/healthcheck")
+                assert status in (200, 404)  # the main listeners or the debug one
+    finally:
+        for server in servers:
+            server.shutdown()

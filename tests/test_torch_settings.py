@@ -75,6 +75,10 @@ VALIDATORS = (
     "gcra_burst",
     "journey_config",
     "snapshot_config",
+    # the multi-process edge's (slice 13)
+    "sidecar_addresses",
+    "shm_control_path",
+    "shm_ring_rows_count",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -102,6 +106,12 @@ VALIDATOR_ENVS = [
     ("snapshot_interval_negative", {"SLAB_SNAPSHOT_INTERVAL_MS": "-5"}),
     ("snapshot_stale_negative", {"SLAB_SNAPSHOT_STALE_AFTER_MS": "-1"}),
     ("snapshot_stale_below_interval", {"SLAB_SNAPSHOT_INTERVAL_MS": "10000", "SLAB_SNAPSHOT_STALE_AFTER_MS": "500"}),
+    ("shm_ring_rows_small", {"SHM_RING_ROWS": "32"}),
+    ("shm_rings_off", {"SHM_RINGS": "false", "SIDECAR_SOCKET": "/run/o.sock"}),
+    ("shm_over_tcp", {"SIDECAR_SOCKET": "tcp://owner:7000"}),
+    ("shm_control_explicit", {"SHM_CONTROL_SOCK": "/run/ctl.sock"}),
+    ("sidecar_addrs_malformed", {"SIDECAR_ADDRS": "tcp://nohost"}),
+    ("sidecar_addrs_empty_entries", {"SIDECAR_ADDRS": " , "}),
 ]
 
 
@@ -154,10 +164,11 @@ def test_boot_validators_agree(env):
 # the knob that was refused now boots)
 UNPORTED = [
     ({"TPU_MESH_DEVICES": "4"}, "10"),
-    ({"FRONTEND_PROCS": "2"}, "8"),
-    ({"SIDECAR_SOCKET": "/run/owner.sock"}, "8"),
-    ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "8"),
-    ({"SIDECAR_RETRIES": "5"}, "8"),
+    ({"FRONTEND_PROCS": "2"}, None),  # item 8, the multi-process edge
+    ({"SIDECAR_SOCKET": "/run/owner.sock"}, None),  # item 8
+    # the failover list needs a standby, and a standby replication
+    ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "9"),
+    ({"SIDECAR_RETRIES": "5"}, None),  # item 8
     ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, None),  # item 7
     ({"LEASE_ENABLED": "true"}, None),  # item 8, its in-process half
     ({"FED_ENABLED": "true"}, "9"),
@@ -188,7 +199,10 @@ def test_unported_knob_is_refused_with_its_item(env, item):
 
 @pytest.mark.parametrize("backend", ["tpu", "tpu-sidecar"])
 def test_jax_backends_name_cuda(backend):
-    with pytest.raises(ValueError, match="BACKEND_TYPE=cuda"):
+    """The JAX package's backends name their counterparts: tpu names cuda,
+    tpu-sidecar names cuda-sidecar."""
+    want = "BACKEND_TYPE=cuda-sidecar" if backend == "tpu-sidecar" else "BACKEND_TYPE=cuda "
+    with pytest.raises(ValueError, match=want):
         P.new_settings({"BACKEND_TYPE": backend})
 
 
