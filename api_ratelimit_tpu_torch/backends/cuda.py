@@ -50,6 +50,14 @@ then keeps no row ring of its own), and submit_rows raises. The same
 dispatch loop drains the shared-memory rings of other frontend processes
 (backends/shm_ring.py).
 
+Replication and the partitioned cluster (persist/replication.py, cluster/):
+export_for_replication and apply_replicated are the warm standby's ship
+export and promotion upload; export_route_range and merge_rows are the live
+reshard's pull and push (the merge's export, host merge and upload all run
+under the state lock, so no launch falls between the copy and the upload).
+The uploads copy to the card or raise: there is no host fallback.
+partition labels the dispatch loop's arena telemetry (partition_<k>).
+
 Quota leasing (LEASE_ENABLED, backends/lease.py): the cache's lease table
 plans a grant for a descriptor that missed the host-local answer, its row
 carries hits + lease_n through the same launch, and the engine's
@@ -91,7 +99,7 @@ from ..models.config import (
 from ..models.descriptors import RateLimitRequest
 from ..models.response import DoLimitResponse
 from ..models.units import unit_to_divider
-from ..ops.hashing import fingerprint_many, split_fingerprints
+from ..ops.hashing import fingerprint_many, set_index, split_fingerprints
 from ..tracing import journeys, tag_do_limit_start
 from ..ops.sketch import (
     make_sketch,
@@ -121,6 +129,7 @@ from ..ops.slab import (
     live_slot_count,
     make_slab,
     resolve_device,
+    slab_export_copy,
     slab_export_device,
     slab_export_host,
     slab_import_rows,
@@ -257,6 +266,7 @@ class SlabDeviceEngine:
         victim_max_rows: int = 0,
         victim_watermark: float = 0.85,
         block_mode: bool = False,
+        partition: int = -1,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
@@ -299,6 +309,10 @@ class SlabDeviceEngine:
 
         block_mode: the sidecar server's engine (the device-owner process):
         submit_block is the public verb, and submit_rows raises.
+
+        partition: which cluster partition this owner serves (cluster/; -1
+        unpartitioned). Labeling only: the dispatch loop exports its arena
+        pressure under partition_<k> names too (backends/dispatch.py).
 
         watermark_high: slab-occupancy fraction in (0, 1]; 0 disables
         (SLAB_WATERMARK_HIGH). health_snapshot() compares the occupancy
@@ -363,6 +377,8 @@ class SlabDeviceEngine:
         self.launch_sizes: collections.deque = collections.deque(maxlen=4096)
         # recent exports' (state lock held, host drain) in ms (export_tables)
         self.export_times: collections.deque = collections.deque(maxlen=64)
+        # recent reshard merges' state-lock holds in ms (merge_rows)
+        self.merge_times: collections.deque = collections.deque(maxlen=64)
         # per-bucket ping-pong pairs of operands (_packed_operand)
         self._operand_pool: dict = {}
         self._operand_lock = threading.Lock()
@@ -415,6 +431,7 @@ class SlabDeviceEngine:
                 overload=overload,
                 fault_injector=fault_injector,
                 max_queue=max_queue,
+                partition=partition,
             )
         # host-RAM victim tier (backends/victim.py): where the launches'
         # live evictions drain and where the promote pass finds them. The
@@ -844,6 +861,73 @@ class SlabDeviceEngine:
             self._algos_seen = True
         with self._state_lock:
             self._state = slab_import_rows(rows, self._device)
+
+    # -- the partitioned cluster (cluster/): reshard streaming --
+
+    def export_route_range(self, lo: int, hi: int, route_sets: int) -> np.ndarray:
+        """Occupied rows whose ROUTE INDEX, set_index(fp_lo, route_sets) at
+        the cluster map's resolution (ops/hashing.py, the split the router
+        buckets by), falls in [lo, hi): the reshard PULL. Rides the same
+        export the snapshotter and the replication ship loop use, so
+        launches never wait on the drain. Returns a flat (n, ROW_WIDTH) row
+        array (placement-free: the receiving owner re-places the rows by
+        its own geometry)."""
+        if route_sets <= 0 or route_sets & (route_sets - 1):
+            raise ValueError(f"route_sets must be a power of two, got {route_sets}")
+        if not 0 <= lo < hi <= route_sets:
+            raise ValueError(f"route range [{lo}, {hi}) outside [0, {route_sets})")
+        (flat,) = self.export_tables()
+        route = set_index(flat[:, 0], route_sets)
+        mask = flat.any(axis=1) & (route >= lo) & (route < hi)
+        return np.ascontiguousarray(flat[mask])
+
+    def merge_rows(self, rows: np.ndarray) -> dict:
+        """The reshard PUSH: merge streamed rows into the live slab by
+        fingerprint, keep-the-newest (persist/snapshot.py
+        merge_rows_into_table: the greater window wins, equal windows keep
+        the greater count), so a stage-then-drain double delivery converges
+        upward instead of rolling an admission back. The export, the host
+        merge and the upload all run UNDER the state lock: launches queue
+        behind it for the merge's duration, and in exchange no increment
+        can fall between the copy and the upload. Rows carrying a non-fixed
+        algorithm flip the sticky guard. Each merge's lock hold (ms) goes to
+        merge_times. Returns the merge stats dict."""
+        from ..persist.snapshot import merge_rows_into_table
+
+        rows = np.asarray(rows, dtype=np.uint32)
+        if rows.size and rows.shape[1] != ROW_WIDTH:
+            raise ValueError(f"merge rows must be (n, {ROW_WIDTH}), got {rows.shape}")
+        with self._state_lock:
+            t0 = time.perf_counter()
+            table = slab_export_copy(self._state)
+            merged, stats = merge_rows_into_table(table, rows, self._ways)
+            if not self._algos_seen and int(merged[:, 5].max(initial=0)) >= (1 << ALGO_SHIFT):
+                # streamed rows may carry non-fixed algorithms: flip the
+                # guard before they reach the fixed-window program
+                self._algos_seen = True
+            self._state = slab_import_rows(merged, self._device)
+            self.merge_times.append((time.perf_counter() - t0) * 1e3)
+        return stats
+
+    # -- warm-standby replication (persist/replication.py) --
+
+    def export_for_replication(self) -> tuple[list[np.ndarray], np.ndarray, int]:
+        """One export for the replication ship loop: the slab table (the
+        snapshotter's export: a device clone under the state lock, drained
+        after it) plus the live lease-liability rows, stamped with one
+        clock read so the standby reconciles slab and liabilities against
+        the same instant."""
+        tables = self.export_tables()
+        now = int(self._time_source.unix_now())
+        return tables, self.lease_registry.export_rows(now), now
+
+    def apply_replicated(self, tables: list[np.ndarray], lease_rows: np.ndarray) -> None:
+        """Promotion upload: replace the slab with the reconciled replica
+        tables (the coordinator already ran reconcile_rows and the lease
+        floors) and re-seed the liability registry: the same two moves as
+        the warm-restart boot restore."""
+        self.import_tables(tables)
+        self.lease_registry.import_rows(lease_rows)
 
     def flush(self) -> None:
         if self._dispatch is not None:

@@ -48,8 +48,8 @@ hands the owner-side stage timestamps (take, pack, launch, redeem, scatter)
 back on the ticket: the caller merges them into its journey and closes its
 request span with dispatch.{ring_wait,pack,launch,redeem} child spans.
 
-Not ported yet, each marked where it would sit: ShardRoutingStats and
-partition labels (items 9-10); the DISPATCH_PROFILE owner-thread cProfile
+Not ported yet, each marked where it would sit: ShardRoutingStats (item
+10); the DISPATCH_PROFILE owner-thread cProfile
 hook (a tool of the reference's tools/hotpath_profile.py, item 11).
 """
 
@@ -241,8 +241,11 @@ class DispatchStats:
         <scope>.ring.arena_hwm  high-water mark of arena rows in use across
                                 every ring
 
-    The reference's partition_<k> names come with the cluster (ROADMAP A
-    item 9)."""
+    Partitioned owners (cluster/; DispatchLoop(partition=k)) also export the
+    arena pair under a partition-labeled name, <scope>.partition_<k>.
+    arena_overflow and <scope>.ring.partition_<k>.arena_hwm, so ring
+    pressure is attributable to the partition whose keyspace makes it (the
+    flat names keep aggregating)."""
 
     def __init__(self, loop: "DispatchLoop", scope):
         self._loop = loop
@@ -251,15 +254,24 @@ class DispatchStats:
         self._arena_overflow = scope.counter("arena_overflow")
         self._arena_hwm = scope.gauge("ring.arena_hwm")
         self._overflow_seen = 0
+        self._p_overflow = self._p_hwm = None
+        part = getattr(loop, "partition", -1)
+        if part >= 0:
+            self._p_overflow = scope.counter(f"partition_{part}.arena_overflow")
+            self._p_hwm = scope.gauge(f"ring.partition_{part}.arena_hwm")
 
     def generate_stats(self) -> None:
         self._queue_depth.set(self._loop.queue_depth)
         self._inflight.set(self._loop.inflight)
         overflow, hwm = self._loop.arena_pressure()
         if overflow > self._overflow_seen:
+            if self._p_overflow is not None:
+                self._p_overflow.add(overflow - self._overflow_seen)
             self._arena_overflow.add(overflow - self._overflow_seen)
             self._overflow_seen = overflow
         self._arena_hwm.set(hwm)
+        if self._p_hwm is not None:
+            self._p_hwm.set(hwm)
 
 
 class DispatchLoop:
@@ -282,7 +294,12 @@ class DispatchLoop:
         fault_injector=None,
         max_queue: int = 0,
         ring_rows: int = RING_ROWS,
+        partition: int = -1,
     ):
+        # which cluster partition this owner serves (cluster/; -1
+        # unpartitioned): labeling only, DispatchStats exports the arena
+        # pair under a partition_<k> name beside the flat one
+        self.partition = int(partition)
         self._launch = launch
         self._collect = collect
         # ready(token) -> bool: non-blocking "has this launch's readback

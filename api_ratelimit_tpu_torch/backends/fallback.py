@@ -28,7 +28,7 @@ decision, on the card or on the CPU, and every answer it gives is counted
 (ratelimit.fallback.{deny,allow}). With a lease table (LEASE_ENABLED) a
 descriptor that still holds a live lease is answered from that budget, which
 the card granted before it failed, and only the rest fall to the rung. The
-reference's federation-share consultation comes with item 9.
+reference's federation-share consultation comes with item 9b.
 
 CircuitBreaker is the sidecar client's transport breaker
 (backends/sidecar.py): while the device owner is dark it fails fast, and

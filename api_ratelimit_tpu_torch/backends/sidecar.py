@@ -37,26 +37,42 @@ connections for concurrency):
                          body (backends/lease.py encode_lease_ops), the
                          liability bookkeeping the owner registers after
                          the launch
-                         flags bit 2 (FLAG_EPOCH): u32 epoch, then bit 3
-                         (FLAG_MAP): u32 map epoch: the replication and
-                         cluster fences (ROADMAP item 9). This owner reads
-                         them and answers as a JAX owner without
-                         replication or a cluster does: FLAG_EPOCH frames
-                         get the ok+epoch reply with epoch 0, FLAG_MAP is
-                         not checked
+                         flags bit 2 (FLAG_EPOCH): u32 epoch, the
+                         split-brain fence (persist/replication.py); only
+                         multi-address clients (SIDECAR_ADDRS) set it, so
+                         single-address frames stay the legacy bytes
+                         flags bit 3 (FLAG_MAP): u32 partition-map epoch,
+                         the cluster routing fence (cluster/node.py); only
+                         the partition router's clients set it
                          flags bit 0 (FLAG_TRACE): u32 len | the B3
                          TextMap carrier (tracing/propagation.py
                          encode_textmap), last, so the frontend's span
                          parents the owner's spans across the RPC
             op 2 PING:   empty
+            op 3 REPL_SUBSCRIBE: u32 epoch | u64 last_seq: a warm standby
+                         subscribing (persist/replication.py). The owner
+                         acks one status byte, then STREAMS replication
+                         frames on this connection (a full snapshot, then
+                         dirty-row deltas every REPL_INTERVAL_MS)
+            ops 4-7 MAP_GET, MAP_SET, RESHARD_PULL, RESHARD_PUSH: the
+                         cluster admin ops (cluster/), below
             op 8 HOTKEYS_GET: empty -> the owner's heavy-hitter snapshot
             op 11 CLOCK_SET: u32 len | JSON {"offset_s", "drift_ppm"}
-            ops 3-7, 9 (replication, cluster, federation; item 9) and
-            op 10 FAULTS_SET (the fault injector; item 11b) answer the
-            standard error frame, as a JAX owner without those objects
-  response: u8 status (0 ok / 1 error / 2 ok+epoch)
+            op 9 (federation, ROADMAP item 9b) and op 10 FAULTS_SET (the
+            fault injector, item 11b) answer the standard error frame, as
+            a JAX owner without those objects
+  response: u8 status (0 ok / 1 error / 2 ok+epoch / 3 stale epoch /
+            4 stale map)
             SUBMIT ok:   u32 n | uint32[n] post-increment counters
-            ok+epoch:    u32 epoch | u32 n | uint32[n] counters
+            ok+epoch:    u32 epoch | u32 n | uint32[n] counters: only
+                         FLAG_EPOCH frames get it (how a failed-over client
+                         learns the promoted epoch)
+            stale epoch: u32 server_epoch: the frame carried a NEWER epoch
+                         than this owner serves, so it is a resurrected
+                         stale primary and the write was NOT applied
+            stale map:   u32 len | the owner's PartitionMap JSON: the frame
+                         was routed with an older map or holds rows this
+                         partition does not own; NOT applied
             PING ok:     empty
             admin ok:    u32 len | blob
             error:       u32 len | utf-8 message
@@ -72,9 +88,11 @@ mid-RPC triggers ONE free redial after evicting the whole pool (an owner
 restart stales every pooled socket at once), and a consecutive-failure
 circuit breaker (backends/fallback.py CircuitBreaker) fails fast while the
 owner is dark, so frontends degrade to the FAILURE_MODE_DENY ladder instead
-of stacking up dial timeouts. The failover list (SIDECAR_ADDRS with a
-standby) waits for replication, ROADMAP item 9. Both ends consult an
-optional fault injector (any object with fire(site) -> action).
+of stacking up dial timeouts. With a failover list (SIDECAR_ADDRS: the
+primary, then its warm standbys) an exhausted address, an open breaker or a
+stale-epoch reply moves the client to the next address, whose first write
+promotes it. Both ends consult an optional fault injector (any object with
+fire(site) -> action).
 
 This module imports no torch at module level: a frontend worker process
 (CUDA_VISIBLE_DEVICES="") loads it and never touches the card.
@@ -215,6 +233,19 @@ def parse_sidecar_address(address: str) -> tuple[str, object]:
     return "unix", address
 
 
+class StaleMapError(CacheError):
+    """A SUBMIT was refused with STATUS_STALE_MAP: the owner holds a
+    newer (or conflicting) PartitionMap than the one this frame was
+    routed with, and the write was NOT applied. Carries the owner's map
+    JSON so the router (cluster/router.py) adopts it, re-buckets, and
+    resubmits; callers without a router see an ordinary CacheError and
+    degrade through the FAILURE_MODE_DENY ladder."""
+
+    def __init__(self, message: str, map_json: bytes):
+        super().__init__(message)
+        self.map_json = map_json
+
+
 def _recv_exact(conn: socket.socket, n: int) -> bytes:
     buf = bytearray()
     while len(buf) < n:
@@ -267,16 +298,6 @@ def decode_items(payload: bytes):
 
 
 
-# the ops of items 9 (replication, cluster, federation) and 11b (fault
-# injection): the reasons a JAX owner gives when those objects are None
-_NOT_CONFIGURED = {
-    OP_MAP_GET: "cluster not configured",
-    OP_MAP_SET: "cluster not configured",
-    OP_RESHARD_PULL: "cluster not configured",
-    OP_RESHARD_PUSH: "cluster not configured",
-    OP_FAULTS_SET: "fault injector not configured on this owner",
-}
-
 
 class SlabSidecarServer:
     """The device-owner process's listener. Accepts frontend connections on
@@ -296,8 +317,26 @@ class SlabSidecarServer:
         fault_injector=None,
         shm_control_path: str = "",
         time_source=None,
+        repl=None,
+        cluster=None,
     ):
         """address: unix path, tcp://host:port, or tls://host:port.
+
+        repl: optional persist.replication.ReplicationCoordinator. When
+        set, OP_REPL_SUBSCRIBE connections become its ship loops, a
+        standby's first SUBMIT promotes it (epoch bump, reconcile and
+        upload, then the write runs against the promoted slab), and
+        FLAG_EPOCH frames are epoch-fenced: a frame carrying a NEWER epoch
+        than this owner's proves a standby was promoted past it, so the
+        write is rejected with STATUS_STALE_EPOCH and never runs (the
+        split-brain guard). None keeps the pre-replication behaviour.
+
+        cluster: optional cluster.node.ClusterNode, this owner's partition
+        membership. When set, SUBMIT frames are fenced against the node's
+        PartitionMap (a stale or misrouted frame gets STATUS_STALE_MAP and
+        the current map, never applied) and OP_MAP_GET/SET are served.
+        None keeps the pre-cluster behaviour. The reshard ops
+        (OP_RESHARD_PULL/PUSH) are served from the engine either way.
 
         fault_injector: optional object with fire(site) -> action,
         consulted at site 'sidecar.server.submit' before each SUBMIT
@@ -326,6 +365,8 @@ class SlabSidecarServer:
         certificate signed by this CA."""
         self._engine = engine
         self._faults = fault_injector
+        self._repl = repl
+        self._cluster = cluster
         self._time_source = (
             time_source if time_source is not None else process_time_source()
         )
@@ -428,8 +469,17 @@ class SlabSidecarServer:
                         conn.sendall(b"\x00")
                         continue
                     if op == OP_REPL_SUBSCRIBE:
-                        _recv_exact(conn, 12)  # u32 epoch | u64 last_seq
-                        conn.sendall(self._error("replication not configured"))
+                        # u32 epoch | u64 last_seq (diagnostic: the ship
+                        # loop always starts with a full snapshot)
+                        _recv_exact(conn, 12)
+                        if self._repl is None:
+                            conn.sendall(self._error("replication not configured"))
+                            return
+                        if net:
+                            conn.settimeout(None)
+                        # the connection becomes this subscriber's ship
+                        # loop; it never returns to request/response
+                        self._repl.serve_subscriber(conn)
                         return
                     if op == OP_FED_EXCHANGE:
                         conn.sendall(self._error("federation not configured"))
@@ -474,11 +524,14 @@ class SlabSidecarServer:
                 )
                 return False
             lease_blob = _recv_exact(conn, blob_len)
-        epoch_fenced = bool(hdr_flags & FLAG_EPOCH)
-        if epoch_fenced:
-            _recv_exact(conn, _U32.size)  # no replication: nothing to fence
+        # the fence trailers (fixed u32 each), read before any fault
+        # handling so the frame stays coherent on the wire
+        frame_epoch = None
+        if hdr_flags & FLAG_EPOCH:
+            (frame_epoch,) = _U32.unpack(_recv_exact(conn, _U32.size))
+        frame_map_epoch = None
         if hdr_flags & FLAG_MAP:
-            _recv_exact(conn, _U32.size)  # no cluster: nothing to fence
+            (frame_map_epoch,) = _U32.unpack(_recv_exact(conn, _U32.size))
         wire_ctx = None
         if hdr_flags & FLAG_TRACE:
             # a malformed trailer decodes to None and the request goes on
@@ -501,6 +554,29 @@ class SlabSidecarServer:
                 # status byte without the counts, then close
                 conn.sendall(b"\x00")
                 return False
+        if self._cluster is not None:
+            # the routing fence: a frame routed with a stale map, or holding
+            # rows this partition does not own, gets the CURRENT map and is
+            # never applied; checked before the promote-on-write so a
+            # misrouted frame cannot promote a standby not meant for it
+            stale_map = self._cluster.check_block(frame_map_epoch, decode_block(payload))
+            if stale_map is not None:
+                conn.sendall(bytes([STATUS_STALE_MAP]) + _U32.pack(len(stale_map)) + stale_map)
+                return True
+        if self._repl is not None:
+            # a write reaching a standby IS the failover signal: promote
+            # (epoch bump, reconcile, upload) before running it. Idempotent
+            # and thread-safe: concurrent first writes all wait on the one
+            # transition
+            if self._repl.is_standby or self._repl.promoting:
+                self._repl.promote(reason="client write reached standby")
+            if frame_epoch is not None and frame_epoch > self._repl.epoch:
+                # the split-brain guard: the client has seen a newer epoch
+                # than this owner serves, so this is a resurrected stale
+                # primary and the write must not touch its slab
+                self._repl.note_stale_write(frame_epoch)
+                conn.sendall(bytes([STATUS_STALE_EPOCH]) + _U32.pack(self._repl.epoch))
+                return True
         # the server span, parented by the frontend's wire context and
         # activated so the dispatch loop links its batch span to it; and
         # the owner-side journey
@@ -543,11 +619,13 @@ class SlabSidecarServer:
                 server_span.finish()
             if journey is not None:
                 recorder.finish(journey, (time.monotonic_ns() - t_req_ns) / 1e6)
-            if epoch_fenced:
-                # the epoch-carrying reply; an owner without replication
-                # answers epoch 0 (clients ignore it)
+            if frame_epoch is not None:
+                # the epoch-carrying reply, so a failed-over client learns
+                # the promoted epoch; an owner without replication answers
+                # 0 (clients ignore it)
+                my_epoch = self._repl.epoch if self._repl is not None else 0
                 conn.sendall(
-                    bytes([STATUS_OK_EPOCH]) + _U32.pack(0) + _U32.pack(len(out)) + out.tobytes()
+                    bytes([STATUS_OK_EPOCH]) + _U32.pack(my_epoch) + _U32.pack(len(out)) + out.tobytes()
                 )
             else:
                 conn.sendall(b"\x00" + _U32.pack(len(out)) + out.tobytes())
@@ -587,7 +665,7 @@ class SlabSidecarServer:
         cap)."""
         body = b""
         if op == OP_RESHARD_PULL:
-            _recv_exact(conn, 12)  # u32 lo | u32 hi | u32 route_sets
+            lo, hi, route_sets = struct.unpack("<III", _recv_exact(conn, 12))
         elif op in (OP_MAP_SET, OP_RESHARD_PUSH, OP_FAULTS_SET, OP_CLOCK_SET):
             (blob_len,) = _U32.unpack(_recv_exact(conn, _U32.size))
             cap = MAX_MAP_BYTES if op != OP_RESHARD_PUSH else MAX_RESHARD_BYTES
@@ -595,14 +673,18 @@ class SlabSidecarServer:
                 conn.sendall(self._error(f"cluster op body {blob_len} exceeds cap {cap}"))
                 return False
             body = _recv_exact(conn, blob_len)
-        reason = _NOT_CONFIGURED.get(op)
-        if reason is not None:
-            conn.sendall(self._error(reason))
+        if self._cluster is None and op in (OP_MAP_GET, OP_MAP_SET):
+            conn.sendall(self._error("cluster not configured"))
+            return True
+        if op == OP_FAULTS_SET:
+            # the fault injector is ROADMAP item 11b: a JAX owner without one
+            # answers this
+            conn.sendall(self._error("fault injector not configured on this owner"))
             return True
         try:
             if op == OP_CLOCK_SET:
                 out = self._serve_clock_set(body)
-            else:  # OP_HOTKEYS_GET
+            elif op == OP_HOTKEYS_GET:
                 snap_fn = getattr(self._engine, "hotkeys_snapshot", None)
                 snap = (
                     snap_fn()
@@ -610,6 +692,25 @@ class SlabSidecarServer:
                     else {"enabled": False, "k": 0, "lanes": 0, "drains": 0, "top": []}
                 )
                 out = json.dumps(snap).encode()
+            elif op == OP_MAP_GET:
+                out = self._cluster.pmap.to_json_bytes()
+            elif op == OP_MAP_SET:
+                adopted = self._cluster.adopt_json(body)
+                out = json.dumps({"adopted": adopted, "epoch": self._cluster.epoch}).encode()
+            elif op == OP_RESHARD_PULL:
+                from ..persist.snapshot import pack_table_bytes
+
+                rows = self._engine.export_route_range(lo, hi, route_sets)
+                engine_ts = getattr(self._engine, "_time_source", None)
+                snap_now = (
+                    engine_ts.unix_now() if engine_ts is not None else process_time_source().unix_now()
+                )
+                out = pack_table_bytes(rows, snap_now, ways=getattr(self._engine, "ways", 0))
+            else:  # OP_RESHARD_PUSH
+                from ..persist.snapshot import unpack_table_bytes
+
+                _hdr, rows, _off = unpack_table_bytes(body, what="<reshard push>")
+                out = json.dumps(self._engine.merge_rows(rows)).encode()
         except Exception as e:  # noqa: BLE001 - surface to the caller
             logger.exception("admin op %d failed", op)
             conn.sendall(self._error(str(e)))
@@ -686,10 +787,19 @@ class SidecarEngineClient:
         sleep=time.sleep,
         shm_control_path: str = "",
         shm_ring_rows: int = 4096,
+        map_epoch_fn=None,
     ):
-        """address: unix path, tcp://host:port, or tls://host:port (a list
-        or comma-separated string of one). A list of several, the failover
-        to a warm standby, needs replication (ROADMAP item 9) and raises.
+        """address: unix path, tcp://host:port, or tls://host:port, or a
+        LIST of them (equivalently one comma-separated string: the
+        SIDECAR_ADDRS form). The first entry is the primary; the rest are
+        warm standbys in failover order. With more than one address the
+        client is epoch-aware: every SUBMIT carries a FLAG_EPOCH trailer
+        with the highest epoch it has seen; the breaker opening, an
+        address's retry budget running out, or a stale-epoch reply moves
+        it to the next address, whose first write promotes it; and a
+        resurrected stale primary answering STATUS_STALE_EPOCH is failed
+        away from instead of trusted. A single address keeps the legacy
+        frames byte for byte (the rollback arm).
         tls_ca: CA bundle the server cert must chain to (the system store
         when empty). tls_cert/tls_key: client certificate for mutual TLS.
         tls_server_name: SNI/hostname override when the cert CN does not
@@ -698,8 +808,9 @@ class SidecarEngineClient:
         scope: optional stats Scope; records <scope>.sidecar.rpc_ms (the
         SUBMIT round trip: socket plus the owner's own stages) and shm_ms
         (the shm arm's), the <scope>.sidecar.{retry,redial,breaker_open,
-        shm_fallback} counters, and the breaker_state (0 closed / 1
-        half-open / 2 open) and shm_active gauges.
+        failover,shm_fallback} counters, and the breaker_state (0 closed /
+        1 half-open / 2 open), active_backend (the index of the address
+        in use) and shm_active gauges.
 
         connect_timeout / rpc_deadline: dial timeout vs per-RPC deadline
         (send + full response read); both default to `timeout`.
@@ -719,16 +830,27 @@ class SidecarEngineClient:
         fault_injector: optional fire(site) -> action object, consulted at
         'sidecar.dial' per dial and 'sidecar.submit' per SUBMIT attempt.
 
-        shm_control_path (SHM_RINGS; backends/shm_ring.py): when set, plain
-        row-block submits publish through a shared-memory ring straight
-        into the owner's dispatch loop. Frames with a lease trailer stay on
-        the socket, and a shm TRANSPORT failure falls back to the socket
-        RPC per call (<scope>.sidecar.shm_fallback)."""
+        shm_control_path (SHM_RINGS; backends/shm_ring.py): when set and
+        this is a SINGLE-address client, plain row-block submits publish
+        through a shared-memory ring straight into the owner's dispatch
+        loop. Frames with a lease trailer stay on the socket, multi-address
+        clients never attach (shm frames carry no epoch fence), and a shm
+        TRANSPORT failure falls back to the socket RPC per call
+        (<scope>.sidecar.shm_fallback).
+
+        map_epoch_fn: optional zero-argument callable returning the epoch
+        of the PartitionMap this client's frames were routed with (the
+        partition router sets it on each per-partition client). When set,
+        every SUBMIT carries a FLAG_MAP trailer, and a STATUS_STALE_MAP
+        reply raises StaleMapError (carrying the owner's map) instead of
+        retrying: re-bucketing is the router's job. None ships the
+        pre-cluster frames."""
+        self._map_epoch_fn = map_epoch_fn
         self._h_rpc = None
         self._h_shm = None
         self._c_retry = self._c_redial = self._c_breaker_open = None
-        self._c_shm_fallback = None
-        self._g_breaker_state = None
+        self._c_failover = self._c_shm_fallback = None
+        self._g_breaker_state = self._g_active_backend = None
         self._g_shm_active = None
         if scope is not None:
             sc = scope.scope("sidecar")
@@ -737,9 +859,12 @@ class SidecarEngineClient:
             self._c_retry = sc.counter("retry")
             self._c_redial = sc.counter("redial")
             self._c_breaker_open = sc.counter("breaker_open")
+            self._c_failover = sc.counter("failover")
             self._c_shm_fallback = sc.counter("shm_fallback")
             self._g_breaker_state = sc.gauge("breaker_state")
             self._g_breaker_state.set(0)
+            self._g_active_backend = sc.gauge("active_backend")
+            self._g_active_backend.set(0)
             self._g_shm_active = sc.gauge("shm_active")
             self._g_shm_active.set(0)
         if isinstance(address, str):
@@ -748,11 +873,14 @@ class SidecarEngineClient:
             addrs = [str(a) for a in address]
         if not addrs:
             raise ValueError("sidecar address list is empty")
-        if len(addrs) > 1:
-            raise ValueError(
-                f"{len(addrs)} sidecar addresses: the failover to a warm "
-                f"standby needs replication (ROADMAP item 9)"
-            )
+        self._addrs = addrs
+        self._addr_lock = threading.Lock()
+        self._active = 0
+        # epoch awareness exists only with standbys to fail over to; a
+        # single-address client ships the legacy frame (flags bit 2 clear,
+        # no trailer), byte for byte
+        self._epoch_aware = len(addrs) > 1
+        self._epoch_known = 0
         self._path = addrs[0]
         self._scheme, self._target = parse_sidecar_address(self._path)
         self._connect_timeout = timeout if connect_timeout is None else float(connect_timeout)
@@ -783,23 +911,28 @@ class SidecarEngineClient:
         # 124-128). The read is part of the check: under TLS 1.3 a rejected
         # client certificate only surfaces on the first read. Not retried
         # and not breaker-counted: a frontend booting against a dark owner
-        # fails its boot loudly.
-        conn = self._dial()
-        try:
-            conn.sendall(_HDR.pack(MAGIC, VERSION, OP_PING, 0))
-            ok = _recv_exact(conn, 1) == b"\x00"
-        except (OSError, ConnectionError) as e:
-            conn.close()
-            raise CacheError(f"sidecar ping failed on {self._path}: {e}") from e
-        if not ok:
-            conn.close()
-            raise CacheError(f"sidecar ping failed on {self._path}")
-        self._release(conn)
+        # fails its boot loudly. With a failover list the ping walks it: a
+        # dark primary with a live standby is the redundancy story, not a
+        # boot failure.
+        last_err: CacheError | None = None
+        for _ in range(len(self._addrs)):
+            try:
+                self._ping()
+                last_err = None
+                break
+            except CacheError as e:
+                last_err = e
+                if not self._epoch_aware:
+                    raise
+                self._failover(cause=f"boot ping failed: {e}")
+        if last_err is not None:
+            raise last_err
         # the shm rings, attached once the ping proved the owner up. An
         # owner that offers none (no SHM_RINGS, direct mode) leaves the
-        # socket RPC as the only path.
+        # socket RPC as the only path; a multi-address client never
+        # attaches (shm frames carry no epoch fence)
         self._shm = None
-        if shm_control_path:
+        if shm_control_path and not self._epoch_aware:
             from .shm_ring import ShmRingClient, ShmUnavailable
 
             try:
@@ -830,18 +963,93 @@ class SidecarEngineClient:
         elif state == CircuitBreaker.CLOSED and prev != CircuitBreaker.CLOSED:
             logger.info("sidecar circuit closed on %s", self._path)
 
+    def _ping(self) -> None:
+        conn = self._dial()
+        try:
+            conn.sendall(_HDR.pack(MAGIC, VERSION, OP_PING, 0))
+            ok = _recv_exact(conn, 1) == b"\x00"
+        except (OSError, ConnectionError) as e:
+            conn.close()
+            raise CacheError(f"sidecar ping failed on {self._path}: {e}") from e
+        if not ok:
+            conn.close()
+            raise CacheError(f"sidecar ping failed on {self._path}")
+        self._release(conn)
+
     @property
     def breaker(self) -> CircuitBreaker:
         """The transport circuit breaker."""
         return self._breaker
 
+    @property
+    def active_address(self) -> str:
+        """The address currently written to."""
+        with self._addr_lock:
+            return self._addrs[self._active]
+
+    def failover_reason(self) -> str | None:
+        """HealthChecker degraded-probe contract: a reason while this
+        frontend serves from a non-primary address (one more failure from
+        the degradation ladder), shown on /healthcheck while it serves."""
+        with self._addr_lock:
+            if self._active == 0:
+                return None
+            return (
+                f"sidecar.failover: serving from standby "
+                f"{self._addrs[self._active]} (primary {self._addrs[0]} "
+                f"unreachable or stale)"
+            )
+
+    def _active_index(self) -> int:
+        with self._addr_lock:
+            return self._active
+
+    def _failover(self, cause: str, span=None, expect: int | None = None) -> str:
+        """Rotate to the next address in SIDECAR_ADDRS order: evict every
+        pooled connection (they point at the dead or stale owner), reset
+        the breaker for the new target, and mark the moment on the active
+        trace span and journey (FLAG_FAILOVER). Returns the new address.
+
+        expect: the address index the caller's failed attempts used. When
+        another thread has already moved the client on from it, nothing
+        rotates (the caller retries at the address in use): threads that
+        fail together at a dead primary move the client once, not once
+        each. The reference rotates on every call, so two threads failing
+        at once rotate back to the dead primary."""
+        with self._addr_lock:
+            if expect is not None and expect != self._active:
+                return self._addrs[self._active]
+            self._active = (self._active + 1) % len(self._addrs)
+            self._path = self._addrs[self._active]
+            self._scheme, self._target = parse_sidecar_address(self._path)
+            new_addr = self._path
+            active = self._active
+        self._evict_pool()
+        # a fresh target deserves a closed breaker: the failure streak
+        # belongs to the address just left
+        self._breaker.record_success()
+        if self._c_failover is not None:
+            self._c_failover.inc()
+        if self._g_active_backend is not None:
+            self._g_active_backend.set(active)
+        logger.warning(
+            "sidecar FAILOVER to %s (backend %d of %d): %s",
+            new_addr, active + 1, len(self._addrs), cause,
+        )
+        target_span = span if span is not None else active_span()
+        if target_span is not None:
+            target_span.log_kv(event="sidecar.failover", to=new_addr, cause=cause)
+        journeys.note_flag(journeys.FLAG_FAILOVER)
+        return new_addr
+
     def _dial(self) -> socket.socket:
-        path, target = self._path, self._target
+        with self._addr_lock:
+            scheme, target, path = self._scheme, self._target, self._path
         if self._faults is not None:
             action = self._faults.fire("sidecar.dial")
             if action is not None:
                 raise CacheError(f"cannot reach slab sidecar at {path}: injected fault: {action}")
-        if self._scheme == "unix":
+        if scheme == "unix":
             conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
             conn.settimeout(self._connect_timeout)
             try:
@@ -941,13 +1149,30 @@ class SidecarEngineClient:
     def _submit_payload(self, payload: bytes, extra_flags: int = 0) -> np.ndarray:
         t0 = time.perf_counter() if self._h_rpc is not None else 0.0
         if not self._breaker.allow():
-            raise CacheError(f"sidecar circuit open on {self._path}: failing fast")
+            # the breaker opening on the primary IS the failover trigger:
+            # with a standby configured, switch instead of failing fast
+            # (its first write will promote it)
+            if self._epoch_aware:
+                self._failover(cause="circuit breaker open", expect=self._active_index())
+            else:
+                raise CacheError(f"sidecar circuit open on {self._path}: failing fast")
         # B3 over the wire: a client child span whose context rides the
         # frame as the trace trailer; retries and redials log onto it.
         # Untraced requests build nothing and ship no extra bytes.
         parent = active_span()
         rpc_span = None
         hdr_flags = extra_flags
+        epoch_trailer = b""
+        if self._epoch_aware:
+            # the split-brain fence: the highest epoch this client has
+            # seen, so a resurrected stale primary rejects the write
+            hdr_flags |= FLAG_EPOCH
+            epoch_trailer = _U32.pack(self._epoch_known)
+        map_trailer = b""
+        if self._map_epoch_fn is not None:
+            # the routing fence: the map these rows were bucketed with
+            hdr_flags |= FLAG_MAP
+            map_trailer = _U32.pack(int(self._map_epoch_fn()))
         trailer = b""
         if parent is not None and parent.tracer is not None:
             rpc_span = parent.tracer.start_span(
@@ -958,7 +1183,13 @@ class SidecarEngineClient:
             raw = encode_textmap(rpc_span.context)
             trailer = _U32.pack(len(raw)) + raw
             hdr_flags |= FLAG_TRACE
-        request = _HDR.pack(MAGIC, VERSION, OP_SUBMIT, hdr_flags) + payload + trailer
+        request = (
+            _HDR.pack(MAGIC, VERSION, OP_SUBMIT, hdr_flags)
+            + payload
+            + epoch_trailer
+            + map_trailer
+            + trailer
+        )
         try:
             return self._submit_attempts(request, rpc_span, t0)
         except BaseException as e:
@@ -972,7 +1203,26 @@ class SidecarEngineClient:
     def _submit_attempts(self, request: bytes, rpc_span, t0: float) -> np.ndarray:
         attempt = 0
         redialed = False
+        # bounded address rotation per call: once an address's retry
+        # budget runs out (or it answers stale-epoch) the request moves to
+        # the next SIDECAR_ADDRS entry instead of failing, so a primary
+        # crash with a live standby costs no failed request. At most one
+        # pass over the list; then the error surfaces to the ladder.
+        failovers = 0
+        used = self._active_index()
+
+        def fail_over_or_raise(cause: str) -> bool:
+            nonlocal failovers, attempt, redialed
+            if not self._epoch_aware or failovers >= len(self._addrs) - 1:
+                return False
+            failovers += 1
+            attempt = 0
+            redialed = False
+            self._failover(cause, span=rpc_span, expect=used)
+            return True
+
         while True:
+            used = self._active_index()
             try:
                 conn, pooled = self._acquire()
             except CacheError as e:
@@ -980,6 +1230,8 @@ class SidecarEngineClient:
                 attempt += 1
                 if attempt > self._retries:
                     self._breaker.record_failure()
+                    if fail_over_or_raise(f"dial failed: {e}"):
+                        continue
                     raise
                 if self._c_retry is not None:
                     self._c_retry.inc()
@@ -987,6 +1239,7 @@ class SidecarEngineClient:
                     rpc_span.log_kv(event="sidecar.retry", attempt=attempt, cause="dial", error=str(e))
                 self._sleep(self._backoff(attempt))
                 continue
+            stale_epoch = None
             try:
                 if self._faults is not None:
                     action = self._faults.fire("sidecar.submit")
@@ -1004,8 +1257,35 @@ class SidecarEngineClient:
                     # (the increment may have been applied)
                     self._breaker.record_success()
                     raise CacheError(f"sidecar error: {message}")
-                (n,) = _U32.unpack(_recv_exact(conn, _U32.size))
-                out = np.frombuffer(_recv_exact(conn, 4 * n), dtype=np.uint32)
+                if status == bytes([STATUS_STALE_MAP]):
+                    # the owner refused the ROUTING, not the transport: the
+                    # reply carries its map; re-bucketing is the router's
+                    # job, so surface at once (no retry, no failover: every
+                    # address of this partition serves that map or newer)
+                    (ln,) = _U32.unpack(_recv_exact(conn, _U32.size))
+                    map_json = _recv_exact(conn, ln)
+                    self._release(conn)
+                    self._breaker.record_success()
+                    if rpc_span is not None:
+                        rpc_span.log_kv(event="sidecar.stale_map")
+                    raise StaleMapError(
+                        f"sidecar at {self._path} rejected the frame's partition-map routing",
+                        map_json,
+                    )
+                if status == bytes([STATUS_STALE_EPOCH]):
+                    # the owner serves an OLDER epoch than this client has
+                    # seen: a resurrected stale primary. The write was NOT
+                    # applied; fail over (safe to re-send)
+                    (stale_epoch,) = _U32.unpack(_recv_exact(conn, _U32.size))
+                    self._release(conn)
+                    self._breaker.record_success()
+                else:
+                    if status == bytes([STATUS_OK_EPOCH]):
+                        (srv_epoch,) = _U32.unpack(_recv_exact(conn, _U32.size))
+                        if srv_epoch > self._epoch_known:
+                            self._epoch_known = srv_epoch
+                    (n,) = _U32.unpack(_recv_exact(conn, _U32.size))
+                    out = np.frombuffer(_recv_exact(conn, 4 * n), dtype=np.uint32)
             except CacheError:
                 raise
             except (OSError, ConnectionError) as e:
@@ -1023,6 +1303,8 @@ class SidecarEngineClient:
                 attempt += 1
                 if attempt > self._retries:
                     self._breaker.record_failure()
+                    if fail_over_or_raise(f"transport failure: {e}"):
+                        continue
                     raise CacheError(f"sidecar transport failure: {e}") from e
                 if self._c_retry is not None:
                     self._c_retry.inc()
@@ -1032,6 +1314,20 @@ class SidecarEngineClient:
                     )
                 self._sleep(self._backoff(attempt))
                 continue
+            if stale_epoch is not None:
+                if rpc_span is not None:
+                    rpc_span.log_kv(
+                        event="sidecar.stale_epoch",
+                        server_epoch=stale_epoch,
+                        known_epoch=self._epoch_known,
+                    )
+                if fail_over_or_raise(f"stale primary (epoch {stale_epoch} < {self._epoch_known})"):
+                    continue
+                raise CacheError(
+                    f"sidecar at {self._path} is a stale primary "
+                    f"(epoch {stale_epoch}, cluster at "
+                    f"{self._epoch_known}) and no other address answers"
+                )
             self._release(conn)
             self._breaker.record_success()
             if self._h_rpc is not None:
@@ -1052,9 +1348,10 @@ class SidecarEngineClient:
 
 
 def cluster_rpc(address: str, op: int, payload: bytes = b"", timeout: float = 30.0) -> bytes:
-    """One admin RPC (OP_HOTKEYS_GET, OP_CLOCK_SET) against a device owner:
-    dial, send, read u8 status | u32 len | blob, return the blob. Pool-less
-    and retry-less: admin callers run off the hot path and want failures
+    """One admin RPC (OP_MAP_GET/SET, OP_RESHARD_PULL/PUSH, OP_HOTKEYS_GET,
+    OP_CLOCK_SET) against a device owner: dial, send, read u8 status | u32
+    len | blob, return the blob. Pool-less and retry-less: the reshard
+    coordinator and admin tools run off the hot path and want failures
     loud. unix and tcp:// addresses only."""
     scheme, target = parse_sidecar_address(address)
     if scheme == "tls":
@@ -1100,8 +1397,10 @@ def admin_set_clock(
 
 def new_sidecar_cache_from_settings(settings, base_limiter, stats_scope=None, lease_table=None):
     """BACKEND_TYPE=cuda-sidecar factory: a CudaRateLimitCache whose device
-    driver is the remote owner (runner.py backend switch). The import of
-    backends/cuda.py loads torch but touches no card."""
+    driver is the remote owner (runner.py backend switch). With
+    SIDECAR_ADDRS the client gets the whole failover list (primary first);
+    unset, it is the single-address client. The import of backends/cuda.py
+    loads torch but touches no card."""
     from .cuda import CudaRateLimitCache
 
     return CudaRateLimitCache(

@@ -1,6 +1,7 @@
 """Port of api_ratelimit_tpu/cmd/sidecar_cmd.py: the device-owner process.
 
-    BACKEND_TYPE=cuda python -m api_ratelimit_tpu_torch.cmd.sidecar_cmd
+    BACKEND_TYPE=cuda python -m api_ratelimit_tpu_torch.cmd.sidecar_cmd \
+        [--role primary|standby|auto] [--partition K]
 
 Run ONE of these per card, then any number of frontend servers with
 BACKEND_TYPE=cuda-sidecar sharing its SIDECAR_SOCKET: they bind the serving
@@ -25,13 +26,31 @@ per USE_STATSD) and its own debug listener on DEBUG_PORT with /metrics,
 /stats, /debug/profile (TPU_PROFILE_DIR), /debug/hotkeys, /debug/victim and
 /healthcheck. Give it a DEBUG_PORT apart from any same-host frontend's.
 
-Replication, the partitioned cluster and federation (ROADMAP item 9) and the
-fault injector (item 11b) are refused by settings.py check_ported; the
-server answers their wire ops as a JAX owner without them does.
+Warm-standby redundancy (--role / REPL_ROLE with SIDECAR_ADDRS;
+persist/replication.py): a SECOND owner with --role standby (or auto),
+pointed at the same SIDECAR_ADDRS list, subscribes to the primary, mirrors
+the slab through streamed dirty-row deltas, and promotes itself (epoch bump,
+boot-style reconcile, upload) the moment a failed-over frontend writes to
+it. `--role auto` is the restart-friendly choice: a restarted old primary
+finds the promoted standby serving and rejoins as ITS standby. A standby
+takes no snapshot until it promotes, and never a drain snapshot unpromoted.
+
+The partitioned cluster (PARTITIONS>1, PARTITION_ADDRS; cluster/): this
+owner serves one keyspace partition (--partition, or the PARTITION_ADDRS
+group listing its SIDECAR_SOCKET), fences every SUBMIT against its map,
+serves the map and reshard admin ops, stamps its slice into its snapshot
+headers and serves GET /debug/cluster. A replicated or partitioned owner
+takes the socket RPC only: shm frames carry no epoch or map stamp, so the
+rings stay off.
+
+Federation (ROADMAP item 9b) and the fault injector (item 11b) are refused
+by settings.py check_ported; the server answers their wire ops as a JAX
+owner without them does.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import signal
@@ -67,9 +86,13 @@ class OwnerStats:
                                    loop
         <scope>.shm.items_in       items those rings published
         <scope>.shm.items_out      items the loop took from them
+        <scope>.merge.count        reshard merges (merge_rows) this owner
+                                   ran, their summed and largest state-lock
+        <scope>.merge.total_us     hold in microseconds: launches wait that
+        <scope>.merge.max_us       long
 
-    The counts are the process's: a fleet reads which kernels its owner ran
-    and whether the rings carried the frames."""
+    The counts are the process's: a fleet reads which kernels its owner ran,
+    whether the rings carried the frames and what a reshard cost it."""
 
     def __init__(self, engine, scope):
         self._engine = engine
@@ -98,12 +121,17 @@ class OwnerStats:
         shm.gauge("rings").set(len(rings))
         shm.gauge("items_in").set(items_in)
         shm.gauge("items_out").set(items_out)
+        merges = list(self._engine.merge_times)
+        merge = self._scope.scope("merge")
+        merge.gauge("count").set(len(merges))
+        merge.gauge("total_us").set(round(sum(merges) * 1e3))
+        merge.gauge("max_us").set(round(max(merges, default=0.0) * 1e3))
 
 
-def build_engine(settings, scope, overload=None) -> SlabDeviceEngine:
+def build_engine(settings, scope, overload=None, partition: int = -1) -> SlabDeviceEngine:
     """The owner's engine on the card from the TPU_* knobs: block mode, the
     sketch, the victim tier, precompiled before the first frontend
-    connects."""
+    connects; partition labels its dispatch loop's telemetry."""
     hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
     v_enabled, v_max_rows, v_watermark = settings.victim_config()
     kwargs = {}
@@ -131,12 +159,31 @@ def build_engine(settings, scope, overload=None) -> SlabDeviceEngine:
         hotkey_k=hk_k,
         victim_max_rows=v_max_rows if v_enabled else 0,
         victim_watermark=v_watermark,
+        partition=partition,
         **kwargs,
     )
 
 
 def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="the device-owner process on the card")
+    parser.add_argument(
+        "--role",
+        choices=("primary", "standby", "auto"),
+        default=None,
+        help="warm-standby replication role (overrides REPL_ROLE; standby "
+        "and auto need SIDECAR_ADDRS to name the peer)",
+    )
+    parser.add_argument(
+        "--partition",
+        type=int,
+        default=None,
+        help="which cluster partition this owner serves (PARTITIONS>1); "
+        "defaults to the PARTITION_ADDRS group listing SIDECAR_SOCKET",
+    )
+    args = parser.parse_args(argv)
     settings = new_settings()
+    if args.role is not None:
+        settings.repl_role = args.role
     setup_logging(settings)
     if settings.backend_type not in ("cuda", "cuda-sidecar"):
         raise SystemExit(
@@ -189,9 +236,28 @@ def main(argv=None) -> int:
         ewma_alpha=settings.overload_ewma_alpha,
         scope=scope,
     )
+    # the partitioned cluster's membership (PARTITIONS>1): this owner
+    # serves ONE partition of the boot map. PARTITIONS=1 builds none of it
+    cluster_k, cluster_groups, cluster_route_sets, _mb_s = settings.cluster_config()
+    partition_index = None
+    if cluster_k > 1:
+        partition_index = (
+            args.partition
+            if args.partition is not None
+            else settings.cluster_partition_of(settings.sidecar_socket)
+        )
+        if partition_index is None:
+            raise SystemExit(
+                f"PARTITIONS={cluster_k} but neither --partition was "
+                f"given nor does any PARTITION_ADDRS group list this "
+                f"process's SIDECAR_SOCKET ({settings.sidecar_socket!r})"
+            )
+    repl_role, repl_interval_ms, repl_max_lag_ms = settings.repl_config()
     settings.warn_deprecated_knobs(logger)
     try:
-        engine = build_engine(settings, scope, overload)
+        engine = build_engine(
+            settings, scope, overload, partition=-1 if partition_index is None else partition_index
+        )
     except (RuntimeError, ValueError) as e:
         logger.error("device owner cannot hold the card: %s", e)
         return 1
@@ -217,11 +283,50 @@ def main(argv=None) -> int:
     store.add_stat_generator(LeaseRegistryStats(engine.lease_registry, scope.scope("lease")))
     store.add_stat_generator(OwnerStats(engine, scope.scope("owner")))
 
+    cluster_node = None
+    if partition_index is not None:
+        from ..cluster.node import ClusterNode
+        from ..cluster.partition_map import PartitionMap
+
+        cluster_node = ClusterNode(
+            partition_index,
+            PartitionMap.even_map(cluster_groups, route_sets=cluster_route_sets),
+            scope=scope,
+        )
+        logger.warning(
+            "cluster partition %d of %d (route sets %d)",
+            partition_index, cluster_k, cluster_route_sets,
+        )
+
+    # warm-standby replication, built before the snapshotter: a standby
+    # defers its restore (the replicated stream supersedes any local
+    # snapshot, and snapshotting an unpromoted standby's empty slab would
+    # clobber good files) and starts snapshotting only at promotion
+    repl = None
+    on_promote_hooks: list = []
+    if repl_role:
+        from ..persist.replication import ReplicationCoordinator
+
+        repl = ReplicationCoordinator(
+            engine,
+            repl_role,
+            peer_address=settings.repl_peer_address(),
+            interval_ms=repl_interval_ms,
+            max_lag_ms=repl_max_lag_ms,
+            scope=scope.scope("repl"),
+            time_source=process_time_source(),
+            on_promote=lambda: [hook() for hook in on_promote_hooks],
+        )
+
     snapshotter = None
     snap_dir, snap_interval_ms, snap_stale_ms = settings.snapshot_config()
     if snap_dir:
         from ..persist.snapshotter import SlabSnapshotter
 
+        snap_partition = None
+        if cluster_node is not None:
+            own = cluster_node.pmap.partitions[partition_index]
+            snap_partition = (partition_index, own.lo, own.hi, cluster_route_sets)
         snapshotter = SlabSnapshotter(
             engine,
             snap_dir,
@@ -229,14 +334,21 @@ def main(argv=None) -> int:
             stale_after_ms=snap_stale_ms,
             time_source=process_time_source(),
             scope=scope,
+            # this owner's keyspace slice, in every shard header
+            partition=snap_partition,
         )
-        # restore the slab before the first frontend connects
-        snapshotter.restore()
-        snapshotter.start()
+        if repl is None or not repl.is_standby:
+            # restore the slab before the first frontend connects
+            snapshotter.restore()
+            snapshotter.start()
+        # a standby or auto owner waits until its role resolves (below)
 
     health = HealthChecker(name="ratelimit-sidecar")
     health.add_degraded_probe(overload.degraded_reason)
     health.add_degraded_probe(engine.watermark_reason)
+    if repl is not None:
+        # no standby subscribed, or the stream lagging: degraded only
+        health.add_degraded_probe(repl.degraded_reason)
     if snapshotter is not None:
         health.add_degraded_probe(snapshotter.stale_reason)
     if engine.victim_enabled:
@@ -264,8 +376,29 @@ def main(argv=None) -> int:
         debug.add_debug_endpoint(
             "/debug/victim", lambda: json.dumps(engine.victim_debug(), indent=2)
         )
+    if cluster_node is not None:
+        debug.add_debug_endpoint(
+            "/debug/cluster", lambda: json.dumps(cluster_node.describe(), indent=2)
+        )
     debug.serve_background()
     store.start_flushing()
+    # shm frames carry no epoch or map stamp: they would bypass the
+    # promote-on-write, the epoch fence and the map fence, which live in
+    # the wire handler, so a replicated or partitioned owner takes the
+    # socket RPC only
+    shm_control = settings.shm_control_path()
+    if shm_control and repl is not None:
+        logger.warning(
+            "SHM_RINGS disabled: REPL_ROLE is set and shm frames would "
+            "bypass the epoch fence (socket RPC only on this owner)"
+        )
+        shm_control = ""
+    if shm_control and cluster_node is not None:
+        logger.warning(
+            "SHM_RINGS disabled: PARTITIONS>1 and shm frames would "
+            "bypass the partition-map fence (socket RPC only)"
+        )
+        shm_control = ""
     server = SlabSidecarServer(
         settings.sidecar_socket,
         engine,
@@ -273,16 +406,40 @@ def main(argv=None) -> int:
         tls_cert=settings.sidecar_tls_cert,
         tls_key=settings.sidecar_tls_key,
         tls_ca=settings.sidecar_tls_ca,
-        shm_control_path=settings.shm_control_path(),
+        shm_control_path=shm_control,
         time_source=process_time_source(),
+        repl=repl,
+        cluster=cluster_node,
     )
+    if repl is not None:
+        # resolve the auto role and start the standby's subscription only
+        # once this listener is up (an auto pair booting together must
+        # find each other)
+        was_standby_at_boot = repl.is_standby
+        repl.start()
+        logger.warning(
+            "replication role %s (epoch %d, interval %.0fms)",
+            repl.role, repl.epoch, repl_interval_ms,
+        )
+        if snapshotter is not None and was_standby_at_boot:
+            if repl.is_standby:
+                # promotion makes the standby the durability owner: its
+                # periodic snapshots start then, with no restore (the
+                # replica it uploads is newer than any local file)
+                on_promote_hooks.append(snapshotter.start)
+            else:
+                # auto resolved to primary (peer dark): a normal warm boot
+                snapshotter.restore()
+                snapshotter.start()
     logger.warning(
-        "device owner on %s (%s, %d slots, debug port %d, shm %s)",
+        "device owner on %s (%s, %d slots, debug port %d, shm %s, role %s, partition %s)",
         settings.sidecar_socket,
         torch.cuda.get_device_name(engine.device),
         settings.tpu_slab_slots,
         debug.port,
         "on" if server.shm_control is not None else "off",
+        repl.role if repl is not None else "-",
+        partition_index if partition_index is not None else "-",
     )
 
     stop = threading.Event()
@@ -298,9 +455,12 @@ def main(argv=None) -> int:
     # the owner go), then the engine, whose dispatch loop finishes every
     # frame already published
     server.close()
-    if snapshotter is not None:
+    if repl is not None:
+        repl.close()
+    if snapshotter is not None and (repl is None or not repl.is_standby):
         # the drain snapshot: the next process restores a slab holding
-        # every admitted decision
+        # every admitted decision (a never-promoted standby never started
+        # the cycle and must not overwrite the primary's files)
         snapshotter.drain()
     store.stop_flushing()
     debug.shutdown()

@@ -11,9 +11,9 @@ every window and fails open for a full window per key.
 
 snapshot.py holds the file format and the reconcile rules (numpy only: it
 imports without torch); snapshotter.py holds the runtime service (periodic
-thread, boot restore, drain handoff, stats, staleness probe). The
-reference's warm-standby replication (persist/replication.py) is ROADMAP
-item 9.
+thread, boot restore, drain handoff, stats, staleness probe);
+replication.py streams the slab to a warm standby owner and promotes it on
+failover (the frame codec, the ship and apply loops, the epoch fence).
 """
 
 from .snapshot import (

@@ -29,7 +29,7 @@ watermark, so a restart never grants twice) and the victim tier
 mid-window), each written with the reference's rule: when it has rows or
 the file already exists. A bad section file degrades to a slab-only restore,
 counted in load_rejected. The reference's federation section (fed.snap)
-comes with the cluster (ROADMAP item 9): finding one at boot, the port logs
+comes with federation (ROADMAP item 9b): finding one at boot, the port logs
 a warning naming its item and restores the rest without it. Files move
 between the two packages in both directions.
 
@@ -101,7 +101,7 @@ def victim_snapshot_path(directory: str) -> str:
 
 # the sections the port does not restore yet, with the ROADMAP item that
 # ports each; restore() warns once for each file it finds
-_UNPORTED_SECTIONS = ((fed_snapshot_path, "federation shares", "9"),)
+_UNPORTED_SECTIONS = ((fed_snapshot_path, "federation shares", "9b"),)
 # their restore counters, always 0 here; kept so restore_stats has the
 # reference's keys
 _SECTION_STATS = {"restored_fed_shares": 0, "dropped_fed_shares": 0}
@@ -128,8 +128,12 @@ class SlabSnapshotter:
     fault_injector: any object with fire(site) -> action or None, consulted
     at the snapshot.write / snapshot.load sites (snapshot.py); None (the
     only value the runner passes: FAULT_INJECT is unported) disables them.
-    The reference's partition stamp and federation ledger come with the
-    cluster (ROADMAP item 9)."""
+    partition: (partition_index, range_lo, range_hi, route_sets) of a
+    partitioned owner (cluster/), stamped into every slab-shard header
+    (snapshot.py FLAG_PARTITION) so a file says which keyspace slice it
+    holds; None keeps the unpartitioned format byte for byte. The
+    reference's federation ledger comes with federation (ROADMAP item
+    9b)."""
 
     def __init__(
         self,
@@ -140,6 +144,7 @@ class SlabSnapshotter:
         time_source=None,
         scope=None,
         fault_injector=None,
+        partition: tuple | None = None,
     ):
         if interval_ms <= 0:
             raise ValueError(
@@ -147,6 +152,7 @@ class SlabSnapshotter:
             )
         self._engine = engine
         self._dir = directory
+        self._partition = partition
         self._interval_s = float(interval_ms) / 1e3
         # default staleness: 3 missed intervals — one in-flight write plus
         # real slack before the health surface starts reporting degraded
@@ -190,7 +196,7 @@ class SlabSnapshotter:
             self._g_leases = snap.gauge("restore_leases")
             self._g_dropped_leases = snap.gauge("restore_dropped_leases")
             # the federation section's gauges, registered as the reference
-            # does; they read 0 until item 9 is ported
+            # does; they read 0 until item 9b is ported
             snap.gauge("restore_fed_shares")
             snap.gauge("restore_dropped_fed_shares")
             self._g_victim = snap.gauge("restore_victim_rows")
@@ -255,6 +261,7 @@ class SlabSnapshotter:
                         shard_count=len(tables),
                         fault_injector=self._faults,
                         ways=ways,
+                        partition=self._partition,
                     )
                 # lease-liability section: outstanding grants ride the
                 # same snapshot set so a restart never double-grants

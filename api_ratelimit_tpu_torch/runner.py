@@ -8,7 +8,8 @@ recorder (JOURNEY_*), the local over-limit cache, the stats store and its
 sink, the transport server (with /metrics, the debug suite and
 /debug/profile), the admission controller with its shed posture, the
 backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
-cuda-sidecar: a frontend of a device-owner process, backends/sidecar.py;
+cuda-sidecar: a frontend of a device-owner process, backends/sidecar.py,
+or with PARTITIONS>1 the partition router over K owners, cluster/router.py;
 memory, redis and memcache: the host backends), the native host codec's
 prewarm and its ratelimit.native.available gauge, the ratelimit.build.*
 provenance gauges, the slab and sketch stat generators, the victim tier
@@ -27,8 +28,10 @@ device="cuda") is what service_cmd builds, and no setting or environment
 variable moves a deployment onto the CPU. Tests pass device="cpu", which
 runs the kernels' plain versions. A cuda-sidecar frontend holds no card:
 it reports platform cpu and 0 devices, and only the device owner
-(cmd/sidecar_cmd.py) reports the card. The reference's fault injector,
-replication and federation belong to ROADMAP items 9-11.
+(cmd/sidecar_cmd.py) reports the card. Its failover to a standby owner
+shows as the failover_reason degraded probe, and a partitioned frontend
+serves GET /debug/cluster. The reference's federation and fault injector
+belong to ROADMAP items 9b and 11b.
 """
 
 from __future__ import annotations
@@ -156,6 +159,18 @@ def create_limiter(
             **kwargs,
         )
     if backend == "cuda-sidecar":
+        k, _groups, _route_sets, _rate = settings.cluster_config()
+        if k > 1:
+            # PARTITIONS>1: the partition router, one failover client per
+            # partition behind the same engine verbs. PARTITIONS=1 never
+            # builds it: the plain client below ships the pre-cluster
+            # frames byte for byte
+            from .cluster.router import new_partitioned_cache_from_settings
+
+            return new_partitioned_cache_from_settings(
+                settings, base, stats_scope=stats_store.scope("ratelimit"),
+                lease_table=lease_table,
+            )
         from .backends.sidecar import new_sidecar_cache_from_settings
 
         return new_sidecar_cache_from_settings(
@@ -393,6 +408,20 @@ class Runner:
             # overload reason, and the tier's own watermark beside it
             self.server.health.add_degraded_probe(engine.watermark_reason)
             self.server.health.add_degraded_probe(engine.victim_watermark_reason)
+        # the device-owner failover probe (SIDECAR_ADDRS): while this
+        # frontend serves from a standby the owner pair is one failure from
+        # the ladder, which /healthcheck shows while it keeps serving. The
+        # partition router aggregates its per-partition clients' probes
+        if engine is not None and hasattr(engine, "failover_reason"):
+            self.server.health.add_degraded_probe(engine.failover_reason)
+        # the partitioned cluster's frontend view (PARTITIONS>1): the
+        # adopted map epoch and each partition's range, active address and
+        # breaker (each owner's own view is on its debug port)
+        if engine is not None and hasattr(engine, "cluster_snapshot"):
+            self.server.add_debug_endpoint(
+                "/debug/cluster",
+                lambda: json.dumps(engine.cluster_snapshot(), indent=2),
+            )
 
         # Warm restart (persist/): restore the slab from the last snapshot
         # BEFORE serving (after precompile, so the first served launch

@@ -17,8 +17,7 @@ Three differences:
 * A setting that turns on a feature this package has not ported is refused
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh, a failover standby, federation or replication that are not
-  there.
+  runs a mesh, federation or fault injection that are not there.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -34,9 +33,14 @@ in-process quota leasing (LEASE_ENABLED and LEASE_*: lease_config) serve on
 BACKEND_TYPE=cuda; with a host backend LEASE_ENABLED boots unleased, as in
 the reference. The multi-process edge is served as in the JAX package:
 FRONTEND_PROCS (frontend_procs_count) with BACKEND_TYPE cuda or
-cuda-sidecar, the SIDECAR_* transport (sidecar_addresses, one address) and
-the shared-memory rings (SHM_RINGS, SHM_CONTROL_SOCK, SHM_RING_ROWS:
-shm_control_path, shm_ring_rows_count).
+cuda-sidecar, the SIDECAR_* transport (sidecar_addresses) and the
+shared-memory rings (SHM_RINGS, SHM_CONTROL_SOCK, SHM_RING_ROWS:
+shm_control_path, shm_ring_rows_count). Warm-standby replication
+(SIDECAR_ADDRS with a standby, REPL_ROLE, REPL_INTERVAL_MS,
+REPL_MAX_LAG_MS: repl_peer_address, repl_config) and the partitioned
+cluster (PARTITIONS, PARTITION_ADDRS, PARTITION_ROUTE_SETS,
+RESHARD_RATE_LIMIT_MB_S: cluster_config, cluster_partition_of) are served
+as in the JAX package, with its error text.
 """
 
 from __future__ import annotations
@@ -169,7 +173,7 @@ class Settings:
     sidecar_tls_ca: str = ""
     sidecar_tls_server_name: str = ""
     sidecar_addrs: str = ""
-    # --- warm-standby replication (item 9) ---
+    # --- warm-standby replication (persist/replication.py) ---
     repl_role: str = ""
     repl_interval_ms: float = 100.0
     repl_max_lag_ms: float = 0.0
@@ -212,7 +216,7 @@ class Settings:
     shm_control_sock: str = ""
     shm_ring_rows: int = 4096
     frontend_procs: int = 1  # > 1 is the frontend fleet (cmd/service_cmd.py)
-    # --- the partitioned cluster (item 9) ---
+    # --- the partitioned cluster (cluster/) ---
     partitions: int = 1
     partition_addrs: str = ""
     partition_route_sets: int = 256
@@ -235,7 +239,7 @@ class Settings:
     shard_routed_batching: bool = True
     hot_tier_enabled: bool = True
     hot_tier_salt_ways: int = 0
-    # --- quota federation (item 9) ---
+    # --- quota federation (item 9b) ---
     fed_enabled: bool = False
     fed_self: str = ""
     fed_peers: str = ""
@@ -490,8 +494,8 @@ class Settings:
         """The frontend's device-owner address list: parsed SIDECAR_ADDRS,
         or [SIDECAR_SOCKET] when unset. Junk (empty entries only, malformed
         tcp:// or tls:// authorities) fails the boot like every other knob.
-        check_ported refuses more than one address (the failover waits for
-        replication, ROADMAP item 9)."""
+        The first entry is the primary, the rest its warm standbys in
+        failover order."""
         raw = self.sidecar_addrs.strip()
         if not raw:
             return [self.sidecar_socket]
@@ -509,6 +513,115 @@ class Settings:
             except ValueError as e:
                 raise ValueError(f"bad SIDECAR_ADDRS entry {addr!r}: {e}") from e
         return addrs
+
+    def repl_peer_address(self) -> str | None:
+        """The replication peer a sidecar process subscribes to: the first
+        SIDECAR_ADDRS entry that is not its own SIDECAR_SOCKET, or None
+        when the list names nobody else."""
+        for addr in self.sidecar_addresses():
+            if addr != self.sidecar_socket:
+                return addr
+        return None
+
+    def repl_config(self) -> tuple[str, float, float]:
+        """Validated (role, interval_ms, max_lag_ms) for warm-standby
+        replication; role == "" disables. Junk fails the boot like every
+        other knob — a typo'd role must not silently become 'no standby',
+        and a lag bound below the ship cadence would flap the health
+        probe every interval. max_lag 0 defaults to five intervals."""
+        role = self.repl_role.strip().lower()
+        if role not in ("", "primary", "standby", "auto"):
+            raise ValueError(
+                f"REPL_ROLE must be primary, standby, auto, or empty, "
+                f"got {self.repl_role!r}"
+            )
+        interval = float(self.repl_interval_ms)
+        max_lag = float(self.repl_max_lag_ms)
+        if interval <= 0:
+            raise ValueError(
+                f"REPL_INTERVAL_MS must be > 0, got {interval}"
+            )
+        if max_lag < 0:
+            raise ValueError(
+                f"REPL_MAX_LAG_MS must be >= 0, got {max_lag}"
+            )
+        if 0 < max_lag < interval:
+            raise ValueError(
+                f"REPL_MAX_LAG_MS ({max_lag}) must not sit below "
+                f"REPL_INTERVAL_MS ({interval})"
+            )
+        if role in ("standby", "auto") and self.repl_peer_address() is None:
+            raise ValueError(
+                f"REPL_ROLE={role} needs SIDECAR_ADDRS to name a peer "
+                f"other than this process's SIDECAR_SOCKET "
+                f"({self.sidecar_socket!r})"
+            )
+        return role, interval, max_lag if max_lag > 0 else 5.0 * interval
+
+    def cluster_config(self) -> tuple[int, list[list[str]], int, float]:
+        """Validated (partitions, addr_groups, route_sets,
+        reshard_rate_limit_mb_s) for the partitioned cluster (cluster/).
+        PARTITIONS=1 returns ([], ...) — the pre-cluster rollback arm
+        builds no router. Junk fails the boot like every other knob: a
+        typo'd partition count must not silently become a different
+        keyspace split."""
+        k = int(self.partitions)
+        if k < 1:
+            raise ValueError(f"PARTITIONS must be >= 1, got {k}")
+        route_sets = int(self.partition_route_sets)
+        if route_sets <= 0 or route_sets & (route_sets - 1):
+            raise ValueError(
+                f"PARTITION_ROUTE_SETS must be a power of two, "
+                f"got {route_sets}"
+            )
+        rate = float(self.reshard_rate_limit_mb_s)
+        if rate <= 0:
+            raise ValueError(
+                f"RESHARD_RATE_LIMIT_MB_S must be > 0, got {rate}"
+            )
+        if k == 1:
+            return 1, [], route_sets, rate
+        if k > route_sets:
+            raise ValueError(
+                f"PARTITIONS ({k}) cannot exceed PARTITION_ROUTE_SETS "
+                f"({route_sets})"
+            )
+        raw = self.partition_addrs.strip()
+        groups = [
+            [a.strip() for a in grp.split(",") if a.strip()]
+            for grp in raw.split(";")
+            if grp.strip()
+        ]
+        if len(groups) != k:
+            raise ValueError(
+                f"PARTITIONS={k} needs exactly {k} ';'-separated "
+                f"PARTITION_ADDRS groups, got {len(groups)} "
+                f"({self.partition_addrs!r})"
+            )
+        from .backends.sidecar import parse_sidecar_address
+
+        for i, grp in enumerate(groups):
+            if not grp:
+                raise ValueError(f"PARTITION_ADDRS group {i} is empty")
+            for addr in grp:
+                try:
+                    parse_sidecar_address(addr)
+                except ValueError as e:
+                    raise ValueError(
+                        f"bad PARTITION_ADDRS entry {addr!r} "
+                        f"(group {i}): {e}"
+                    ) from e
+        return k, groups, route_sets, rate
+
+    def cluster_partition_of(self, address: str) -> int | None:
+        """Which PARTITION_ADDRS group lists `address` — how a sidecar
+        process discovers its own partition index without a flag (the
+        --partition argument overrides). None when unlisted."""
+        _k, groups, _rs, _rate = self.cluster_config()
+        for i, grp in enumerate(groups):
+            if address in grp:
+                return i
+        return None
 
     def shm_control_path(self) -> str:
         """The shm-ring control socket path, or "" when shm rings are off
@@ -587,21 +700,8 @@ class Settings:
             raise ValueError(
                 f"FRONTEND_PROCS must be >= 1, got {self.frontend_procs}"
             )
-        if len([a for a in self.sidecar_addrs.split(",") if a.strip()]) > 1:
-            raise _unported(
-                "SIDECAR_ADDRS with a standby",
-                "the failover to a warm standby (replication)", "9",
-            )
         if self.fed_enabled:
-            raise _unported("FED_ENABLED=true", "quota federation", "9")
-        if self.partitions != 1 or self.partition_addrs.strip():
-            raise _unported(
-                f"PARTITIONS={self.partitions}", "the partitioned cluster", "9"
-            )
-        if self.repl_role.strip():
-            raise _unported(
-                f"REPL_ROLE={self.repl_role}", "warm-standby replication", "9"
-            )
+            raise _unported("FED_ENABLED=true", "quota federation", "9b")
         if self.fault_inject.strip():
             raise _unported("FAULT_INJECT", "fault injection", "11")
 

@@ -18,7 +18,9 @@ and have --timeout seconds.
 The output (JSON) holds the calls, descriptors and hits sent, every answered
 call as (unix time it started, latency in ms), each shared key's OK and
 OVER_LIMIT answers, and every failed call as (seconds since the start, unix
-time, thread, gRPC status name). Imports grpc,
+time, thread, gRPC status name), and every answered shared-key call as
+(key, unix time it started, unix time it was answered, 1 for OK or 0).
+Imports grpc,
 numpy and the generated protobuf modules only: no torch, no card.
 """
 
@@ -91,7 +93,7 @@ def run(args) -> dict:
         for t in range(args.threads)
     ]
     lock = threading.Lock()
-    result = {"calls": 0, "descriptors": 0, "hits": 0, "lat_ms": [], "failures": [], "shared": {}}
+    result = {"calls": 0, "descriptors": 0, "hits": 0, "lat_ms": [], "failures": [], "shared": {}, "shared_calls": []}
     start = max(time.time(), float(args.start_at))
     time.sleep(max(0.0, start - time.time()))
     t_end = time.monotonic() + float(args.seconds)
@@ -99,7 +101,7 @@ def run(args) -> dict:
 
     def worker(t: int) -> None:
         calls = descs = hits = 0
-        lat, failures, shared = [], [], {}
+        lat, failures, shared, shared_calls = [], [], {}, []
         # a subchannel pool of its own: the thread's channel opens its own
         # TCP connection instead of sharing the process's
         with grpc.insecure_channel(
@@ -120,7 +122,8 @@ def run(args) -> dict:
                 except grpc.RpcError as e:
                     failures.append([round(time.monotonic() - t0, 4), time.time(), t, e.code().name])
                     continue
-                lat.append((t_call, (time.perf_counter() - c0) * 1e3))
+                ms = (time.perf_counter() - c0) * 1e3
+                lat.append((t_call, ms))
                 calls += 1
                 n_desc = len(group) + (key is not None)
                 descs += n_desc
@@ -128,14 +131,17 @@ def run(args) -> dict:
                 if key is not None:
                     resp = rls_v3.RateLimitResponse.FromString(raw)
                     code = resp.statuses[-1].code
+                    ok = code == rls_v3.RateLimitResponse.OK
                     slot = shared.setdefault(f"{key[0]}:{key[1]}", [0, 0])
-                    slot[0 if code == rls_v3.RateLimitResponse.OK else 1] += 1
+                    slot[0 if ok else 1] += 1
+                    shared_calls.append([f"{key[0]}:{key[1]}", t_call, t_call + ms / 1e3, int(ok)])
         with lock:
             result["calls"] += calls
             result["descriptors"] += descs
             result["hits"] += hits
             result["lat_ms"].extend(lat)
             result["failures"].extend(failures)
+            result["shared_calls"].extend(shared_calls)
             for k, (ok, over) in shared.items():
                 slot = result["shared"].setdefault(k, [0, 0])
                 slot[0] += ok

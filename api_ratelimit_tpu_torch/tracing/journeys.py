@@ -69,12 +69,15 @@ FLAG_SHED = "shed"
 FLAG_DEADLINE = "deadline"
 FLAG_FAULT = "fault"
 FLAG_OVER_LIMIT = "over_limit"
+# the request rode a device-owner failover: the sidecar client switched
+# to a standby address (backends/sidecar.py), or this request's write
+# promoted a standby (persist/replication.py) — always tail-worthy
+FLAG_FAILOVER = "failover"
 # a descriptor in this request was ranked hot by the heavy-hitter sketch's
 # last drain (backends/cuda.py drain_hotkeys): "slow AND hot" is the gold
 # tail-sample — contention on the hot head, not a cold-path stall
 FLAG_HOTKEY = "hotkey"
-# the reference's failover and fed flags come with the sidecar client's
-# failover to a standby and with federation (ROADMAP item 9)
+# the reference's fed flag comes with federation (ROADMAP item 9b)
 
 
 class Journey:

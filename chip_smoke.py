@@ -304,7 +304,49 @@ Phases, each of which must pass (nothing is caught):
            answered byte for byte alike, the lease arm's owner launching
            less and holding liabilities. Prints one "fleet:" JSON line with
            the card's name and power limit.
-14. report per-kernel median device times (torch.profiler) and CUDA-event
+14. cluster warm-standby replication and the partitioned cluster at the
+           default deployment (2^22 slots, W = 128, the production sketch,
+           TPU_BATCH_WINDOW=200us), every owner a sidecar_cmd child
+           process on the card with its own slab, the load phase 13's
+           client processes. (a) a primary (--role primary) and a standby
+           (--role standby) with SIDECAR_ADDRS=P,S and REPL_INTERVAL_MS=100
+           boot together; a cuda-sidecar master of four workers with the
+           same SIDECAR_ADDRS (socket RPC, every frame epoch-fenced) takes
+           6 s of load: no call fails, each shared key admits exactly
+           min(4, calls); the lag at both owners, delta frames a second,
+           bytes a frame and the ship loop's export drain and diff ms an
+           interval are read from their /metrics, beside phase 13 (b)'s
+           calls/s. The load stops, three intervals pass, P takes SIGTERM
+           (its drain snapshot is its last table) and a zero-hit write
+           promotes S to epoch 2: S's drain snapshot equals reconcile_rows
+           of P's, bit for bit, but for the probe key's row. A fresh pair
+           and frontend take load (each shared call's answer time logged)
+           and P is SIGKILLed 4 s in: no call fails; each shared key (its limit
+           crossed after the kill) admits at least min(limit, calls) and
+           overshoots by at most its admissions in the window the last
+           ship could have missed plus its calls P took but never
+           answered; the kill to S's first answer and S's
+           promotion ms. The old P boots again at epoch 1 and answers a
+           write stamped with epoch 2 with STATUS_STALE_EPOCH, counted in
+           repl.stale_epoch_rejected. (b) two partition owners
+           (PARTITIONS=2, PARTITION_ROUTE_SETS=256, no standbys) and a
+           third holding the three-partition map boot together; a
+           cuda-sidecar Runner with PARTITIONS=2 in this process and a
+           memory Runner on one fake clock answer phase 9's stream (hour
+           rules) byte for byte alike; then load through the partitioned
+           Runner and ReshardCoordinator 2 -> 3 (RESHARD_RATE_LIMIT_MB_S at
+           its default) 3 s in: no call fails, sets move, the router
+           adopts epoch 2, each shared key's counter lies in [n - m, n],
+           m its own calls answered after the flip began and started
+           before the drain ended; rows and bytes moved, the reshard's wall
+           time and each merging owner's state-lock hold. Every owner's
+           /metrics counts way_scan, slab_apply and sketch_update launches
+           (the promoted standbys and the third partition too), and each
+           owner's map epoch and repl epoch are printed. Each arm's owners
+           start booting once the arm before has read its load's figures.
+           Prints one "cluster:" JSON line with the card's name and power
+           limit.
+15. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -318,8 +360,8 @@ Phases, each of which must pass (nothing is caught):
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
            kernel; the process, observability, warm restart and tiers
-           phases' lines, the fleet's, the card's name and power limit,
-           then the ok line.
+           phases' lines, the fleet's and the cluster's, the card's name
+           and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -331,6 +373,7 @@ import collections
 import contextlib
 import http.client
 import json
+import math
 import os
 import signal
 import subprocess
@@ -4541,10 +4584,10 @@ def fleet_env(root: str, scratch: str, tag: str, backend: str = "cuda", **overri
     return env
 
 
-def fleet_spawn(module: str, env: dict, log_path: str, **extra) -> subprocess.Popen:
+def fleet_spawn(module: str, env: dict, log_path: str, argv: tuple = (), **extra) -> subprocess.Popen:
     log_file = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", module], cwd=REPO_ROOT, env={**env, **extra},
+        [sys.executable, "-m", module, *argv], cwd=REPO_ROOT, env={**env, **extra},
         stdout=log_file, stderr=subprocess.STDOUT,
     )
     proc.log_path = log_path
@@ -4726,7 +4769,8 @@ def fleet_collect(procs: list, seconds: float, measure_s: float | None = None) -
     failures and shared keys over the whole run; requests/s and p50/p99 per
     call over the calls started in its first measure_s seconds (all when
     None), so a trace taken after them stays out of the figures."""
-    merged = {"calls": 0, "descriptors": 0, "hits": 0, "failures": [], "shared": collections.Counter(), "over": collections.Counter()}
+    merged = {"calls": 0, "descriptors": 0, "hits": 0, "failures": [], "shared": collections.Counter(), "over": collections.Counter(),
+              "answered": [], "shared_calls": []}
     lat, wall = [], 0.0
     start = procs[0].start_at
     for proc in procs:
@@ -4741,6 +4785,8 @@ def fleet_collect(procs: list, seconds: float, measure_s: float | None = None) -
         for k in ("calls", "descriptors", "hits"):
             merged[k] += doc[k]
         merged["failures"] += doc["failures"]
+        merged["answered"] += doc["lat_ms"]
+        merged["shared_calls"] += doc.get("shared_calls", [])
         for key, (ok, over) in doc["shared"].items():
             merged["shared"][key] += ok
             merged["over"][key] += over
@@ -4984,20 +5030,39 @@ def fleet_restore(env: dict, exact: dict) -> dict:
     return {"restored": stats.get("restored"), "counters": counters}
 
 
+def owner_spawn(root: str, scratch: str, tag: str, argv: tuple = (), **overrides):
+    """A device owner (sidecar_cmd) at the default deployment with the
+    dispatch loop, its socket scratch/<tag>.sock, its own snapshot and
+    profile directories and debug port: (process, env, debug port)."""
+    env = fleet_env(root, scratch, tag, SHM_RINGS="true", **overrides)
+    debug = int(env["DEBUG_PORT"]) + 1 + FLEET_WORKERS
+    env["DEBUG_PORT"] = str(debug)
+    proc = fleet_spawn(SIDECAR_CMD, env, os.path.join(scratch, tag + "_owner.log"), argv=argv)
+    return proc, env, debug
+
+
+def owners_wait(owners: list, what: str) -> float:
+    """Wait until every owner's /healthcheck answers (they boot together);
+    on a failure stop them all. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    try:
+        for proc, _env, debug in owners:
+            wait_for(lambda debug=debug: http_ok(debug, "/healthcheck"), what, FLEET_BOOT_S, proc)
+    except BaseException:
+        stop_procs([o[0] for o in owners], what)
+        raise
+    return time.perf_counter() - t0
+
+
 def fleet_owner_up(root: str, scratch: str, tag: str):
     """An external device owner (sidecar_cmd) with SHM_RINGS=true, booted
     until its /healthcheck answers: (process, its env, its debug port,
     seconds)."""
     t0 = time.perf_counter()
-    env = fleet_env(root, scratch, tag, SHM_RINGS="true")
-    owner_debug = int(env["DEBUG_PORT"]) + 1 + FLEET_WORKERS
-    owner = fleet_spawn(SIDECAR_CMD, env, os.path.join(scratch, tag + "_owner.log"), DEBUG_PORT=str(owner_debug))
-    try:
-        wait_for(lambda: http_ok(owner_debug, "/healthcheck"), f"{tag}: the owner", FLEET_BOOT_S, owner)
-    except BaseException:
-        stop_procs([owner], tag)
-        raise
-    return owner, env, owner_debug, time.perf_counter() - t0
+    owner = owner_spawn(root, scratch, tag)
+    owners_wait([owner], f"{tag}: the owner")
+    proc, env, debug = owner
+    return proc, env, debug, time.perf_counter() - t0
 
 
 def stop_procs(procs: list, tag: str) -> None:
@@ -5191,6 +5256,514 @@ def phase_fleet(K) -> dict:
     return out
 
 
+# -- phase 14: warm-standby replication and the partitioned cluster ----------
+
+REPL_INTERVAL_MS = 100  # REPL_INTERVAL_MS of every replicated owner
+REPL_LOAD_S = 6.0  # (a)'s clean-handoff load, measured
+# the clean arm's shared limit: every key must cross it in REPL_LOAD_S at
+# the replicated fleet's rate (a key got 11-38 calls at 468-835 calls/s)
+REPL_CLEAN_LIMIT = 4
+REPL_CRASH_S = 8.0  # the crash arm's load
+REPL_KILL_AT_S = 4.0  # the primary is SIGKILLed this far into it
+# an answer the primary sent before it died reaches its client up to this
+# long after (the frontend relays it): such admissions count as the
+# primary's in the crash arm's bound
+REPL_RELAY_S = 0.05
+# the crash arm's shared limit: what (a)'s rate admits a key this long
+# after the kill, so the keys cross it after the failover
+REPL_CROSS_AFTER_S = 1.5
+REPL_LAG_SAMPLES = 5
+CLUSTER_ROUTE_SETS = 256
+CLUSTER_V3_CALLS = 1024
+CLUSTER_V2_CALLS = 64
+CLUSTER_JSON_CALLS = 64
+CLUSTER_LOAD_S = 8.0
+CLUSTER_RESHARD_AT_S = 3.0  # the reshard starts this far into the load
+CLUSTER_SHARED_LIMIT = 1_000_000  # the shared keys never refuse: limit_remaining reads their counter
+# hour windows only: the owners' real clocks and the frontends' fake one
+# roll no window during the phase (wait_hour_margin)
+CLUSTER_RULES = f"""\
+domain: proc
+descriptors:
+  - key: user
+    rate_limit: {{unit: hour, requests_per_unit: 20}}
+  - key: tenant
+    descriptors:
+      - key: path
+        rate_limit: {{unit: hour, requests_per_unit: 400}}
+  - key: ip
+    rate_limit: {{unit: hour, requests_per_unit: 10}}
+  - key: shared
+    rate_limit: {{unit: hour, requests_per_unit: {CLUSTER_SHARED_LIMIT}}}
+"""
+
+
+def repl_rules(root: str, limit: int) -> None:
+    config = os.path.join(root, "ratelimit", "config")
+    os.makedirs(config, exist_ok=True)
+    write_text(os.path.join(config, "proc.yaml"), PROCESS_RULES + f"""\
+  - key: shared
+    rate_limit: {{unit: hour, requests_per_unit: {limit}}}
+""")
+
+
+def repl_pair_spawn(root: str, scratch: str, tag: str, spawned: list) -> dict:
+    """A primary and a standby on the card (--role primary / standby, both
+    with SIDECAR_ADDRS=P,S, REPL_INTERVAL_MS), started together; each
+    process also goes to `spawned`."""
+    p_sock, s_sock = os.path.join(scratch, tag + "p.sock"), os.path.join(scratch, tag + "s.sock")
+    common = {"SIDECAR_ADDRS": f"{p_sock},{s_sock}", "REPL_INTERVAL_MS": str(REPL_INTERVAL_MS)}
+    p = owner_spawn(root, scratch, tag + "p", ("--role", "primary"), **common)
+    s = owner_spawn(root, scratch, tag + "s", ("--role", "standby"), **common)
+    spawned += [p[0], s[0]]
+    return {"tag": tag, "p": p, "s": s, "p_sock": p_sock, "s_sock": s_sock, "addrs": common["SIDECAR_ADDRS"],
+            "t0": time.perf_counter()}
+
+
+def repl_pair_ready(pair: dict) -> dict:
+    """Wait for a spawned pair: both healthy and the standby's first
+    (full snapshot) frame applied; adds the seconds from the spawn."""
+    tag, p, s = pair["tag"], pair["p"], pair["s"]
+    owners_wait([p, s], f"{tag}: the replicated pair")
+    pair["boot_s"] = time.perf_counter() - pair["t0"]
+    try:
+        wait_for(lambda: metrics_of(s[2]).get("ratelimit_repl_frames_applied", 0) >= 1,
+                 f"{tag}: the standby's first frame", 120, s[0])
+    except BaseException:
+        stop_procs([p[0], s[0]], tag)
+        raise
+    pair["synced_s"] = time.perf_counter() - pair["t0"]
+    return pair
+
+
+def repl_frontend_up(root: str, scratch: str, tag: str, pair: dict):
+    """A cuda-sidecar master of FLEET_WORKERS workers whose SIDECAR_ADDRS is
+    the pair (primary first): socket RPC only, the epoch fence on every
+    frame. Returns (master, pids, env, boot seconds)."""
+    env = fleet_env(root, scratch, tag, "cuda-sidecar", SHM_RINGS="false", SIDECAR_SOCKET=pair["p_sock"],
+                    SIDECAR_ADDRS=pair["addrs"])
+    master, pids, boot_s = fleet_up(env, scratch, tag, FLEET_WORKERS, owner=False)
+    return master, pids, env, boot_s
+
+
+def hist_bound_ms(metrics: dict, name: str) -> float:
+    """An upper bound on every sample of histogram `name` in a /metrics
+    read: the least bucket edge that holds them all (infinite when one
+    passed the last edge)."""
+    total = metrics.get(name + "_count", 0)
+    head = name + '_bucket{le="'
+    edges = [float(k[len(head):-2]) for k, v in metrics.items()
+             if k.startswith(head) and k != head + '+Inf"}' and v >= total]
+    return min(edges, default=math.inf)
+
+
+def repl_figures(before: dict, after: dict, seconds: float) -> dict:
+    """The primary's ship loop between two /metrics reads: delta frames a
+    second, bytes a frame, and the export drain and diff_tables ms an
+    interval."""
+    def d(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    frames = d("ratelimit_repl_frames_shipped")
+    n_exp = d("ratelimit_repl_ship_export_ms_count")
+    return {
+        "frames": int(frames), "frames_per_s": frames / seconds if seconds else 0.0,
+        "bytes_per_frame": d("ratelimit_repl_bytes_shipped") / frames if frames else None,
+        "export_ms": d("ratelimit_repl_ship_export_ms_sum") / n_exp if n_exp else None,
+        "diff_ms": d("ratelimit_repl_ship_diff_ms_sum") / n_exp if n_exp else None,
+    }
+
+
+def owner_kernels_ran(label: str, before: dict, after: dict) -> dict:
+    launches = owner_launches(before, after)
+    for kernel in ("way_scan", "slab_apply", "sketch_update"):
+        check(launches.get(kernel, 0) > 0, f"{label}: no {kernel} launch: {launches}")
+    return launches
+
+
+def load_slab_file(directory: str) -> np.ndarray:
+    from api_ratelimit_tpu_torch.persist.snapshot import load_snapshot
+    from api_ratelimit_tpu_torch.persist.snapshotter import snapshot_paths
+
+    (path,) = snapshot_paths(directory, 1)
+    _header, table = load_snapshot(path)
+    return np.asarray(table, dtype=np.uint32)
+
+
+def repl_clean(root: str, scratch: str, fleet_b_rps: float | None, pair: dict, after_load=None) -> dict:
+    """(a), the clean handoff: load through a four-worker frontend of the
+    pair, the lag and the ship loop's cost read meanwhile; the load stops,
+    three intervals pass, P takes SIGTERM (its drain snapshot is its last
+    table), and a zero-hit write promotes S. S's table (its drain
+    snapshot) equals reconcile_rows of P's, bit for bit, but for the
+    probe key's row. after_load() runs once the load's figures are read
+    (the next arm's owners start booting)."""
+    from api_ratelimit_tpu_torch.backends.sidecar import SidecarEngineClient
+    from api_ratelimit_tpu_torch.persist.snapshot import reconcile_rows
+
+    repl_rules(root, REPL_CLEAN_LIMIT)
+    repl_pair_ready(pair)
+    (p, p_env, p_dbg), (s, s_env, s_dbg) = pair["p"], pair["s"]
+    out = {"boot_s": pair["boot_s"], "synced_s": pair["synced_s"]}
+    master = None
+    try:
+        # the frontend's boot and the load inside one clock hour
+        out["hour_wait_s"] = wait_hour_margin(REPL_LOAD_S + 120)
+        master, _pids, _env, out["frontend_boot_s"] = repl_frontend_up(root, scratch, "r1f", pair)
+        grpc_port = int(_env["GRPC_PORT"])
+        before = metrics_of(p_dbg)
+        s_before = metrics_of(s_dbg)
+        procs = fleet_clients(grpc_port, REPL_LOAD_S, scratch, "r1", seed=11)
+        time.sleep(max(0.0, procs[0].start_at - time.time()) + 1.0)
+        lag = {"p": [], "s": []}
+        for _ in range(REPL_LAG_SAMPLES):
+            lag["p"].append(metrics_of(p_dbg).get("ratelimit_repl_lag_ms"))
+            lag["s"].append(metrics_of(s_dbg).get("ratelimit_repl_lag_ms"))
+            time.sleep((REPL_LOAD_S - 2.0) / REPL_LAG_SAMPLES)
+        load = fleet_collect(procs, REPL_LOAD_S)
+        after = metrics_of(p_dbg)
+        check(not load["failures"], f"(a) calls failed: {load['failures'][:5]}")
+        out["exact"] = shared_exact(load, "shared:s", REPL_CLEAN_LIMIT, FLEET_SHARED_KEYS)
+        out["load"] = {k: load[k] for k in ("calls", "hits", "requests_per_s", "p50_ms", "p99_ms", "seconds")}
+        out["phase13_b_requests_per_s"] = fleet_b_rps
+        out["lag_ms"] = lag
+        out["ship"] = repl_figures(before, after, load["seconds"])
+        out["p_launches"] = owner_kernels_ran("(a) the primary", before, after)
+        if after_load is not None:
+            after_load()
+        rc = fleet_down(master, "(a) the frontend")
+        check(rc == 0, f"(a) the frontend master exited {rc}")
+        master = None
+        # three intervals, then the standby holds every shipped frame
+        time.sleep(3 * REPL_INTERVAL_MS / 1e3)
+        wait_for(lambda: metrics_of(s_dbg).get("ratelimit_repl_frames_applied", 0)
+                 >= metrics_of(p_dbg).get("ratelimit_repl_frames_shipped", 0),
+                 "(a) the standby to apply every shipped frame", 30, s)
+        out["repl_p"] = {k: metrics_of(p_dbg).get(f"ratelimit_repl_{k}") for k in ("epoch", "frames_shipped", "standbys")}
+        stop_procs([p], "(a) the primary")
+        probe_fp = 0x5EED_0001_0000_0007
+        client = SidecarEngineClient(pair["addrs"], retries=1, breaker_threshold=0)
+        try:
+            t_lo = int(time.time())
+            block = np.array([[probe_fp & 0xFFFFFFFF], [probe_fp >> 32], [0], [100], [3600], [0]], dtype=np.uint32)
+            probe = client.submit_rows(block).tolist()
+            t_hi = int(time.time())
+            check(client.active_address == pair["s_sock"], "(a) the zero-hit write did not reach the standby")
+        finally:
+            client.close()
+        s_after = metrics_of(s_dbg)
+        out["repl_s"] = {k: s_after.get(f"ratelimit_repl_{k}") for k in ("epoch", "promotions", "promotion_ms", "frames_applied", "resyncs")}
+        check(out["repl_s"]["epoch"] == 2 and out["repl_s"]["promotions"] == 1,
+              f"(a) the standby did not promote once to epoch 2: {out['repl_s']}")
+        out["probe_answer"] = probe
+        out["s_launches"] = owner_kernels_ran("(a) the promoted standby", s_before, s_after)
+        stop_procs([s], "(a) the promoted standby")
+    finally:
+        if master is not None and master.poll() is None:
+            fleet_down(master, "(a) the frontend")
+        stop_procs([x for x in (p, s) if x.poll() is None], "(a) the pair")
+    last = load_slab_file(p_env["SLAB_SNAPSHOT_DIR"])
+    promoted = load_slab_file(s_env["SLAB_SNAPSHOT_DIR"])
+    probe_row = (promoted[:, 0] == (probe_fp & 0xFFFFFFFF)) & (promoted[:, 1] == (probe_fp >> 32))
+    check(int(probe_row.sum()) <= 1, "(a) the probe key holds more than one row")
+    masked = promoted.copy()
+    masked[probe_row] = 0
+    match = None
+    for t in range(t_lo, t_hi + 1):
+        want, stats = reconcile_rows(last, t)
+        if np.array_equal(masked, want):
+            match = (t, stats)
+            break
+    check(match is not None, "(a) the promoted slab is not reconcile_rows of the primary's last table")
+    out["handoff"] = {"primary_rows": int(last.any(axis=1).sum()), "reconciled_at": match[0],
+                      "restored": match[1]["restored"],
+                      "dropped": match[1]["dropped_expired"] + match[1]["dropped_window"], "bit_equal": True}
+    return out
+
+
+def repl_crash(root: str, scratch: str, per_key_rate: float, pair: dict, spawned: list, after_load=None) -> dict:
+    """(a), the crash: a fresh pair and frontend, load with every shared
+    call logged, SIGKILL P in its middle. No call fails; every shared key
+    admits at least what an uninterrupted limiter would (min(limit,
+    calls)), and past its limit by at most what P may have admitted it
+    after the last frame S received: its calls P answered OK in the window
+    that ship could have missed (REPL_INTERVAL_MS plus twice the largest
+    export and diff, bucket edges of P's /metrics histograms), and its
+    calls P took before the kill but never answered (S answered their
+    retries). Then the old P boots again and refuses a write stamped with
+    the promoted epoch. after_load() runs once the load is collected."""
+    limit = max(4, int(round(per_key_rate * (REPL_KILL_AT_S + REPL_CROSS_AFTER_S))))
+    repl_rules(root, limit)
+    repl_pair_ready(pair)
+    (p, p_env, p_dbg), (s, s_env, s_dbg) = pair["p"], pair["s"]
+    out = {"boot_s": pair["boot_s"], "synced_s": pair["synced_s"], "shared_limit": limit}
+    master = p2 = None
+    try:
+        out["hour_wait_s"] = wait_hour_margin(REPL_CRASH_S + 120)
+        master, _pids, env, out["frontend_boot_s"] = repl_frontend_up(root, scratch, "r2f", pair)
+        before = metrics_of(p_dbg)
+        s_before = metrics_of(s_dbg)
+        procs = fleet_clients(int(env["GRPC_PORT"]), REPL_CRASH_S, scratch, "r2", seed=12)
+        time.sleep(max(0.0, procs[0].start_at + REPL_KILL_AT_S - time.time()))
+        last_p = metrics_of(p_dbg)
+        t_kill = time.time()
+        p.kill()
+        p.wait()
+        t_dead = time.time()
+        # the old primary comes back at once, at its socket, with its role
+        p2 = owner_spawn(root, scratch, pair["tag"] + "p", ("--role", "primary"), SIDECAR_ADDRS=pair["addrs"],
+                         REPL_INTERVAL_MS=str(REPL_INTERVAL_MS),
+                         SLAB_SNAPSHOT_DIR=os.path.join(scratch, pair["tag"] + "p_again_snap"))
+        spawned.append(p2[0])
+        load = fleet_collect(procs, REPL_CRASH_S)
+        s_after = metrics_of(s_dbg)
+        if after_load is not None:
+            after_load()
+        check(not load["failures"], f"(a) crash: {len(load['failures'])} calls failed: {load['failures'][:5]}")
+        ship = repl_figures(before, last_p, t_kill - procs[0].start_at)
+        cycle_ms = hist_bound_ms(last_p, "ratelimit_repl_ship_export_ms") + hist_bound_ms(last_p, "ratelimit_repl_ship_diff_ms")
+        window_s = (REPL_INTERVAL_MS + 2 * cycle_ms) / 1e3
+        keys = {}
+        for j in range(FLEET_SHARED_KEYS):
+            key = f"shared:s{j}"
+            ok, over = load["shared"][key], load["over"][key]
+            late = sum(1 for k, _t0, t1, was_ok in load["shared_calls"]
+                       if k == key and was_ok and t_kill - window_s < t1 <= t_dead + REPL_RELAY_S)
+            unanswered = sum(1 for k, t0, t1, _ok in load["shared_calls"]
+                             if k == key and t0 <= t_kill and t1 > t_dead + REPL_RELAY_S)
+            keys[key] = {"ok": ok, "over": over, "last_window_ok": late, "unanswered_by_p": unanswered}
+            check(ok >= min(limit, ok + over), f"(a) crash: {key} admitted {ok} of {ok + over} calls, limit {limit}: a loss failed closed")
+            check(ok - limit <= late + unanswered, f"(a) crash: {key} overshot its limit {limit} by {ok - limit}, "
+                  f"more than its {late} admissions in the last {window_s * 1e3:.0f} ms before the kill "
+                  f"(and the {(t_dead - t_kill) * 1e3:.0f} ms it took to die) and its {unanswered} calls P never answered")
+        spanning = [t0 + ms / 1e3 - t_kill for t0, ms in load["answered"] if t0 < t_kill < t0 + ms / 1e3]
+        after_kill = [t0 + ms / 1e3 - t_kill for t0, ms in load["answered"] if t0 >= t_kill]
+        out |= {
+            "calls": load["calls"], "requests_per_s": load["requests_per_s"], "keys": keys,
+            "overshoot": {k: max(0, v["ok"] - limit) for k, v in keys.items()}, "window_ms": window_s * 1e3,
+            "cycle_bound_ms": cycle_ms,
+            "kill_to_dead_ms": (t_dead - t_kill) * 1e3,
+            "kill_to_first_standby_answer_s": min(after_kill) if after_kill else None,
+            "longest_call_across_the_kill_s": max(spanning) if spanning else None,
+            "calls_across_the_kill": len(spanning),
+            "repl_s": {k: s_after.get(f"ratelimit_repl_{k}") for k in ("epoch", "promotions", "promotion_ms", "frames_applied", "resyncs")},
+            "ship_before_kill": ship,
+        }
+        check(out["repl_s"]["promotions"] == 1 and out["repl_s"]["epoch"] == 2, f"(a) crash: the standby's repl state {out['repl_s']}")
+        out["s_launches"] = owner_kernels_ran("(a) crash: the promoted standby", s_before, s_after)
+        rc = fleet_down(master, "(a) crash: the frontend")
+        check(rc == 0, f"(a) crash: the frontend master exited {rc}")
+        master = None
+        out["split_brain"] = repl_split_brain(p2, int(out["repl_s"]["epoch"]))
+    finally:
+        if master is not None and master.poll() is None:
+            fleet_down(master, "(a) crash: the frontend")
+        stop_procs([x for x in (s, p2[0] if p2 else None) if x is not None and x.poll() is None], "(a) crash: the owners")
+    return out
+
+
+def repl_split_brain(p2, epoch: int) -> dict:
+    """The old primary, booted again at epoch 1, answers a raw SUBMIT
+    stamped with the promoted epoch with STATUS_STALE_EPOCH and its own
+    epoch, counts it in repl.stale_epoch_rejected, and launches nothing."""
+    import socket
+
+    from api_ratelimit_tpu_torch.backends import sidecar as SC
+
+    proc, env, debug = p2
+    boot_s = owners_wait([p2], "(a) the resurrected primary")
+    before = metrics_of(debug)
+    block = np.array([[77], [0], [1], [100], [3600], [0]], dtype=np.uint32)
+    request = SC._HDR.pack(SC.MAGIC, SC.VERSION, SC.OP_SUBMIT, SC.FLAG_EPOCH) + SC._U32.pack(1) + block.tobytes() + SC._U32.pack(epoch)
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    conn.settimeout(30)
+    conn.connect(env["SIDECAR_SOCKET"])
+    try:
+        conn.sendall(request)
+        reply = SC._recv_exact(conn, 5)
+    finally:
+        conn.close()
+    after = metrics_of(debug)
+    check(reply[0] == SC.STATUS_STALE_EPOCH and reply[1:] == SC._U32.pack(1),
+          f"the resurrected primary answered {reply!r} to an epoch-{epoch} write")
+    rejected = after.get("ratelimit_repl_stale_epoch_rejected", 0)
+    check(rejected == 1, f"repl.stale_epoch_rejected reads {rejected}")
+    launched = owner_launches(before, after)
+    check(not any(launched.values()), f"the refused write launched kernels: {launched}")
+    return {"boot_s": boot_s, "reply_status": reply[0], "server_epoch": 1, "write_epoch": epoch,
+            "stale_epoch_rejected": rejected}
+
+
+def partition_addrs(scratch: str, tags: list) -> str:
+    """PARTITION_ADDRS of one owner a group, the owners' sockets by tag."""
+    return ";".join(os.path.join(scratch, t + ".sock") for t in tags)
+
+
+def cluster_owners_spawn(root: str, scratch: str, spawned: list) -> list:
+    """(b)'s owners, started together: two on the two-partition map, the
+    third on the three-partition one (each finds its partition in
+    PARTITION_ADDRS by its socket)."""
+    tags = ["k0", "k1", "k2"]
+    two, three = partition_addrs(scratch, tags[:2]), partition_addrs(scratch, tags)
+    owners = [
+        owner_spawn(root, scratch, t, PARTITIONS=str(k), PARTITION_ADDRS=addrs, PARTITION_ROUTE_SETS=str(CLUSTER_ROUTE_SETS))
+        for t, k, addrs in (("k0", 2, two), ("k1", 2, two), ("k2", 3, three))
+    ]
+    spawned += [o[0] for o in owners]
+    return owners
+
+
+def cluster_phase(root: str, scratch: str, owners: list, t_spawn: float) -> dict:
+    """(b): two partition owners (PARTITIONS=2, PARTITION_ROUTE_SETS=256, no
+    standbys) and a third holding the three-partition map boot together; a
+    cuda-sidecar Runner with PARTITIONS=2 in this process beside a memory
+    Runner, both on one fake clock: phase 9's stream answered byte for byte
+    alike. Then fleet load through the partitioned Runner and a live 2 -> 3
+    reshard in its middle: no call fails, sets move, the router adopts the
+    new epoch, and each shared key's counter lies in [n - m, n], m its own
+    calls answered after the first map install and started before the
+    drain's last merge returned: the only writes the drain's
+    keep-the-newest merge can drop are the target's from the flip to that
+    merge (cluster/reshard.py)."""
+    from api_ratelimit_tpu_torch.backends.sidecar import OP_MAP_SET, cluster_rpc
+    from api_ratelimit_tpu_torch.cluster.partition_map import PartitionMap
+    from api_ratelimit_tpu_torch.cluster.reshard import ReshardCoordinator
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    config = os.path.join(root, "ratelimit", "config")
+    os.makedirs(config, exist_ok=True)
+    write_text(os.path.join(config, "proc.yaml"), CLUSTER_RULES)
+    tags = ["k0", "k1", "k2"]
+    two = partition_addrs(scratch, tags[:2])
+    owners_wait(owners, "(b) the partition owners")
+    out = {"boot_s": time.perf_counter() - t_spawn}
+    runners = []
+    try:
+        out["hour_wait_s"] = wait_hour_margin(CLUSTER_LOAD_S + 120)
+        install_process_time_source(FakeTimeSource(NOW0))
+        card, card_boot = process_boot(process_env(root, backend="cuda-sidecar", PARTITIONS="2", PARTITION_ADDRS=two,
+                                                   PARTITION_ROUTE_SETS=str(CLUSTER_ROUTE_SETS)))
+        runners.append(card)
+        host, _ = process_boot(process_env(root, backend="memory"))
+        runners.append(host)
+        router = card.cache.engine
+        check(type(router).__name__ == "PartitionedEngineClient", f"PARTITIONS=2 built {type(router).__name__}")
+        befores = [metrics_of(o[2]) for o in owners]
+        t = time.perf_counter()
+        out["parity"] = process_stream(card, host, types.SimpleNamespace(advance=lambda s: None), CLUSTER_V3_CALLS,
+                                       CLUSTER_V2_CALLS, CLUSTER_JSON_CALLS, PROCESS_KEYS, seed=14)
+        out["parity"]["seconds"] = time.perf_counter() - t
+        out["parity_launches"] = {t: owner_kernels_ran(f"(b) parity: {t}", befores[i], metrics_of(owners[i][2]))
+                                  for i, t in enumerate(tags[:2])}
+        mid = [metrics_of(o[2]) for o in owners]
+        pmap2 = PartitionMap.even_map([[owners[0][1]["SIDECAR_SOCKET"]], [owners[1][1]["SIDECAR_SOCKET"]]],
+                                      route_sets=CLUSTER_ROUTE_SETS)
+        pmap3 = pmap2.reshard_to([[o[1]["SIDECAR_SOCKET"]] for o in owners])
+        check(router.map_epoch() == pmap2.epoch, "the router did not boot on the two-partition map")
+        procs = fleet_clients(card.server.grpc_port, CLUSTER_LOAD_S, scratch, "k", seed=15)
+        time.sleep(max(0.0, procs[0].start_at + CLUSTER_RESHARD_AT_S - time.time()))
+        marks = {}
+
+        def rpc(addr, op, payload):
+            # the clock before the first map install (the flip) and after
+            # the last reply (the drain's last merge)
+            if op == OP_MAP_SET:
+                marks.setdefault("flip", time.time())
+            reply = cluster_rpc(addr, op, payload)
+            marks["done"] = time.time()
+            return reply
+
+        t_r = time.perf_counter()
+        # RESHARD_RATE_LIMIT_MB_S at its default throttles the sections
+        report = ReshardCoordinator(pmap2, pmap3, rate_limit_mb_s=card.settings.cluster_config()[3], rpc=rpc).run()
+        reshard_wall_s = time.perf_counter() - t_r
+        load = fleet_collect(procs, CLUSTER_LOAD_S)
+        check(not load["failures"], f"(b) {len(load['failures'])} calls failed: {load['failures'][:5]}")
+        check(report["sets_moved"] > 0, f"(b) the reshard moved no set: {report}")
+        check(router.map_epoch() == pmap3.epoch, f"(b) the router is at map epoch {router.map_epoch()}, not {pmap3.epoch}")
+        counters = {}
+        for j in range(FLEET_SHARED_KEYS):
+            key = f"shared:s{j}"
+            n = load["shared"][key] + load["over"][key]
+            exposed = sum(1 for k, t0, t1, _ok in load["shared_calls"]
+                          if k == key and t1 >= marks["flip"] and t0 <= marks["done"])
+            code, statuses = v3_verdict(card.server.grpc_port, [("shared", f"s{j}")])
+            final = CLUSTER_SHARED_LIMIT - statuses[0][2] - 1
+            counters[key] = [n, final, exposed]
+            check(code == "OK" and n - exposed <= final <= n,
+                  f"(b) {key}: {n} calls, final counter {final}, {exposed} calls across the flip and drain")
+        afters = [metrics_of(o[2]) for o in owners]
+        out["reshard"] = {
+            "report": report, "wall_s": reshard_wall_s, "counters": counters,
+            "flip_to_drain_ms": (marks["done"] - marks["flip"]) * 1e3,
+            "load": {k: load[k] for k in ("calls", "hits", "requests_per_s", "p50_ms", "p99_ms", "seconds")},
+            "merge_lock": {t: {"count": a.get("ratelimit_owner_merge_count"), "total_ms": a.get("ratelimit_owner_merge_total_us", 0) / 1e3,
+                               "max_ms": a.get("ratelimit_owner_merge_max_us", 0) / 1e3} for t, a in zip(tags, afters)},
+        }
+        check(afters[2].get("ratelimit_owner_merge_count", 0) > 0, "(b) the joining owner merged no section")
+        out["launches"] = {t: owner_kernels_ran(f"(b) load: {t}", m, a) for t, m, a in zip(tags, mid, afters)}
+        out["owners"] = {}
+        for t, o, a in zip(tags, owners, afters):
+            status, body = http_call(o[2], "GET", "/debug/cluster")
+            check(status == 200, f"(b) {t}: /debug/cluster answered {status}")
+            doc = json.loads(body)
+            check(doc["map_epoch"] == pmap3.epoch, f"(b) {t} holds map epoch {doc['map_epoch']}")
+            out["owners"][t] = {"partition": doc["partition"], "map_epoch": doc["map_epoch"],
+                                "owned_range": [doc["owned_range"]["lo"], doc["owned_range"]["hi"]],
+                                "metrics_map_epoch": a.get("ratelimit_cluster_map_epoch"),
+                                "misrouted_rejected": a.get("ratelimit_cluster_misrouted_rejected"),
+                                "stale_map_rejected": a.get("ratelimit_cluster_stale_map_rejected")}
+        out["router"] = {"map_epoch": router.map_epoch(), "partitions": len(router.pmap)}
+    finally:
+        for r in runners:
+            r.stop()
+        install_process_time_source(RealTimeSource())
+        stop_procs([o[0] for o in owners], "(b) the partition owners")
+    return out
+
+
+def phase_cluster(fleet_b_rps: float | None = None) -> dict:
+    """Phase 14 (module docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    spawned: list = []
+    # each arm's owners start booting once the arm before has read its
+    # load's figures, so their boot overlaps its handoff and teardown
+    nxt: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as scratch:
+        root, root_b = os.path.join(scratch, "runtime"), os.path.join(scratch, "runtime_b")
+        try:
+            t = time.perf_counter()
+            first = repl_pair_spawn(root, scratch, "r1", spawned)
+            out["a_clean"] = repl_clean(
+                root, scratch, fleet_b_rps, first,
+                after_load=lambda: nxt.setdefault("pair", repl_pair_spawn(root, scratch, "r2", spawned)),
+            )
+            out["a_clean"]["seconds"] = time.perf_counter() - t
+            clean = out["a_clean"]["load"]
+            per_key = clean["calls"] / FLEET_SHARED_EVERY / FLEET_SHARED_KEYS / clean["seconds"]
+            t = time.perf_counter()
+            out["a_crash"] = repl_crash(
+                root, scratch, per_key, nxt["pair"], spawned,
+                after_load=lambda: nxt.setdefault(
+                    "owners", (cluster_owners_spawn(root_b, scratch, spawned), time.perf_counter())
+                ),
+            )
+            out["a_crash"]["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["b"] = cluster_phase(root_b, scratch, *nxt["owners"])
+            out["b"]["seconds"] = time.perf_counter() - t
+        finally:
+            for proc in spawned:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -5259,6 +5832,7 @@ def main() -> int:
     tiers, promote_row = phase_tiers(M, K)
     kernels.append(promote_row)
     fleet = phase_fleet(K)
+    cluster = phase_cluster(fleet["b"]["load"]["requests_per_s"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5270,6 +5844,7 @@ def main() -> int:
     log("warm_restart:", json.dumps(warm))
     log("tiers:", json.dumps(tiers))
     log("fleet:", json.dumps(fleet | {"card": smi.stdout.strip()}))
+    log("cluster:", json.dumps(cluster | {"card": smi.stdout.strip()}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

@@ -159,7 +159,7 @@ def test_service_cmd_refuses_an_unported_knob(tmp_path):
     proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", FED_ENABLED="true"))
     _out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
-    assert "ROADMAP item 9" in err
+    assert "ROADMAP item 9b" in err
 
 
 def test_sidecar_cmd_without_a_card_exits_1(tmp_path):

@@ -10,7 +10,10 @@ the JAX package's.
   dispatch loop, and the lease trailer on the sidecar wire
   (TestSidecarLeaseWire: grants and settles ride a port client's frames
   into a port owner's registry, and a sidecar-backed service answers from
-  its leases). TestLeaseAcrossFailover waits for replication (item 9).
+  its leases), and TestLeaseAcrossFailover (grants from the old primary
+  answer through its crash, the promoted standby's replicated liability
+  floors admit no more than the limit, and settles land on the new
+  primary).
 * One request stream through the JAX stack and the port's (direct engine,
   leases on, one fake clock each): the decisions, the ratelimit.lease.*
   counters and LeaseRegistry.export_rows equal; with leases off the port's
@@ -77,6 +80,7 @@ TestOvershootBound = _REF.TestOvershootBound
 TestRunnerIntegration = _REF.TestRunnerIntegration
 TestDispatchLoopArm = _REF.TestDispatchLoopArm
 TestSidecarLeaseWire = _REF.TestSidecarLeaseWire
+TestLeaseAcrossFailover = _REF.TestLeaseAcrossFailover
 
 NOW = 1_000_000
 

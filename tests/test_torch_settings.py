@@ -79,6 +79,10 @@ VALIDATORS = (
     "sidecar_addresses",
     "shm_control_path",
     "shm_ring_rows_count",
+    # replication and the partitioned cluster's
+    "repl_peer_address",
+    "repl_config",
+    "cluster_config",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -112,6 +116,20 @@ VALIDATOR_ENVS = [
     ("shm_control_explicit", {"SHM_CONTROL_SOCK": "/run/ctl.sock"}),
     ("sidecar_addrs_malformed", {"SIDECAR_ADDRS": "tcp://nohost"}),
     ("sidecar_addrs_empty_entries", {"SIDECAR_ADDRS": " , "}),
+    ("repl_standby_without_peer", {"REPL_ROLE": "standby"}),
+    ("repl_auto_with_peer", {"REPL_ROLE": "auto", "SIDECAR_SOCKET": "/run/b.sock", "SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}),
+    ("repl_role_junk", {"REPL_ROLE": "leader"}),
+    ("repl_interval_zero", {"REPL_INTERVAL_MS": "0"}),
+    ("repl_lag_negative", {"REPL_MAX_LAG_MS": "-1"}),
+    ("repl_lag_below_interval", {"REPL_INTERVAL_MS": "100", "REPL_MAX_LAG_MS": "50"}),
+    ("partitions_zero", {"PARTITIONS": "0"}),
+    ("partitions_without_addrs", {"PARTITIONS": "2"}),
+    ("partitions_two", {"PARTITIONS": "2", "PARTITION_ADDRS": "/run/a.sock,/run/a2.sock;tcp://10.0.0.2:7000"}),
+    ("partitions_over_route_sets", {"PARTITIONS": "4", "PARTITION_ROUTE_SETS": "2"}),
+    ("route_sets_not_pow2", {"PARTITION_ROUTE_SETS": "100"}),
+    ("partition_addr_malformed", {"PARTITIONS": "2", "PARTITION_ADDRS": "/run/a.sock;tcp://nohost"}),
+    ("partition_group_empty", {"PARTITIONS": "2", "PARTITION_ADDRS": "/run/a.sock; , ;"}),
+    ("reshard_rate_zero", {"RESHARD_RATE_LIMIT_MB_S": "0"}),
 ]
 
 
@@ -135,6 +153,13 @@ def test_new_settings_parses_like_the_reference(env):
         assert want[1].pop("backend_type") == env.get("BACKEND_TYPE", "tpu")
         assert got[1].pop("backend_type") == _port_env(env).get("BACKEND_TYPE", "cuda")
     assert got == want
+
+
+def _validated_one(settings, name):
+    try:
+        return getattr(settings, name)()
+    except ValueError as e:
+        return "error: " + str(e)
 
 
 def _validated(settings):
@@ -161,19 +186,24 @@ def test_boot_validators_agree(env):
 
 
 # (env, the ROADMAP item the refusal names; None: the item is ported, and
-# the knob that was refused now boots)
+# the knob that was refused now boots; a validator's name: the knob boots
+# and that validator answers as the reference's, its value or its error)
 UNPORTED = [
     ({"TPU_MESH_DEVICES": "4"}, "10"),
     ({"FRONTEND_PROCS": "2"}, None),  # item 8, the multi-process edge
     ({"SIDECAR_SOCKET": "/run/owner.sock"}, None),  # item 8
-    # the failover list needs a standby, and a standby replication
-    ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "9"),
+    # item 9a: a standby list is accepted
+    ({"SIDECAR_ADDRS": "/run/a.sock,/run/b.sock"}, "sidecar_addresses"),
     ({"SIDECAR_RETRIES": "5"}, None),  # item 8
     ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, None),  # item 7
     ({"LEASE_ENABLED": "true"}, None),  # item 8, its in-process half
-    ({"FED_ENABLED": "true"}, "9"),
-    ({"PARTITIONS": "2"}, "9"),
-    ({"REPL_ROLE": "primary"}, "9"),
+    ({"FED_ENABLED": "true"}, "9b"),
+    # item 9a: PARTITIONS=2 without PARTITION_ADDRS boots, and
+    # cluster_config refuses it with the reference's message
+    ({"PARTITIONS": "2"}, "cluster_config"),
+    ({"REPL_ROLE": "primary"}, "repl_config"),
+    # REPL_ROLE=standby without a peer: repl_config's refusal
+    ({"REPL_ROLE": "standby"}, "repl_config"),
     ({"VICTIM_TIER_ENABLED": "true"}, None),  # item 6
     ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
     ({"BACKEND_TYPE": "redis"}, None),  # item 4c
@@ -186,8 +216,11 @@ def test_unported_knob_is_refused_with_its_item(env, item):
     """Each knob of an unported item is refused naming the item; a knob
     whose item has been ported boots, with the reference's fields."""
     want = R.new_settings(env)  # the reference accepts it
-    if item is None:
-        got = dataclasses.asdict(P.new_settings(env))
+    if item is None or not item[0].isdigit():
+        got_settings = P.new_settings(env)
+        if item is not None:
+            assert _validated_one(got_settings, item) == _validated_one(want, item)
+        got = dataclasses.asdict(got_settings)
         want = dataclasses.asdict(want)
         assert got.pop("backend_type") == env.get("BACKEND_TYPE", "cuda")
         assert want.pop("backend_type") == env.get("BACKEND_TYPE", "tpu")

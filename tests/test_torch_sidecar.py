@@ -13,10 +13,10 @@ on the CPU, against the JAX package's.
   same-package pairs.
 * The SUBMIT frames both packages' clients build are byte-identical, with a
   trace trailer and a lease trailer.
-* Each op this owner does not serve (replication, cluster, federation,
-  fault injection) answers as a JAX owner with repl, cluster, fed and the
-  fault injector set to None; the epoch-fenced frame gets its ok+epoch
-  reply.
+* Each op an owner without replication, a cluster, federation or the
+  fault injector does not serve answers as a JAX owner with repl, cluster,
+  fed and the fault injector set to None; the epoch-fenced frame gets its
+  ok+epoch reply with epoch 0.
 """
 
 import json
@@ -262,16 +262,22 @@ def test_unserved_ops_answer_as_a_jax_owner_without_them(request_bytes):
 
 @pytest.mark.parametrize("op", [6, 7], ids=["reshard_pull", "reshard_push"])
 def test_reshard_ops_answer_the_error_frame(op):
-    """The reshard ops move rows between cluster partitions (item 9): this
-    owner answers the standard error frame and keeps the connection."""
-    server, _ = _port_owner()
+    """The reshard ops move rows between cluster partitions: an owner
+    serves them from its engine, with or without a cluster (the served
+    sections: tests/test_torch_cluster.py). A bad body (a route-set count
+    that is not a power of two, an empty section) answers the standard
+    error frame, byte for byte as a JAX owner, and keeps the connection."""
+    body = struct.pack("<III", 0, 1, 100) if op == 6 else struct.pack("<I", 0)
+    port_server, _ = _port_owner()
+    jax_server, _ = _jax_owner()
     try:
-        body = struct.pack("<III", 0, 1, 256) if op == 6 else struct.pack("<I", 0)
-        reply = _raw_reply(server.port, _hdr(op) + body + _hdr(2))
-        msg = b"cluster not configured"
-        assert reply == b"\x01" + struct.pack("<I", len(msg)) + msg + b"\x00"
+        want = _raw_reply(jax_server.port, _hdr(op) + body + _hdr(2))
+        reply = _raw_reply(port_server.port, _hdr(op) + body + _hdr(2))
+        assert reply == want
+        assert reply[:1] == b"\x01" and reply[-1:] == b"\x00"
     finally:
-        server.close()
+        port_server.close()
+        jax_server.close()
 
 
 def test_epoch_and_map_fenced_frames_answer_as_an_owner_without_replication():
@@ -328,8 +334,12 @@ def test_block_mode_engine_refuses_the_in_process_verbs():
 
 
 def test_client_refuses_a_failover_list():
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        port_sidecar.SidecarEngineClient("/run/a.sock,/run/b.sock")
+    """A failover list whose every address is dark refuses to boot: the
+    boot ping walks the list and raises the last address's error, as the
+    JAX client does (the served failover: tests/test_torch_replication.py)."""
+    for mod in (port_sidecar, jax_sidecar):
+        with pytest.raises(mod.CacheError, match="/run/b.sock"):
+            mod.SidecarEngineClient("/run/a.sock,/run/b.sock")
 
 
 def test_breaker_opens_on_a_dark_owner_and_fails_fast():
