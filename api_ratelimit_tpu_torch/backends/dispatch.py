@@ -607,12 +607,16 @@ class DispatchLoop:
         of an in-flight batch still read waits in the graveyard."""
         with self._rings_lock:
             pending, self._detach_pending = self._detach_pending, []
+            # a ring close() already took from _ext_rings is close()'s to
+            # release: releasing it here too would close its mapping twice
+            attached = []
             for ring in pending:
                 if ring in self._rings:
                     self._rings.remove(ring)
                 if ring in self._ext_rings:
                     self._ext_rings.remove(ring)
-        for ring in pending:
+                    attached.append(ring)
+        for ring in attached:
             dropped = ring.tail - ring.head
             if dropped:
                 logger.warning(

@@ -27,8 +27,10 @@ The ladder is a policy answer, never a second execution: it computes no
 decision, on the card or on the CPU, and every answer it gives is counted
 (ratelimit.fallback.{deny,allow}). With a lease table (LEASE_ENABLED) a
 descriptor that still holds a live lease is answered from that budget, which
-the card granted before it failed, and only the rest fall to the rung. The
-reference's federation-share consultation comes with item 9b.
+the card granted before it failed, and with quota federation (FED_ENABLED)
+the next rung is the cluster's share ledger: home budget this cluster owns,
+or a share another cluster's home granted it, counted on the host. Only the
+rest fall to the deny or allow rung.
 
 CircuitBreaker is the sidecar client's transport breaker
 (backends/sidecar.py): while the device owner is dark it fails fast, and
@@ -155,7 +157,7 @@ class FallbackLimiter:
                                sticky until the next primary success)
     """
 
-    def __init__(self, mode: str, scope=None, lease_table=None):
+    def __init__(self, mode: str, scope=None, lease_table=None, fed_shares=None):
         """mode: deny or allow (FAILURE_MODES); scope roots the
         <scope>.fallback.* stats.
 
@@ -163,13 +165,23 @@ class FallbackLimiter:
         descriptor is first offered to its outstanding lease (the card
         granted real budget for it before it failed) and only the rest are
         answered by the rung, so an outage degrades lease by lease as TTLs
-        run out. An expired or exhausted lease falls through to the rung."""
+        run out. An expired or exhausted lease falls through to the rung.
+
+        fed_shares: optional cluster/federation.py FederationCoordinator.
+        The same discipline one level up: a descriptor whose (key, window)
+        the cluster's share ledger covers (home budget this cluster owns,
+        or an outstanding share another cluster's home pre-committed) is
+        served from that global budget, so a cluster whose card fails keeps
+        answering within its slice before the rung sees anything. Leases
+        win over shares (they carry the card's own counters); an exhausted
+        share falls through to the rung."""
         if mode not in FAILURE_MODES:
             raise ValueError(
                 f"failure mode must be one of {FAILURE_MODES}, got {mode!r}"
             )
         self.mode = mode
         self._lease = lease_table
+        self._fed = fed_shares
         self._lock = threading.Lock()
         self._degraded = False
         self._reason = ""
@@ -238,6 +250,23 @@ class FallbackLimiter:
                 if limit is None:
                     continue
                 status = self._lease.consume_for_fallback(
+                    request.domain, descriptor, limit, hits_addend, lease_response
+                )
+                if status is not None:
+                    lease_statuses[i] = status
+        # federation-share degradation (cluster/federation.py): descriptors
+        # the share ledger covers keep consuming global budget this cluster
+        # already owns, so an outage degrades share by share, bounded by the
+        # outstanding grants, before the rung answers; leases come first
+        if self._fed is not None:
+            hits_addend = max(1, request.hits_addend)
+            for i, descriptor in enumerate(request.descriptors):
+                if i in lease_statuses:
+                    continue
+                limit = limits[i] if i < len(limits) else None
+                if limit is None:
+                    continue
+                status = self._fed.consume_for_fallback(
                     request.domain, descriptor, limit, hits_addend, lease_response
                 )
                 if status is not None:

@@ -57,10 +57,14 @@ connections for concurrency):
             ops 4-7 MAP_GET, MAP_SET, RESHARD_PULL, RESHARD_PUSH: the
                          cluster admin ops (cluster/), below
             op 8 HOTKEYS_GET: empty -> the owner's heavy-hitter snapshot
+            op 9 FED_EXCHANGE: empty -> the connection becomes a quota
+                         federation exchange loop (cluster/federation.py;
+                         an owner without federation answers the error
+                         frame "federation not configured")
+            op 10 FAULTS_SET: u32 len | JSON {"spec", "seed"?}: replace
+                         the owner's live fault rule set (testing/
+                         faults.py); answers the injector's describe()
             op 11 CLOCK_SET: u32 len | JSON {"offset_s", "drift_ppm"}
-            op 9 (federation, ROADMAP item 9b) and op 10 FAULTS_SET (the
-            fault injector, item 11b) answer the standard error frame, as
-            a JAX owner without those objects
   response: u8 status (0 ok / 1 error / 2 ok+epoch / 3 stale epoch /
             4 stale map)
             SUBMIT ok:   u32 n | uint32[n] post-increment counters
@@ -319,6 +323,7 @@ class SlabSidecarServer:
         time_source=None,
         repl=None,
         cluster=None,
+        fed=None,
     ):
         """address: unix path, tcp://host:port, or tls://host:port.
 
@@ -338,11 +343,19 @@ class SlabSidecarServer:
         None keeps the pre-cluster behaviour. The reshard ops
         (OP_RESHARD_PULL/PUSH) are served from the engine either way.
 
-        fault_injector: optional object with fire(site) -> action,
-        consulted at site 'sidecar.server.submit' before each SUBMIT
-        reaches the engine (delay_ms = slow engine, error = error reply,
-        drop = connection drop without a response, partial_write =
-        truncated response).
+        fed: optional cluster.federation.FederationCoordinator. When set,
+        OP_FED_EXCHANGE connections (borrower clusters dialing this
+        cluster's share ledger) become its exchange loops; None answers
+        them "federation not configured".
+
+        fault_injector: optional testing.faults.FaultInjector (any object
+        with fire(site) -> action), consulted at site
+        'sidecar.server.submit' before each SUBMIT reaches the engine
+        (delay_ms = slow engine, error = error reply, drop = connection
+        drop without a response, partial_write = truncated response).
+        OP_FAULTS_SET reconfigures it (it needs configure() and
+        describe()); None answers that op "fault injector not configured
+        on this owner".
 
         shm_control_path: when set and the engine has a dispatch loop, the
         shm ring control socket (backends/shm_ring.py ShmControlServer)
@@ -367,6 +380,7 @@ class SlabSidecarServer:
         self._faults = fault_injector
         self._repl = repl
         self._cluster = cluster
+        self._fed = fed
         self._time_source = (
             time_source if time_source is not None else process_time_source()
         )
@@ -482,7 +496,14 @@ class SlabSidecarServer:
                         self._repl.serve_subscriber(conn)
                         return
                     if op == OP_FED_EXCHANGE:
-                        conn.sendall(self._error("federation not configured"))
+                        if self._fed is None:
+                            conn.sendall(self._error("federation not configured"))
+                            return
+                        if net:
+                            conn.settimeout(None)
+                        # the connection becomes this borrower's exchange
+                        # loop; it never returns to request/response
+                        self._fed.serve_exchange(conn)
                         return
                     if op in (
                         OP_MAP_GET,
@@ -676,13 +697,10 @@ class SlabSidecarServer:
         if self._cluster is None and op in (OP_MAP_GET, OP_MAP_SET):
             conn.sendall(self._error("cluster not configured"))
             return True
-        if op == OP_FAULTS_SET:
-            # the fault injector is ROADMAP item 11b: a JAX owner without one
-            # answers this
-            conn.sendall(self._error("fault injector not configured on this owner"))
-            return True
         try:
-            if op == OP_CLOCK_SET:
+            if op == OP_FAULTS_SET:
+                out = self._serve_faults_set(body)
+            elif op == OP_CLOCK_SET:
                 out = self._serve_clock_set(body)
             elif op == OP_HOTKEYS_GET:
                 snap_fn = getattr(self._engine, "hotkeys_snapshot", None)
@@ -717,6 +735,22 @@ class SlabSidecarServer:
             return True
         conn.sendall(b"\x00" + _U32.pack(len(out)) + out)
         return True
+
+    def _serve_faults_set(self, body: bytes) -> bytes:
+        """OP_FAULTS_SET: replace the owner's live fault rule set. The
+        injector is the one the engine, snapshotter, replication and
+        federation already hold (cmd/sidecar_cmd.py always builds it); a
+        junk spec raises, which the admin-op wrapper answers with the
+        error frame, nothing changed."""
+        from ..testing.faults import parse_fault_spec
+
+        if self._faults is None:
+            raise ValueError("fault injector not configured on this owner")
+        doc = json.loads(body.decode("utf-8")) if body else {}
+        rules = parse_fault_spec(str(doc.get("spec", "")))
+        seed = doc.get("seed")
+        self._faults.configure(rules, seed=None if seed is None else int(seed))
+        return json.dumps(self._faults.describe()).encode()
 
     def _serve_clock_set(self, body: bytes) -> bytes:
         """OP_CLOCK_SET: step/drift this owner's clock authority; an
@@ -1384,6 +1418,18 @@ def cluster_rpc(address: str, op: int, payload: bytes = b"", timeout: float = 30
         conn.close()
 
 
+def admin_set_faults(address: str, spec: str, seed: int | None = None, timeout: float = 30.0) -> dict:
+    """Replace a live owner's fault rule set (OP_FAULTS_SET); returns the
+    resulting FaultInjector.describe() document. A junk spec raises
+    CacheError with the parse error, nothing changed at the owner."""
+    doc: dict = {"spec": spec}
+    if seed is not None:
+        doc["seed"] = int(seed)
+    payload = json.dumps(doc).encode()
+    body = cluster_rpc(address, OP_FAULTS_SET, _U32.pack(len(payload)) + payload, timeout=timeout)
+    return json.loads(body.decode())
+
+
 def admin_set_clock(
     address: str, offset_s: float = 0.0, drift_ppm: float = 0.0, timeout: float = 30.0
 ) -> dict:
@@ -1395,7 +1441,9 @@ def admin_set_clock(
     return json.loads(body.decode())
 
 
-def new_sidecar_cache_from_settings(settings, base_limiter, stats_scope=None, lease_table=None):
+def new_sidecar_cache_from_settings(
+    settings, base_limiter, stats_scope=None, fault_injector=None, lease_table=None
+):
     """BACKEND_TYPE=cuda-sidecar factory: a CudaRateLimitCache whose device
     driver is the remote owner (runner.py backend switch). With
     SIDECAR_ADDRS the client gets the whole failover list (primary first);
@@ -1422,5 +1470,6 @@ def new_sidecar_cache_from_settings(settings, base_limiter, stats_scope=None, le
             breaker_reset=settings.sidecar_breaker_reset,
             shm_control_path=settings.shm_control_path(),
             shm_ring_rows=settings.shm_ring_rows_count(),
+            fault_injector=fault_injector,
         ),
     )

@@ -22,12 +22,13 @@ onto the slab. The modules are the reference's, their wire bytes too.
                       moved route-set ranges owner to owner as
                       pack_table_bytes sections, flipping the map with an
                       epoch bump, then draining the frozen source ranges
-
-The reference's cluster/federation.py (global quota federation) is ROADMAP
-item 9b and is not imported here.
+    federation.py     FederationCoordinator: global quota federation
+                      across clusters, a share ledger per cluster and its
+                      exchange over the sidecar wire (OP_FED_EXCHANGE)
 
 PARTITIONS=1 (the default) builds none of this: the frontend keeps the
 single-owner SidecarEngineClient and its frames byte for byte.
 """
 
+from .federation import FederationCoordinator  # noqa: F401
 from .partition_map import Partition, PartitionMap  # noqa: F401

@@ -398,7 +398,9 @@ class PartitionedEngineClient:
         return out
 
 
-def new_partitioned_cache_from_settings(settings, base_limiter, stats_scope=None, lease_table=None):
+def new_partitioned_cache_from_settings(
+    settings, base_limiter, stats_scope=None, fault_injector=None, lease_table=None
+):
     """PARTITIONS>1 factory (runner.py backend switch): a
     CudaRateLimitCache whose device driver is the partition router over
     PARTITION_ADDRS. PARTITIONS=1 never reaches this: the runner keeps the
@@ -424,6 +426,7 @@ def new_partitioned_cache_from_settings(settings, base_limiter, stats_scope=None
             retry_backoff_max=settings.sidecar_retry_backoff_max,
             breaker_threshold=settings.sidecar_breaker_threshold,
             breaker_reset=settings.sidecar_breaker_reset,
+            fault_injector=fault_injector,
         ),
     )
     return CudaRateLimitCache(

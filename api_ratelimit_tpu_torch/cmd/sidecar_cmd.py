@@ -43,9 +43,18 @@ headers and serves GET /debug/cluster. A replicated or partitioned owner
 takes the socket RPC only: shm frames carry no epoch or map stamp, so the
 rings stay off.
 
-Federation (ROADMAP item 9b) and the fault injector (item 11b) are refused
-by settings.py check_ported; the server answers their wire ops as a JAX
-owner without them does.
+Quota federation (FED_ENABLED, FED_SELF, FED_PEERS naming every cluster's
+owner address; cluster/federation.py): the owner hosts its cluster's share
+ledger. Peers dial this listener's OP_FED_EXCHANGE for grants and
+settlements and its pump dials theirs; the ledger rides the snapshot set as
+fed.snap, the fed.degraded probe joins /healthcheck and GET
+/debug/federation serves the ledger's view.
+
+The fault injector (FAULT_INJECT, FAULT_INJECT_SEED; testing/faults.py) is
+always built, empty by default, and reaches the engine's sites, the wire's,
+the snapshotter's, replication's and federation's. The wire's
+OP_FAULTS_SET and the debug port's POST /debug/faults replace its rules on
+the live owner; /debug/clock skews the owner's clock.
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ from ..backends.overload import AdmissionController
 from ..backends.sidecar import SlabSidecarServer
 from ..runner import setup_logging
 from ..server.health import HealthChecker
-from ..server.http_server import new_debug_server
+from ..server.http_server import add_chaos_admin, new_debug_server
 from ..settings import new_settings
 from ..stats.sinks import NullSink, StatsdSink
 from ..stats.store import Store
@@ -128,10 +137,13 @@ class OwnerStats:
         merge.gauge("max_us").set(round(max(merges, default=0.0) * 1e3))
 
 
-def build_engine(settings, scope, overload=None, partition: int = -1) -> SlabDeviceEngine:
+def build_engine(
+    settings, scope, overload=None, partition: int = -1, fault_injector=None
+) -> SlabDeviceEngine:
     """The owner's engine on the card from the TPU_* knobs: block mode, the
     sketch, the victim tier, precompiled before the first frontend
-    connects; partition labels its dispatch loop's telemetry."""
+    connects; partition labels its dispatch loop's telemetry, and
+    fault_injector reaches its dispatch loop's and victim tier's sites."""
     hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
     v_enabled, v_max_rows, v_watermark = settings.victim_config()
     kwargs = {}
@@ -147,6 +159,7 @@ def build_engine(settings, scope, overload=None, partition: int = -1) -> SlabDev
         dispatch_loop=settings.dispatch_loop,
         max_queue=settings.overload_max_queue,
         overload=overload,
+        fault_injector=fault_injector,
         scope=scope,
         watermark_high=settings.slab_watermark(),
         gcra_burst_ratio=settings.gcra_burst(),
@@ -226,6 +239,20 @@ def main(argv=None) -> int:
             native_info["so_path"], native_info["source_present"],
         )
 
+    # the fault injector (FAULT_INJECT): a junk spec fails the boot here.
+    # Always built (empty, a lock-free no-op) so OP_FAULTS_SET and POST
+    # /debug/faults can arm faults on the live owner
+    from ..testing.faults import FaultInjector
+
+    fault_rules = settings.fault_rules()
+    fault_injector = FaultInjector(fault_rules, seed=settings.fault_inject_seed)
+    if fault_rules:
+        logger.warning("FAULT_INJECT active (%d rule(s)): chaos mode", len(fault_rules))
+    # one clock authority for the owner: engine windows, lease expiry, fed
+    # share TTLs, repl lag and snapshot staleness all read it, so
+    # OP_CLOCK_SET and POST /debug/clock skew them together
+    time_source = process_time_source()
+
     # admission control for the shared dispatch loop: a shed surfaces to
     # frontends as an error reply, which their FAILURE_MODE_DENY answers
     overload = AdmissionController(
@@ -256,7 +283,9 @@ def main(argv=None) -> int:
     settings.warn_deprecated_knobs(logger)
     try:
         engine = build_engine(
-            settings, scope, overload, partition=-1 if partition_index is None else partition_index
+            settings, scope, overload,
+            partition=-1 if partition_index is None else partition_index,
+            fault_injector=fault_injector,
         )
     except (RuntimeError, ValueError) as e:
         logger.error("device owner cannot hold the card: %s", e)
@@ -314,8 +343,38 @@ def main(argv=None) -> int:
             interval_ms=repl_interval_ms,
             max_lag_ms=repl_max_lag_ms,
             scope=scope.scope("repl"),
-            time_source=process_time_source(),
+            fault_injector=fault_injector,
+            time_source=time_source,
             on_promote=lambda: [hook() for hook in on_promote_hooks],
+        )
+
+    # quota federation (FED_ENABLED; cluster/federation.py): the owner hosts
+    # its cluster's share ledger; peers dial this listener's
+    # OP_FED_EXCHANGE and its pump dials theirs. Built before the
+    # snapshotter so the ledger rides fed.snap. FED_ENABLED=false builds
+    # none of it: the owner's wire is the pre-federation one
+    fed = None
+    fed_on, fed_self, fed_peers, fed_min, fed_max, fed_interval, fed_lag, fed_ttl = (
+        settings.fed_config()
+    )
+    if fed_on:
+        from ..cluster.federation import FederationCoordinator
+
+        fed = FederationCoordinator(
+            fed_self,
+            fed_peers,
+            time_source=time_source,
+            share_min=fed_min,
+            share_max=fed_max,
+            settle_interval_ms=fed_interval,
+            max_lag_ms=fed_lag,
+            share_ttl_ms=fed_ttl,
+            scope=scope,
+            fault_injector=fault_injector,
+        )
+        logger.warning(
+            "federation cluster %r joining %s (settle interval %.0fms, share ttl %.0fms)",
+            fed_self, sorted(fed_peers), fed_interval, fed_ttl,
         )
 
     snapshotter = None
@@ -332,10 +391,13 @@ def main(argv=None) -> int:
             snap_dir,
             interval_ms=snap_interval_ms,
             stale_after_ms=snap_stale_ms,
-            time_source=process_time_source(),
+            time_source=time_source,
             scope=scope,
+            fault_injector=fault_injector,
             # this owner's keyspace slice, in every shard header
             partition=snap_partition,
+            # the share ledger rides the set as fed.snap
+            fed=fed,
         )
         if repl is None or not repl.is_standby:
             # restore the slab before the first frontend connects
@@ -351,6 +413,10 @@ def main(argv=None) -> int:
         health.add_degraded_probe(repl.degraded_reason)
     if snapshotter is not None:
         health.add_degraded_probe(snapshotter.stale_reason)
+    if fed is not None:
+        # settlement lag past FED_MAX_LAG_MS: degraded only, the cluster
+        # keeps serving its granted slice
+        health.add_degraded_probe(fed.degraded_reason)
     if engine.victim_enabled:
         health.add_degraded_probe(engine.victim_watermark_reason)
 
@@ -367,6 +433,8 @@ def main(argv=None) -> int:
         return status, body.encode(), "text/plain"
 
     debug.add_route("/healthcheck", healthcheck)
+    # the wire's OP_FAULTS_SET and OP_CLOCK_SET on the debug port
+    add_chaos_admin(debug, fault_injector, time_source)
     if engine.hotkeys_enabled:
         # fingerprints only: the frontends hold the key witnesses
         debug.add_debug_endpoint(
@@ -380,6 +448,10 @@ def main(argv=None) -> int:
         debug.add_debug_endpoint(
             "/debug/cluster", lambda: json.dumps(cluster_node.describe(), indent=2)
         )
+    if fed is not None:
+        # the ledger's view: peer links, outstanding shares, settlement
+        # lag, grants, settles and reclaims
+        debug.add_debug_endpoint("/debug/federation", lambda: json.dumps(fed.describe(), indent=2))
     debug.serve_background()
     store.start_flushing()
     # shm frames carry no epoch or map stamp: they would bypass the
@@ -406,11 +478,17 @@ def main(argv=None) -> int:
         tls_cert=settings.sidecar_tls_cert,
         tls_key=settings.sidecar_tls_key,
         tls_ca=settings.sidecar_tls_ca,
+        fault_injector=fault_injector,
         shm_control_path=shm_control,
-        time_source=process_time_source(),
+        time_source=time_source,
         repl=repl,
         cluster=cluster_node,
+        fed=fed,
     )
+    if fed is not None:
+        # the pump starts once this listener is up: clusters booting
+        # together must find each other
+        fed.start()
     if repl is not None:
         # resolve the auto role and start the standby's subscription only
         # once this listener is up (an auto pair booting together must
@@ -455,6 +533,10 @@ def main(argv=None) -> int:
     # the owner go), then the engine, whose dispatch loop finishes every
     # frame already published
     server.close()
+    if fed is not None:
+        # stop the settle pump before the drain snapshot, so fed.snap
+        # captures a quiescent ledger
+        fed.close()
     if repl is not None:
         repl.close()
     if snapshotter is not None and (repl is None or not repl.is_standby):

@@ -124,9 +124,9 @@ def read_frame(
     """Read one frame via recv_exact(n) -> bytes; returns
     (kind, epoch, seq, payload). Raises ReplProtocolError on a malformed
     or corrupt frame (the resync trigger). ``kinds`` is the acceptable
-    kind whitelist — replication's by default; the reference's federation
-    exchange (cluster/federation.py, ROADMAP item 9b here) reuses this
-    codec verbatim with its own kind set."""
+    kind whitelist — replication's by default; the federation exchange
+    (cluster/federation.py) reuses this codec verbatim with its own kind
+    set."""
     raw = recv_exact(_FRAME_HDR.size)
     magic, kind, _pad, _res, epoch, seq, payload_len = _FRAME_HDR.unpack(raw)
     if magic != REPL_MAGIC:

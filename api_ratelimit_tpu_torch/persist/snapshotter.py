@@ -26,12 +26,14 @@ Beside the slab shards the set carries the lease liabilities (leases.snap,
 FLAG_LEASE_TABLE: restore floors each restored counter at its live grant's
 watermark, so a restart never grants twice) and the victim tier
 (victim.snap, FLAG_VICTIM: demoted rows re-seed the tier and resume
-mid-window), each written with the reference's rule: when it has rows or
-the file already exists. A bad section file degrades to a slab-only restore,
-counted in load_rejected. The reference's federation section (fed.snap)
-comes with federation (ROADMAP item 9b): finding one at boot, the port logs
-a warning naming its item and restores the rest without it. Files move
-between the two packages in both directions.
+mid-window) and, with quota federation, the share ledger (fed.snap,
+FLAG_FED: restore floors each restored counter at its live share's
+watermark before the table is uploaded to the card, so a restart never
+re-serves budget another cluster holds, and re-seeds the coordinator's
+ledger with the restart fence floor raised), each written with the
+reference's rule: when it has rows or the file already exists. A bad
+section file degrades to a slab-only restore, counted in load_rejected.
+Files move between the two packages in both directions.
 
 This module is numpy + stdlib only (the engine owns all device work).
 """
@@ -46,15 +48,19 @@ import time
 import numpy as np
 
 from .snapshot import (
+    FED_ROW_WIDTH,
+    FLAG_FED,
     FLAG_LEASE_TABLE,
     FLAG_VICTIM,
     LEASE_ROW_WIDTH,
     ROW_WIDTH,
     SNAPSHOT_VERSION,
     SnapshotError,
+    apply_fed_floors,
     apply_lease_floors,
     load_snapshot,
     migrate_rows_to_sets,
+    reconcile_fed_shares,
     reconcile_leases,
     reconcile_rows,
     write_snapshot,
@@ -99,14 +105,6 @@ def victim_snapshot_path(directory: str) -> str:
     return os.path.join(directory, "victim.snap")
 
 
-# the sections the port does not restore yet, with the ROADMAP item that
-# ports each; restore() warns once for each file it finds
-_UNPORTED_SECTIONS = ((fed_snapshot_path, "federation shares", "9b"),)
-# their restore counters, always 0 here; kept so restore_stats has the
-# reference's keys
-_SECTION_STATS = {"restored_fed_shares": 0, "dropped_fed_shares": 0}
-
-
 class SlabSnapshotter:
     """Periodic slab snapshotter + boot restorer + drain handoff.
 
@@ -125,15 +123,16 @@ class SlabSnapshotter:
     scope: optional stats Scope rooted at the service prefix; registers
     the snapshot.* telemetry (the reference's counters, gauges and the
     write_ms histogram) and an age-gauge generator on the owning store.
-    fault_injector: any object with fire(site) -> action or None, consulted
-    at the snapshot.write / snapshot.load sites (snapshot.py); None (the
-    only value the runner passes: FAULT_INJECT is unported) disables them.
+    fault_injector: any object with fire(site) -> action or None
+    (testing/faults.py FaultInjector), consulted at the snapshot.write /
+    snapshot.load sites (snapshot.py); None disables them.
     partition: (partition_index, range_lo, range_hi, route_sets) of a
     partitioned owner (cluster/), stamped into every slab-shard header
     (snapshot.py FLAG_PARTITION) so a file says which keyspace slice it
-    holds; None keeps the unpartitioned format byte for byte. The
-    reference's federation ledger comes with federation (ROADMAP item
-    9b)."""
+    holds; None keeps the unpartitioned format byte for byte.
+    fed: optional cluster/federation.py FederationCoordinator whose share
+    ledger rides the set as fed.snap (FLAG_FED); None writes the exact
+    federation-free set."""
 
     def __init__(
         self,
@@ -145,6 +144,7 @@ class SlabSnapshotter:
         scope=None,
         fault_injector=None,
         partition: tuple | None = None,
+        fed=None,
     ):
         if interval_ms <= 0:
             raise ValueError(
@@ -167,6 +167,9 @@ class SlabSnapshotter:
             time_source = RealTimeSource()
         self._time_source = time_source
         self._faults = fault_injector
+        # the federation share ledger rides the snapshot set so a restart
+        # never re-serves budget another cluster already holds
+        self._fed = fed
         self._lock = threading.Lock()  # serializes snapshot_once callers
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -181,6 +184,7 @@ class SlabSnapshotter:
         self._g_bytes = self._g_age = None
         self._g_rows = self._g_dropped_expired = self._g_dropped_window = None
         self._g_leases = self._g_dropped_leases = None
+        self._g_fed = self._g_dropped_fed = None
         self._g_victim = self._g_dropped_victim = None
         self._h_write = None
         if scope is not None:
@@ -195,10 +199,8 @@ class SlabSnapshotter:
             self._g_dropped_window = snap.gauge("restore_dropped_window")
             self._g_leases = snap.gauge("restore_leases")
             self._g_dropped_leases = snap.gauge("restore_dropped_leases")
-            # the federation section's gauges, registered as the reference
-            # does; they read 0 until item 9b is ported
-            snap.gauge("restore_fed_shares")
-            snap.gauge("restore_dropped_fed_shares")
+            self._g_fed = snap.gauge("restore_fed_shares")
+            self._g_dropped_fed = snap.gauge("restore_dropped_fed_shares")
             self._g_victim = snap.gauge("restore_victim_rows")
             self._g_dropped_victim = snap.gauge("restore_dropped_victim_rows")
             self._h_write = snap.histogram("write_ms")
@@ -281,6 +283,23 @@ class SlabSnapshotter:
                             created_at=now,
                             fault_injector=self._faults,
                             flags=FLAG_LEASE_TABLE,
+                        )
+                # federation share-ledger section: the same liability
+                # discipline one level up. Shares this cluster granted
+                # out, holds, or has committed locally ride the snapshot
+                # set so a restart floors restored counters at the live
+                # share watermarks instead of re-serving granted budget.
+                # Federation-free deployments keep the exact pre-fed set.
+                if self._fed is not None:
+                    fed_rows = self._fed.export_rows()
+                    fed_path = fed_snapshot_path(self._dir)
+                    if fed_rows.shape[0] or os.path.exists(fed_path):
+                        total += write_snapshot(
+                            fed_path,
+                            fed_rows,
+                            created_at=now,
+                            fault_injector=self._faults,
+                            flags=FLAG_FED,
                         )
                 # victim-tier section: demoted live rows ride the same
                 # snapshot set so a restart resumes them mid-window
@@ -376,8 +395,9 @@ class SlabSnapshotter:
                     totals[k] += stats[k]
                 tables.append(table)
             lease_stats = self._restore_leases(tables, now)
+            # the floors land on the reconciled tables before the upload
+            fed_stats = self._restore_fed(tables, now)
             victim_stats = self._restore_victim(now)
-            self._warn_unported_sections()
             self._engine.import_tables(tables)
         except (SnapshotError, OSError, ValueError) as e:
             self.load_rejected_total += 1
@@ -412,7 +432,7 @@ class SlabSnapshotter:
             ),
             **totals,
             **lease_stats,
-            **_SECTION_STATS,
+            **fed_stats,
             **victim_stats,
         }
         return self.restore_stats
@@ -466,6 +486,63 @@ class SlabSnapshotter:
                 "lease liabilities restored: %d live (%d TTL-dead/settled "
                 "dropped), %d slab counters floored, %d liabilities "
                 "unmatched",
+                rec["restored"],
+                rec["dropped"],
+                floored,
+                unmatched,
+            )
+        return stats
+
+    def _restore_fed(self, tables: list[np.ndarray], now: int) -> dict:
+        """The federation-share half of restore: reconcile fed.snap against
+        the clock (TTL-dead and fully-settled shares drop —
+        snapshot.restore_dropped_fed_shares), floor the reconciled slab
+        counters at each live share's committed watermark (a restart must
+        never re-serve budget other clusters already hold), and re-seed
+        the coordinator's ledger (federation.import_rows also raises the
+        restart fence floor so pre-crash settlements are rejected as
+        stale-epoch). A bad fed file degrades to a slab-only restore
+        (counted in load_rejected), never a cold boot."""
+        path = fed_snapshot_path(self._dir)
+        stats = {"restored_fed_shares": 0, "dropped_fed_shares": 0}
+        if self._fed is None or not os.path.exists(path):
+            return stats
+        try:
+            header, rows = load_snapshot(path, fault_injector=self._faults)
+            if header.flags != FLAG_FED:
+                raise SnapshotError(
+                    f"{path}: flags {header.flags} is not a federation "
+                    f"share ledger"
+                )
+            if header.row_width != FED_ROW_WIDTH:
+                raise SnapshotError(
+                    f"{path}: fed row width {header.row_width} != "
+                    f"{FED_ROW_WIDTH}"
+                )
+            kept, rec = reconcile_fed_shares(rows, now)
+        except (SnapshotError, OSError, ValueError) as e:
+            self.load_rejected_total += 1
+            if self._c_rejected is not None:
+                self._c_rejected.inc()
+            _log.warning(
+                "federation share snapshot rejected (slab restores without "
+                "share floors): %s",
+                e,
+            )
+            return stats
+        floored, unmatched = apply_fed_floors(tables, kept)
+        self._fed.import_rows(kept, now)
+        stats = {
+            "restored_fed_shares": rec["restored"],
+            "dropped_fed_shares": rec["dropped"],
+        }
+        if self._g_fed is not None:
+            self._g_fed.set(rec["restored"])
+            self._g_dropped_fed.set(rec["dropped"])
+        if rec["restored"] or rec["dropped"]:
+            _log.info(
+                "federation shares restored: %d live (%d TTL-dead/settled "
+                "dropped), %d slab counters floored, %d shares unmatched",
                 rec["restored"],
                 rec["dropped"],
                 floored,
@@ -529,23 +606,6 @@ class SlabSnapshotter:
                 dropped,
             )
         return stats
-
-    def _warn_unported_sections(self) -> None:
-        """One warning for each section file this package cannot restore
-        (a snapshot set written by the reference with federation on): the
-        rest restores without it."""
-        for path_of, what, item in _UNPORTED_SECTIONS:
-            path = path_of(self._dir)
-            if os.path.exists(path):
-                _log.warning(
-                    "%s: %s are not restored by this package (ROADMAP item "
-                    "%s); the rest restores without them",
-                    path,
-                    what,
-                    item,
-                )
-
-    # -- lifecycle --
 
     def start(self) -> None:
         """Spawn the periodic snapshot thread (daemon; one per process)."""

@@ -6,8 +6,12 @@ Run(): parse settings, refuse what this package does not serve
 SIGUSR2 stack and journey dump, the tracer (K_TRACING_*) and the journey
 recorder (JOURNEY_*), the local over-limit cache, the stats store and its
 sink, the transport server (with /metrics, the debug suite and
-/debug/profile), the admission controller with its shed posture, the
-backend selected by BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
+/debug/profile), the fault injector (FAULT_INJECT, always built, empty by
+default; /debug/faults and /debug/clock arm faults and skew the clock on
+the live process), the admission controller with its shed posture, quota
+federation (FED_ENABLED with BACKEND_TYPE=cuda: the share ledger, its pump,
+the fed.degraded probe and /debug/federation), the backend selected by
+BACKEND_TYPE (cuda: the H100 engine, backends/cuda.py;
 cuda-sidecar: a frontend of a device-owner process, backends/sidecar.py,
 or with PARTITIONS>1 the partition router over K owners, cluster/router.py;
 memory, redis and memcache: the host backends), the native host codec's
@@ -17,9 +21,10 @@ provenance gauges, the slab and sketch stat generators, the victim tier
 watermark probe), quota leasing (LEASE_ENABLED: the lease table, its
 lease.degraded probe and ratelimit.lease.*), the warm-restart
 snapshotter (SLAB_SNAPSHOT_DIR: restore before serving, a periodic
-snapshot, the staleness probe, and a final snapshot at teardown), the
-runtime loader, the failure-mode ladder (FAILURE_MODE_DENY) and the
-service; register v3 + v2 gRPC and /json (runner.go:115-121), hang
+snapshot, the staleness probe, and a final snapshot at teardown; with
+federation the fed.snap section), the runtime loader, the failure-mode
+ladder (FAILURE_MODE_DENY, with the lease and federation-share rungs) and
+the service; register v3 + v2 gRPC and /json (runner.go:115-121), hang
 /rlconfig and /debug/hotkeys on the debug port (runner.go:108-113), and
 serve.
 
@@ -30,8 +35,8 @@ runs the kernels' plain versions. A cuda-sidecar frontend holds no card:
 it reports platform cpu and 0 devices, and only the device owner
 (cmd/sidecar_cmd.py) reports the card. Its failover to a standby owner
 shows as the failover_reason degraded probe, and a partitioned frontend
-serves GET /debug/cluster. The reference's federation and fault injector
-belong to ROADMAP items 9b and 11b.
+serves GET /debug/cluster. A cuda-sidecar frontend builds no federation
+coordinator: its device owner holds the share ledger, as it holds the slab.
 """
 
 from __future__ import annotations
@@ -115,6 +120,7 @@ def create_limiter(
     overload=None,
     device="cuda",
     lease_table=None,
+    fault_injector=None,
 ) -> RateLimitCache:
     """BackendType switch (runner.go:43-64). The CUDA engine gets the
     `ratelimit` scope, so its per-stage histograms (batcher.queue_wait_ms,
@@ -123,7 +129,9 @@ def create_limiter(
     the bounded queue and the brownout into its batcher or dispatch loop.
     device: where the engine runs ("cuda", or "cpu" for the plain
     versions); cuda-sidecar and the host backends ignore it, and the host
-    backends lease_table too."""
+    backends lease_table too. fault_injector (FAULT_INJECT) reaches the
+    engine's sites (the dispatch loop's and batcher's, the victim tier's)
+    and the sidecar client's."""
     backend = settings.backend_type
     if backend == "cuda":
         from .backends.cuda import CudaRateLimitCache
@@ -156,6 +164,7 @@ def create_limiter(
             victim_max_rows=v_max_rows if v_enabled else 0,
             victim_watermark=v_watermark,
             lease_table=lease_table,
+            fault_injector=fault_injector,
             **kwargs,
         )
     if backend == "cuda-sidecar":
@@ -169,13 +178,13 @@ def create_limiter(
 
             return new_partitioned_cache_from_settings(
                 settings, base, stats_scope=stats_store.scope("ratelimit"),
-                lease_table=lease_table,
+                fault_injector=fault_injector, lease_table=lease_table,
             )
         from .backends.sidecar import new_sidecar_cache_from_settings
 
         return new_sidecar_cache_from_settings(
             settings, base, stats_scope=stats_store.scope("ratelimit"),
-            lease_table=lease_table,
+            fault_injector=fault_injector, lease_table=lease_table,
         )
     if backend == "memory":
         return MemoryRateLimitCache(base)
@@ -216,6 +225,8 @@ class Runner:
         self.fallback = None
         self.snapshotter = None
         self.lease_table = None
+        self.fault_injector = None
+        self.federation = None
         self._ready = threading.Event()
 
     def _build(self) -> None:
@@ -309,6 +320,19 @@ class Runner:
                 info["so_path"], info["source_present"],
             )
 
+        # the fault injector (FAULT_INJECT; testing/faults.py): a junk spec
+        # fails the boot here. Always built (empty, it is a lock-free no-op
+        # on the hot path) so /debug/faults can arm faults on the live
+        # process, and /debug/clock skews the process clock
+        from .server.http_server import add_chaos_admin
+        from .testing.faults import FaultInjector
+
+        fault_rules = settings.fault_rules()
+        self.fault_injector = FaultInjector(fault_rules, seed=settings.fault_inject_seed)
+        if fault_rules:
+            logger.warning("FAULT_INJECT active (%d rule(s)): chaos mode", len(fault_rules))
+        add_chaos_admin(self.server.debug, self.fault_injector, self.time_source)
+
         # Overload admission control (backends/overload.py): always built;
         # the default knobs (no queue bound, no brownout) leave it inert on
         # the hot path while keeping the overload.* stats defined.
@@ -346,9 +370,39 @@ class Runner:
                 )
                 self.server.health.add_degraded_probe(self.lease_table.degraded_reason)
 
+        # quota federation (FED_ENABLED; cluster/federation.py): an engine
+        # on the card in this process (BACKEND_TYPE=cuda) hosts the
+        # cluster's share ledger, which peers exchange settlement frames
+        # against; a cuda-sidecar frontend builds none (its device owner,
+        # cmd/sidecar_cmd.py, holds the ledger as it holds the slab).
+        # FED_ENABLED=false builds nothing: the rollback arm
+        fed_on, fed_self, fed_peers, fed_min, fed_max, fed_interval, fed_lag, fed_ttl = (
+            settings.fed_config()
+        )
+        if fed_on and settings.backend_type == "cuda":
+            from .cluster.federation import FederationCoordinator
+
+            federation = self.federation = FederationCoordinator(
+                fed_self,
+                fed_peers,
+                time_source=self.time_source,
+                share_min=fed_min,
+                share_max=fed_max,
+                settle_interval_ms=fed_interval,
+                max_lag_ms=fed_lag,
+                share_ttl_ms=fed_ttl,
+                scope=self.scope,
+                fault_injector=self.fault_injector,
+            )
+            federation.bind_base(base)
+            self.server.health.add_degraded_probe(federation.degraded_reason)
+            self.server.add_debug_endpoint(
+                "/debug/federation", lambda: json.dumps(federation.describe(), indent=2)
+            )
+
         cache = self.cache = create_limiter(
             settings, base, self.stats_store, self.overload, device=self.device,
-            lease_table=self.lease_table,
+            lease_table=self.lease_table, fault_injector=self.fault_injector,
         )
         engine = getattr(cache, "engine", None)
         # ratelimit.build.*: the card's facts once the engine holds it; a
@@ -440,6 +494,8 @@ class Runner:
                 stale_after_ms=snap_stale_ms,
                 time_source=self.time_source,
                 scope=self.scope,
+                fault_injector=self.fault_injector,
+                fed=self.federation,
             )
             self.snapshotter.restore()
             self.snapshotter.start()
@@ -464,9 +520,11 @@ class Runner:
             from .backends.fallback import FallbackLimiter
 
             # outstanding leases answer before the rung does: budget the
-            # card granted outlives the card's failure (lease.py)
+            # card granted outlives the card's failure (lease.py); federation
+            # shares answer next: global budget this cluster already owns
             self.fallback = FallbackLimiter(
-                failure_mode, scope=self.scope, lease_table=self.lease_table
+                failure_mode, scope=self.scope, lease_table=self.lease_table,
+                fed_shares=self.federation,
             )
             self.server.health.set_degraded_probe(self.fallback.degraded_reason)
 
@@ -500,6 +558,8 @@ class Runner:
 
         self.server.add_debug_endpoint("/rlconfig", dump_config)
         self.server.register_service(self.service, service_scope)
+        if self.federation is not None:
+            self.federation.start()
         self.runtime.start_watching()
         self.stats_store.start_flushing()
 
@@ -524,9 +584,9 @@ class Runner:
 
     def stop(self) -> None:
         """Fail health, then close the listeners on the server's own thread
-        (Server.stop), and stop the watcher, take the drain snapshot (with
-        SLAB_SNAPSHOT_DIR), stop the stats flush and the tracer's
-        exporter."""
+        (Server.stop), and stop the watcher and the federation pump, take
+        the drain snapshot (with SLAB_SNAPSHOT_DIR), stop the stats flush
+        and the tracer's exporter."""
         if self.server is not None:
             self.server.stop()
         self._teardown()
@@ -534,6 +594,11 @@ class Runner:
     def _teardown(self) -> None:
         if self.runtime is not None:
             self.runtime.stop()
+        if self.federation is not None:
+            # stop the settle pump before the drain snapshot, so the
+            # fed.snap section captures a quiescent ledger
+            federation, self.federation = self.federation, None
+            federation.close()
         if self.snapshotter is not None:
             # drain handoff: quiesce the engine and take the final
             # snapshot — the state the next process warm-boots from

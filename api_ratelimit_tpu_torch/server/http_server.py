@@ -27,7 +27,9 @@ Debug port (new_debug_server, server_impl.go:217-250):
   - GET /debug/profile?ms=N  a torch.profiler trace (CPU and CUDA
     activities) of N ms into TPU_PROFILE_DIR
 and whatever the runner mounts with add_debug_endpoint (/rlconfig,
-/debug/hotkeys).
+/debug/hotkeys). add_chaos_admin mounts GET/POST /debug/faults (the live
+fault rule set, testing/faults.py) and GET/POST /debug/clock (the process
+clock's skew).
 """
 
 from __future__ import annotations
@@ -271,11 +273,15 @@ class HttpServer(_Listener):
 # a debug route: the raw request path (query included) -> (status, body,
 # content type)
 DebugRoute = Callable[[str], tuple[int, bytes, str]]
+# a debug POST route: (raw request path, request body) -> (status, body,
+# content type)
+DebugPostRoute = Callable[[str, bytes], tuple[int, bytes, str]]
 
 
 class _DebugHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     routes: dict[str, DebugRoute]  # per-server subclass
+    post_routes: dict[str, DebugPostRoute]
 
     def log_message(self, format, *args):  # noqa: A002 (stdlib signature)
         logger.debug("http debug: " + format, *args)
@@ -289,6 +295,19 @@ class _DebugHandler(BaseHTTPRequestHandler):
             status, body, content_type = 404, b"404 page not found\n", "text/plain"
         else:
             status, body, content_type = route(self.path)
+        self._reply(status, body, content_type)
+
+    def do_POST(self):  # noqa: N802
+        length = int(self.headers.get("Content-Length", "0") or "0")
+        request_body = self.rfile.read(length) if length > 0 else b""
+        route = self.post_routes.get(self.path.split("?", 1)[0])
+        if route is None:
+            status, body, content_type = 404, b"404 page not found\n", "text/plain"
+        else:
+            status, body, content_type = route(self.path, request_body)
+        self._reply(status, body, content_type)
+
+    def _reply(self, status: int, body: bytes, content_type: str) -> None:
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
@@ -298,15 +317,24 @@ class _DebugHandler(BaseHTTPRequestHandler):
 
 class DebugServer(_Listener):
     """The debug listener: GET routes, each a function of the request path
-    returning (status, body, content type)."""
+    returning (status, body, content type), and POST routes, each a
+    function of the path and the request body."""
 
     def __init__(self, host: str, port: int):
         self._routes: dict[str, DebugRoute] = {}
-        handler = type("DebugHandler", (_DebugHandler,), {"routes": self._routes})
+        self._post_routes: dict[str, DebugPostRoute] = {}
+        handler = type(
+            "DebugHandler",
+            (_DebugHandler,),
+            {"routes": self._routes, "post_routes": self._post_routes},
+        )
         super().__init__(handler, host, port, "debug")
 
     def add_route(self, path: str, route: DebugRoute) -> None:
         self._routes[path] = route
+
+    def add_post_route(self, path: str, route: DebugPostRoute) -> None:
+        self._post_routes[path] = route
 
     def add_debug_endpoint(self, path: str, fn: Callable[[], str]) -> None:
         """Serve GET `path` as text/plain from fn() (AddDebugHttpEndpoint,
@@ -315,7 +343,7 @@ class DebugServer(_Listener):
         self._routes[path] = lambda _path: (200, fn().encode(), "text/plain")
 
     def endpoints(self) -> list[str]:
-        return sorted(self._routes)
+        return sorted(set(self._routes) | set(self._post_routes))
 
 
 def _query(path: str) -> dict:
@@ -526,3 +554,73 @@ def new_debug_server(
     server.add_route("/debug/profile", device_profile)
     server.add_route("/", index)
     return server
+
+
+def add_chaos_admin(server: DebugServer, fault_injector, time_source) -> None:
+    """Mount the chaos admin surface on a debug server (the reference's
+    bodies and status codes):
+
+        GET  /debug/faults   the live rule set with each rule's hit and
+                             fire counts (FaultInjector.describe())
+        POST /debug/faults   replace the rule set at runtime: the body is a
+                             FAULT_INJECT spec string, or JSON {"spec":
+                             str, "seed": int?}; a junk spec answers 400
+                             and changes nothing
+        GET  /debug/clock    the process clock: unix_now and its skew
+        POST /debug/clock    step or drift the process clock: JSON
+                             {"offset_s": float?, "drift_ppm": float?}; {}
+                             resets the skew
+
+    runner.py and cmd/sidecar_cmd.py both mount it; the sidecar wire serves
+    the same verbs as OP_FAULTS_SET and OP_CLOCK_SET."""
+    from ..testing.faults import parse_fault_spec
+
+    def faults_get(_path):
+        return _json_body(fault_injector.describe(), indent=2)
+
+    def faults_post(_path, body: bytes):
+        raw = body.decode("utf-8", "replace").strip()
+        spec, seed = raw, None
+        if raw.startswith("{"):
+            try:
+                doc = json.loads(raw)
+                spec = str(doc.get("spec", ""))
+                seed = doc.get("seed")
+            except (ValueError, AttributeError) as e:
+                return _json_body({"error": f"bad JSON body: {e}"}, 400, indent=2)
+        try:
+            rules = parse_fault_spec(spec)
+            fault_injector.configure(rules, seed=None if seed is None else int(seed))
+        except ValueError as e:
+            return _json_body({"error": str(e)}, 400, indent=2)
+        return _json_body(fault_injector.describe(), indent=2)
+
+    def clock_get(_path):
+        skew = getattr(time_source, "skew", None)
+        return _json_body(
+            {
+                "unix_now": time_source.unix_now(),
+                "skewable": skew is not None,
+                "skew": skew() if skew is not None else None,
+            },
+            indent=2,
+        )
+
+    def clock_post(path, body: bytes):
+        set_skew = getattr(time_source, "set_skew", None)
+        if set_skew is None:
+            return _json_body({"error": "process time source is not skewable"}, 400, indent=2)
+        raw = body.decode("utf-8", "replace").strip() or "{}"
+        try:
+            doc = json.loads(raw)
+            offset_s = float(doc.get("offset_s", 0.0))
+            drift_ppm = float(doc.get("drift_ppm", 0.0))
+        except (ValueError, TypeError, AttributeError) as e:
+            return _json_body({"error": f"bad clock body: {e}"}, 400, indent=2)
+        set_skew(offset_s=offset_s, drift_ppm=drift_ppm)
+        return clock_get(path)
+
+    server.add_route("/debug/faults", faults_get)
+    server.add_post_route("/debug/faults", faults_post)
+    server.add_route("/debug/clock", clock_get)
+    server.add_post_route("/debug/clock", clock_post)

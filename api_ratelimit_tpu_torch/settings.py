@@ -17,7 +17,7 @@ Three differences:
 * A setting that turns on a feature this package has not ported is refused
   at boot (check_ported, which new_settings and the runner call) with a
   ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh, federation or fault injection that are not there.
+  runs a mesh that is not there.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -40,7 +40,11 @@ shm_control_path, shm_ring_rows_count). Warm-standby replication
 REPL_MAX_LAG_MS: repl_peer_address, repl_config) and the partitioned
 cluster (PARTITIONS, PARTITION_ADDRS, PARTITION_ROUTE_SETS,
 RESHARD_RATE_LIMIT_MB_S: cluster_config, cluster_partition_of) are served
-as in the JAX package, with its error text.
+as in the JAX package, with its error text. So are quota federation
+(FED_ENABLED, FED_SELF, FED_PEERS, FED_SHARE_*, FED_SETTLE_INTERVAL_MS,
+FED_MAX_LAG_MS: fed_config; served on BACKEND_TYPE=cuda and by the device
+owner) and fault injection (FAULT_INJECT, FAULT_INJECT_SEED: fault_rules,
+the testing/faults.py grammar).
 """
 
 from __future__ import annotations
@@ -224,7 +228,7 @@ class Settings:
     # --- rate-limit algorithms (config/loader.py, backends/cuda.py) ---
     concurrency_ttl_s: int = 60
     gcra_burst_ratio: float = 1.0
-    # --- fault injection (item 11) ---
+    # --- fault injection (testing/faults.py) ---
     fault_inject: str = ""
     fault_inject_seed: int = 0
     # --- the heavy-hitter sketch (ops/sketch.py, /debug/hotkeys) ---
@@ -239,7 +243,7 @@ class Settings:
     shard_routed_batching: bool = True
     hot_tier_enabled: bool = True
     hot_tier_salt_ways: int = 0
-    # --- quota federation (item 9b) ---
+    # --- quota federation (cluster/federation.py) ---
     fed_enabled: bool = False
     fed_self: str = ""
     fed_peers: str = ""
@@ -490,6 +494,19 @@ class Settings:
             )
         return ratio
 
+    def fault_rules(self):
+        """Parsed FAULT_INJECT rules (testing/faults.py grammar). Raises
+        ValueError on junk — a typo'd chaos spec must fail the boot, not
+        silently inject nothing."""
+        from .testing.faults import parse_fault_spec
+
+        try:
+            return parse_fault_spec(self.fault_inject)
+        except ValueError as e:
+            raise ValueError(
+                f"bad env var FAULT_INJECT={self.fault_inject!r}: {e}"
+            ) from e
+
     def sidecar_addresses(self) -> list[str]:
         """The frontend's device-owner address list: parsed SIDECAR_ADDRS,
         or [SIDECAR_SOCKET] when unset. Junk (empty entries only, malformed
@@ -557,6 +574,95 @@ class Settings:
                 f"({self.sidecar_socket!r})"
             )
         return role, interval, max_lag if max_lag > 0 else 5.0 * interval
+
+    def fed_config(self) -> tuple[bool, str, dict, int, int, float, float, float]:
+        """Validated (enabled, self_name, peers, share_min, share_max,
+        settle_interval_ms, max_lag_ms, share_ttl_ms) for global quota
+        federation (cluster/federation.py); enabled=False builds no
+        coordinator (the byte-identical rollback arm). Junk fails the
+        boot like every other knob — a typo'd membership must not
+        silently become a different home assignment, and a lag bound
+        below the settle cadence would flap the fed.degraded probe
+        every interval. max_lag 0 defaults to five settle intervals,
+        share TTL 0 to ten."""
+        share_min = int(self.fed_share_min)
+        share_max = int(self.fed_share_max)
+        if share_min < 1:
+            raise ValueError(f"FED_SHARE_MIN must be >= 1, got {share_min}")
+        if share_max < share_min:
+            raise ValueError(
+                f"FED_SHARE_MAX ({share_max}) must be >= FED_SHARE_MIN "
+                f"({share_min})"
+            )
+        interval = float(self.fed_settle_interval_ms)
+        if interval <= 0:
+            raise ValueError(
+                f"FED_SETTLE_INTERVAL_MS must be > 0, got {interval}"
+            )
+        max_lag = float(self.fed_max_lag_ms)
+        if max_lag < 0:
+            raise ValueError(f"FED_MAX_LAG_MS must be >= 0, got {max_lag}")
+        if 0 < max_lag < interval:
+            raise ValueError(
+                f"FED_MAX_LAG_MS ({max_lag}) must not sit below "
+                f"FED_SETTLE_INTERVAL_MS ({interval})"
+            )
+        ttl = float(self.fed_share_ttl_ms)
+        if ttl < 0:
+            raise ValueError(f"FED_SHARE_TTL_MS must be >= 0, got {ttl}")
+        if 0 < ttl < interval:
+            raise ValueError(
+                f"FED_SHARE_TTL_MS ({ttl}) must not sit below "
+                f"FED_SETTLE_INTERVAL_MS ({interval})"
+            )
+        max_lag = max_lag if max_lag > 0 else 5.0 * interval
+        ttl = ttl if ttl > 0 else 10.0 * interval
+        if not self.fed_enabled:
+            return False, "", {}, share_min, share_max, interval, max_lag, ttl
+        self_name = self.fed_self.strip()
+        if not self_name:
+            raise ValueError("FED_ENABLED needs FED_SELF to name this cluster")
+        raw = self.fed_peers.strip()
+        if not raw:
+            raise ValueError(
+                "FED_ENABLED needs FED_PEERS to name the full membership "
+                "(comma-separated name=address, incl. this cluster)"
+            )
+        peers: dict = {}
+        from .backends.sidecar import parse_sidecar_address
+
+        for entry in raw.split(","):
+            entry = entry.strip()
+            if not entry:
+                continue
+            name, sep, addr = entry.partition("=")
+            name, addr = name.strip(), addr.strip()
+            if not sep or not name or not addr:
+                raise ValueError(
+                    f"bad FED_PEERS entry {entry!r}: want name=address"
+                )
+            if name in peers:
+                raise ValueError(f"duplicate FED_PEERS name {name!r}")
+            try:
+                parse_sidecar_address(addr)
+            except ValueError as e:
+                raise ValueError(
+                    f"bad FED_PEERS address for {name!r}: {e}"
+                ) from e
+            peers[name] = addr
+        if len(peers) < 2:
+            raise ValueError(
+                f"FED_PEERS must name at least two clusters, got {len(peers)}"
+            )
+        if self_name not in peers:
+            raise ValueError(
+                f"FED_SELF {self_name!r} does not appear in FED_PEERS "
+                f"({sorted(peers)})"
+            )
+        return (
+            True, self_name, peers,
+            share_min, share_max, interval, max_lag, ttl,
+        )
 
     def cluster_config(self) -> tuple[int, list[list[str]], int, float]:
         """Validated (partitions, addr_groups, route_sets,
@@ -700,10 +806,6 @@ class Settings:
             raise ValueError(
                 f"FRONTEND_PROCS must be >= 1, got {self.frontend_procs}"
             )
-        if self.fed_enabled:
-            raise _unported("FED_ENABLED=true", "quota federation", "9b")
-        if self.fault_inject.strip():
-            raise _unported("FAULT_INJECT", "fault injection", "11")
 
 
 _FIELD_ENV: list[tuple[str, str, Callable]] = [

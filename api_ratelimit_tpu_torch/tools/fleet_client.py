@@ -18,7 +18,7 @@ and have --timeout seconds.
 The output (JSON) holds the calls, descriptors and hits sent, every answered
 call as (unix time it started, latency in ms), each shared key's OK and
 OVER_LIMIT answers, and every failed call as (seconds since the start, unix
-time, thread, gRPC status name), and every answered shared-key call as
+time, thread, gRPC status name, its details), and every answered shared-key call as
 (key, unix time it started, unix time it was answered, 1 for OK or 0).
 Imports grpc,
 numpy and the generated protobuf modules only: no torch, no card.
@@ -120,7 +120,7 @@ def run(args) -> dict:
                 try:
                     raw = call(body, timeout=args.timeout, wait_for_ready=True)
                 except grpc.RpcError as e:
-                    failures.append([round(time.monotonic() - t0, 4), time.time(), t, e.code().name])
+                    failures.append([round(time.monotonic() - t0, 4), time.time(), t, e.code().name, e.details()])
                     continue
                 ms = (time.perf_counter() - c0) * 1e3
                 lat.append((t_call, ms))

@@ -77,7 +77,12 @@ FLAG_FAILOVER = "failover"
 # last drain (backends/cuda.py drain_hotkeys): "slow AND hot" is the gold
 # tail-sample — contention on the hot head, not a cold-path stall
 FLAG_HOTKEY = "hotkey"
-# the reference's fed flag comes with federation (ROADMAP item 9b)
+# a descriptor in this request was served from a federation quota share
+# (cluster/federation.py consume_for_fallback): the cluster answered from
+# budget another cluster's home pre-committed, or from its own home
+# budget, while the card failed — relaxed-consistency traffic worth
+# spotting in the tail
+FLAG_FED = "fed"
 
 
 class Journey:

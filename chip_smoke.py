@@ -283,8 +283,10 @@ Phases, each of which must pass (nothing is caught):
            sent, ratelimit_native_available reads 1 on every member and the
            build gauges name the card for the owner only. A second wave
            without shared keys: SIGKILL a worker mid-wave; the master
-           restarts it, the owner detaches its rings, and the failed calls
-           are at most the killed worker's connections, all at the kill.
+           restarts it, the owner detaches its rings, and the connections
+           whose calls failed are at most the killed worker's, all at the
+           kill (a thread whose redial reached the dying worker's listener
+           fails twice on its one connection).
            SIGTERM to the master: exit 0, no shm segment of its workers
            (the restarted one too) left, and the
            owner's drain snapshot restores into a fresh engine on the card
@@ -346,7 +348,50 @@ Phases, each of which must pass (nothing is caught):
            start booting once the arm before has read its load's figures.
            Prints one "cluster:" JSON line with the card's name and power
            limit.
-15. report per-kernel median device times (torch.profiler) and CUDA-event
+15. federation quota federation and the live fault injector at the default
+           deployment with the dispatch loop (2^22 slots, W = 128, the
+           production sketch, TPU_BATCH_WINDOW=200us), two clusters: east a
+           sidecar_cmd owner child on the card, west a Runner in this
+           process, both FED_ENABLED with FED_SETTLE_INTERVAL_MS=50 and
+           FED_SHARE_TTL_MS=20000 (longer than any grant's last renewal in
+           the outage is from west's stop, so none lapses and fences west
+           before it; east borrows nothing, and nothing dials west's
+           entry), west with FAILURE_MODE_DENY=deny and a
+           SLAB_SNAPSHOT_DIR; 16 shared keys (8 homed at each cluster:
+           members sort east, west, so east homes even fingerprints),
+           limit 50 an hour. (a) 1024 of phase
+           9's v3 calls through west and a FED_ENABLED=false Runner on one
+           fake clock: byte-identical, one launch of the way scan, the
+           apply and the fused sketch update a call at west, /metrics with
+           the ratelimit_fed_* families, the ladder's counters 0. (b) POST
+           /debug/faults dispatch.launch:error:1 to west; 13 rounds of 8
+           sequential calls on each shared key (4 of the east-homed keys
+           join for the last 4 rounds only, keeping unspent shares), 0.2 s
+           apart: every
+           call answered, no launch on the card; west-homed keys admit
+           their first 50 from west's home budget; east-homed keys are
+           refused until a pump brings east's grant, then admit from the
+           share, the fully driven ones exactly 50; no key past 50; every
+           call reaches the ladder (fallback.deny counts each), the share
+           rung serves the OK answers and exactly their journeys carry
+           fed; GET /debug/faults shows the rule firing once a call; both
+           clusters' /debug/federation list the grants and settles, and
+           east's outstanding tokens equal west's unsettled ones. (c)
+           fed.exchange:corrupt:1:times=1 on west (POST /debug/faults) and
+           fed.apply:drop:1:times=1 on east (admin_set_faults,
+           OP_FAULTS_SET): each fires once, west resyncs twice, no share
+           past its limit. (d) the empty spec at both: one call on each
+           shared key answers OK from the card, one launch of each kernel a
+           call, the ladder untouched. (e) west stops (slab.snap, fed.snap);
+           east reclaims, past the TTL, exactly the unsettled tokens of
+           fed.snap's share rows, one reclaim a share; a fresh west (its
+           clock advanced as long) restores the live rows (the home rows:
+           restore_fed_shares), its slab rows for them read back from the
+           card at or above their floors, and with the launches failed
+           again its first exchange is the handshake snapshot (one resync,
+           east's fence adopted, no stale settle at east). Prints one
+           "federation:" JSON line with the card's name and power limit.
+16. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -360,7 +405,8 @@ Phases, each of which must pass (nothing is caught):
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
            kernel; the process, observability, warm restart and tiers
-           phases' lines, the fleet's and the cluster's, the card's name
+           phases' lines, the fleet's, the cluster's and the federation's,
+           the card's name
            and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
@@ -4766,14 +4812,15 @@ def fleet_clients(port: int, seconds: float, scratch: str, tag: str, seed: int, 
 
 def fleet_collect(procs: list, seconds: float, measure_s: float | None = None) -> dict:
     """Wait for the load processes and merge their results: calls, hits,
-    failures and shared keys over the whole run; requests/s and p50/p99 per
+    failures (each with its load process) and shared keys over the whole
+    run; requests/s and p50/p99 per
     call over the calls started in its first measure_s seconds (all when
     None), so a trace taken after them stays out of the figures."""
     merged = {"calls": 0, "descriptors": 0, "hits": 0, "failures": [], "shared": collections.Counter(), "over": collections.Counter(),
               "answered": [], "shared_calls": []}
     lat, wall = [], 0.0
     start = procs[0].start_at
-    for proc in procs:
+    for i, proc in enumerate(procs):
         try:
             rc = proc.wait(timeout=seconds + 120)
         except subprocess.TimeoutExpired:
@@ -4784,7 +4831,9 @@ def fleet_collect(procs: list, seconds: float, measure_s: float | None = None) -
             doc = json.load(f)
         for k in ("calls", "descriptors", "hits"):
             merged[k] += doc[k]
-        merged["failures"] += doc["failures"]
+        # each failure as the client wrote it, the load process appended:
+        # (process, thread) names the failing call's connection
+        merged["failures"] += [[*f, i] for f in doc["failures"]]
         merged["answered"] += doc["lat_ms"]
         merged["shared_calls"] += doc.get("shared_calls", [])
         for key, (ok, over) in doc["shared"].items():
@@ -4966,8 +5015,9 @@ def ring_segments(pids) -> list:
 def fleet_kill(master, pids: dict, env: dict, scratch: str) -> dict:
     """The second wave of arm (a), without shared keys: SIGKILL worker 0
     in its middle. The master restarts it, the owner detaches its rings
-    (its segments vanish), and the calls that fail are at most the killed
-    worker's connections, each at the kill: no other worker's call fails."""
+    (its segments vanish), and the connections whose calls fail are at
+    most the killed worker's, each failing at the kill: no other worker's
+    call fails."""
     debug, grpc_port = int(env["DEBUG_PORT"]), int(env["GRPC_PORT"])
     procs = fleet_clients(grpc_port, FLEET_KILL_S, scratch, "a2", seed=2, shared_until=0)
     time.sleep(max(0.0, procs[0].start_at - time.time()) + FLEET_KILL_S / 3)
@@ -4988,14 +5038,19 @@ def fleet_kill(master, pids: dict, env: dict, scratch: str) -> dict:
     codes = collections.Counter(f[3] for f in fails)
     # one thread a channel, one channel a connection, one call in flight
     # on each: a call can fail only on a connection the killed worker held
-    # (or one still queued to a listener when it died)
-    check(len(fails) <= held + queued, f"{len(fails)} calls failed, the killed worker held {held} connections "
-          f"({queued} queued): {[(round(f[1] - t_kill, 3), f[3]) for f in fails[:20]]}")
+    # (or one still queued to a listener when it died). Such a thread
+    # redials at once, and the redial can land on the killed worker's
+    # listener before the kernel has closed it: its next call fails too,
+    # on the same thread. So the failing threads are counted, not the calls.
+    conns = collections.Counter((f[5], f[2]) for f in fails)
+    check(len(conns) <= held + queued, f"calls failed on {len(conns)} connections ({len(fails)} calls), the killed "
+          f"worker held {held} connections ({queued} queued): {[(round(f[1] - t_kill, 3), f[3], f[4]) for f in fails[:20]]}")
     check(set(codes) <= {"UNAVAILABLE"}, f"calls failed otherwise than UNAVAILABLE: {dict(codes)}")
     check(all(t_kill - 1.0 <= f[1] <= t_kill + 5.0 for f in fails), "a call failed away from the kill")
     return {
         "killed_pid": victim, "restarted_pid": restarted, "killed_connections": held, "queued_connections": queued,
-        "failed_calls": len(fails), "failure_codes": dict(codes),
+        "failed_calls": len(fails), "failed_connections": len(conns), "max_failed_calls_per_connection": max(conns.values(), default=0),
+        "failure_codes": dict(codes), "failure_details": dict(collections.Counter(f[4] for f in fails)),
         "restart_s": restart_s, "ready_s": ready_s, "calls": load["calls"], "requests_per_s": load["requests_per_s"],
     }
 
@@ -5764,6 +5819,389 @@ def phase_cluster(fleet_b_rps: float | None = None) -> dict:
     return out
 
 
+# the federation phase (15): quota federation and the live fault injector
+# at the default deployment with the dispatch loop (the dispatch.launch
+# site fires there)
+FED_LIMIT = 50  # each shared key's rule: a fixed window per hour
+FED_KEYS_EACH = 8  # shared keys homed at each cluster
+FED_BURST = 8  # calls on a key a round of the outage
+FED_ROUNDS = 13  # the outage's rounds: every fully driven key crosses its limit
+FED_PARTIAL_ROUNDS = 4  # half the east-homed keys join for the last rounds only, keeping unspent shares
+FED_SETTLE_MS = 50  # FED_SETTLE_INTERVAL_MS of both clusters
+FED_PUMP_WAIT_S = 0.2  # between rounds: four settle intervals
+# FED_SHARE_TTL_MS of both clusters: longer than any grant's last renewal
+# in the outage is from west's stop, so none lapses (and fences west) before
+FED_TTL_MS = 20_000
+FED_CALLS = 1024  # (a)'s stream of phase 9's v3 calls
+FED_RULES = f"""\
+domain: fed
+descriptors:
+  - key: shared
+    rate_limit: {{unit: hour, requests_per_unit: {FED_LIMIT}}}
+"""
+
+
+def fed_keys() -> tuple[list, list]:
+    """The shared descriptor values: FED_KEYS_EACH homed at east (even
+    fingerprints: the members sort east, west) and as many at west."""
+    from api_ratelimit_tpu_torch.models import Descriptor
+    from api_ratelimit_tpu_torch.ops.hashing import fingerprint64
+
+    homed = {0: [], 1: []}
+    i = 0
+    while min(len(v) for v in homed.values()) < FED_KEYS_EACH:
+        fp = fingerprint64("fed", Descriptor.of(("shared", f"s{i}")).entries, 3600)
+        if len(homed[fp % 2]) < FED_KEYS_EACH:
+            homed[fp % 2].append(f"s{i}")
+        i += 1
+    return homed[0], homed[1]
+
+
+def fed_call(caller, value: str) -> int:
+    """One v3 call on a shared key: its overall code (an RPC error fails the
+    phase: every call must be answered)."""
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    req = rls_v3.RateLimitRequest(domain="fed")
+    req.descriptors.add().entries.add(key="shared", value=value)
+    return rls_v3.RateLimitResponse.FromString(caller(req, timeout=60)).overall_code
+
+
+def fed_doc(port: int, path: str) -> dict:
+    status, body = http_call(port, "GET", path)
+    check(status == 200, f"GET {path} on {port} answered {status}")
+    return json.loads(body)
+
+
+def fed_east_owner(root: str, scratch: str, env: dict):
+    """East: a sidecar_cmd owner child on the card. Returns (its sidecar
+    address, its debug port, a stop function that SIGTERMs it and checks
+    its exit 0)."""
+    proc, _env, debug = owner_spawn(root, scratch, "fed_east", **env)
+    owners_wait([(proc, _env, debug)], "the federation's east owner")
+    return _env["SIDECAR_SOCKET"], debug, lambda: stop_procs([proc], "the federation's east owner")
+
+
+def fed_outage(west, caller, east_debug: int, east_keys: list, west_keys: list) -> dict:
+    """(b): the card's launches failed through POST /debug/faults; rounds of
+    FED_BURST sequential calls on each shared key, FED_PUMP_WAIT_S apart.
+    Returns each key's codes and the checks' figures."""
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    ok = rls_v3.RateLimitResponse.OK
+    full, partial = east_keys[: FED_KEYS_EACH // 2], east_keys[FED_KEYS_EACH // 2 :]
+    status, body = http_call(west.server.debug_port, "POST", "/debug/faults", b"dispatch.launch:error:1")
+    check(status == 200, f"(b) POST /debug/faults answered {status}: {body!r}")
+    t_start = time.time()
+    snap0 = west.stats_store.debug_snapshot()
+    hits0 = west.federation.fallback_hits_total
+    codes = {v: [] for v in east_keys + west_keys}
+    for r in range(FED_ROUNDS):
+        for value in full + west_keys + (partial if r >= FED_ROUNDS - FED_PARTIAL_ROUNDS else []):
+            for _ in range(FED_BURST):
+                codes[value].append(fed_call(caller, value))
+        time.sleep(FED_PUMP_WAIT_S)
+    calls = sum(len(c) for c in codes.values())
+    oks = {v: sum(c == ok for c in cs) for v, cs in codes.items()}
+    for value in east_keys + west_keys:
+        check(oks[value] <= FED_LIMIT, f"(b) shared key {value} admitted {oks[value]}, over its limit {FED_LIMIT}")
+    for value in west_keys:
+        # the home budget: the first FED_LIMIT calls, then the rung
+        check(codes[value] == [ok] * FED_LIMIT + [codes[value][-1]] * (len(codes[value]) - FED_LIMIT)
+              and codes[value][-1] != ok, f"(b) west-homed {value}: {codes[value]}")
+    for value in east_keys:
+        # no share yet: the first call is refused and asks east for one; the
+        # pump brings the grant (its thread runs every FED_SETTLE_MS)
+        check(oks[value] > 0 and codes[value][0] != ok,
+              f"(b) east-homed {value} was not refused until a grant came: {codes[value][:2 * FED_BURST]}")
+    for value in full:
+        check(oks[value] == FED_LIMIT, f"(b) east-homed {value} admitted {oks[value]} of {len(codes[value])}, not {FED_LIMIT}")
+    snap = west.stats_store.debug_snapshot()
+    deny = snap["ratelimit.fallback.deny"] - snap0.get("ratelimit.fallback.deny", 0)
+    fed_hits = west.federation.fallback_hits_total - hits0
+    check(deny == calls, f"(b) the ladder took {deny} of {calls} calls")
+    check(fed_hits == sum(oks.values()), f"(b) the share rung served {fed_hits}, the OK answers were {sum(oks.values())}")
+    # every share-served answer's journey carries the fed flag, and no other
+    journeys = fed_doc(west.server.debug_port, "/debug/journeys")["retained"]
+    outage = [j for j in journeys if j["wall_start"] >= t_start]
+    flagged = sum("fed" in j["flags"] for j in outage)
+    check(flagged == fed_hits, f"(b) {flagged} retained journeys carry the fed flag, the rung served {fed_hits}")
+    faults = fed_doc(west.server.debug_port, "/debug/faults")
+    rule = faults["rules"][0]
+    check(rule["spec"] == "dispatch.launch:error:1" and rule["fires"] == calls == faults["fired"]["dispatch.launch:error"],
+          f"(b) /debug/faults: {faults}")
+    time.sleep(FED_PUMP_WAIT_S)  # the last round's settles
+    west_doc = fed_doc(west.server.debug_port, "/debug/federation")
+    east_doc = fed_doc(east_debug, "/debug/federation")
+    check(west_doc["shares_held"] == len(east_keys), f"(b) west holds {west_doc['shares_held']} shares")
+    check(east_doc["grants_total"] >= len(east_keys) and east_doc["settles_total"] > 0,
+          f"(b) east's ledger: {east_doc}")
+    rows = west.federation.export_rows()
+    from api_ratelimit_tpu_torch.persist.snapshot import FED_COL_GRANTED, FED_COL_SETTLED, FED_COL_SPENT
+
+    shares = rows[rows[:, FED_COL_GRANTED] > 0]
+    check(bool(np.all(shares[:, FED_COL_GRANTED] <= FED_LIMIT)) and bool(np.all(shares[:, FED_COL_SPENT] <= shares[:, FED_COL_GRANTED])),
+          f"(b) a share past its limit: {shares.tolist()}")
+    unsettled = int(np.sum(shares[:, FED_COL_GRANTED].astype(np.int64) - shares[:, FED_COL_SETTLED]))
+    check(east_doc["shares_outstanding"] == unsettled,
+          f"(b) east counts {east_doc['shares_outstanding']} tokens out, west holds {unsettled} unsettled")
+    return {
+        "calls": calls, "ok": sum(oks.values()), "over": calls - sum(oks.values()),
+        "ok_per_key": {"east_full": [oks[v] for v in full], "east_partial": [oks[v] for v in partial],
+                       "west": [oks[v] for v in west_keys]},
+        "first_ok_call": {v: codes[v].index(ok) for v in east_keys},
+        "seconds_per_call": (time.time() - t_start - FED_ROUNDS * FED_PUMP_WAIT_S) / calls,
+        "fallback_deny": deny, "fed_served": fed_hits, "journeys_fed": flagged, "launch_fires": rule["fires"],
+        "west": {k: west_doc[k] for k in ("shares_held", "share_tokens", "resyncs_total", "exchange_errors_total")},
+        "east": {k: east_doc[k] for k in ("grants_total", "grant_tokens_total", "settles_total", "shares_outstanding")},
+        "seconds": time.time() - t_start,
+    }
+
+
+def fed_exchange_faults(west, east_addr: str, east_debug: int) -> dict:
+    """(c): fed.exchange corrupt once on west (POST /debug/faults, the
+    outage's rule kept) and fed.apply drop once on east (OP_FAULTS_SET).
+    The exhausted keys' wants keep west's pump exchanging; each fault fires
+    once, the link drops and resyncs, and no share grows past its limit."""
+    from api_ratelimit_tpu_torch.backends.sidecar import admin_set_faults
+    from api_ratelimit_tpu_torch.persist.snapshot import FED_COL_GRANTED
+
+    t0 = time.time()
+    fed = west.federation
+    resyncs0, errors0 = fed.resyncs_total, fed.exchange_errors_total
+    spec = "dispatch.launch:error:1,fed.exchange:corrupt:1:times=1"
+    status, body = http_call(west.server.debug_port, "POST", "/debug/faults", spec.encode())
+    check(status == 200, f"(c) POST /debug/faults answered {status}: {body!r}")
+    east_set = admin_set_faults(east_addr, "fed.apply:drop:1:times=1")
+    check([r["spec"] for r in east_set["rules"]] == ["fed.apply:drop:1:times=1"], f"(c) OP_FAULTS_SET answered {east_set}")
+
+    def fired() -> tuple[int, int]:
+        east_fired = fed_doc(east_debug, "/debug/faults")["fired"].get("fed.apply:drop", 0)
+        return west.fault_injector.fired().get("fed.exchange:corrupt", 0), east_fired
+
+    wait_until(lambda: fired() == (1, 1) and fed.resyncs_total >= resyncs0 + 2
+               and fed.describe()["peers"]["east"]["connected"], "(c) both exchange faults and the resyncs", timeout=30.0)
+    time.sleep(5 * FED_SETTLE_MS / 1e3)
+    check(fired() == (1, 1), f"(c) the faults fired {fired()} times, not once each")
+    rows = fed.export_rows()
+    check(bool(np.all(rows[:, FED_COL_GRANTED] <= FED_LIMIT)), f"(c) a share past its limit: {rows.tolist()}")
+    return {
+        "fired": {"west fed.exchange:corrupt": 1, "east fed.apply:drop": 1},
+        "resyncs": fed.resyncs_total - resyncs0, "exchange_errors": fed.exchange_errors_total - errors0,
+        "seconds": time.time() - t0,
+    }
+
+
+def fed_restart(west_env: dict, west, clock, east_debug: int, east_keys: list, west_keys: list, device: str) -> dict:
+    """(e): west stops (slab.snap and fed.snap); past the TTL east reclaims
+    exactly west's unsettled shares; a fresh west restores the live rows,
+    floors the slab at the home counts before the upload, and its first
+    exchange is the handshake snapshot."""
+    import grpc
+
+    from api_ratelimit_tpu_torch.persist.snapshot import (
+        COL_COUNT, COL_FP_HI, COL_FP_LO, COL_WINDOW, FED_COL_EXPIRE, FED_COL_FP_HI, FED_COL_FP_LO,
+        FED_COL_GRANTED, FED_COL_OUT, FED_COL_SETTLED, FED_COL_SPENT, FED_COL_WINDOW, FLAG_FED, load_snapshot,
+    )
+    from api_ratelimit_tpu_torch.persist.snapshotter import fed_snapshot_path, snapshot_paths
+    from api_ratelimit_tpu_torch.pb import rls_v3
+
+    east0 = fed_doc(east_debug, "/debug/federation")
+    check(east0["reclaims_total"] == 0 and not any(east0["fences"].values()),
+          f"(e) east reclaimed or fenced before west stopped: {east0}")
+    t_stop = time.time()
+    west.stop()
+    snap_dir = west_env["SLAB_SNAPSHOT_DIR"]
+    check(all(os.path.exists(p) for p in snapshot_paths(snap_dir, 1)), "(e) no slab.snap after the drain")
+    header, rows = load_snapshot(fed_snapshot_path(snap_dir))
+    check(header.flags == FLAG_FED, f"(e) fed.snap carries flags {header.flags}")
+    rows = np.asarray(rows, dtype=np.uint32)
+    shares = rows[rows[:, FED_COL_GRANTED] > 0]
+    expected = int(np.sum(shares[:, FED_COL_GRANTED].astype(np.int64) - shares[:, FED_COL_SETTLED]))
+    check(shares.shape[0] == len(east_keys) and expected > 0,
+          f"(e) fed.snap holds {shares.shape[0]} share rows, {expected} unsettled tokens")
+    check(east0["shares_outstanding"] == expected, f"(e) east counts {east0['shares_outstanding']} out, fed.snap {expected}")
+
+    def reclaimed() -> int:
+        return fed_doc(east_debug, "/debug/federation")["reclaimed_tokens_total"] - east0["reclaimed_tokens_total"]
+
+    wait_until(lambda: reclaimed() >= expected and fed_doc(east_debug, "/debug/federation")["reclaims_total"] >= len(east_keys),
+               "(e) east's reclaim of west's shares", timeout=FED_TTL_MS / 1e3 + 15.0)
+    east1 = fed_doc(east_debug, "/debug/federation")
+    check(reclaimed() == expected and east1["reclaims_total"] == len(east_keys),
+          f"(e) east reclaimed {reclaimed()} tokens in {east1['reclaims_total']} grants, fed.snap holds {expected} in {len(east_keys)}")
+    reclaim_s = time.time() - t_stop
+    # west's clock passes the TTL while it is down, as east's did
+    clock.advance(int(math.ceil(max(reclaim_s, FED_TTL_MS / 1e3))) + 1)
+    now = int(clock.unix_now())
+    settled = (rows[:, FED_COL_GRANTED] <= rows[:, FED_COL_SPENT]) & (rows[:, FED_COL_SETTLED] >= rows[:, FED_COL_SPENT]) & (rows[:, FED_COL_OUT] == 0)
+    live = rows[(rows[:, FED_COL_EXPIRE].astype(np.int64) > now) & ~settled]
+    west2, boot_s = process_boot(west_env, device=device)
+    try:
+        stats = west2.snapshotter.restore_stats
+        gauge = west2.stats_store.debug_snapshot().get("ratelimit.snapshot.restore_fed_shares")
+        check(stats["restored_fed_shares"] == live.shape[0] == len(west_keys) and gauge == live.shape[0],
+              f"(e) restore_fed_shares {stats['restored_fed_shares']} (gauge {gauge}), live rows {live.shape[0]}")
+        table = west2.cache.engine.export_tables()[0]
+        matched = []
+        for row in live:
+            hit = np.flatnonzero((table[:, COL_FP_LO] == row[FED_COL_FP_LO]) & (table[:, COL_FP_HI] == row[FED_COL_FP_HI])
+                                 & (table[:, COL_WINDOW] == row[FED_COL_WINDOW]))
+            for idx in hit:
+                matched.append((int(table[idx, COL_COUNT]), int(row[FED_COL_SPENT])))
+        check(len(matched) == len(west_keys) and all(count >= floor for count, floor in matched),
+              f"(e) the restored slab against the share floors (count, floor): {matched}")
+        # the first exchange after the reboot: the card's launches failed
+        # again, a borrowed key asks for a share on its miss
+        fed2 = west2.federation
+        status, _ = http_call(west2.server.debug_port, "POST", "/debug/faults", b"dispatch.launch:error:1")
+        check(status == 200, f"(e) POST /debug/faults answered {status}")
+        probe = east_keys[-1]
+        with grpc.insecure_channel(f"localhost:{west2.server.grpc_port}") as ch:
+            call = raw_caller(ch, V3_PATH)
+            first = fed_call(call, probe)
+            wait_until(lambda: fed2.share_balance() > 0, "(e) west's first grant after the reboot", timeout=15.0)
+            second = fed_call(call, probe)
+        doc = fed2.describe()
+        east2 = fed_doc(east_debug, "/debug/federation")
+        check(first == rls_v3.RateLimitResponse.OVER_LIMIT and second == rls_v3.RateLimitResponse.OK,
+              f"(e) the probe answered {first} then {second}")
+        check(doc["resyncs_total"] == 1 and doc["exchange_errors_total"] == 0 and doc["peers"]["east"]["fence_epoch"] >= 1
+              and east2["stale_epoch_rejected_total"] == east1["stale_epoch_rejected_total"],
+              f"(e) west's first exchange was not the handshake snapshot: {doc}, east {east2}")
+        http_call(west2.server.debug_port, "POST", "/debug/faults", b"")
+    finally:
+        west2.stop()
+    return {
+        "fed_snap_rows": int(rows.shape[0]), "share_rows": int(shares.shape[0]), "unsettled_tokens": expected,
+        "east_reclaims": east1["reclaims_total"], "east_reclaimed_tokens": reclaimed(), "stop_to_reclaim_s": reclaim_s,
+        "restore_fed_shares": stats["restored_fed_shares"], "dropped_fed_shares": stats["dropped_fed_shares"],
+        "floored_rows": matched, "boot_s": boot_s, "fence_epoch_adopted": doc["peers"]["east"]["fence_epoch"],
+        "first_exchange": "handshake snapshot (resyncs 1, errors 0, no stale settle at east)",
+    }
+
+
+def phase_federation(K, device: str = "cuda", east=fed_east_owner, **overrides) -> dict:
+    """Phase 15 (module docstring). `east(root, scratch, env)` boots the
+    east cluster and returns (its address, its debug port, a stop
+    function); `overrides`: environment variables for both clusters (a
+    small slab on the CPU)."""
+    import tempfile
+
+    import grpc
+
+    from api_ratelimit_tpu_torch.backends.sidecar import admin_set_faults
+    from api_ratelimit_tpu_torch.pb import rls_v3
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    t_phase = time.perf_counter()
+    out = {}
+    east_keys, west_keys = fed_keys()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fed_") as scratch:
+        root = os.path.join(scratch, "runtime")
+        config = process_runtime(root)
+        write_text(os.path.join(config, "fed.yaml"), FED_RULES)
+        east_addr = os.path.join(scratch, "fed_east.sock")
+        # west is a Runner in this process: it serves no sidecar listener,
+        # and nothing dials its entry (east borrows nothing here)
+        peers = f"east={east_addr},west={os.path.join(scratch, 'fed_west.sock')}"
+        fed_env = {"FED_ENABLED": "true", "FED_PEERS": peers, "FED_SETTLE_INTERVAL_MS": str(FED_SETTLE_MS),
+                   "FED_SHARE_TTL_MS": str(FED_TTL_MS)}
+        t = time.perf_counter()
+        east_addr, east_debug, stop_east = east(root, scratch, {**fed_env, "FED_SELF": "east", **overrides})
+        out["east_boot_s"] = time.perf_counter() - t
+        # one fake clock for west and its rollback twin, early in an hour so
+        # the phase's windows never roll (east runs on the real clock)
+        clock = FakeTimeSource(int(time.time()) // 3600 * 3600 + 60)
+        install_process_time_source(clock)
+        runners = []
+        try:
+            base = dict(TPU_BATCH_WINDOW="200us", FAILURE_MODE_DENY="deny", JOURNEY_RETAIN="8192", **overrides)
+            control, _ = process_boot(process_env(root, "cuda", **base), device=device)
+            runners.append(control)
+            west_env = process_env(root, "cuda", **base, **fed_env, FED_SELF="west",
+                                   SLAB_SNAPSHOT_DIR=os.path.join(scratch, "west_snap"),
+                                   SLAB_SNAPSHOT_INTERVAL_MS=str(WARM_SNAPSHOT_MS))
+            west, boot_s = process_boot(west_env, device=device)
+            runners.append(west)
+            out["west_boot_s"] = boot_s
+            # (a) the rollback arm, card healthy: byte-identical to FED_ENABLED=false
+            t = time.perf_counter()
+            rng = np.random.default_rng(7)
+            reqs = process_requests(rng, FED_CALLS, PROCESS_KEYS)
+            for k in K.LAUNCHES:
+                K.LAUNCHES[k] = 0
+            west_launches = collections.Counter()
+            with grpc.insecure_channel(f"localhost:{west.server.grpc_port}") as wc, grpc.insecure_channel(
+                f"localhost:{control.server.grpc_port}"
+            ) as cc:
+                w_call, c_call = raw_caller(wc, V3_PATH), raw_caller(cc, V3_PATH)
+                for i, req in enumerate(reqs):
+                    if i and i % PROCESS_CLOCK_EVERY == 0:
+                        clock.advance(int(rng.choice([1, 7, 61])))
+                    before = served_launches(K)
+                    got = w_call(req, timeout=60)
+                    west_launches.update({k: v - before[k] for k, v in served_launches(K).items()})
+                    want = c_call(req, timeout=60)
+                    check(got == want, f"(a) call {i}: the federated cluster's answer differs from the rollback arm's")
+            if device == "cuda":
+                for kernel in ("way_scan", "slab_apply", "sketch_update"):
+                    check(west_launches[kernel] == FED_CALLS, f"(a) west launched {kernel} {west_launches[kernel]} times in {FED_CALLS} calls")
+            families = sorted({k.split("{")[0] for k in metrics_of(west.server.debug_port) if k.startswith("ratelimit_fed_")})
+            check(len(families) >= 8, f"(a) /metrics carries the fed families {families}")
+            counters = obs_counters(west)
+            check(not any(counters.values()), f"(a) the ladder answered with the card healthy: {counters}")
+            out["a"] = {"calls": FED_CALLS, "west_launches": dict(west_launches), "fed_families": families,
+                        "fallback": counters, "seconds": time.perf_counter() - t}
+            log(f"federation (a): east up in {out['east_boot_s']:.1f} s, {FED_CALLS} calls alike in {out['a']['seconds']:.1f} s")
+            control.stop()
+            runners.remove(control)
+            with grpc.insecure_channel(f"localhost:{west.server.grpc_port}") as wc:
+                caller = raw_caller(wc, V3_PATH)
+                # (b) the card's outage through the live injector
+                launches0 = served_launches(K)
+                out["b"] = fed_outage(west, caller, east_debug, east_keys, west_keys)
+                log(f"federation (b): {out['b']['calls']} calls in {out['b']['seconds']:.1f} s, {out['b']['ok']} admitted")
+                launched = {k: v - launches0[k] for k, v in served_launches(K).items()}
+                check(not any(launched.values()), f"(b) the card launched during the outage: {launched}")
+                # (c) exchange faults at both ends
+                out["c"] = fed_exchange_faults(west, east_addr, east_debug)
+                log(f"federation (c): {out['c']['resyncs']} resyncs in {out['c']['seconds']:.1f} s")
+                # (d) recovery: the empty spec at both, the card answers again
+                t = time.perf_counter()
+                check(http_call(west.server.debug_port, "POST", "/debug/faults", b"")[0] == 200, "(d) clearing west's faults")
+                check(admin_set_faults(east_addr, "")["rules"] == [], "(d) clearing east's faults")
+                snap0, hits0, launches0 = west.stats_store.debug_snapshot(), west.federation.fallback_hits_total, served_launches(K)
+                codes = [fed_call(caller, v) for v in east_keys + west_keys]
+                snap = west.stats_store.debug_snapshot()
+                launched = {k: v - launches0[k] for k, v in served_launches(K).items()}
+                check(all(c == rls_v3.RateLimitResponse.OK for c in codes), f"(d) the card's answers: {codes}")
+                check(snap["ratelimit.fallback.deny"] == snap0["ratelimit.fallback.deny"]
+                      and west.federation.fallback_hits_total == hits0, "(d) the ladder answered after the recovery")
+                if device == "cuda":
+                    check(all(v == len(codes) for v in launched.values()), f"(d) launches after the recovery: {launched}")
+                out["d"] = {"calls": len(codes), "launches": launched, "seconds": time.perf_counter() - t}
+            # (e) restart and reclaim
+            t = time.perf_counter()
+            runners.remove(west)
+            out["e"] = fed_restart(west_env, west, clock, east_debug, east_keys, west_keys, device)
+            out["e"]["seconds"] = time.perf_counter() - t
+        finally:
+            for r in runners:
+                r.stop()
+            install_process_time_source(RealTimeSource())
+            stop_east()
+    out["seconds"] = time.perf_counter() - t_phase
+    b, e = out["b"], out["e"]
+    log(
+        f"federation: outage {b['calls']} calls, {b['ok']} admitted ({b['fed_served']} by the share rung, "
+        f"{b['journeys_fed']} fed journeys), exchange faults resynced {out['c']['resyncs']} times, east reclaimed "
+        f"{e['east_reclaimed_tokens']} tokens = fed.snap's unsettled, {e['restore_fed_shares']} rows restored "
+        f"({out['seconds']:.1f} s)"
+    )
+    return out
+
+
 def codec_packages() -> dict:
     """Whether grpc, google.protobuf and yaml import here, with their
     versions (None where they do not): the settings/runner slice chooses its
@@ -5833,6 +6271,7 @@ def main() -> int:
     kernels.append(promote_row)
     fleet = phase_fleet(K)
     cluster = phase_cluster(fleet["b"]["load"]["requests_per_s"])
+    federation = phase_federation(K)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5845,6 +6284,7 @@ def main() -> int:
     log("tiers:", json.dumps(tiers))
     log("fleet:", json.dumps(fleet | {"card": smi.stdout.strip()}))
     log("cluster:", json.dumps(cluster | {"card": smi.stdout.strip()}))
+    log("federation:", json.dumps(federation | {"card": smi.stdout.strip()}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,8 @@
 on the CPU: the reference's own tests (tests/test_tpu_backend.py
 TestMicroBatcher, TestMicroBatcherPipelined, TestBlockNativePath's windowed
 coalescing and the windowed-cache coalescing test; tests/test_overload.py's
-batcher-side classes) run against the port's classes. The fault injector is
-the reference's testing/faults.py FaultInjector: the port takes any object
-with fire(site)."""
+batcher-side classes) run against the port's classes, with the port's fault
+injector (testing/faults.py)."""
 
 import threading
 import time
@@ -15,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from api_ratelimit_tpu.testing.faults import FaultInjector, parse_fault_spec  # noqa: E402
+from api_ratelimit_tpu_torch.testing.faults import FaultInjector, parse_fault_spec  # noqa: E402
 from api_ratelimit_tpu_torch.backends.batcher import MicroBatcher  # noqa: E402
 from api_ratelimit_tpu_torch.backends.cuda import CudaRateLimitCache, SlabDeviceEngine  # noqa: E402
 from api_ratelimit_tpu_torch.backends.overload import (  # noqa: E402

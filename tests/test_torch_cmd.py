@@ -156,10 +156,11 @@ def test_service_cmd_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_service_cmd_refuses_an_unported_knob(tmp_path):
-    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", FED_ENABLED="true"))
+    # federation (item 9b) is served now; the multi-device engine is not
+    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", TPU_MESH_DEVICES="4"))
     _out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
-    assert "ROADMAP item 9b" in err
+    assert "ROADMAP item 10" in err
 
 
 def test_sidecar_cmd_without_a_card_exits_1(tmp_path):

@@ -19,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from api_ratelimit_tpu.backends.tpu import SlabDeviceEngine as JaxEngine  # noqa: E402
-from api_ratelimit_tpu.testing.faults import FaultInjector  # noqa: E402
+from api_ratelimit_tpu_torch.testing.faults import FaultInjector  # noqa: E402
 from api_ratelimit_tpu.utils import FakeTimeSource as JaxClock  # noqa: E402
 from api_ratelimit_tpu_torch.backends import cuda as cuda_mod  # noqa: E402
 from api_ratelimit_tpu_torch.backends.cuda import SlabDeviceEngine  # noqa: E402

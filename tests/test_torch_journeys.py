@@ -32,7 +32,7 @@ from test_torch_tracing import (  # noqa: E402
     row_block,
 )
 
-from api_ratelimit_tpu.testing.faults import FaultInjector  # noqa: E402
+from api_ratelimit_tpu_torch.testing.faults import FaultInjector  # noqa: E402
 
 
 def _new_debug_server(ns, store, **kw):

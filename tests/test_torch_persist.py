@@ -9,8 +9,8 @@ the CPU, against the JAX package's.
 * The JAX package's tests/test_persist.py TestSnapshotFormat,
   TestReconcile, TestSnapshotter, TestSnapshotFaultInjection and
   TestSetMigration, case by case, on the port's modules and the port's
-  CPU engine (the fault injector is the reference's testing/faults.py:
-  the port takes any object with fire(site)). TestShardedSnapshot waits
+  CPU engine and the port's fault injector (testing/faults.py).
+  TestShardedSnapshot waits
   for the multi-device engine, and the inspect CLI for the tools.
 * JAX to port and port to JAX: a snapshot of a four-algorithm stream
   written by one package's SlabSnapshotter restores into the other's
@@ -34,7 +34,7 @@ torch = pytest.importorskip("torch")
 from api_ratelimit_tpu.backends.tpu import SlabDeviceEngine as JaxEngine  # noqa: E402
 from api_ratelimit_tpu.persist import snapshot as jax_snap  # noqa: E402
 from api_ratelimit_tpu.persist import snapshotter as jax_snapshotter  # noqa: E402
-from api_ratelimit_tpu.testing.faults import FaultInjector, parse_fault_spec  # noqa: E402
+from api_ratelimit_tpu_torch.testing.faults import FaultInjector, parse_fault_spec  # noqa: E402
 from api_ratelimit_tpu.utils import FakeTimeSource as JaxClock  # noqa: E402
 from api_ratelimit_tpu_torch.backends.cuda import SlabDeviceEngine, _Item, _items_to_block  # noqa: E402
 from api_ratelimit_tpu_torch.limiter.cache import CacheError  # noqa: E402
@@ -526,16 +526,18 @@ class TestSnapshotter:
         "section, item",
         [
             ("leases.snap", "8"),
-            # federation is item 9b now (the case keeps its id)
+            # federation, item 9b (the case keeps its id)
             pytest.param("fed.snap", "9b", id="fed.snap-9"),
             ("victim.snap", "6"),
         ],
     )
     def test_unported_section_warns_and_restores_the_slab(self, tmp_path, caplog, section, item):
         """A snapshot set from a reference deployment with leases,
-        federation or the victim tier. fed.snap (item 9b, unported): one
-        warning naming the item, and the slab restores alone with the
-        reference's (zero) section counts. leases.snap (item 8's in-process
+        federation or the victim tier. fed.snap (item 9b, ported) into a
+        snapshotter without a federation coordinator: ignored without a
+        warning, the slab restoring alone with the reference's (zero)
+        section counts, as the JAX snapshotter restores the same files.
+        leases.snap (item 8's in-process
         half, ported): restored as the JAX snapshotter restores the same
         files, with its restore_stats, its floors and its registry.
         victim.snap (item 6, ported) into a tier-less engine: ignored
@@ -555,13 +557,17 @@ class TestSnapshotter:
             stats = _snapshotter(eng2, tmp_path, ts).restore()
         warnings = [r.getMessage() for r in caplog.records if section in r.getMessage()]
         assert stats["restored"] == 1
+        assert warnings == []
         if section == "fed.snap":
-            assert len(warnings) == 1 and f"ROADMAP item {item}" in warnings[0]
             for key in ("restored_leases", "restored_fed_shares", "restored_victim_rows"):
                 assert stats[key] == 0
+            jax_eng = JaxEngine(JaxClock(NOW), n_slots=1 << 10, buckets=(128,), use_pallas=False)
+            jax_stats = jax_snapshotter.SlabSnapshotter(
+                jax_eng, str(tmp_path), interval_ms=1000, time_source=JaxClock(NOW)
+            ).restore()
+            assert stats == jax_stats
             assert _hit(eng2) == [4]
             return
-        assert warnings == []
         if section == "victim.snap":
             assert eng2.victim_tier is None
             assert stats["restored_victim_rows"] == stats["dropped_victim_rows"] == 0

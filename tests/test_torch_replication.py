@@ -7,8 +7,8 @@ package's.
 * The JAX package's tests/test_replication.py runs on the port class by
   class (reference_tests_on_the_port): TestFrameCodec, TestStreamAndPromotion,
   TestSplitBrainGuard, TestClientFailover, TestRollbackArm,
-  TestDegradedProbes, TestResync (the reference's FaultInjector as the
-  fire(site) object: the port takes any) and TestAutoRole. Every case runs;
+  TestDegradedProbes, TestResync (the port's FaultInjector,
+  testing/faults.py) and TestAutoRole. Every case runs;
   none is excluded.
 * A JAX primary streams to a port standby, which promotes on a client's
   write and continues the counters; a port primary streams to a JAX
@@ -51,8 +51,6 @@ _REF = reference_tests_on_the_port(
     "test_replication",
     (
         ("api_ratelimit_tpu_torch.backends.tpu", "api_ratelimit_tpu_torch.backends.cuda"),
-        # the reference's injector: the port takes any fire(site) object
-        ("api_ratelimit_tpu_torch.testing.faults", "api_ratelimit_tpu.testing.faults"),
         ("use_pallas=False", 'device="cpu"'),
     ),
 )

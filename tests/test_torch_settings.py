@@ -5,7 +5,9 @@ that turns on a feature the port has not ported is refused at boot with its
 ROADMAP item. The observability and shedding knobs (FAILURE_MODE_DENY,
 OVERLOAD_SHED_MODE, TPU_PROFILE_DIR, the tracer's switches, the journey
 recorder) parse as the reference's, and the default boot warns of nothing
-unserved."""
+unserved. Quota federation's and the fault injector's knobs (FED_*,
+FAULT_INJECT, FAULT_INJECT_SEED) boot, and their validators (fed_config,
+fault_rules) answer as the reference's, value or error."""
 
 import dataclasses
 
@@ -83,6 +85,9 @@ VALIDATORS = (
     "repl_peer_address",
     "repl_config",
     "cluster_config",
+    # quota federation's and the fault injector's (slice 15)
+    "fed_config",
+    "fault_rules",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -130,6 +135,30 @@ VALIDATOR_ENVS = [
     ("partition_addr_malformed", {"PARTITIONS": "2", "PARTITION_ADDRS": "/run/a.sock;tcp://nohost"}),
     ("partition_group_empty", {"PARTITIONS": "2", "PARTITION_ADDRS": "/run/a.sock; , ;"}),
     ("reshard_rate_zero", {"RESHARD_RATE_LIMIT_MB_S": "0"}),
+    # quota federation (fed_config) and the fault injector (fault_rules)
+    ("fed_two_clusters", {"FED_ENABLED": "true", "FED_SELF": "east", "FED_PEERS": "east=/run/e.sock,west=tcp://10.0.0.9:7000"}),
+    ("fed_defaults_off", {"FED_SHARE_MIN": "4", "FED_SETTLE_INTERVAL_MS": "20"}),
+    ("fed_knobs", {"FED_ENABLED": "1", "FED_SELF": "a", "FED_PEERS": "a=/a.sock,b=/b.sock,c=/c.sock", "FED_SHARE_MIN": "2", "FED_SHARE_MAX": "64", "FED_SETTLE_INTERVAL_MS": "25", "FED_MAX_LAG_MS": "400", "FED_SHARE_TTL_MS": "2000"}),
+    ("fed_without_self", {"FED_ENABLED": "true", "FED_PEERS": "a=/a.sock,b=/b.sock"}),
+    ("fed_without_peers", {"FED_ENABLED": "true", "FED_SELF": "a"}),
+    ("fed_self_not_a_peer", {"FED_ENABLED": "true", "FED_SELF": "c", "FED_PEERS": "a=/a.sock,b=/b.sock"}),
+    ("fed_one_member", {"FED_ENABLED": "true", "FED_SELF": "a", "FED_PEERS": "a=/a.sock"}),
+    ("fed_entry_malformed", {"FED_ENABLED": "true", "FED_SELF": "a", "FED_PEERS": "a=/a.sock,b"}),
+    ("fed_duplicate_name", {"FED_ENABLED": "true", "FED_SELF": "a", "FED_PEERS": "a=/a.sock,a=/b.sock"}),
+    ("fed_bad_address", {"FED_ENABLED": "true", "FED_SELF": "a", "FED_PEERS": "a=/a.sock,b=tcp://nohost"}),
+    ("fed_share_min_zero", {"FED_SHARE_MIN": "0"}),
+    ("fed_share_max_below_min", {"FED_SHARE_MIN": "16", "FED_SHARE_MAX": "8"}),
+    ("fed_interval_zero", {"FED_SETTLE_INTERVAL_MS": "0"}),
+    ("fed_lag_negative", {"FED_MAX_LAG_MS": "-1"}),
+    ("fed_lag_below_interval", {"FED_SETTLE_INTERVAL_MS": "100", "FED_MAX_LAG_MS": "50"}),
+    ("fed_ttl_negative", {"FED_SHARE_TTL_MS": "-5"}),
+    ("fed_ttl_below_interval", {"FED_SETTLE_INTERVAL_MS": "100", "FED_SHARE_TTL_MS": "50"}),
+    ("faults_two_rules", {"FAULT_INJECT": "sidecar.submit:error:0.2,sidecar.submit:delay_ms:500", "FAULT_INJECT_SEED": "7"}),
+    ("faults_qualified", {"FAULT_INJECT": "fed.exchange:drop:1.0:after=5:times=1,dispatch.launch:error:1:times:2"}),
+    ("faults_junk_kind", {"FAULT_INJECT": "sidecar.submit:explode:1"}),
+    ("faults_junk_probability", {"FAULT_INJECT": "sidecar.submit:error:1.5"}),
+    ("faults_junk_site", {"FAULT_INJECT": "Sidecar..Submit:error:1"}),
+    ("faults_junk_qualifier", {"FAULT_INJECT": "a.b:error:1:twice=2"}),
 ]
 
 
@@ -155,21 +184,25 @@ def test_new_settings_parses_like_the_reference(env):
     assert got == want
 
 
+def _plain(value):
+    """A validator's value with each package's dataclasses (fault_rules'
+    FaultRule) as plain dicts, so the two packages' values compare."""
+    if dataclasses.is_dataclass(value):
+        return dataclasses.asdict(value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_plain(v) for v in value)
+    return value
+
+
 def _validated_one(settings, name):
     try:
-        return getattr(settings, name)()
+        return _plain(getattr(settings, name)())
     except ValueError as e:
         return "error: " + str(e)
 
 
 def _validated(settings):
-    out = []
-    for name in VALIDATORS:
-        try:
-            out.append((name, getattr(settings, name)()))
-        except ValueError as e:
-            out.append((name, "error: " + str(e)))
-    return out
+    return [(name, _validated_one(settings, name)) for name in VALIDATORS]
 
 
 @pytest.mark.parametrize("env", [e for _n, e in ENVS + VALIDATOR_ENVS], ids=[n for n, _e in ENVS + VALIDATOR_ENVS])
@@ -197,7 +230,9 @@ UNPORTED = [
     ({"SIDECAR_RETRIES": "5"}, None),  # item 8
     ({"SLAB_SNAPSHOT_DIR": "/var/lib/rl"}, None),  # item 7
     ({"LEASE_ENABLED": "true"}, None),  # item 8, its in-process half
-    ({"FED_ENABLED": "true"}, "9b"),
+    # item 9b: FED_ENABLED boots, and fed_config refuses it without FED_SELF
+    # with the reference's message
+    ({"FED_ENABLED": "true"}, "fed_config"),
     # item 9a: PARTITIONS=2 without PARTITION_ADDRS boots, and
     # cluster_config refuses it with the reference's message
     ({"PARTITIONS": "2"}, "cluster_config"),
@@ -205,7 +240,8 @@ UNPORTED = [
     # REPL_ROLE=standby without a peer: repl_config's refusal
     ({"REPL_ROLE": "standby"}, "repl_config"),
     ({"VICTIM_TIER_ENABLED": "true"}, None),  # item 6
-    ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "11"),
+    # item 11b's injector: FAULT_INJECT boots, its rules the reference's
+    ({"FAULT_INJECT": "sidecar.submit:error:0.2"}, "fault_rules"),
     ({"BACKEND_TYPE": "redis"}, None),  # item 4c
     ({"BACKEND_TYPE": "memcache"}, None),  # item 4c
 ]

@@ -48,9 +48,6 @@ _REF = reference_tests_on_the_port(
     (
         ("api_ratelimit_tpu_torch.backends.tpu", "api_ratelimit_tpu_torch.backends.cuda"),
         ("use_pallas=False", 'device="cpu"'),
-        # the producer child's injector: the port takes any fire(site)
-        # object, and the JAX package's imports no jax
-        ("api_ratelimit_tpu_torch.testing.faults", "api_ratelimit_tpu.testing.faults"),
     ),
 )
 
@@ -352,3 +349,26 @@ def test_fleet_client_load_is_exact_through_the_rings(tmp_path):
         runner.stop()
         runner.cache.close()
         owner.close()
+
+
+def test_detach_after_close_leaves_the_ring_to_close(tmp_path):
+    """C8: the control connection's EOF detaches its ring after the loop's
+    owner thread exited, while close() tears the rings down. A ring
+    close() already took and released is close()'s: the late detach skips
+    it instead of reading its released header and closing its mapping a
+    second time (the race failed test_dead_owner_raises_shm_unavailable
+    now and then with EBADF, and raised in the control thread)."""
+    from api_ratelimit_tpu_torch.backends.shm_ring import ShmControlServer, ShmRingClient
+
+    loop = _REF._echo_loop()
+    server = ShmControlServer(loop, str(tmp_path / "ctl.sock"))
+    client = ShmRingClient(str(tmp_path / "ctl.sock"), arena_rows=64)
+    try:
+        assert client.submit(_REF._block([1])).tolist() == [1]
+        (ring,) = loop._ext_rings
+        loop.close()  # releases the ring
+        loop.detach_rings([ring])  # the control thread's late EOF
+        assert loop._ext_rings == [] and loop._detach_pending == []
+    finally:
+        server.close()
+        client.close()

@@ -6,8 +6,7 @@ persist/snapshotter.py) on the CPU, against the JAX package's.
 * The JAX package's tests/test_victim.py runs on the port class by class:
   TestVictimTierUnit, TestEngineHierarchy, TestDifferentialOracle (5x the
   slab, and the tier-off control), TestHotKeysNeverDemote, TestFaultSites
-  (the reference's FaultInjector: the port takes any object with
-  fire(site)), TestPersistRoundTrip and TestVictimStats, with every import
+  (the port's FaultInjector, testing/faults.py), TestPersistRoundTrip and TestVictimStats, with every import
   of the JAX package pointed at the port (reference_tests_on_the_port).
   TestPromoteKernel and TestRollbackArm build JAX arrays, so they are
   rewritten here, each case run through both packages and held bit-exact.
@@ -87,8 +86,6 @@ _REF = reference_tests_on_the_port(
     "test_victim",
     (
         ("api_ratelimit_tpu_torch.backends.tpu", "api_ratelimit_tpu_torch.backends.cuda"),
-        # the reference's injector: the port's engine takes any fire(site)
-        ("api_ratelimit_tpu_torch.testing.faults", "api_ratelimit_tpu.testing.faults"),
         ('kw.setdefault("use_pallas", False)', 'kw.setdefault("device", "cpu")'),
     ),
 )
