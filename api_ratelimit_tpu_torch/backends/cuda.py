@@ -76,6 +76,7 @@ twin has no counterpart here.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -624,6 +625,94 @@ class SlabDeviceEngine:
         finally:
             self._h_pack, self._h_launch, self._h_readback = saved
         return self.precompiled
+
+    @contextlib.contextmanager
+    def launches_quiesced(self):
+        """A context in which no launch is in flight or enqueued: the state
+        lock, under which every launch, promote pass and export enqueues,
+        held, and the card synchronized. The debug server starts and stops
+        its profiler inside it (server/http_server.py capture_device_trace:
+        a session started while a launch races it records no kernel)."""
+        with self._state_lock:
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            yield
+
+    def profile_slab_split(self, scope=None, batch: int | None = None, iters: int = 30) -> dict:
+        """The `slab_split` stage baseline: times the slab step's three
+        stages — the W-way set GATHER, the SCAN (the way scan kernel on the
+        card), the one-row-per-way SCATTER — as the standalone callables of
+        ops/slab.py make_split_programs over this engine's geometry, at
+        `batch` items (default min(largest bucket, 8192), the reference's).
+        Runs against a detached device copy of the table (taken under the
+        state lock), so the live slab and counters are untouched. On the
+        card each sample is timed with CUDA events around the call, on the
+        CPU with the host clock. When `scope` is given every sample also
+        lands in <scope>.split.{gather,scan,scatter}_ms histograms, which
+        tools/hotpath_profile.py reports from, so the printed baseline and
+        /metrics cannot disagree. Returns {batch, gather_ns, scan_ns,
+        scatter_ns} (per-launch medians)."""
+        from ..ops.slab import make_split_programs
+
+        b = int(batch or min(self._max_bucket, 8192))
+        gather, scan, scatter = make_split_programs(self._ways)
+        with self._state_lock:
+            rows = self._state.rows.clone()
+        table = rows[: self._n_slots]
+        dev = self._device
+        rng = np.random.default_rng(7)
+
+        def i32(size):
+            host = rng.integers(0, 1 << 32, size=size, dtype=np.uint64).astype(np.uint32)
+            return torch.from_numpy(host.view(np.int32)).to(dev)
+
+        fp_lo, fp_hi = i32(b), i32(b)
+        now = int(self._time_source.unix_now())
+        hists = {}
+        if scope is not None:
+            split_scope = scope.scope("split")
+            hists = {
+                "gather": split_scope.histogram("gather_ms"),
+                "scan": split_scope.histogram("scan_ms"),
+                "scatter": split_scope.histogram("scatter_ms"),
+            }
+        cuda = dev.type == "cuda"
+
+        def timed(name, fn) -> int:
+            fn()  # build + warm
+            if cuda:
+                torch.cuda.synchronize(dev)
+            samples = []
+            for _ in range(iters):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    end.synchronize()
+                    ms = start.elapsed_time(end)
+                else:
+                    t0 = time.perf_counter()
+                    fn()
+                    ms = (time.perf_counter() - t0) * 1e3
+                samples.append(ms)
+                if name in hists:
+                    hists[name].record(ms)
+            return round(float(np.median(samples)) * 1e6)
+
+        result = {"batch": b}
+        result["gather_ns"] = timed("gather", lambda: gather(table, fp_lo))
+        result["scan_ns"] = timed("scan", lambda: scan(table, fp_lo, fp_hi, now))
+        # unique write targets (the step has one winning writer per slot);
+        # lanes past the table go to the scratch row, as padding lanes do
+        idx = np.full(b, self._n_slots, dtype=np.int64)
+        k = min(b, self._n_slots)
+        idx[:k] = rng.permutation(self._n_slots)[:k]
+        write_idx = torch.from_numpy(idx).to(dev)
+        new_rows = i32((b, ROW_WIDTH))
+        result["scatter_ns"] = timed("scatter", lambda: scatter(rows, write_idx, new_rows))
+        return result
 
     @property
     def block_mode(self) -> bool:

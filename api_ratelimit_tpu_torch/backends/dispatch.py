@@ -48,14 +48,22 @@ hands the owner-side stage timestamps (take, pack, launch, redeem, scatter)
 back on the ticket: the caller merges them into its journey and closes its
 request span with dispatch.{ring_wait,pack,launch,redeem} child spans.
 
-Not ported yet, each marked where it would sit: ShardRoutingStats (item
-10); the DISPATCH_PROFILE owner-thread cProfile
-hook (a tool of the reference's tools/hotpath_profile.py, item 11).
+DISPATCH_PROFILE=1 (read once, when the loop is built) runs the owner
+thread's loop under the standard library's profile module, whose
+sys.setprofile hook records that thread alone, and keeps it on the
+instance (`_profile`) for tools/hotpath_profile.py --dispatch to print
+after close(). The reference enables cProfile in the thread, which on
+Python 3.12 records every thread of the process (sys.monitoring), so its
+"owner" table mixes in the request threads; ROADMAP "Deliberate
+departures".
+
+Not ported yet, marked where it would sit: ShardRoutingStats (item 10).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -366,6 +374,11 @@ class DispatchLoop:
             self._scatter = native.scatter_rows if native.available() else None
         except Exception:  # noqa: BLE001 - the codec is optional
             self._scatter = None
+        # owner-thread profiling hook (tools/hotpath_profile.py --dispatch):
+        # the loop body runs under the profile module and the stats are kept
+        # on the instance for the tool to print after close()
+        self._profile = None
+        self._want_profile = os.environ.get("DISPATCH_PROFILE", "") == "1"
         self._thread = threading.Thread(
             target=self._loop, name="cuda-dispatch-owner", daemon=True
         )
@@ -579,7 +592,13 @@ class DispatchLoop:
 
     def _loop(self) -> None:
         try:
-            self._run()
+            if self._want_profile:
+                import profile
+
+                self._profile = profile.Profile()
+                self._profile.runcall(self._run)
+            else:
+                self._run()
         except BaseException as e:  # noqa: BLE001 - last-ditch safety net
             # a bug in the owner loop must not strand callers on their
             # tickets forever: fail everything reachable and refuse new

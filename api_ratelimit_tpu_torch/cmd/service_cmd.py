@@ -85,6 +85,7 @@ def _serve_fleet_aggregator(settings: Settings, member_ports: list[int]):
     not bind (the fleet must still serve traffic)."""
     from ..server.http_server import DebugServer
     from ..stats import fleet as fleet_mod
+    from ..utils import provenance
 
     try:
         server = DebugServer("", settings.debug_port)
@@ -102,6 +103,10 @@ def _serve_fleet_aggregator(settings: Settings, member_ports: list[int]):
                 {
                     "fleet": True,
                     "member_debug_ports": member_ports,
+                    # the master's own box facts: it owns no card, so its
+                    # block says cpu/0; the owner reports the card in the
+                    # merged exposition's ratelimit.build.* gauges
+                    "build": provenance.build_provenance("cpu", 0),
                     "hint": "GET /metrics?fleet=1 for the merged fleet-wide exposition",
                 },
                 indent=2,

@@ -72,7 +72,7 @@ from ..backends.overload import AdmissionController
 from ..backends.sidecar import SlabSidecarServer
 from ..runner import setup_logging
 from ..server.health import HealthChecker
-from ..server.http_server import add_chaos_admin, new_debug_server
+from ..server.http_server import add_chaos_admin, new_debug_server, warm_device_profiler
 from ..settings import new_settings
 from ..stats.sinks import NullSink, StatsdSink
 from ..stats.store import Store
@@ -427,6 +427,11 @@ def main(argv=None) -> int:
         enable_metrics=settings.debug_metrics_enabled,
         profile_dir=settings.tpu_profile_dir,
     )
+    # /debug/profile starts its sessions with no launch in flight (C10); the
+    # tracer's start-up stall falls here, before the owner serves
+    debug.profile_quiesce = engine.launches_quiesced
+    if settings.tpu_profile_dir:
+        warm_device_profiler(debug)
 
     def healthcheck(_path: str):
         status, body = health.http_response()

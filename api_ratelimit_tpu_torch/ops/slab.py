@@ -69,6 +69,7 @@ from .hashing import set_index
 from .sketch import sketch_update
 from .slab_kernels import (  # noqa: F401  (the row layout is re-exported)
     _M32,
+    _gather_sets,
     ALGO_DIV_MASK,
     ALGO_SHIFT,
     COL_AUX,
@@ -902,6 +903,41 @@ def slab_promote_rows(state: SlabState, rows, now: int, ways: int = DEFAULT_WAYS
 # Import is the boot-time inverse: one upload of a reconciled host table
 # (persist/snapshot.py reconcile_rows applies the expiry rules on the host,
 # where the restore-time clock lives).
+
+
+def make_split_programs(ways: int):
+    """The three stages of the slab step, one callable each, for the
+    `slab_split` stage baseline (SlabDeviceEngine.profile_slab_split ->
+    tools/hotpath_profile.py --slab-split): the W-way set GATHER, the
+    SCAN, and the one-row-per-way SCATTER. Each is the code the shipped
+    step runs, isolated only so it can be timed:
+
+        gather(table, fp_lo)               -> int32[b, W, ROW_WIDTH]
+        scan(table, fp_lo, fp_hi, now)     -> (way[b], matched[b], picked)
+        scatter(rows, write_idx, new_rows) -> rows, written in place
+
+    The scan is the way scan the step launches (ops/slab_kernels.py
+    way_scan: on the card way_scan_kernel, or its set-major form where
+    the routing rule picks it; on the CPU the plain version). On the card
+    the kernel reads each item's set itself, so the gather is no stage
+    the step runs in addition: it is the same set reads timed alone as a
+    torch gather (_gather_sets, the plain version's), the memory half of
+    the scan. The scatter is the step's row scatter (_finish_update's
+    index_put_ over the table and its scratch row). The reference's scan
+    takes the gathered rows; this one takes the table, as its kernel
+    does."""
+
+    def gather(table, fp_lo):
+        return _gather_sets(table, fp_lo, ways)
+
+    def scan(table, fp_lo, fp_hi, now):
+        return way_scan(table, fp_lo, fp_hi, now, ways)
+
+    def scatter(rows, write_idx, new_rows):
+        rows.index_put_((write_idx,), new_rows)
+        return rows
+
+    return gather, scan, scatter
 
 
 def slab_export_device(state: SlabState) -> tuple[torch.Tensor, object]:

@@ -55,6 +55,7 @@ from .config.loader import load_config
 from .limiter.base_limiter import BaseRateLimiter
 from .limiter.cache import RateLimitCache
 from .limiter.local_cache import LocalCache, LocalCacheStats
+from .server.http_server import warm_device_profiler
 from .server.runtime_loader import DirectoryRuntimeLoader
 from .server.server import Server, new_server
 from .service.ratelimit import RateLimitService
@@ -405,6 +406,13 @@ class Runner:
             lease_table=self.lease_table, fault_injector=self.fault_injector,
         )
         engine = getattr(cache, "engine", None)
+        # an engine that owns a slab: /debug/profile starts its sessions with
+        # no launch in flight (C10), and the tracer's start-up stall falls
+        # here, before serving (a frontend or host backend launches nothing)
+        if hasattr(engine, "launches_quiesced"):
+            self.server.debug.profile_quiesce = engine.launches_quiesced
+            if settings.tpu_profile_dir:
+                warm_device_profiler(self.server.debug)
         # ratelimit.build.*: the card's facts once the engine holds it; a
         # runner on the CPU, a host backend or a cuda-sidecar frontend (its
         # engine is the owner's client and has no device) reports cpu and 0

@@ -329,6 +329,12 @@ class DebugServer(_Listener):
             {"routes": self._routes, "post_routes": self._post_routes},
         )
         super().__init__(handler, host, port, "debug")
+        # /debug/profile: one trace at a time (two torch.profiler sessions
+        # cannot run in one process), each started and stopped inside
+        # profile_quiesce() when the engine's owner sets it
+        # (capture_device_trace)
+        self.profile_lock = threading.Lock()
+        self.profile_quiesce = None
 
     def add_route(self, path: str, route: DebugRoute) -> None:
         self._routes[path] = route
@@ -501,47 +507,34 @@ def new_debug_server(
             indent=2,
         )
 
-    # one device trace at a time: two torch.profiler sessions cannot run
-    # in one process
-    device_profile_running = threading.Lock()
-
     def device_profile(path):
         """GET /debug/profile?ms=N: a torch.profiler trace of the process
-        for N ms into TPU_PROFILE_DIR, with the CUDA activity where this
-        torch build supports it, so the trace names every kernel the serving
-        threads launch meanwhile (CUPTI records the whole process). 404
-        until the knob is set, 429 while a capture runs, 400 on a bad
-        query, 500 (and serving goes on) when the profiler fails."""
+        for N ms into TPU_PROFILE_DIR (capture_device_trace), so the trace
+        names every kernel the serving threads launch meanwhile (CUPTI
+        records the whole process). 404 until the knob is set, 429 while a
+        capture runs, 400 on a bad query, 500 (and serving goes on) when
+        the profiler fails."""
         if not profile_dir:
             return _text(404, "device profiling disabled: set TPU_PROFILE_DIR\n")
-        if not device_profile_running.acquire(blocking=False):
+        if not server.profile_lock.acquire(blocking=False):
             return _text(429, "a device profile is already running; retry later\n")
         try:
             try:
                 ms = min(float(_query(path).get("ms", ["100"])[0]), PROFILE_MAX_MS)
             except ValueError as e:
                 return _text(400, f"bad query parameter: {e}\n")
-            import torch
-            from torch.profiler import ProfilerActivity, profile
-
-            supported = torch.profiler.supported_activities()
-            activities = [
-                a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA) if a in supported
-            ]
-            with profile(activities=activities) as prof:
-                time.sleep(max(0.0, ms) / 1e3)
-                if ProfilerActivity.CUDA in activities and torch.cuda.is_initialized():
-                    torch.cuda.synchronize()
             os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(
-                os.path.join(profile_dir, f"torch_trace_{os.getpid()}_{time.time_ns()}.json")
+            capture_device_trace(
+                os.path.join(profile_dir, f"torch_trace_{os.getpid()}_{time.time_ns()}.json"),
+                ms,
+                server.profile_quiesce,
             )
             return _json_body({"profile_dir": profile_dir, "ms": ms})
         except Exception as e:  # noqa: BLE001 - profiling must not crash serving
             logger.warning("device profile failed: %s", e)
             return _text(500, f"device profile failed: {e}\n")
         finally:
-            device_profile_running.release()
+            server.profile_lock.release()
 
     server.add_route("/stats", stats)
     if enable_metrics:
@@ -554,6 +547,51 @@ def new_debug_server(
     server.add_route("/debug/profile", device_profile)
     server.add_route("/", index)
     return server
+
+
+def capture_device_trace(path: str | None, ms: float, quiesce=None) -> None:
+    """One torch.profiler session of `ms` with the CPU activity and, where
+    this torch build has it, the CUDA one; its Chrome trace goes to `path`
+    (None: not exported, a warm-up). The session starts and stops inside
+    `quiesce()` when given: a context in which no thread launches on the
+    card (the engine's launches_quiesced). C10: on the H100 a session that
+    starts while another thread launches kernels records the launches'
+    runtime calls but none of their kernels, and such empty sessions come
+    in runs (tools/profile_probe.py: 15 of 30 captures empty starting free,
+    0 of 30 starting quiesced)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    supported = torch.profiler.supported_activities()
+    activities = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA) if a in supported]
+    cuda = ProfilerActivity.CUDA in activities and torch.cuda.is_initialized()
+    hold = quiesce if quiesce is not None else contextlib.nullcontext
+    prof = profile(activities=activities)
+    with hold():
+        prof.__enter__()
+    try:
+        time.sleep(max(0.0, ms) / 1e3)
+    finally:
+        with hold():
+            if cuda:
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+    if path is not None:
+        prof.export_chrome_trace(path)
+
+
+def warm_device_profiler(server: DebugServer) -> None:
+    """A process's first profiler session pays the tracer's start-up
+    (8-17 s on the H100 in tools/profile_probe.py runs, the process
+    stalled meanwhile): take a 1 ms session, exported nowhere, when
+    TPU_PROFILE_DIR is set, so that stall falls at boot, before the
+    process serves, and not in the first /debug/profile window. The
+    runner and the device owner call it once their engine is built and
+    the debug server's quiesce is set."""
+    with server.profile_lock:
+        capture_device_trace(None, 1.0, server.profile_quiesce)
 
 
 def add_chaos_admin(server: DebugServer, fault_injector, time_source) -> None:

@@ -17,9 +17,8 @@ metric names — the store records ms everywhere and rescaling at the edge
 would desynchronize /metrics from /stats.
 
 parse_exposition reads such a payload back (the JAX package's
-stats/fleet.py parser, the half of that module a single process uses: its
-fleet merge and scrape serve FRONTEND_PROCS>1 and come with ROADMAP item
-8).
+stats/fleet.py parser, the half of that module a single process uses); the
+fleet merge and scrape that serve FRONTEND_PROCS>1 are stats/fleet.py.
 """
 
 from __future__ import annotations

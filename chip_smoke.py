@@ -36,7 +36,11 @@ Phases, each of which must pass (nothing is caught):
            whose sum wraps 2^32 ~8 times with segments starting right
            after each wrap, on all-zero hits, and the decided and lean
            forms on 20 fresh 2^20 seeds (a look-back race shows only now
-           and then). The build's ptxas lines print first.
+           and then). The chaos campaign owner's geometry, never on the
+           card before (W = 2 at b = 16 over 32 rows): the way scan in both
+           instantiations and forms, the apply, and the victim tier's
+           promote pass against the same pass on the CPU, over 16 fresh
+           tables, all bit-exact. The build's ptxas lines print first.
 3. engine  SlabDeviceEngine at 2^22 slots (128 MiB), W=128, with the
            production sketch (HOTKEY_LANES=128, HOTKEY_K=16), Zipf(1.1) over
            2^20 keys: 32 launches at the 65536 bucket plus the smaller
@@ -182,8 +186,11 @@ Phases, each of which must pass (nothing is caught):
            the hottest descriptor carries the hotkey flag; the collector
            holds one server span per call. GET /debug/profile?ms=500 while a
            client thread drives calls answers 200, a second capture during
-           it 429, and the trace it writes names way_scan_kernel,
-           slab_apply_kernel and sketch_update_kernel. A second runner with
+           it 429, and then 4 more captures in a row under that load: each
+           capture's kernel counts print, and every one of the 5 traces
+           must name way_scan_kernel, slab_apply_kernel and
+           sketch_update_kernel (C10: the runner starts each profiler
+           session with no launch in flight). A second runner with
            TPU_BATCH_WINDOW=200us (the dispatch loop) and the in-process
            recording tracer takes 8 client threads: a server span per call
            in /debug/traces, dispatch.batch spans linking exactly those,
@@ -270,13 +277,14 @@ Phases, each of which must pass (nothing is caught):
            one hit, on one of 16 shared keys whose rule is a fixed window
            per hour, limit 8). (a) FRONTEND_PROCS=4, BACKEND_TYPE=cuda,
            SHM_RINGS=true: the master spawns the owner (cmd/sidecar_cmd.py)
-           and four cuda-sidecar workers; 6 s of load measured, 5 s more
-           for the owner's trace: no call fails, each shared key admits
+           and four cuda-sidecar workers; 6 s of load measured, 11 s more
+           for the owner's traces: no call fails, each shared key admits
            exactly min(8, calls) and gets more; only
            the owner (and this script) has a /dev/nvidia* file open, and
-           nvidia-smi lists no other fleet process; a /debug/profile trace
-           on the owner's debug port (its tracer warmed before the load)
-           names way_scan_kernel<false>,
+           nvidia-smi lists no other fleet process; 5 /debug/profile
+           traces of 200 ms in a row on the owner's debug port (all within
+           the load), each capture's kernel
+           counts printed, every one naming way_scan_kernel<false>,
            slab_apply_kernel and sketch_update_kernel, and its /metrics
            counts their launches and the items its shm rings carried;
            GET /metrics?fleet=1 on the master counts the calls the clients
@@ -391,7 +399,28 @@ Phases, each of which must pass (nothing is caught):
            again its first exchange is the handshake snapshot (one resync,
            east's fence adopted, no stale settle at east). Prints one
            "federation:" JSON line with the card's name and power limit.
-16. report per-kernel median device times (torch.profiler) and CUDA-event
+16. chaos   the chaos campaign engine and the operator tools
+           (api_ratelimit_tpu_torch/chaos/, tools/). (a) seeds 1-4 at the
+           default CampaignConfig (120 steps, every nemesis class) on the
+           CPU, then on the card with every launch counter set to 0 just
+           before: each verdict ok and its canonical JSON byte-identical to
+           the CPU run; way_scan_kernel<false> per item, slab_apply_kernel
+           and the promote pass's way_scan_kernel<true> each launched, the
+           sketch update never (hotkey_lanes 0); replay_matches on the card
+           for each seed; on seed 3's kill-only timeline the full bound ok
+           and the crash term weakened caught, blamed on crash and ddmin'd
+           on the card to at most 3 actions with an owner kill; seconds a
+           campaign on the card and on the CPU. (b) as processes on the
+           card: hotpath_profile's default arm and --dispatch (the
+           [hotpath] line, the pstats table; the owner thread's table
+           names dispatch.py _run and no request-thread call),
+           --slab-split at 2^22 rows, W = 128, b = 8192 (gather_ns,
+           scan_ns and scatter_ns, each p50 inside the bucket the printed
+           /metrics histograms put half their 30 samples in), and
+           snapshot_inspect on phase 11's drain slab.snap: its restorable
+           rows equal the rows phase 11 restored. Prints one "chaos:" JSON
+           line with the card's name and power limit.
+17. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -405,8 +434,8 @@ Phases, each of which must pass (nothing is caught):
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
            kernel; the process, observability, warm restart and tiers
-           phases' lines, the fleet's, the cluster's and the federation's,
-           the card's name
+           phases' lines, the fleet's, the cluster's, the federation's and
+           the chaos phase's, the card's name
            and power limit, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
@@ -464,6 +493,10 @@ REPLACES = {
     "chain": "tools/microbench_compare_paths.py:110",
 }
 NEAR_RATIOS = (0.0, 0.8, 1.0)
+# the chaos campaign's owner engine (chaos/harness.py): 32 rows, W = 2, one
+# bucket of 16; phase 2 holds its kernels at that geometry
+CHAOS_SLOTS, CHAOS_WAYS, CHAOS_BATCH = 32, 2, 16
+CHAOS_PARITY_REPS = 16
 # the apply kernel's tile-scan parity: sizes around its 512-item tiles and
 # the two paths' buckets, and the fresh 2^20 seeds run in full and lean form
 APPLY_SIZES = (1, 127, 1024, 65536, (1 << 20) - 37, 1 << 20)
@@ -863,6 +896,7 @@ def phase_parity(M, dev) -> dict:
         check(int((lo & (n_slots // ways - 1) == 7 % (n_slots // ways)).sum()) * 2 > DECIDED_BATCH, "the skewed batch's crowd is under half")
         way_scan_forms_parity(M, table, lo, hi, NOW0, ways, f"skewed b=2^20 W={ways}", err)
         del table, lo, hi
+    chaos_geometry_parity(M, rng, dev, err)
     for b in BUCKETS:
         ops = apply_inputs(rng, b, NOW0, dev)
         got = K.slab_apply(*ops, NOW0)
@@ -927,6 +961,60 @@ def phase_parity(M, dev) -> dict:
         f" decided apply (full, lean) and decide at near_ratio in {NEAR_RATIOS}"
     )
     return err
+
+
+def chaos_geometry_parity(M, rng, dev, err: dict) -> None:
+    """The chaos campaign owner's geometry (phase 16: CHAOS_SLOTS rows,
+    W = CHAOS_WAYS, the CHAOS_BATCH bucket), never on the card before: the
+    way scan in both instantiations and both forms, the apply, and the
+    victim tier's promote pass (slab_promote_rows, whose scan is the multi
+    instantiation) against the same on the CPU, all bit-exact, over
+    CHAOS_PARITY_REPS fresh tables."""
+    K, S = M.K, M.S
+    for rep in range(CHAOS_PARITY_REPS):
+        for multi in (False, True):
+            table, lo, hi = scan_inputs(rng, CHAOS_BATCH, CHAOS_SLOTS, CHAOS_WAYS, NOW0, dev)
+            way_scan_forms_parity(M, table, lo, hi, NOW0, CHAOS_WAYS, f"b={CHAOS_BATCH} W={CHAOS_WAYS} over {CHAOS_SLOTS} rows", err, multi_algo=multi)
+        ops = apply_inputs(rng, CHAOS_BATCH, NOW0, dev)
+        e = max_abs_err(K.slab_apply(*ops, NOW0), K.slab_apply_plain(*ops, NOW0))
+        check(e == 0, f"slab_apply differs from its plain version at b={CHAOS_BATCH}")
+        err["slab_apply"] = max(err["slab_apply"], e)
+        table = adversarial_table(rng, CHAOS_SLOTS, NOW0, *fingerprints(rng.integers(0, 1 << 40, CHAOS_BATCH)), CHAOS_WAYS)
+        rows = promote_rows(rng, table, NOW0)
+        card, host = S.slab_import_rows(table, device=dev), S.slab_import_rows(table, device="cpu")
+        got = [t.cpu() for t in S.slab_promote_rows(card, rows, NOW0, ways=CHAOS_WAYS)]
+        want = S.slab_promote_rows(host, rows, NOW0, ways=CHAOS_WAYS)
+        torch.cuda.synchronize()
+        check(same(got[0], want[0]) and same(got[1], want[1]), f"slab_promote_rows' landed/displaced differ from the CPU's (rep {rep})")
+        check(same(card.table.cpu(), host.table), f"slab_promote_rows left other table bytes than the CPU's (rep {rep})")
+        check(bool(want[0].any()) and not bool(want[0].all()), "the promote parity rows all landed or none did")
+    log(
+        f"chaos geometry parity: the way scan (both instantiations and forms), the apply and {CHAOS_PARITY_REPS}"
+        f" promote passes bit-exact at b={CHAOS_BATCH}, W={CHAOS_WAYS}, {CHAOS_SLOTS} rows"
+    )
+
+
+def promote_rows(rng, table: np.ndarray, now: int) -> np.ndarray:
+    """A victim tier's promote batch against `table`: copies of stored rows
+    (fp matches) with older and newer windows and counts, fresh live rows,
+    an expired row and zero padding lanes."""
+    b = CHAOS_BATCH
+    rows = np.zeros((b, 8), np.uint32)
+    rows[:6] = table[rng.integers(0, table.shape[0], 6)]
+    rows[:6, 2] = rng.integers(0, 100, 6)
+    rows[:6, 3] = (now // 60) * 60 + 60 * rng.integers(-1, 2, 6)
+    rows[:6, 4] = now + 120
+    rows[:6, 5] = 60
+    fresh = slice(6, 13)
+    rows[fresh, 0], rows[fresh, 1] = fingerprints(rng.integers(1 << 41, 1 << 42, 7))
+    rows[fresh, 2] = rng.integers(1, 100, 7)
+    rows[fresh, 3] = (now // 60) * 60
+    rows[fresh, 4] = now + 100
+    rows[fresh, 5] = 60 | (rng.integers(0, 2, 7).astype(np.uint32) << 28)
+    rows[13] = rows[6]
+    rows[13, 0] ^= 1
+    rows[13, 4] = now - 1  # expired: scratch row, not landed
+    return rows
 
 
 def way_scan_forms_parity(M, table, lo, hi, now: int, ways: int, label: str, err: dict, multi_algo: bool = False):
@@ -3201,6 +3289,7 @@ OBS_WINDOW = "200us"  # the windowed runner's TPU_BATCH_WINDOW
 OBS_WINDOW_THREADS = 8
 OBS_WINDOW_CALLS = 256
 OBS_PROFILE_MS = 500  # the /debug/profile capture
+OBS_CAPTURES = 5  # captures in a row, every one naming the served kernels (C10)
 OBS_TIMED_CALLS = 512  # each arm's calls in the cost comparison
 OBS_COST_BLOCK = 16  # the calls an arm serves before the other takes its turn
 OBS_PROFILED_CALLS = 64  # each profiled run of the cost comparison: the busy share
@@ -3439,7 +3528,9 @@ def trace_kernel_names(profile_dir: str, names) -> dict:
 def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS) -> dict:
     """GET /debug/profile?ms=500 while a client thread drives calls: 200
     and {profile_dir, ms}; a second capture during the first answers 429;
-    the trace written names every served kernel."""
+    then OBS_CAPTURES - 1 more captures in a row under the same load. Each
+    capture's trace (one file a capture) must name every served kernel
+    (C10: each capture's counts are printed; nothing is retried)."""
     rng = np.random.default_rng(19)
     reqs = process_requests(rng, 4096, n_keys)
     stop = threading.Event()
@@ -3473,6 +3564,13 @@ def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS)
     time.sleep(OBS_PROFILE_MS / 1e3 / 4)
     second = http_call(runner.server.debug_port, "GET", "/debug/profile?ms=10")
     capturer.join(120)
+    captures = [{"calls_during": sent[0], **trace_counts_of_new(profile_dir, set(), kernels)}]
+    for _ in range(OBS_CAPTURES - 1):
+        seen, calls0 = set(os.listdir(profile_dir)), sent[0]
+        status, body = http_call(runner.server.debug_port, "GET", f"/debug/profile?ms={OBS_PROFILE_MS}")
+        check(status == 200 and json.loads(body) == {"profile_dir": profile_dir, "ms": float(OBS_PROFILE_MS)},
+              f"/debug/profile answered {status}: {body[:200]}")
+        captures.append({"calls_during": sent[0] - calls0, **trace_counts_of_new(profile_dir, seen, kernels)})
     stop.set()
     driver.join(120)
     check(not errors, f"the client thread failed: {errors}")
@@ -3482,9 +3580,25 @@ def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS)
     doc = json.loads(body)
     check(doc == {"profile_dir": profile_dir, "ms": float(OBS_PROFILE_MS)}, f"/debug/profile answered {doc}")
     check(second[0] == 429, f"a second capture during the first answered {second[0]}")
+    for i, c in enumerate(captures):
+        log(f"10 capture {i + 1}/{OBS_CAPTURES}: {c['kernels']} kernels, served {c['served']}, {c['calls_during']} calls")
+    for i, c in enumerate(captures):
+        check(c["calls_during"] > 0, f"capture {i + 1} ran with no call in flight")
+        check(all(c["served"].values()), f"capture {i + 1}/{OBS_CAPTURES}'s device trace misses a served kernel: {c['served']}")
     counts = trace_kernel_names(profile_dir, kernels)
-    check(all(counts.values()), f"the device trace misses a served kernel: {counts}")
-    return {"calls_during": sent[0], "kernel_mentions": counts, "second_capture": second[0], "files": len(os.listdir(profile_dir))}
+    return {"calls_during": sent[0], "kernel_mentions": counts, "second_capture": second[0],
+            "files": len(os.listdir(profile_dir)), "captures": captures}
+
+
+def trace_counts_of_new(profile_dir: str, seen: set, kernels) -> dict:
+    """The one trace file in profile_dir not in `seen`: its kernel count and
+    each of `kernels`' count."""
+    new = sorted(set(os.listdir(profile_dir)) - seen)
+    check(len(new) == 1, f"a capture wrote {len(new)} trace files")
+    with open(os.path.join(profile_dir, new[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = [str(ev.get("name", "")) for ev in events if ev.get("ph") == "X" and str(ev.get("cat", "")).lower() == "kernel"]
+    return {"kernels": len(names), "served": {k: sum(k in n for n in names) for k in kernels}}
 
 
 def obs_busy(runner, reqs: list) -> float:
@@ -3724,11 +3838,16 @@ def served_launches(K) -> dict:
     return {k: K.LAUNCHES[k] for k in ("way_scan", "slab_apply", "sketch_update")}
 
 
-def warm_handoff(K, runtime_root: str, scratch: str, clock, device: str, overrides: dict) -> dict:
+def warm_handoff(K, runtime_root: str, scratch: str, clock, device: str, overrides: dict, keep: bool = False) -> dict:
     """Step 1: runner A serves WARM_CALLS calls beside a memory runner and
     stops (the drain snapshot); runner B boots from A's file and serves the
     next WARM_CALLS calls, each response byte-identical to the memory
-    runner's, which never restarted; the kernels launch once a call."""
+    runner's, which never restarted; the kernels launch once a call. keep:
+    copy A's slab.snap out of the scratch directory for phase 16's
+    inspector ("kept": its path, the restore's now and B's restored rows)."""
+    import shutil
+    import tempfile
+
     from api_ratelimit_tpu_torch.persist.snapshot import HEADER_SIZE, load_snapshot, reconcile_rows
 
     snap_dir = os.path.join(scratch, "handoff")
@@ -3754,6 +3873,11 @@ def warm_handoff(K, runtime_root: str, scratch: str, clock, device: str, overrid
         live = reconcile_rows(last, int(clock.unix_now()))[1]["restored"]
         check(live > 0, "runner A left no live row")
         del a
+        kept = None
+        if keep:
+            kept = {"path": os.path.join(tempfile.mkdtemp(prefix="chip_smoke_kept_"), "slab.snap"),
+                    "now": int(clock.unix_now()), "restored": live}
+            shutil.copyfile(path, kept["path"])
 
         t0 = time.perf_counter()
         b, boot_b = process_boot(warm_env(runtime_root, snap_dir, **overrides), device=device)
@@ -3776,6 +3900,7 @@ def warm_handoff(K, runtime_root: str, scratch: str, clock, device: str, overrid
         "restore_stats": restored,
         "boot_s": {"a": boot_a, "b": boot_b},
         "launches_after_restore": launches,
+        **({"kept": kept} if keep else {}),
     }
 
 
@@ -4047,7 +4172,7 @@ def warm_redis_oracle(K, runtime_root: str, clock, device: str, overrides: dict)
     return {"calls": REDIS_CALLS, "descriptors": descriptors, "incrby": incrby, "codes": dict(codes), "launches": launches}
 
 
-def phase_warm_restart(M, K, device: str = "cuda", **overrides) -> dict:
+def phase_warm_restart(M, K, device: str = "cuda", keep_snapshot: bool = False, **overrides) -> dict:
     """Warm restart and the redis oracle at phase 9's deployment (module
     docstring, phase 11). `overrides`: environment variables for the cuda
     runners and the standalone engine (a small slab on the CPU)."""
@@ -4069,7 +4194,7 @@ def phase_warm_restart(M, K, device: str = "cuda", **overrides) -> dict:
         clock = FakeTimeSource(NOW0)
         install_process_time_source(clock)
         try:
-            handoff = warm_handoff(K, runtime_root, scratch, clock, device, overrides)
+            handoff = warm_handoff(K, runtime_root, scratch, clock, device, overrides, keep=keep_snapshot)
             lap("handoff")
             crash = warm_crash(K, runtime_root, scratch, clock, device, overrides)
             lap("crash")
@@ -4579,13 +4704,19 @@ SERVICE_CMD = "api_ratelimit_tpu_torch.cmd.service_cmd"
 SIDECAR_CMD = "api_ratelimit_tpu_torch.cmd.sidecar_cmd"
 
 
-def port_run(n: int) -> int:
-    """The first of n consecutive free ports (the fleet's debug layout)."""
+def port_run(n: int, avoid=()) -> int:
+    """The first of n consecutive free ports (the fleet's debug layout),
+    none of them in `avoid`: ports picked a moment before and released
+    until their servers bind them. The listeners bind with SO_REUSEPORT,
+    so a debug port equal to the fleet's gRPC port would be shared
+    silently and answer HTTP/2 to a /metrics read."""
     import socket
 
     rng = np.random.default_rng()
     for _ in range(200):
         base = int(rng.integers(20000, 60000 - n))
+        if any(base <= p < base + n for p in avoid):
+            continue
         socks = []
         try:
             for p in range(base, base + n):
@@ -4613,7 +4744,7 @@ def fleet_env(root: str, scratch: str, tag: str, backend: str = "cuda", **overri
     directories under scratch, and its own ports; `overrides` replace any;
     the whole of os.environ beneath it."""
     http, grpc_port = free_ports(2)
-    debug = port_run(FLEET_WORKERS + 2)
+    debug = port_run(FLEET_WORKERS + 2, avoid=(http, grpc_port))
     prof = os.path.join(scratch, tag + "_profile")
     os.makedirs(prof, exist_ok=True)
     env = dict(os.environ)
@@ -4890,6 +5021,33 @@ def owner_profile(debug_port: int, profile_dir: str, ms: float = FLEET_PROFILE_M
     return {"busy_share": busy, "kernels": names}
 
 
+# C10: several /debug/profile captures in a row, every one of them naming
+# the served kernels (an empty trace came once in four runs of one). A
+# 500 ms capture of the loaded owner holds ~10^4 kernels and takes ~2 s to
+# write out, so the repeated ones are 200 ms, each given 1.2 s of the load
+FLEET_CAPTURES = 5
+FLEET_CAPTURE_MS = 200
+FLEET_CAPTURE_BUDGET_S = 1.2
+FLEET_SERVED_KERNELS = ("way_scan_kernel<false>", "slab_apply_kernel", "sketch_update_kernel")
+
+
+def owner_profiles(debug_port: int, profile_dir: str, label: str, kernels, load_end: float,
+                   n: int = FLEET_CAPTURES, ms: float = FLEET_CAPTURE_MS) -> list:
+    """n owner_profile captures in a row within the load: each capture's
+    kernel count printed, and every capture must name each of `kernels`
+    (an empty one fails the phase; nothing is retried)."""
+    out = []
+    for i in range(n):
+        prof = owner_profile(debug_port, profile_dir, ms=ms, load_end=load_end)
+        prof["served"] = {k: named(prof["kernels"], k) for k in kernels}
+        log(f"{label} capture {i + 1}/{n}: {sum(prof['kernels'].values())} kernels, served {prof['served']},"
+            f" busy {prof['busy_share']:.4f}")
+        out.append(prof)
+    for i, prof in enumerate(out):
+        check(all(prof["served"].values()), f"{label} capture {i + 1}/{n} names no served kernel: {prof['served']}")
+    return out
+
+
 def named(names: dict, fragment: str) -> int:
     return sum(n for k, n in names.items() if fragment in k)
 
@@ -4943,7 +5101,8 @@ def fleet_arm_a(root: str, scratch: str) -> dict:
     try:
         owner_profile(owner_debug, env["TPU_PROFILE_DIR"], ms=10)
         before = metrics_of(owner_debug)
-        procs = fleet_clients(grpc_port, FLEET_ARM_S + FLEET_TAIL_S, scratch, "a1", seed=1)
+        tail = FLEET_TAIL_S + FLEET_CAPTURES * FLEET_CAPTURE_BUDGET_S
+        procs = fleet_clients(grpc_port, FLEET_ARM_S + tail, scratch, "a1", seed=1)
         time.sleep(max(0.0, procs[0].start_at - time.time()) + FLEET_ARM_S / 2)
         # one process on the card: the owner (and this script)
         holders = [p for p in [master.pid, *pids["workers"], *(c.pid for c in procs)] if holds_card(p)]
@@ -4958,14 +5117,15 @@ def fleet_arm_a(root: str, scratch: str) -> dict:
         out["compute_apps_known"] = sorted(listed & {pids["owner"], os.getpid()})
         time.sleep(max(0.0, procs[0].start_at + FLEET_ARM_S - time.time()) + 0.2)
         t_prof = time.time()
-        prof = owner_profile(owner_debug, env["TPU_PROFILE_DIR"], load_end=procs[0].start_at + FLEET_ARM_S + FLEET_TAIL_S)
+        captures = owner_profiles(owner_debug, env["TPU_PROFILE_DIR"], "13 (a)", FLEET_SERVED_KERNELS,
+                                  load_end=procs[0].start_at + FLEET_ARM_S + tail)
+        prof = captures[0]
         out["profile_at_s"] = [t_prof - procs[0].start_at, time.time() - procs[0].start_at]
-        load = fleet_collect(procs, FLEET_ARM_S + FLEET_TAIL_S, FLEET_ARM_S)
+        out["captures"] = [{"busy_share": c["busy_share"], "served": c["served"]} for c in captures]
+        load = fleet_collect(procs, FLEET_ARM_S + tail, FLEET_ARM_S)
         after = metrics_of(owner_debug)
         check(not load["failures"], f"calls failed: {load['failures'][:5]}")
         out["exact"] = shared_exact(load, "shared:s", FLEET_SHARED_LIMIT, FLEET_SHARED_KEYS)
-        for kernel in ("way_scan_kernel<false>", "slab_apply_kernel", "sketch_update_kernel"):
-            check(named(prof["kernels"], kernel) > 0, f"the owner's trace names no {kernel}: {prof['kernels']}")
         launches = owner_launches(before, after)
         for kernel in ("way_scan", "slab_apply", "sketch_update"):
             check(launches.get(kernel, 0) > 0, f"the owner launched no {kernel}: {launches}")
@@ -4989,7 +5149,7 @@ def fleet_arm_a(root: str, scratch: str) -> dict:
               "the merged build gauges do not name the card")
         out |= {
             "load": {k: load[k] for k in ("calls", "measured_calls", "hits", "requests_per_s", "p50_ms", "p99_ms", "seconds")},
-            "owner_busy_share": prof["busy_share"], "owner_kernels": prof["kernels"],
+            "owner_busy_share": float(np.median([c["busy_share"] for c in captures])), "owner_kernels": prof["kernels"],
             "owner_launches": launches, "batch_mean": batch_mean(before, after), "rings": rings,
             "native_available": native, "fleet_calls_metric": calls_metric,
         }
@@ -6219,6 +6379,194 @@ def codec_packages() -> dict:
     return out
 
 
+# -- phase 16: the chaos campaign engine and the operator tools ---------------
+
+CHAOS_SEEDS = (1, 2, 3, 4)  # at the default CampaignConfig (120 steps, every class)
+CHAOS_WEAKEN_SEED = 3
+# the checker's self-test config (tools/chaos_campaign.py --weaken): kills
+# only, one over-offered key, no eviction or federation slack
+CHAOS_KILL_ONLY = dict(
+    steps=40, classes=("process_kill",), tracked_keys=1, lease_offers=8, fillers=0,
+    fillers_per_step=0, fed_offers=0, snapshot_every=0, victim_every=0,
+)
+HOTPATH_N = 200  # requests of the default arm, under the thread profiler
+HOTPATH_DISPATCH_N = 400
+TOOL_TIMEOUT_S = 300.0
+HOTPATH = "api_ratelimit_tpu_torch.tools.hotpath_profile"
+
+
+def chaos_campaigns(K, device: str = "cuda") -> dict:
+    """(a) The campaigns: each seed at the default config on the CPU, then
+    on `device`, the card (every launch counter set to 0 just before), each
+    ok and byte-identical to its CPU run; replay_matches on the card; the
+    weakened crash term caught, blamed and shrunk on the card."""
+    import logging
+
+    from api_ratelimit_tpu_torch.chaos import campaign as C
+    from api_ratelimit_tpu_torch.chaos import nemesis as N
+    from api_ratelimit_tpu_torch.chaos import shrink as SH
+
+    logging.disable(logging.CRITICAL)  # the nemesis's injected faults log by design
+    try:
+        cpu, cpu_s = {}, {}
+        for seed in CHAOS_SEEDS:
+            t0 = time.perf_counter()
+            cpu[seed] = N.canonical_json(C.run_campaign(seed, device="cpu"))
+            cpu_s[seed] = time.perf_counter() - t0
+        K.reset_launch_counts()
+        card, card_s, verdicts = {}, {}, {}
+        for seed in CHAOS_SEEDS:
+            t0 = time.perf_counter()
+            doc = C.run_campaign(seed, device=device)
+            card_s[seed] = time.perf_counter() - t0
+            card[seed] = N.canonical_json(doc)
+            verdicts[seed] = doc["verdict"]
+        launches = {k: K.LAUNCHES[k] for k in ("way_scan", "slab_apply", "sketch_update")}
+        forms = {"way_scan": dict(K.WAY_SCAN_FORMS), "way_scan_multi": dict(K.WAY_SCAN_MULTI_FORMS)}
+        for seed in CHAOS_SEEDS:
+            check(verdicts[seed] == "ok", f"seed {seed} on the card: verdict {verdicts[seed]}")
+            check(card[seed] == cpu[seed], f"seed {seed}: the card's canonical JSON differs from the CPU's")
+        if device == "cuda":
+            check(forms["way_scan"]["per_item"] > 0, f"the campaigns launched no way_scan_kernel<false>: {forms}")
+            check(launches["slab_apply"] > 0, f"the campaigns launched no slab_apply_kernel: {launches}")
+            check(forms["way_scan_multi"]["per_item"] > 0, f"the campaigns' promotes launched no multi way scan: {forms}")
+            check(launches["sketch_update"] == 0, f"the campaigns (hotkey_lanes 0) launched the sketch update: {launches}")
+        replay = {}
+        for seed in CHAOS_SEEDS:
+            replay[seed] = C.replay_matches(seed, device=device)
+            check(replay[seed], f"seed {seed}: two runs on the card gave different canonical JSON")
+        cfg = C.CampaignConfig(**CHAOS_KILL_ONLY)
+        timeline = N.draw_timeline(CHAOS_WEAKEN_SEED, cfg.steps, cfg.classes, cfg.nemesis_rate)
+        full = C.run_campaign(CHAOS_WEAKEN_SEED, config=cfg, timeline=timeline, device=device)
+        check(full["verdict"] == "ok", f"the full bound flagged the kill timeline: {full['violations']}")
+        weak = C.run_campaign(CHAOS_WEAKEN_SEED, config=cfg, timeline=timeline, weaken="crash", device=device)
+        check(weak["verdict"] == "violation", "the weakened crash term was not caught")
+        check(all(v["blame"] == ["crash"] for v in weak["violations"]), f"the violations blame {weak['violations']}")
+        t0 = time.perf_counter()
+        minimal = SH.shrink_timeline(CHAOS_WEAKEN_SEED, timeline, config=cfg, weaken="crash", device=device)
+        shrink_s = time.perf_counter() - t0
+        check(1 <= len(minimal) <= 3, f"ddmin left {len(minimal)} actions")
+        check(any(a["cls"] == "process_kill" and a["role"] == "owner" for a in minimal), f"the repro holds no owner kill: {minimal}")
+    finally:
+        logging.disable(logging.NOTSET)
+    return {
+        "seeds": list(CHAOS_SEEDS),
+        "verdicts": verdicts,
+        "identical_to_cpu": True,
+        "replay_matches": replay,
+        "timeline_crc": {seed: json.loads(card[seed])["timeline_crc"] for seed in CHAOS_SEEDS},
+        "admits": {seed: sum(json.loads(card[seed])["ledger"]["admits"].values()) for seed in CHAOS_SEEDS},
+        "evict_lost": {seed: json.loads(card[seed])["ledger"]["evict_lost"] for seed in CHAOS_SEEDS},
+        "card_s": card_s,
+        "cpu_s": cpu_s,
+        "launches": launches,
+        "way_scan_forms": forms,
+        "weakened": {"seed": CHAOS_WEAKEN_SEED, "actions": len(timeline), "violations": len(weak["violations"]),
+                     "blame": sorted({b for v in weak["violations"] for b in v["blame"]}), "minimal": minimal,
+                     "shrink_s": shrink_s},
+    }
+
+
+def tool_run(module: str, args: list, label: str):
+    """One tool as a process: exit 0, its stdout lines."""
+    t0 = time.perf_counter()
+    proc = run_module(module, args, dict(os.environ), timeout=TOOL_TIMEOUT_S)
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}: {proc.stderr[-1500:]}")
+    return proc.stdout.splitlines(), time.perf_counter() - t0
+
+
+def hotpath_line(lines: list, label: str, device: str) -> dict:
+    summary = [ln for ln in lines if ln.startswith("[hotpath] rate=")]
+    check(summary, f"{label}: no [hotpath] line")
+    fields = dict(f.split("=", 1) for f in summary[0].split()[1:])
+    check(int(fields["rate"][: -len("/s")]) > 0, f"{label}: {summary[0]}")
+    check(fields.get("device", "").startswith(device), f"{label} did not run on {device}: {summary[0]}")
+    check(any("ncalls" in ln and "tottime" in ln for ln in lines), f"{label}: no pstats table")
+    return fields
+
+
+def slab_split_lines(lines: list, device: str) -> dict:
+    """--slab-split's rows and its /metrics exposition: batch 8192 at the
+    served width, 30 samples a stage, each p50 in the bucket the
+    exposition's cumulative counts put half the samples in."""
+    head = [ln for ln in lines if ln.startswith("[slab_split] batch=")]
+    check(head and int(head[0].split("batch=")[1]) == 8192, f"slab split: {head}")
+    geo = [ln for ln in lines if ln.startswith("[slab_split] ways=")]
+    fields = dict(f.split("=", 1) for f in geo[0].split()[1:]) if geo else {}
+    ways, rows = (128, N_SLOTS) if device == "cuda" else (4, 1 << 18)  # tools/service_stack.py
+    check(fields.get("ways") == str(ways) and fields.get("rows") == str(rows) and fields.get("device", "").startswith(device),
+          f"slab split ran at {geo}")
+    out = {"batch": 8192, **fields}
+    for stage in ("gather", "scan", "scatter"):
+        row = [ln for ln in lines if ln.strip().startswith(f"{stage}_ns")]
+        check(row, f"slab split: no {stage}_ns row")
+        p50 = int(row[0].split("p50=")[1].split()[0])
+        p99 = int(row[0].split("p99=")[1].split()[0])
+        count = [ln for ln in lines if ln.startswith(f"ratelimit_slab_split_{stage}_ms_count")]
+        check(count and float(count[0].split()[-1]) == 30, f"/metrics counts {count} {stage} samples, not 30")
+        buckets = [
+            (float(ln.split('le="')[1].split('"')[0]), float(ln.split()[-1]))
+            for ln in lines if ln.startswith(f"ratelimit_slab_split_{stage}_ms_bucket") and "+Inf" not in ln
+        ]
+        above = [n for le, n in buckets if le >= p50 / 1e6]
+        below = [n for le, n in buckets if le < p50 / 1e6]
+        check((not above or above[0] >= 15) and (not below or below[-1] <= 15),
+              f"the {stage} row's p50 {p50} ns disagrees with /metrics' buckets {buckets}")
+        out[f"{stage}_ns"] = {"p50": p50, "p99": p99}
+    return out
+
+
+def chaos_tools(kept: dict, device: str = "cuda") -> dict:
+    """(b) The tools as processes on the card: hotpath_profile's default
+    and --dispatch arms, --slab-split at the served width with its
+    /metrics histograms agreeing, and snapshot_inspect on phase 11's
+    slab.snap, its restorable rows the rows phase 11 restored."""
+    out = {}
+    dev = ["--device", device]
+    lines, secs = tool_run(HOTPATH, ["-n", str(HOTPATH_N), "--top", "12", *dev], "hotpath_profile")
+    out["hotpath"] = hotpath_line(lines, "hotpath_profile", device) | {"process_s": secs}
+    check(any("should_rate_limit" in ln for ln in lines), "the request thread's table names no should_rate_limit")
+    lines, secs = tool_run(HOTPATH, ["-n", str(HOTPATH_DISPATCH_N), "--top", "12", "--dispatch", *dev], "hotpath_profile --dispatch")
+    out["dispatch"] = hotpath_line(lines, "hotpath_profile --dispatch", device) | {"process_s": secs}
+    check(out["dispatch"].get("path") == "dispatch-owner", f"--dispatch ran path {out['dispatch']}")
+    check(any("dispatch.py" in ln and "(_run)" in ln for ln in lines), "the owner thread's table names no dispatch.py _run")
+    check(not any("should_rate_limit" in ln for ln in lines), "the owner thread's table holds the request threads' calls")
+    out["dispatch"]["owner_table"] = [ln for ln in lines if "{" not in ln and ("dispatch.py" in ln or "cuda.py" in ln)][:6]
+    lines, secs = tool_run(HOTPATH, ["--slab-split", *dev], "hotpath_profile --slab-split")
+    out["slab_split"] = slab_split_lines(lines, device) | {"process_s": secs}
+    lines, secs = tool_run(
+        "api_ratelimit_tpu_torch.tools.snapshot_inspect", ["--json", "--now", str(kept["now"]), kept["path"]],
+        "snapshot_inspect",
+    )
+    report = json.loads("\n".join(lines))[0]
+    check(report["valid"], f"snapshot_inspect rejected phase 11's slab.snap: {report}")
+    check(report["rows"]["restorable"] == kept["restored"],
+          f"snapshot_inspect reads {report['rows']['restorable']} restorable rows, phase 11 restored {kept['restored']}")
+    out["snapshot_inspect"] = {"restorable": report["rows"]["restorable"], "occupied": report["rows"]["occupied"],
+                               "restored_in_phase_11": kept["restored"], "bytes": report["bytes"], "process_s": secs}
+    return out
+
+
+def phase_chaos(K, kept: dict, device: str = "cuda") -> dict:
+    """Phase 16 (module docstring)."""
+    t0 = time.perf_counter()
+    campaigns = chaos_campaigns(K, device)
+    t_campaigns = time.perf_counter() - t0
+    tools = chaos_tools(kept, device)
+    out = {"campaigns": campaigns, "tools": tools, "campaigns_s": t_campaigns, "phase_s": time.perf_counter() - t0}
+    split = tools["slab_split"]
+    log(
+        f"chaos: seeds {list(CHAOS_SEEDS)} ok and byte-identical to the CPU, {campaigns['launches']} launches,"
+        f" card {np.mean(list(campaigns['card_s'].values())):.2f} s / CPU {np.mean(list(campaigns['cpu_s'].values())):.2f} s"
+        f" a campaign; crash weakened: {campaigns['weakened']['violations']} violations shrunk to"
+        f" {len(campaigns['weakened']['minimal'])} action(s); hotpath {tools['hotpath']['rate']},"
+        f" dispatch {tools['dispatch']['rate']}; slab split gather/scan/scatter p50"
+        f" {split['gather_ns']['p50']}/{split['scan_ns']['p50']}/{split['scatter_ns']['p50']} ns;"
+        f" snapshot_inspect {tools['snapshot_inspect']['restorable']} rows ({out['phase_s']:.1f} s)"
+    )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -6266,12 +6614,18 @@ def main() -> int:
     )
     process = phase_process(K)
     observability = phase_observability(K)
-    warm = phase_warm_restart(M, K)
+    warm = phase_warm_restart(M, K, keep_snapshot=True)
     tiers, promote_row = phase_tiers(M, K)
     kernels.append(promote_row)
     fleet = phase_fleet(K)
     cluster = phase_cluster(fleet["b"]["load"]["requests_per_s"])
     federation = phase_federation(K)
+    kept = warm["handoff"].pop("kept")
+    try:
+        chaos = phase_chaos(K, kept)
+    finally:
+        os.remove(kept["path"])
+        os.rmdir(os.path.dirname(kept["path"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6285,6 +6639,7 @@ def main() -> int:
     log("fleet:", json.dumps(fleet | {"card": smi.stdout.strip()}))
     log("cluster:", json.dumps(cluster | {"card": smi.stdout.strip()}))
     log("federation:", json.dumps(federation | {"card": smi.stdout.strip()}))
+    log("chaos:", json.dumps(chaos | {"card": smi.stdout.strip()}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

@@ -8,10 +8,9 @@ dispatch loop's partition labels) on the CPU, against the JAX package's.
   (reference_tests_on_the_port): TestPartitionMap, TestRoutingFuzz,
   TestDifferentialParity, TestRollbackArm, TestStaleMapWire,
   TestLiveReshard, TestPartitionChaos, TestDebugSurfaces,
-  TestSnapshotPartitionStamp and TestDispatchPartitionLabel. Two cases are
-  not run as the reference writes them:
-  - TestSnapshotPartitionStamp::test_inspector_renders_partition_fields
-    drives tools/snapshot_inspect.py, which is ROADMAP item 11b: left out.
+  TestSnapshotPartitionStamp and TestDispatchPartitionLabel. The
+  inspector case runs the port's tools/snapshot_inspect.py. One case is
+  not run as the reference writes it:
   - TestDebugSurfaces::test_debug_cluster_http_endpoint mounts the handler
     through the JAX debug server's add_get(path, handler(h)); the port's
     debug server mounts a text endpoint (add_debug_endpoint), as
@@ -74,6 +73,8 @@ _REF = reference_tests_on_the_port(
         # deliberate departure); the in-process client seam passes no lease ops
         ("return self.engine.submit_rows(block, lease_ops=lease_ops)", "return self.engine.submit_block(block)"),
         ("want = control.submit_rows(blk.copy())", "want = control.submit_block(blk.copy())"),
+        # the port's inspector (api_ratelimit_tpu_torch/tools/snapshot_inspect.py)
+        ("import tools.snapshot_inspect as inspect_mod", "import api_ratelimit_tpu_torch.tools.snapshot_inspect as inspect_mod"),
     ),
 )
 
@@ -87,11 +88,7 @@ TestPartitionChaos = _REF.TestPartitionChaos
 TestDispatchPartitionLabel = _REF.TestDispatchPartitionLabel
 
 
-class TestSnapshotPartitionStamp(_REF.TestSnapshotPartitionStamp):
-    # tools/snapshot_inspect.py is ROADMAP item 11b
-    test_inspector_renders_partition_fields = None
-
-
+TestSnapshotPartitionStamp = _REF.TestSnapshotPartitionStamp
 class TestDebugSurfaces(_REF.TestDebugSurfaces):
     def test_debug_cluster_http_endpoint(self, test_store):
         """GET /debug/cluster as cmd/sidecar_cmd.py mounts it: the node's

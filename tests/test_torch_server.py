@@ -644,7 +644,9 @@ def test_chip_smoke_observability_phase_on_the_cpu(tmp_path, monkeypatch):
         assert CS.obs_collector_spans(collector, 96)["server_spans"] == 96
         assert "hotkey" in CS.obs_hotkey(card, stream["hottest"])["flags"]
         trace = CS.obs_device_trace(card, profile_dir, 512, kernels=())
-        assert trace["second_capture"] == 429 and trace["files"] == 1
+        # one trace file a capture, each capture with calls in flight
+        assert trace["second_capture"] == 429 and trace["files"] == CS.OBS_CAPTURES
+        assert len(trace["captures"]) == CS.OBS_CAPTURES and all(c["calls_during"] > 0 for c in trace["captures"])
         assert not any(CS.obs_counters(card).values())
         windowed = CS.obs_windowed(env, 512, device="cpu")
         assert windowed["calls"] == 48 + CS.OBS_WINDOW_THREADS and windowed["batches"] >= 1
