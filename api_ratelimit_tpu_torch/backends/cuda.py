@@ -31,7 +31,16 @@ the journeys of requests that touch a hot key (FLAG_HOTKEY). The cache's
 lookups carry the active span's backend tag and events, and an over-limit
 decision marks its algorithm's journey stage (ALGO_JOURNEY_STAGES). The
 warm-restart snapshotter (persist/) reads and restores the slab through
-export_tables/import_tables. The mesh engine waits for a later slice.
+export_tables/import_tables.
+
+With mesh= (TPU_MESH_DEVICES > 1) the engine delegates the slab to the
+multi-device engine (parallel/sharded_slab.py ShardedSlabEngine): each launch
+routes its rows to their owner shards on the host and launches every
+shard's step, in the routed arm (SHARD_ROUTED_BATCHING, the default) or the
+compact arm, with the hot-key tier (HOT_TIER_ENABLED) and the host top-K
+(HostTopK) in place of the device sketch. As in the reference, the victim
+tier is single-device (it is disabled on a mesh, with a warning), and a mesh
+owner refuses the reshard merge (merge_rows).
 
 With victim_max_rows > 0 (VICTIM_TIER_ENABLED) every launch reads back the
 live in-window rows its way scan evicted (ops/slab.py slab_step_after
@@ -228,6 +237,16 @@ class _Operand:
         self.fence = None
 
 
+class _MeshLaunch(NamedTuple):
+    """One mesh launch: the mesh engine's token and the count of live
+    items. Its shards' uploads are synchronous, so the operand is free when
+    the launch returns, and the collect's readbacks wait for the shards."""
+
+    token: dict
+    n: int
+    fence: object = _HostFence()
+
+
 class _Launch(NamedTuple):
     """One launch in flight: the device result, the pinned host buffer its
     non-blocking readback fills, the fence recorded after that readback,
@@ -268,10 +287,23 @@ class SlabDeviceEngine:
         victim_watermark: float = 0.85,
         block_mode: bool = False,
         partition: int = -1,
+        mesh=None,
+        shard_routed_batching: bool = True,
+        hot_tier_enabled: bool = True,
+        hot_tier_salt_ways: int = 0,
     ):
         """ways: set associativity (SLAB_WAYS); 0 picks the platform's
         (128 on the card, 4 on the CPU). device: "cuda" (the default)
         raises without a card; "cpu" runs the kernels' plain versions.
+
+        mesh: a parallel/sharded_slab.py Mesh, or a list of shard devices
+        (TPU_MESH_DEVICES > 1: mesh_devices). The slab is then split over
+        the shards (n_slots in all) and `device` is unused: the shards'
+        devices are the mesh's. shard_routed_batching
+        (SHARD_ROUTED_BATCHING) picks the routed arm (True) or the compact
+        arm; hot_tier_enabled and hot_tier_salt_ways (HOT_TIER_ENABLED,
+        HOT_TIER_SALT_WAYS) arm the hot-key tier; hotkey_lanes sizes the
+        mesh engine's host top-K instead of a device sketch.
 
         gcra_burst_ratio: GCRA's burst tolerance (GCRA_BURST_RATIO, in
         (0, 16]): tau = ratio x window - T, T = window / limit. Every
@@ -329,12 +361,31 @@ class SlabDeviceEngine:
         # fixed-window program; the first launch (or imported table) with
         # another algorithm id flips it for good
         self._algos_seen = False
-        self._device = resolve_device(device)
-        if not ways:
-            ways = default_ways(self._device.type)
-        self._ways = validate_ways(n_slots, ways)
+        # the multi-device engine (parallel/sharded_slab.py), or None
+        self._engine = None
+        if mesh is not None:
+            from ..parallel.sharded_slab import ShardedSlabEngine
+
+            self._engine = ShardedSlabEngine(
+                mesh=mesh,
+                n_slots_global=n_slots,
+                ways=ways,
+                routed=bool(shard_routed_batching),
+                hot_tier=bool(hot_tier_enabled),
+                hot_salt_ways=int(hot_tier_salt_ways),
+                hotkey_lanes=int(hotkey_lanes),
+                hotkey_k=int(hotkey_k),
+            )
+            self._device = self._engine.devices[0]
+            self._ways = self._engine.ways
+            self._state = None
+        else:
+            self._device = resolve_device(device)
+            if not ways:
+                ways = default_ways(self._device.type)
+            self._ways = validate_ways(n_slots, ways)
+            self._state = make_slab(n_slots, self._device)
         self._n_slots = n_slots
-        self._state = make_slab(n_slots, self._device)
         self._buckets = tuple(sorted(buckets))
         self._max_bucket = self._buckets[-1]
         self._health_totals = [0] * HEALTH_WIDTH
@@ -358,7 +409,8 @@ class SlabDeviceEngine:
         self._hot_fps: frozenset = frozenset()
         # fn(top, fps) after every drain (add_hotkey_listener)
         self._hotkey_listeners: list = []
-        if int(hotkey_lanes) > 0:
+        if int(hotkey_lanes) > 0 and self._engine is None:
+            # on a mesh the engine's host top-K takes the sketch's place
             self._sketch_ways = sketch_ways(self._ways, hotkey_lanes)
             self._sketch = make_sketch(hotkey_lanes, self._device)
         # launch/collect plumbing: on the card the operand and the readback
@@ -449,7 +501,10 @@ class SlabDeviceEngine:
         # recent demote drains' host ms (wait on the readback, absorb)
         self.victim_drain_times: collections.deque = collections.deque(maxlen=4096)
         if int(victim_max_rows) > 0:
-            self._victim = VictimTier(int(victim_max_rows), float(victim_watermark), time_source)
+            if self._engine is not None:
+                _log.warning("victim tier is single-device only; disabled on the mesh-sharded engine")
+            else:
+                self._victim = VictimTier(int(victim_max_rows), float(victim_watermark), time_source)
         # the lease liability registry (backends/lease.py): always built,
         # inert until lease traffic arrives; the snapshotter persists it
         # as leases.snap so a warm restart never grants twice
@@ -478,6 +533,11 @@ class SlabDeviceEngine:
         return self._algos_seen
 
     @property
+    def mesh_engine(self):
+        """The multi-device engine (parallel/sharded_slab.py), or None."""
+        return self._engine
+
+    @property
     def dispatch_loop(self):
         """The device-owner dispatch loop, or None (direct mode /
         dispatch_loop=False)."""
@@ -491,6 +551,8 @@ class SlabDeviceEngine:
 
     @property
     def hotkeys_enabled(self) -> bool:
+        if self._engine is not None:
+            return self._engine.hotkeys_enabled
         return self._sketch is not None
 
     @property
@@ -498,19 +560,30 @@ class SlabDeviceEngine:
         """Combined 64-bit fingerprints of the keys the last drain ranked
         hot: the request path's journey-flag probe (a frozenset read, no
         lock: drain_hotkeys rebinds it whole)."""
+        if self._engine is not None:
+            return self._engine.hot_fps
         return self._hot_fps
 
     def add_hotkey_listener(self, fn) -> None:
         """fn(top, fps) called after every drain with the fresh top-K
         [(fp_lo, fp_hi, count)] and its combined-fp frozenset: the lease
         table's sizing hook (backends/lease.py note_hot_fps)."""
+        if self._engine is not None:
+            self._engine.add_hotkey_listener(fn)
+            return
         self._hotkey_listeners.append(fn)
 
     def drain_hotkeys(self) -> list[tuple[int, int, int]]:
         """Pull the sketch planes to the host, rank the top-K, halve the
         counts and upload them again, under the state lock; then rebind
         hot_fps and call the listeners. Called on the stats cadence by
-        HotkeyStats, never per launch."""
+        HotkeyStats, never per launch. On a mesh the engine's host top-K
+        drains (it also feeds the hot tier), and the drain count follows
+        the engine's."""
+        if self._engine is not None:
+            top = self._engine.drain_hotkeys()
+            self._hotkey_drains = self._engine._hotkey_drains
+            return top
         if self._sketch is None:
             return []
         with self._state_lock:
@@ -530,6 +603,8 @@ class SlabDeviceEngine:
     def hotkeys_snapshot(self) -> dict:
         """The last drained top-K as a debug document (/debug/hotkeys
         without key resolution; the cache layer adds witness keys)."""
+        if self._engine is not None:
+            return self._engine.hotkeys_snapshot()
         return {
             "enabled": self._sketch is not None,
             "k": self._hotkey_k,
@@ -560,6 +635,13 @@ class SlabDeviceEngine:
         state. live_slots is an O(n_slots) device reduction — call it on
         the stats cadence."""
         now = int(self._time_source.unix_now())
+        if self._engine is not None:
+            snap = self._engine.health_snapshot(now)
+            with self._state_lock:
+                snap["decisions"] = self._decisions_total
+            snap["loss_ppm"] = _loss_ppm(snap)
+            self._apply_watermark(snap)
+            return snap
         with self._state_lock:
             self._drain_health_locked()
             live = live_slot_count(self._state.table, now)
@@ -610,7 +692,12 @@ class SlabDeviceEngine:
         and allocates the pinned pools. Padding lanes write nothing
         (ops/slab.py: they go to the scratch row, and no sketch candidate
         has hits 0), so the slab and sketch bytes are unchanged. Returns
-        the covered-shape map, also kept as `precompiled`."""
+        the covered-shape map, also kept as `precompiled`. A mesh engine is
+        skipped, as in the reference: its shards' blocks take the routing's
+        own rungs."""
+        if self._engine is not None:
+            _log.info("precompile: the mesh engine's shards take their own rungs")
+            return self.precompiled
         # warm launches must not pollute the per-stage histograms
         saved = self._h_pack, self._h_launch, self._h_readback
         self._h_pack = self._h_launch = self._h_readback = None
@@ -632,8 +719,14 @@ class SlabDeviceEngine:
         lock, under which every launch, promote pass and export enqueues,
         held, and the card synchronized. The debug server starts and stops
         its profiler inside it (server/http_server.py capture_device_trace:
-        a session started while a launch races it records no kernel)."""
+        a session started while a launch races it records no kernel). On
+        a mesh the shards launch under the mesh engine's own state lock
+        (_dispatch_packed), so its quiesced() is held as well."""
         with self._state_lock:
+            if self._engine is not None:
+                with self._engine.quiesced():
+                    yield
+                return
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
             yield
@@ -651,7 +744,10 @@ class SlabDeviceEngine:
         lands in <scope>.split.{gather,scan,scatter}_ms histograms, which
         tools/hotpath_profile.py reports from, so the printed baseline and
         /metrics cannot disagree. Returns {batch, gather_ns, scan_ns,
-        scatter_ns} (per-launch medians)."""
+        scatter_ns} (per-launch medians); {} on a mesh engine, as in the
+        reference."""
+        if self._engine is not None:
+            return {}
         from ..ops.slab import make_split_programs
 
         b = int(batch or min(self._max_bucket, 8192))
@@ -905,13 +1001,26 @@ class SlabDeviceEngine:
 
     @property
     def shard_count(self) -> int:
-        """Snapshot shard layout: one file for the single-device slab."""
+        """Snapshot shard layout: one file a shard (one for the
+        single-device slab)."""
+        if self._engine is not None:
+            return self._engine.shard_count
         return 1
 
     @property
     def shard_slots(self) -> int:
         """Rows per snapshot shard (the restore-time topology check)."""
+        if self._engine is not None:
+            return self._engine.shard_slots
         return self._n_slots
+
+    def shard_routing_snapshot(self) -> dict:
+        """The mesh engine's routing mix (parallel/sharded_slab.py
+        shard_routing_snapshot); {"enabled": False} on one device, so the
+        runner registers no ratelimit.shard.* gauges."""
+        if self._engine is None:
+            return {"enabled": False}
+        return self._engine.shard_routing_snapshot()
 
     def export_tables(self) -> list[np.ndarray]:
         """Quiesce-and-copy for the snapshotter: host copy of the slab,
@@ -921,7 +1030,10 @@ class SlabDeviceEngine:
         orders after every launch already enqueued. The drain to the host
         runs against the clone after the lock is released, so launches
         never wait on it. Each export's lock hold and drain (ms) go to
-        export_times."""
+        export_times. On a mesh, one table a shard (the mesh engine's
+        export, which holds its own state lock for the clones only)."""
+        if self._engine is not None:
+            return self._engine.export_tables()
         with self._state_lock:
             t1 = time.perf_counter()
             copy, ready = slab_export_device(self._state)
@@ -937,7 +1049,12 @@ class SlabDeviceEngine:
         algorithm id flip the guard before any launch sees them, as in the
         reference. Every launch reads self._state under the state lock and
         nothing else holds the table, so the first launch after this reads
-        the restored rows."""
+        the restored rows. On a mesh, one table a shard."""
+        if self._engine is not None:
+            self._engine.import_tables(tables)
+            if self._engine.algos_seen:
+                self._algos_seen = True
+            return
         if len(tables) != 1:
             raise ValueError(f"single-device slab restores from 1 shard, got {len(tables)}")
         rows = np.asarray(tables[0], dtype=np.uint32)
@@ -965,7 +1082,8 @@ class SlabDeviceEngine:
             raise ValueError(f"route_sets must be a power of two, got {route_sets}")
         if not 0 <= lo < hi <= route_sets:
             raise ValueError(f"route range [{lo}, {hi}) outside [0, {route_sets})")
-        (flat,) = self.export_tables()
+        tables = self.export_tables()
+        flat = tables[0] if len(tables) == 1 else np.concatenate(tables)
         route = set_index(flat[:, 0], route_sets)
         mask = flat.any(axis=1) & (route >= lo) & (route < hi)
         return np.ascontiguousarray(flat[mask])
@@ -986,6 +1104,11 @@ class SlabDeviceEngine:
         rows = np.asarray(rows, dtype=np.uint32)
         if rows.size and rows.shape[1] != ROW_WIDTH:
             raise ValueError(f"merge rows must be (n, {ROW_WIDTH}), got {rows.shape}")
+        if self._engine is not None:
+            raise CacheError(
+                "mesh-sharded owners do not support in-place reshard merge; "
+                "reshard a mesh partition via snapshot/restore"
+            )
         with self._state_lock:
             t0 = time.perf_counter()
             table = slab_export_copy(self._state)
@@ -1122,6 +1245,18 @@ class SlabDeviceEngine:
                 # the first non-fixed algorithm id: this launch and every
                 # later one run the multi-algorithm body
                 self._algos_seen = True
+                if self._engine is not None:
+                    self._engine.note_algos_seen()
+        if self._engine is not None:
+            # owner routing and the shards' launches; counted after the
+            # launch returns, so a failed launch adds no decision
+            token = self._engine.launch_after_compact(op.array, cap)
+            op.fence = None
+            with self._state_lock:
+                self._decisions_total += n
+            if self._h_launch is not None:
+                self._h_launch.record((time.perf_counter() - t_launch) * 1e3)
+            return _MeshLaunch(token, n)
         dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
         victim = self._victim is not None
         with self._state_lock:
@@ -1178,8 +1313,11 @@ class SlabDeviceEngine:
         owned uint32 copy of its live items. readback_ms covers the wait
         for device completion plus the copy."""
         t0 = time.perf_counter() if self._h_readback is not None else 0.0
-        launch.fence.synchronize()
-        out = launch.host_out[: launch.n].numpy().astype(np.uint32)
+        if isinstance(launch, _MeshLaunch):
+            out = self._engine.collect_after_compact(launch.token)[: launch.n]
+        else:
+            launch.fence.synchronize()
+            out = launch.host_out[: launch.n].numpy().astype(np.uint32)
         if self._h_readback is not None:
             self._h_readback.record((time.perf_counter() - t0) * 1e3)
         return out
@@ -1375,8 +1513,13 @@ class CudaRateLimitCache:
         victim_watermark: float = 0.85,
         lease_table=None,
         engine=None,
+        mesh=None,
+        shard_routed_batching: bool = True,
+        hot_tier_enabled: bool = True,
+        hot_tier_salt_ways: int = 0,
     ):
-        """The engine's arguments pass through (SlabDeviceEngine);
+        """The engine's arguments pass through (SlabDeviceEngine; mesh= and
+        the shard knobs build the multi-device engine);
         stats_scope becomes its `scope` and roots the per-algorithm decision
         counters <stats_scope>.algo.<name>.{decisions,over_limit}. A
         concurrency rule's idle TTL is the config loader's
@@ -1417,6 +1560,10 @@ class CudaRateLimitCache:
                 watermark_high=watermark_high,
                 victim_max_rows=victim_max_rows,
                 victim_watermark=victim_watermark,
+                mesh=mesh,
+                shard_routed_batching=shard_routed_batching,
+                hot_tier_enabled=hot_tier_enabled,
+                hot_tier_salt_ways=hot_tier_salt_ways,
             )
         # per-algorithm decision counters (do_limit_resolved): which
         # algorithm carries the traffic and which one denies it

@@ -57,7 +57,8 @@ Python 3.12 records every thread of the process (sys.monitoring), so its
 "owner" table mixes in the request threads; ROADMAP "Deliberate
 departures".
 
-Not ported yet, marked where it would sit: ShardRoutingStats (item 10).
+ShardRoutingStats exports the mesh engine's routing mix
+(parallel/sharded_slab.py shard_routing_snapshot) as ratelimit.shard.*.
 """
 
 from __future__ import annotations
@@ -280,6 +281,45 @@ class DispatchStats:
         self._arena_hwm.set(hwm)
         if self._p_hwm is not None:
             self._p_hwm.set(hwm)
+
+
+class ShardRoutingStats:
+    """StatGenerator for the mesh engine's routed dispatch
+    (parallel/sharded_slab.py; SHARD_ROUTED_BATCHING, HOT_TIER_ENABLED):
+
+        <scope>.padding_waste_pct  integer percent of launched lanes that
+                                   were padding since boot (flat under
+                                   routing, high when one shard's bucket
+                                   pads every other)
+        <scope>.launches           mesh launches dispatched
+        <scope>.rows               real (non-padding) rows routed
+        <scope>.rows.shard_<d>     the same, per owner shard
+        <scope>.hot_keys           keys currently salted across shards
+        <scope>.hot_epoch          hot-set membership epoch (bumps on every
+                                   promote and demote)
+
+    Takes the engine's shard_routing_snapshot callable, so any object with
+    that contract serves it."""
+
+    def __init__(self, snapshot, scope, shards: int):
+        self._snapshot = snapshot
+        self._waste = scope.gauge("padding_waste_pct")
+        self._launches = scope.gauge("launches")
+        self._rows = scope.gauge("rows")
+        self._hot_keys = scope.gauge("hot_keys")
+        self._hot_epoch = scope.gauge("hot_epoch")
+        self._shard_rows = [scope.gauge(f"rows.shard_{d}") for d in range(int(shards))]
+
+    def generate_stats(self) -> None:
+        snap = self._snapshot()
+        self._waste.set(int(round(snap.get("padding_waste_pct", 0.0))))
+        self._launches.set(int(snap.get("launches", 0)))
+        self._rows.set(int(snap.get("rows", 0)))
+        hot = snap.get("hot_tier") or {}
+        self._hot_keys.set(int(hot.get("keys", 0)))
+        self._hot_epoch.set(int(hot.get("epoch", 0)))
+        for gauge, rows in zip(self._shard_rows, snap.get("shard_rows") or []):
+            gauge.set(int(rows))
 
 
 class DispatchLoop:

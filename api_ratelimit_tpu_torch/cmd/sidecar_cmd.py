@@ -143,12 +143,24 @@ def build_engine(
     """The owner's engine on the card from the TPU_* knobs: block mode, the
     sketch, the victim tier, precompiled before the first frontend
     connects; partition labels its dispatch loop's telemetry, and
-    fault_injector reaches its dispatch loop's and victim tier's sites."""
+    fault_injector reaches its dispatch loop's and victim tier's sites.
+    TPU_MESH_DEVICES > 1 splits the slab over that many shards on the cards
+    (parallel/sharded_slab.py mesh_devices)."""
     hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
     v_enabled, v_max_rows, v_watermark = settings.victim_config()
     kwargs = {}
     if settings.buckets():
         kwargs["buckets"] = settings.buckets()
+    if settings.tpu_mesh_devices > 1:
+        from ..parallel.sharded_slab import make_mesh, mesh_devices
+
+        sr_routed, sr_hot, sr_salt = settings.shard_config()
+        kwargs.update(
+            mesh=make_mesh(mesh_devices(settings.tpu_mesh_devices, "cuda")),
+            shard_routed_batching=sr_routed,
+            hot_tier_enabled=sr_hot,
+            hot_tier_salt_ways=sr_salt,
+        )
     return SlabDeviceEngine(
         time_source=process_time_source(),
         n_slots=settings.tpu_slab_slots,
@@ -311,6 +323,14 @@ def main(argv=None) -> int:
     # the lease liability frontends ship in their FLAG_LEASE trailers
     store.add_stat_generator(LeaseRegistryStats(engine.lease_registry, scope.scope("lease")))
     store.add_stat_generator(OwnerStats(engine, scope.scope("owner")))
+    shard_snap = engine.shard_routing_snapshot()
+    if shard_snap["enabled"]:
+        from ..backends.dispatch import ShardRoutingStats
+
+        # a mesh owner's routing mix (the JAX owner registers none)
+        store.add_stat_generator(
+            ShardRoutingStats(engine.shard_routing_snapshot, scope.scope("shard"), shard_snap["shards"])
+        )
 
     cluster_node = None
     if partition_index is not None:

@@ -127,3 +127,40 @@ def set_index(fp_lo, n_sets: int):
     if n_sets <= 0 or n_sets & (n_sets - 1):
         raise ValueError(f"n_sets must be a power of two, got {n_sets}")
     return fp_lo & (n_sets - 1)
+
+
+# golden-ratio mixer for the salt's upper bits: slot j's salt must differ
+# in the way-rotation bit field for every j, or every slice of a hot key
+# would fight over the same way within its set
+HOT_SALT_GOLDEN = 0x9E3779B1
+
+
+def hot_slice_fp(fp_lo, fp_hi, slot: int, n_shards: int):
+    """Salted fingerprint of slice `slot` of a replicated hot key (the mesh
+    engine's hot tier, parallel/sharded_slab.py): slice s of a hot key
+    lives on shard (home + s) mod n_shards under (fp_lo, fp_hi ^ salt).
+
+    Only fp_hi is salted. fp_lo carries the set index (set_index), so every
+    slice lands at the same set position on its shard and a demotion's
+    settlement scans one set a shard. The salt's low log2(n_shards) bits
+    steer the owner hash from the home shard to the target shard, and its
+    golden-multiplied upper bits re-randomize the way preference so the K
+    slices do not pile onto one way.
+
+    Slot 0 is the identity (salt 0): the home row is slice 0, so promotion
+    carries the home counter into the tier without a read-modify-write.
+    Power-of-two shard counts only (the XOR steer is a bijection only
+    there)."""
+    if n_shards <= 0 or n_shards & (n_shards - 1):
+        raise ValueError(f"n_shards must be a power of two, got {n_shards}")
+    slot = int(slot) % n_shards
+    lo = int(fp_lo) & 0xFFFFFFFF
+    hi = int(fp_hi) & 0xFFFFFFFF
+    if slot == 0:
+        return np.uint32(lo), np.uint32(hi)
+    mask = n_shards - 1
+    home = (lo ^ hi) & mask
+    target = (home + slot) % n_shards
+    salt = (slot * HOT_SALT_GOLDEN) & 0xFFFFFFFF & ~mask
+    salt |= home ^ target
+    return np.uint32(lo), np.uint32(hi ^ salt)

@@ -23,8 +23,8 @@ reads them: a lane is occupied iff its int32 count is > 0.
 On the card the whole update - the scan, phase A and phase B - is one
 kernel launch (ops/sketch_kernels.py sketch_update_fused, CUDA in
 csrc/sketch_kernels.cu); on the CPU its plain version runs the same steps
-as torch ops. The host copy HostTopK of the reference belongs to the mesh
-engine, which is not ported yet.
+as torch ops. HostTopK is the same summary on the host: the mesh engine's
+sketch (parallel/sharded_slab.py), fed by its host routing pass.
 """
 
 from __future__ import annotations
@@ -133,3 +133,59 @@ def sketch_decay(planes: np.ndarray) -> np.ndarray:
     planes[PLANE_FP_LO][dead] = 0
     planes[PLANE_FP_HI][dead] = 0
     return planes
+
+
+class HostTopK:
+    """Space-saving top-K on the host: the mesh engine's sketch.
+
+    The device planes ride one slab's launch; the mesh engine's per-shard
+    launches would each see only their shard's share of the stream, so
+    ShardedSlabEngine feeds this summary from the one place that sees the
+    whole stream, the host routing pass that buckets rows by shard.
+
+    The same algorithm family as the planes (a full summary evicts its
+    min-count entry and the newcomer inherits that count, so estimates
+    only over-count), the same drain order (sketch_topk's: count desc, fp
+    as the tiebreak) and the same halve-on-drain decay. A dict and numpy;
+    its cost rides the host routing pass, not the card."""
+
+    def __init__(self, lanes: int):
+        self.lanes = validate_lanes(lanes)
+        self._counts: dict[int, int] = {}
+
+    def update(self, fp_lo, fp_hi, hits) -> None:
+        """Fold a batch in: fp halves and per-row hit weights (uint32
+        arrays, padding already stripped), aggregated by key first."""
+        fp_lo = np.asarray(fp_lo, dtype=np.uint64)
+        fp_hi = np.asarray(fp_hi, dtype=np.uint64)
+        combined = fp_lo | (fp_hi << np.uint64(32))
+        keys, inv = np.unique(combined, return_inverse=True)
+        sums = np.bincount(inv, weights=np.asarray(hits, dtype=np.float64)).astype(np.int64)
+        counts = self._counts
+        for key, add in zip(keys.tolist(), sums.tolist()):
+            cur = counts.get(key)
+            if cur is not None:
+                counts[key] = cur + add
+            elif len(counts) < self.lanes:
+                counts[key] = add
+            else:
+                # space-saving eviction: the newcomer inherits the floor
+                victim = min(counts, key=counts.get)
+                floor = counts.pop(victim)
+                counts[key] = floor + add
+
+    def topk(self, k: int) -> list:
+        """[(fp_lo, fp_hi, count)] in sketch_topk's order: count desc,
+        then (fp_hi, fp_lo) desc."""
+        if k <= 0 or not self._counts:
+            return []
+        order = sorted(
+            self._counts.items(),
+            key=lambda kv: (kv[1], kv[0] >> 32, kv[0] & 0xFFFFFFFF),
+            reverse=True,
+        )[:k]
+        return [(int(fp & 0xFFFFFFFF), int(fp >> 32), int(cnt)) for fp, cnt in order]
+
+    def decay(self) -> None:
+        """sketch_decay's halve-and-drop on the dict."""
+        self._counts = {fp: cnt >> 1 for fp, cnt in self._counts.items() if cnt >> 1}

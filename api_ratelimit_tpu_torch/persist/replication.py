@@ -661,8 +661,14 @@ class ReplicationCoordinator:
             if action == "torn_write":
                 conn.sendall(frame[: max(1, len(frame) // 2)])
                 raise ConnectionError("injected repl.ship torn_write")
-        conn.sendall(frame)
+        # counted before the send: the standby can apply the frame before
+        # this thread runs again, and a frame it applied must read shipped
         self.frames_shipped_total += 1
+        try:
+            conn.sendall(frame)
+        except BaseException:
+            self.frames_shipped_total -= 1
+            raise
         self.bytes_shipped_total += len(frame)
         if self._c_shipped is not None:
             self._c_shipped.inc()

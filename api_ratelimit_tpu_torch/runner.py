@@ -132,11 +132,18 @@ def create_limiter(
     versions); cuda-sidecar and the host backends ignore it, and the host
     backends lease_table too. fault_injector (FAULT_INJECT) reaches the
     engine's sites (the dispatch loop's and batcher's, the victim tier's)
-    and the sidecar client's."""
+    and the sidecar client's. TPU_MESH_DEVICES > 1 splits the slab over
+    that many shards on `device` (parallel/sharded_slab.py mesh_devices:
+    cuda:(i mod the cards present), or CPU shards)."""
     backend = settings.backend_type
     if backend == "cuda":
         from .backends.cuda import CudaRateLimitCache
 
+        mesh = None
+        if settings.tpu_mesh_devices > 1:
+            from .parallel.sharded_slab import make_mesh, mesh_devices
+
+            mesh = make_mesh(mesh_devices(settings.tpu_mesh_devices, device))
         settings.warn_deprecated_knobs(logger)
         kwargs = {}
         ladder = settings.buckets()
@@ -144,6 +151,7 @@ def create_limiter(
             kwargs["buckets"] = ladder
         hk_enabled, hk_k, hk_lanes = settings.hotkey_config()
         v_enabled, v_max_rows, v_watermark = settings.victim_config()
+        sr_routed, sr_hot, sr_salt = settings.shard_config()
         return CudaRateLimitCache(
             base,
             n_slots=settings.tpu_slab_slots,
@@ -166,6 +174,10 @@ def create_limiter(
             victim_watermark=v_watermark,
             lease_table=lease_table,
             fault_injector=fault_injector,
+            mesh=mesh,
+            shard_routed_batching=sr_routed,
+            hot_tier_enabled=sr_hot,
+            hot_tier_salt_ways=sr_salt,
             **kwargs,
         )
     if backend == "cuda-sidecar":
@@ -466,6 +478,19 @@ class Runner:
                 "/debug/victim",
                 lambda: json.dumps(cache.victim_debug(), indent=2),
             )
+            # the mesh engine's routing mix under ratelimit.shard.*: padding
+            # waste, per-shard rows, the hot tier's population
+            shard_snap = engine.shard_routing_snapshot()
+            if shard_snap.get("enabled"):
+                from .backends.dispatch import ShardRoutingStats
+
+                self.stats_store.add_stat_generator(
+                    ShardRoutingStats(
+                        engine.shard_routing_snapshot,
+                        self.scope.scope("shard"),
+                        int(shard_snap.get("shards", 0)),
+                    )
+                )
             # slab pressure shows in the /healthcheck body beside the
             # overload reason, and the tier's own watermark beside it
             self.server.health.add_degraded_probe(engine.watermark_reason)

@@ -14,10 +14,11 @@ Three differences:
   process (backends/sidecar.py, cmd/sidecar_cmd.py); `memory`, `redis` and
   `memcache` are the host backends. `tpu` and `tpu-sidecar` are the JAX
   package's and raise an error naming `cuda` and `cuda-sidecar`.
-* A setting that turns on a feature this package has not ported is refused
-  at boot (check_ported, which new_settings and the runner call) with a
-  ValueError naming its ROADMAP item: a deployment must never believe it
-  runs a mesh that is not there.
+* check_ported (which new_settings and the runner call) refuses at boot
+  what this package does not serve: the JAX package's backends,
+  TPU_USE_PALLAS=false (no plain path on the card) and
+  FAILURE_MODE_DENY=degraded (no decision moves off the card). Every
+  feature of the JAX package is ported, so no other knob is refused.
 
 Observability and shedding are served as in the JAX package: GET /metrics
 (DEBUG_METRICS_ENABLED), the journey recorder (JOURNEY_*), the tracer (its
@@ -44,7 +45,12 @@ as in the JAX package, with its error text. So are quota federation
 (FED_ENABLED, FED_SELF, FED_PEERS, FED_SHARE_*, FED_SETTLE_INTERVAL_MS,
 FED_MAX_LAG_MS: fed_config; served on BACKEND_TYPE=cuda and by the device
 owner) and fault injection (FAULT_INJECT, FAULT_INJECT_SEED: fault_rules,
-the testing/faults.py grammar).
+the testing/faults.py grammar), and so is the multi-device engine
+(TPU_MESH_DEVICES > 1 with BACKEND_TYPE=cuda; SHARD_ROUTED_BATCHING,
+HOT_TIER_ENABLED, HOT_TIER_SALT_WAYS: shard_config). Its shards are placed
+on cuda:(i mod the cards present), so the shard count, and the snapshot
+layout, is TPU_MESH_DEVICES on every box (parallel/sharded_slab.py
+mesh_devices); the reference's mesh shrinks to the devices present.
 """
 
 from __future__ import annotations
@@ -77,13 +83,6 @@ def _parse_duration_seconds(raw: str) -> float:
 
 # the backends this package serves
 BACKEND_TYPES = ("cuda", "cuda-sidecar", "memory", "redis", "memcache")
-
-
-def _unported(knob: str, feature: str, item: str) -> ValueError:
-    return ValueError(
-        f"{knob} turns on {feature}, which this package does not serve yet "
-        f"(ROADMAP item {item})"
-    )
 
 
 @dataclasses.dataclass
@@ -154,7 +153,7 @@ class Settings:
     slab_ways: int = 0
     tpu_batch_window: float = 0.0  # seconds; 0 = direct mode
     tpu_batch_limit: int = 65536
-    tpu_mesh_devices: int = 0  # > 1 is the multi-device engine (item 10)
+    tpu_mesh_devices: int = 0  # > 1 is the multi-device engine
     tpu_use_pallas: bool = True  # false: refused, no plain path on the card
     # warm every launch shape at boot, before health reports SERVING
     tpu_precompile: bool = True
@@ -239,7 +238,7 @@ class Settings:
     victim_tier_enabled: bool = False
     victim_max_rows: int = 1 << 20
     victim_watermark: float = 0.85
-    # --- sharded dispatch (item 10; read only by the multi-device engine)
+    # --- sharded dispatch (read only by the multi-device engine)
     shard_routed_batching: bool = True
     hot_tier_enabled: bool = True
     hot_tier_salt_ways: int = 0
@@ -430,6 +429,17 @@ class Settings:
             ttl_fraction,
             near_ratio,
         )
+
+    def shard_config(self) -> tuple[bool, bool, int]:
+        """Validated (routed, hot_tier, salt_ways) for sharded dispatch.
+        Junk fails the boot like every other knob. The hot tier without
+        routed batching is not an error here: the engine downgrades with a
+        warning (it also needs a power-of-two shard count, which only the
+        engine knows)."""
+        salt = int(self.hot_tier_salt_ways)
+        if salt < 0:
+            raise ValueError(f"HOT_TIER_SALT_WAYS must be >= 0, got {salt}")
+        return bool(self.shard_routed_batching), bool(self.hot_tier_enabled), salt
 
     def victim_config(self) -> tuple[bool, int, float]:
         """Validated (enabled, max_rows, watermark) for the host-RAM
@@ -766,9 +776,10 @@ class Settings:
         return n
 
     def check_ported(self) -> None:
-        """Refuse, with the ROADMAP item that ports it, every setting that
-        turns on a feature this package lacks, and a backend it does not
-        have. Called by new_settings and at boot (runner.py)."""
+        """Refuse a backend this package does not have and the settings
+        that would move a decision off the card (TPU_USE_PALLAS=false,
+        FAILURE_MODE_DENY=degraded). Called by new_settings and at boot
+        (runner.py)."""
         backend = self.backend_type
         if backend == "tpu":
             raise ValueError(
@@ -784,11 +795,6 @@ class Settings:
             )
         if backend not in BACKEND_TYPES:
             raise ValueError(f"invalid backend type: {backend!r}")
-        if self.tpu_mesh_devices > 1:
-            raise _unported(
-                f"TPU_MESH_DEVICES={self.tpu_mesh_devices}",
-                "the multi-device engine", "10",
-            )
         if not self.tpu_use_pallas:
             raise ValueError(
                 "TPU_USE_PALLAS=false asks for the plain versions of the "

@@ -20,9 +20,8 @@ A line that must read the real clock (the RealTimeSource itself, the
 process-bootstrap path) carries a `# clock-ok: <reason>` pragma.
 
 The module list is the reference's, each module under its port name
-(backends/tpu.py is backends/cuda.py). parallel/sharded_slab.py is not
-ported yet (ROADMAP item 10): it is skipped while it does not exist and
-linted from the day it does.
+(backends/tpu.py is backends/cuda.py); a listed module that is missing is
+a finding.
 
     python -m api_ratelimit_tpu_torch.tools.clock_lint
 
@@ -63,9 +62,6 @@ SEMANTIC_MODULES = (
     "utils/timeutil.py",
 )
 
-# listed modules the port does not have yet, with their ROADMAP item
-AWAITING_PORT = {"parallel/sharded_slab.py": "10"}
-
 _RAW = re.compile(r"\btime\.(time|monotonic)\(")
 _EXEMPT = re.compile(r"\btime\.(perf_counter|perf_counter_ns|monotonic_ns|sleep)\b")
 _PRAGMA = "# clock-ok"
@@ -99,8 +95,7 @@ def run(repo: str = REPO) -> list:
     for rel in SEMANTIC_MODULES:
         path = os.path.join(repo, PKG, rel)
         if not os.path.exists(path):
-            if rel not in AWAITING_PORT:
-                findings.append(f"{PKG}/{rel}: listed module missing")
+            findings.append(f"{PKG}/{rel}: listed module missing")
             continue
         findings.extend(lint_file(path))
     return findings

@@ -12,7 +12,10 @@ of chip_smoke.py lay them out), a hits_addend of 1-3 one call in ten. Until
 one more descriptor with one hit on a shared key: ("shared", "s<j>") for j
 below --shared-keys, or, with --conc-keys, every other one on ("conc",
 "c<j>"); such a call sends hits_addend 0 (one hit), so a key's admitted
-calls are exactly its admitted hits. Calls wait for the channel to be ready
+calls are exactly its admitted hits. Each thread walks the shared keys in
+turn from its index among all load threads (this process's first is
+--thread-offset), so load processes given consecutive offsets spread the
+shared calls evenly over the keys. Calls wait for the channel to be ready
 and have --timeout seconds.
 
 The output (JSON) holds the calls, descriptors and hits sent, every answered
@@ -51,24 +54,28 @@ def descriptor(k: int) -> list:
     return [("ip", f"10.{k >> 16}.{(k >> 8) & 255}.{k & 255}")]
 
 
-def thread_stream(seed: int, n: int, n_keys: int, shared_every: int, shared_keys: int, conc_keys: int):
-    """n calls: (descriptor groups, hits_addend, shared key name or None)."""
+def thread_stream(seed: int, n: int, n_keys: int, shared_every: int, shared_keys: int, conc_keys: int,
+                  offset: int = 0):
+    """n calls: (descriptor groups, hits_addend, shared key name or None).
+    The thread's j-th shared call of a kind goes to key (offset + j) mod
+    that kind's key count, so threads with consecutive offsets spread their
+    shared calls evenly over the keys however few calls each completes."""
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, 4, n)
     keys = zipf_keys(rng, int(sizes.sum()), n_keys)
     hits = np.where(rng.random(n) < 0.1, rng.integers(1, 4, n), 0)
-    picks = rng.integers(0, max(1, shared_keys), n)
-    conc_picks = rng.integers(0, max(1, conc_keys), n)
-    out, at = [], 0
+    out, at, n_shared, n_conc = [], 0, 0, 0
     for i, size in enumerate(sizes.tolist()):
         group = [descriptor(int(k)) for k in keys[at : at + size]]
         at += size
         shared = None
         if shared_every and i % shared_every == shared_every - 1 and shared_keys:
             if conc_keys and (i // shared_every) % 2:
-                shared = ("conc", f"c{int(conc_picks[i])}")
+                shared = ("conc", f"c{(offset + n_conc) % conc_keys}")
+                n_conc += 1
             else:
-                shared = ("shared", f"s{int(picks[i])}")
+                shared = ("shared", f"s{(offset + n_shared) % shared_keys}")
+                n_shared += 1
         out.append((group, int(hits[i]), shared))
     return out
 
@@ -89,7 +96,8 @@ def run(args) -> dict:
 
     per_thread = int(args.max_calls)
     streams = [
-        thread_stream(args.seed * 1000 + t, per_thread, args.keys, args.shared_every, args.shared_keys, args.conc_keys)
+        thread_stream(args.seed * 1000 + t, per_thread, args.keys, args.shared_every, args.shared_keys, args.conc_keys,
+                      offset=args.thread_offset + t)
         for t in range(args.threads)
     ]
     lock = threading.Lock()
@@ -167,6 +175,8 @@ def main(argv=None) -> int:
     parser.add_argument("--shared-keys", type=int, default=16)
     parser.add_argument("--conc-keys", type=int, default=0)
     parser.add_argument("--shared-until", type=float, default=1e9, help="seconds into the run")
+    parser.add_argument("--thread-offset", type=int, default=0,
+                        help="this process's first thread's index among all load threads")
     parser.add_argument("--max-calls", type=int, default=6000, help="per thread")
     parser.add_argument("--timeout", type=float, default=30.0)
     parser.add_argument("--start-at", type=float, default=0.0, help="unix time to start at")

@@ -16,8 +16,10 @@ under a profiler of that thread and printed as a top-N cumulative table:
     ... --device cpu    # the plain versions (default: cuda, the card)
 
 Every arm runs on --device: cuda (the default; the engine raises without a
-card) or cpu. --shard-split needs the multi-GPU engine, which is not
-ported yet (ROADMAP item 10): it exits 2 saying so.
+card) or cpu. --shard-split builds the multi-device engine
+(parallel/sharded_slab.py) over --shards shards: on the card, shard i on
+cuda:(i mod the cards present) at the served width (2^20 rows a shard, W =
+128); on the CPU, 2^13 rows a shard at W = 4, the reference's geometry.
 
 --dispatch profiles the dispatch loop's owner thread instead of the
 request thread: the loop runs its take/pack/launch/redeem cycle under its
@@ -52,9 +54,6 @@ import os
 import pstats
 import sys
 import time
-
-SHARD_SPLIT_ITEM = "10"
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -92,9 +91,9 @@ def main(argv=None) -> int:
         "--shard-split",
         action="store_true",
         help="print the ROUTED mesh dispatch owner's stage split "
-        "(host bucket / pad+H2D / launch ns per mesh launch, "
-        "parallel/sharded_slab.py shard_routing_snapshot) on a virtual "
-        "CPU mesh, plus the per-shard row mix and padding waste",
+        "(host bucket / pad / launch ns per mesh launch, "
+        "parallel/sharded_slab.py shard_routing_snapshot) over --shards "
+        "shards on --device, plus the per-shard row mix and padding waste",
     )
     parser.add_argument(
         "--shards",
@@ -117,13 +116,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.shard_split:
-        print(
-            "[shard_split] needs the multi-GPU engine "
-            "(parallel/sharded_slab.py), which is not ported yet: "
-            f"ROADMAP item {SHARD_SPLIT_ITEM}",
-            file=sys.stderr,
-        )
-        return 2
+        return _run_shard_split(args)
     if args.frontend:
         return _run_frontend_profile(args)
     if args.dispatch:
@@ -215,6 +208,73 @@ def _run_slab_split(cache, store) -> int:
         return 0
     finally:
         cache.close()
+
+
+def _run_shard_split(args) -> int:
+    """The routed owner's stage split (SHARD_ROUTED_BATCHING,
+    parallel/sharded_slab.py): host owner hash and argsort (bucket), the
+    per-shard block fill (pad) and the shards' step calls with their
+    uploads (launch), per mesh launch, over 6 blocks of 8192 Zipf(1.1) ids
+    over 50,000 keys with the hot-key tier armed: block 0 feeds the host
+    top-K, whose drain promotes the head, so the timed launches run the
+    shipped default.
+
+    Output contract (the reference's, pinned by tests/test_torch_tools.py):
+    one `[shard_split] shards=<N> launches=<M>` line (device= after), a
+    `<stage>_ns p50=<N> p99=<N>` row per stage, the per-shard routed row
+    counts, and the cumulative `padding_waste_pct=`."""
+    import numpy as np
+
+    from ..ops.slab import ROW_DIVIDER, ROW_FP_HI, ROW_FP_LO, ROW_HITS, ROW_LIMIT, ROW_SCALARS
+    from ..parallel.sharded_slab import ShardedSlabEngine, make_mesh, mesh_devices
+    from ..utils.timeutil import process_time_source
+    from .way_scan_forms import fmix32, zipf_ids
+
+    n_shards = max(2, int(args.shards))
+    mesh = make_mesh(mesh_devices(n_shards, args.device))
+    on_card = mesh.devices[0].type == "cuda"
+    engine = ShardedSlabEngine(
+        mesh=mesh,
+        n_slots_global=n_shards * (1 << (20 if on_card else 13)),
+        routed=True,
+        hot_tier=True,
+        hotkey_lanes=128,
+        hotkey_k=16,
+        hot_min_count=200,
+    )
+    batch = 8192
+    now = int(process_time_source().unix_now())
+    ids = zipf_ids(batch * 6, 50_000, seed=1).reshape(6, batch)
+
+    def pack(block_ids):
+        p = np.zeros((7, block_ids.size), dtype=np.uint32)
+        x = block_ids.astype(np.uint32)
+        p[ROW_FP_LO] = fmix32(x)
+        p[ROW_FP_HI] = fmix32(x ^ np.uint32(0xA5A5A5A5))
+        p[ROW_HITS] = 1
+        p[ROW_LIMIT] = 100
+        p[ROW_DIVIDER] = 60
+        p[ROW_SCALARS, 0] = np.uint32(now)
+        p[ROW_SCALARS, 1] = np.float32(0.8).view(np.uint32)
+        return p
+
+    engine.step_after_compact(pack(ids[0]), 0xFFFF)
+    engine.drain_hotkeys()
+    for i in range(1, 6):
+        engine.step_after_compact(pack(ids[i]), 0xFFFF)
+
+    snap = engine.shard_routing_snapshot()
+    print(
+        f"[shard_split] shards={snap['shards']} launches={snap['launches']} "
+        f"device={_device_label(mesh.devices[0])} ways={engine.ways} rows={engine.n_slots_global}"
+    )
+    for stage in ("bucket_ns", "pad_ns", "launch_ns"):
+        h = snap["stage_ns"][stage]
+        print(f"  {stage:<10} p50={h.get('p50', 0)} p99={h.get('p99', 0)}")
+    print(f"  shard_rows {snap['shard_rows']}")
+    print(f"  shard_launches {engine.shard_launches}")
+    print(f"  padding_waste_pct={snap['padding_waste_pct']} hot_keys={snap['hot_tier']['keys']}")
+    return 0
 
 
 def _run_dispatch_profile(service, cache, reqs, args) -> int:

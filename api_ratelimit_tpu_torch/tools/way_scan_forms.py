@@ -52,8 +52,13 @@ def fmix32(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> np.uint32(16))
 
 
+def zipf_ids(n: int, n_keys: int, seed: int = 0) -> np.ndarray:
+    """n Zipf(1.1) key ids over an n_keys universe (bench.py zipf_ids)."""
+    return (np.random.RandomState(seed).zipf(1.1, size=n).astype(np.uint64) % n_keys).astype(np.uint32)
+
+
 def zipf_fingerprints(n: int, n_keys: int = 10_000_000, seed: int = 0):
-    ids = (np.random.RandomState(seed).zipf(1.1, size=n).astype(np.uint64) % n_keys).astype(np.uint32)
+    ids = zipf_ids(n, n_keys, seed)
     return fmix32(ids), fmix32(ids ^ np.uint32(0x9E3779B9))
 
 

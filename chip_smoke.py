@@ -420,7 +420,48 @@ Phases, each of which must pass (nothing is caught):
            snapshot_inspect on phase 11's drain slab.snap: its restorable
            rows equal the rows phase 11 restored. Prints one "chaos:" JSON
            line with the card's name and power limit.
-17. report per-kernel median device times (torch.profiler) and CUDA-event
+17. mesh    the multi-device engine (api_ratelimit_tpu_torch/parallel/
+           sharded_slab.py) over 4 shards, all on cuda:0 (the box has one
+           card), 2^22 rows in all (2^20 a shard), W = 128. (a) 16 launches
+           of 65536 items, Zipf(1.1) over 2^20 keys, one hit, limit 100, a
+           60 s fixed window, each launch its own window, uint8 readback,
+           through four arms: routed with the hot-key tier (HostTopK 128
+           lanes, K = 16, hot_min_count 4096, 4 salt ways, a drain after
+           launch 0 and every 4th), routed, compact and replicated
+           (step_after). Each arm first on 4 CPU shards: the hot and
+           routed arms all 16 launches, the hot arm then drained with no
+           traffic until every hot key is demoted and settled; compact and
+           replicated launches until 2 s are spent (4 at least). Then on
+           the card with every launch counter set to 0 just before: the
+           afters of those launches and the shard tables, per-shard steps,
+           routing counts and health after the last (the hot arm's after
+           its tail, in as many drains) equal to the CPU's; routed, compact and
+           replicated byte-identical to each other over all 16; no key
+           admits more than its limit in a window (4 x ceil(100 / 4) - 100
+           = 0 with the tier); one per-item way scan and one apply a shard
+           step, the routed arm's steps the host routing's, the compact and
+           replicated arms' every shard every launch. Then 2 launches of
+           step_packed (the decided apply) and one routed launch with one
+           key in ten sliding-window (the guard: the multi-algorithm way
+           scan), each against CPU shards. Prints each arm's padding waste,
+           shard rows, stage ns, hot-tier counts, steps, and ms a launch.
+           (b) Runner(new_settings(env)) at phase 9's deployment with
+           TPU_MESH_DEVICES=4, HOT_TIER_ENABLED=false, SLAB_WAYS=128 beside
+           the same on CPU shards, one fake clock: 2048 of phase 9's v3
+           calls byte-identical, the kernels launched once a shard step; its
+           drain snapshot slab.00-of-04.snap ... slab.03-of-04.snap restores
+           into a second Runner byte-identical; then a Runner at the
+           defaults (routed, hot tier on) under 32 client threads:
+           requests/s, p50/p99, and /metrics' ratelimit.shard.rows.shard_0-3
+           summing to ratelimit.shard.rows; then 5 /debug/profile captures
+           of that Runner under load, each started and stopped with the
+           shards quiesced and naming way_scan_kernel and
+           slab_apply_kernel. (c) hotpath_profile --shard-split
+           --shards 4 as a process on the card (started before (a)'s CPU
+           replays, read after): exit 0 and the reference's contract.
+           Prints one "mesh:" JSON line with the card's name and power
+           limit; nothing of it is claimed.
+18. report per-kernel median device times (torch.profiler) and CUDA-event
            call times, bounds and launches as one JSON line (the sketch
            update over a real served step's candidates; the way scan, with
            the shipped routing, also at the decided phase's b = 2^20 over
@@ -434,9 +475,12 @@ Phases, each of which must pass (nothing is caught):
            path, on a line of its own, with the parent's two-kernel sketch
            update (scan kernel + torch phases) timed beside the fused
            kernel; the process, observability, warm restart and tiers
-           phases' lines, the fleet's, the cluster's, the federation's and
-           the chaos phase's, the card's name
-           and power limit, then the ok line.
+           phases' lines, the fleet's, the cluster's, the federation's,
+           the chaos phase's and the mesh phase's, the card's name and
+           power limit, then the ok line. Each kernel's row also carries
+           mesh_launches, its launches on phase 17's runs, by instantiation
+           and way scan form (0 on the victim tier's promote row: the tier
+           is off on a mesh).
 
 Exits non-zero, printing no result, without a CUDA device. Imports nothing of
 JAX or of the JAX package.
@@ -719,6 +763,20 @@ def device_activities(prof) -> list:
     return [(e.name, e.time_range.elapsed_us()) for e in events]
 
 
+# the tracer comes back empty now and then, in runs: the kernel report's
+# first traces after phase 8 and the tiers' after phase 11, up to 8 in a
+# row on the H100, CUDA-only and CPU+CUDA sessions alike, with no other
+# Python thread launching; the runtime calls are traced, no kernel. An
+# empty trace is taken again after a pause
+TRACE_ATTEMPTS = 4
+TRACE_RETRY_S = 0.5
+SPIN_CYCLES = 20_000_000  # ~10 ms on the card: longer than a call's host time
+
+
+class EmptyTrace(RuntimeError):
+    """Every one of TRACE_ATTEMPTS traces of a call held no device activity."""
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call: the kernels and copies it runs on the card,
     each at its median duration over `iters` synchronized calls after a
@@ -726,8 +784,33 @@ def device_ms(fn, iters: int = 20) -> float:
     so an activity name seen n times in the trace runs round(n / iters)
     times a call, and a trace that drops a record (prime_trace) still gives
     the median. The host time of the Python wrapper around a launch is not
-    in it: call_ms measures that."""
-    return summed_ms(*traced_calls(fn, iters))
+    in it: call_ms measures that. Where the tracer comes back empty every
+    time, spun_ms measures the call's device span instead (logged)."""
+    try:
+        return summed_ms(*traced_calls(fn, iters))
+    except EmptyTrace:
+        ms = spun_ms(fn, iters)
+        log(f"device_ms: {TRACE_ATTEMPTS} empty traces; the call's device span by CUDA events behind a spin kernel: {ms} ms")
+        return ms
+
+
+def spun_ms(fn, iters: int = 20) -> float:
+    """Median device span of one call, by a CUDA-event pair around it
+    queued behind a spin kernel (SPIN_CYCLES), so the host's enqueue of the
+    call falls inside the spin and only the device's work and the gaps
+    between its activities are timed."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return float(np.median(samples))
 
 
 def summed_ms(per_call: dict, by_name: dict) -> float:
@@ -748,7 +831,9 @@ def traced_calls(fn, iters: int) -> tuple[dict, dict]:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        if attempt > 1:
+            time.sleep(TRACE_RETRY_S)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             prime_trace()
             for _ in range(iters):
@@ -761,8 +846,11 @@ def traced_calls(fn, iters: int) -> tuple[dict, dict]:
         if any(per_call.values()):
             break
         # the tracer has come back empty now and then: trace again
-        log(f"device_ms: trace {attempt} held no device activity that recurs in each of {iters} calls")
-    check(any(per_call.values()), f"no device activity recurs in each of {iters} calls")
+        kinds = collections.Counter(str(e.device_type) for e in prof.events())
+        log(f"device_ms: trace {attempt} held no device activity that recurs in each of {iters} calls"
+            f" (events {dict(kinds)}; threads {sorted(t.name for t in threading.enumerate())})")
+    if not any(per_call.values()):
+        raise EmptyTrace(f"no device activity recurs in each of {iters} calls")
     for name, n in per_call.items():
         if len(by_name[name]) != n * iters:
             log(f"device_ms: {name[:60]} traced {len(by_name[name])} times in {iters} calls")
@@ -3525,7 +3613,7 @@ def trace_kernel_names(profile_dir: str, names) -> dict:
     return {name: text.count(name) for name in names}
 
 
-def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS) -> dict:
+def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS, label: str = "10") -> dict:
     """GET /debug/profile?ms=500 while a client thread drives calls: 200
     and {profile_dir, ms}; a second capture during the first answers 429;
     then OBS_CAPTURES - 1 more captures in a row under the same load. Each
@@ -3581,7 +3669,7 @@ def obs_device_trace(runner, profile_dir: str, n_keys: int, kernels=OBS_KERNELS)
     check(doc == {"profile_dir": profile_dir, "ms": float(OBS_PROFILE_MS)}, f"/debug/profile answered {doc}")
     check(second[0] == 429, f"a second capture during the first answered {second[0]}")
     for i, c in enumerate(captures):
-        log(f"10 capture {i + 1}/{OBS_CAPTURES}: {c['kernels']} kernels, served {c['served']}, {c['calls_during']} calls")
+        log(f"{label} capture {i + 1}/{OBS_CAPTURES}: {c['kernels']} kernels, served {c['served']}, {c['calls_during']} calls")
     for i, c in enumerate(captures):
         check(c["calls_during"] > 0, f"capture {i + 1} ran with no call in flight")
         check(all(c["served"].values()), f"capture {i + 1}/{OBS_CAPTURES}'s device trace misses a served kernel: {c['served']}")
@@ -4683,8 +4771,11 @@ FLEET_KILL_S = 3.0  # arm (a)'s second wave, a worker SIGKILLed in it
 FLEET_C_S = 4.0  # each of (c)'s single-process and one-worker runs
 FLEET_SHARED_KEYS = 16
 # fixed window, per hour: low enough that every shared key crosses it in an
-# arm at the fleet's rate on the card (the socket arm's ~700 calls/s, 1 in
-# 256 of them on a key)
+# arm at the fleet's rate on the card. The socket arm read 437-910 calls/s
+# over its 11 s on one H100; 1 in 256 of them lands on each key, since the
+# load threads walk the keys in turn (fleet_clients' --thread-offset), so a
+# key gets ~19-39 calls. (Drawn at random per call, a key's share
+# fell to a third of that mean.)
 FLEET_SHARED_LIMIT = 8
 FLEET_CONC_KEYS = 16
 FLEET_CONC_CAP = 4  # concurrency, acquire only
@@ -4925,7 +5016,8 @@ def fleet_clients(port: int, seconds: float, scratch: str, tag: str, seed: int, 
     for i in range(FLEET_CLIENT_PROCS):
         out = os.path.join(scratch, f"{tag}_client{i}.json")
         args = ["--port", str(port), "--seconds", str(seconds), "--threads", str(FLEET_CLIENT_THREADS),
-                "--seed", str(seed * 100 + i), "--start-at", repr(start_at), "--out", out,
+                "--seed", str(seed * 100 + i), "--thread-offset", str(i * FLEET_CLIENT_THREADS),
+                "--start-at", repr(start_at), "--out", out,
                 "--shared-every", str(FLEET_SHARED_EVERY), "--shared-keys", str(FLEET_SHARED_KEYS)]
         for k, v in flags.items():
             args += ["--" + k.replace("_", "-"), str(v)]
@@ -6567,6 +6659,432 @@ def phase_chaos(K, kept: dict, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 17: the multi-device engine -----------------------------------------
+
+MESH_SHARDS = 4
+MESH_SLOTS = N_SLOTS  # 2^22 rows in all, 2^20 a shard
+MESH_WAYS = 128
+MESH_BATCH = 65536
+MESH_LAUNCHES = 16
+MESH_KEYS = 1 << 20
+MESH_LIMIT = 100
+MESH_DIVIDER = 60  # `now` steps a window a launch: membership changes fall on window edges
+MESH_CAP = 0xFF  # limit + hits fit a byte: the served engine's uint8 readback
+MESH_SALT_WAYS = 4  # K: 4 x ceil(100 / 4) - 100 = 0 over-admits a window
+MESH_HOT_MIN = 4096
+MESH_DRAIN_EVERY = 4  # the hot arm drains the host top-K after launch 0, 4, 8, 12
+MESH_PACKED_LAUNCHES = 2
+MESH_CPU_FULL = ("routed_hot", "routed")  # replayed on the CPU shards launch for launch
+MESH_CPU_ARM_S = 2.0  # the other arms' CPU replays run launches until this is spent
+MESH_CPU_MIN = 4  # and at least this many
+MESH_TAIL_DRAINS = 16  # the hot arm's drains with no traffic after its launches, until no key is hot
+MESH_SLIDING_SHARE = 0.1  # the guard launch: one key in ten sliding-window
+MESH_ARMS = ("routed_hot", "routed", "compact", "replicated")
+MESH_CALLS = 2048  # (b)'s verdict stream: half of phase 9's v3 calls, for the time limit
+MESH_THREAD_CALLS = 512  # (b)'s 32-thread run at the defaults
+MESH_TRACE_KERNELS = ("way_scan_kernel", "slab_apply_kernel")  # each /debug/profile capture names (no sketch: HostTopK)
+
+
+def mesh_stream(n: int, seed: int = 17) -> list:
+    """n launches of MESH_BATCH items, Zipf(1.1) over MESH_KEYS keys, one
+    hit, limit 100, a 60 s fixed window; launch i at NOW0 + 60 i, its own
+    window."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        p = np.zeros((7, MESH_BATCH), np.uint32)
+        p[0], p[1] = fingerprints(zipf_keys(rng, MESH_BATCH, MESH_KEYS))
+        p[2], p[3], p[4] = 1, MESH_LIMIT, MESH_DIVIDER
+        p[6, 0] = NOW0 + MESH_DIVIDER * i
+        p[6, 1] = np.float32(0.8).view(np.uint32)
+        p[6, 2] = np.float32(1.0).view(np.uint32)
+        out.append(p)
+    return out
+
+
+def mesh_engine(devices: list, arm: str):
+    """The arm's ShardedSlabEngine over `devices` at the phase's width."""
+    from api_ratelimit_tpu_torch.parallel import ShardedSlabEngine, make_mesh
+
+    kw = {}
+    if arm == "routed_hot":
+        kw = dict(hot_tier=True, hot_salt_ways=MESH_SALT_WAYS, hotkey_lanes=HOTKEY_LANES, hotkey_k=HOTKEY_K,
+                  hot_min_count=MESH_HOT_MIN)
+    return ShardedSlabEngine(mesh=make_mesh(devices), n_slots_global=MESH_SLOTS, ways=MESH_WAYS,
+                             routed=arm.startswith("routed"), **kw)
+
+
+def mesh_launch(eng, arm: str, p: np.ndarray) -> np.ndarray:
+    if arm == "replicated":
+        return eng.step_after(p.copy(), MESH_CAP).astype(np.uint32)
+    return eng.step_after_compact(p.copy(), MESH_CAP)
+
+
+def mesh_state(eng, now: int) -> dict:
+    snap = eng.shard_routing_snapshot()
+    snap.pop("stage_ns")
+    return {"tables": eng.export_tables(), "shard_launches": list(eng.shard_launches), "routing": snap,
+            "health": eng.health_snapshot(now)}
+
+
+def mesh_same_state(a: dict, b: dict, label: str) -> None:
+    check(len(a["tables"]) == len(b["tables"]) and all(np.array_equal(x, y) for x, y in zip(a["tables"], b["tables"])),
+          f"{label}: the shard tables differ")
+    for key in ("shard_launches", "routing", "health"):
+        check(a[key] == b[key], f"{label}: {key} differ: {a[key]} {b[key]}")
+
+
+def mesh_tail(eng) -> int:
+    """The hot arm after its last launch: drains with no traffic, each
+    halving the host top-K, until every hot key fell below half of
+    hot_min_count and was demoted and settled. Returns the drains."""
+    for n in range(1, MESH_TAIL_DRAINS + 1):
+        eng.drain_hotkeys()
+        if not eng.shard_routing_snapshot()["hot_tier"]["keys"]:
+            return n
+    check(False, f"mesh routed_hot: keys still hot after {MESH_TAIL_DRAINS} drains with no traffic")
+
+
+def mesh_cpu_replay(stream: list) -> dict:
+    """Each arm on MESH_SHARDS CPU shards: the MESH_CPU_FULL arms every
+    launch (the hot arm draining as on the card, then its tail), the
+    others launches until MESH_CPU_ARM_S is spent (MESH_CPU_MIN at least);
+    the afters and the state after the last."""
+    out = {}
+    for arm in MESH_ARMS:
+        eng = mesh_engine(["cpu"] * MESH_SHARDS, arm)
+        t0 = time.perf_counter()
+        afters = []
+        while len(afters) < len(stream) and (
+            arm in MESH_CPU_FULL or len(afters) < MESH_CPU_MIN or time.perf_counter() - t0 < MESH_CPU_ARM_S
+        ):
+            i = len(afters)
+            afters.append(mesh_launch(eng, arm, stream[i]))
+            if arm == "routed_hot" and i % MESH_DRAIN_EVERY == 0:
+                eng.drain_hotkeys()
+        tail = mesh_tail(eng) if arm == "routed_hot" else 0
+        out[arm] = {"afters": afters, "state": mesh_state(eng, int(stream[len(afters) - 1][6, 0])),
+                    "tail_drains": tail, "seconds": time.perf_counter() - t0}
+    return out
+
+
+def mesh_admits(stream: list, afters: list) -> dict:
+    """Per launch (one window each) every key's admitted items (after <=
+    limit), keyed by its home fingerprint: the most any key got, and the
+    hottest key's."""
+    worst, hottest = 0, []
+    for p, a in zip(stream, afters):
+        fp = (p[1].astype(np.uint64) << np.uint64(32)) | p[0].astype(np.uint64)
+        keys, counts = np.unique(fp[a <= MESH_LIMIT], return_counts=True)
+        worst = max(worst, int(counts.max()))
+        top = np.unique(fp, return_counts=True)
+        hottest.append(int(counts[np.searchsorted(keys, top[0][np.argmax(top[1])])]))
+    return {"max_admits_a_key_a_window": worst, "hottest_key_admits": hottest}
+
+
+def mesh_card_arm(K, arm: str, stream: list, cpu: dict, device: str) -> dict:
+    """One arm on MESH_SHARDS shards on the card (all on cuda:0 here), every
+    launch counter set to 0 just before and read just after its launches:
+    the state after the CPU's last launch equal to the CPU's, the afters
+    of those launches equal. The hot arm, replayed whole on the CPU, is
+    compared after its tail (mesh_tail: every hot key demoted and its
+    slices settled)."""
+    eng = mesh_engine([device] * MESH_SHARDS, arm)
+    k = len(cpu["afters"])
+    afters, ms, at_k = [], [], None
+    on_card = device == "cuda"
+    K.reset_launch_counts()
+    for i, p in enumerate(stream):
+        t = time.perf_counter()
+        afters.append(mesh_launch(eng, arm, p))  # the collect reads every shard back
+        ms.append((time.perf_counter() - t) * 1e3)
+        if arm == "routed_hot" and i % MESH_DRAIN_EVERY == 0:
+            eng.drain_hotkeys()
+        if i + 1 == k and not cpu["tail_drains"]:
+            at_k = mesh_state(eng, int(p[6, 0]))
+    hot_before_tail = eng.shard_routing_snapshot()["hot_tier"]
+    if cpu["tail_drains"]:
+        check(mesh_tail(eng) == cpu["tail_drains"], f"mesh {arm}: the tail took other drains than on the CPU shards")
+        at_k = mesh_state(eng, int(stream[k - 1][6, 0]))
+    launches = launch_counts(K)
+    for i in range(k):
+        check(np.array_equal(afters[i], cpu["afters"][i]), f"mesh {arm}: launch {i}'s afters differ from the CPU shards'")
+    mesh_same_state(at_k, cpu["state"], f"mesh {arm} after {k} launches")
+    steps = sum(eng.shard_launches)
+    if on_card:
+        check(launches["way_scan"] == launches["slab_apply"] == launches["way_scan/per_item"] == steps > 0,
+              f"mesh {arm}: {steps} shard steps launched {dict(launches)}")
+        check(launches["sketch_update"] == launches["slab_apply_decide"] == launches["way_scan/set_major"] == 0
+              and sum(K.WAY_SCAN_MULTI_FORMS.values()) == 0, f"mesh {arm}: an off-path kernel ran: {dict(launches)}")
+    check(min(eng.shard_launches) > 0, f"mesh {arm}: a shard never launched: {eng.shard_launches}")
+    snap = eng.shard_routing_snapshot()
+    out = {
+        "cpu_launches_compared": k,
+        "cpu_s": cpu["seconds"],
+        "padding_waste_pct": snap["padding_waste_pct"],
+        "shard_rows": snap["shard_rows"],
+        "padded_lanes": snap["padded_lanes"],
+        "stage_ns": snap["stage_ns"],
+        "hot_tier": snap["hot_tier"],
+        "hot_tier_before_tail": hot_before_tail,
+        "tail_drains": cpu["tail_drains"],
+        "shard_launches": list(eng.shard_launches),
+        "launches": {name: launches[name] for name in ("way_scan/per_item", "way_scan/set_major", "slab_apply")},
+        "ms_a_launch": {"mean": float(np.mean(ms[1:])), "p50": float(np.median(ms[1:])), "first": ms[0]},
+        "admits": mesh_admits(stream, afters),
+    }
+    check(out["admits"]["max_admits_a_key_a_window"] <= MESH_LIMIT,
+          f"mesh {arm}: a key admitted {out['admits']['max_admits_a_key_a_window']} in one window, limit {MESH_LIMIT}")
+    return out, afters, eng.export_tables()
+
+
+def mesh_predicted_launches(stream: list) -> list:
+    """The routed arm's shard steps by the host routing: a launch steps
+    each shard its rows reach."""
+    steps = np.zeros(MESH_SHARDS, np.int64)
+    for p in stream:
+        owner = (p[0] ^ p[1]) % np.uint32(MESH_SHARDS)
+        steps += np.bincount(owner, minlength=MESH_SHARDS) > 0
+    return steps.tolist()
+
+
+def mesh_packed(K, stream: list, device: str) -> dict:
+    """The replicated arm's decided step (step_packed) on the card and the
+    CPU shards, MESH_PACKED_LAUNCHES launches: all 8 rows and the tables
+    equal; on the card the decided apply, one a shard a launch."""
+    out_rows = {}
+    for dev in ("cpu", device):
+        eng = mesh_engine([dev] * MESH_SHARDS, "compact")
+        K.reset_launch_counts()
+        rows = [eng.step_packed(p.copy()) for p in stream[:MESH_PACKED_LAUNCHES]]
+        out_rows[dev] = (rows, launch_counts(K), mesh_state(eng, int(stream[MESH_PACKED_LAUNCHES - 1][6, 0])))
+    (c_rows, _c, c_state), (g_rows, launches, g_state) = out_rows["cpu"], out_rows[device]
+    check(all(np.array_equal(a, b) for a, b in zip(c_rows, g_rows)), "mesh step_packed: the decided rows differ from the CPU shards'")
+    mesh_same_state(g_state, c_state, "mesh step_packed")
+    n = MESH_PACKED_LAUNCHES * MESH_SHARDS
+    if device == "cuda":
+        check(launches["slab_apply_decide"] == launches["way_scan"] == n and launches["slab_apply"] == 0,
+              f"mesh step_packed: {dict(launches)} for {n} shard steps")
+    over = int(sum((r[0] == 2).sum() for r in g_rows))
+    return {"launches": {k: launches[k] for k in ("way_scan/per_item", "way_scan/set_major", "slab_apply_decide")},
+            "over_limit_lanes": over}
+
+
+def mesh_guard(K, stream: list, device: str) -> dict:
+    """The sticky guard on the mesh: a routed launch whose stream carries
+    sliding-window keys (one in ten) flips algos_seen and runs the
+    multi-algorithm body, on the card as on the CPU shards."""
+    p = stream[0].copy()
+    sliding = (p[0] % np.uint32(10)) == 0
+    p[4, sliding] |= np.uint32(1 << 28)
+    res = {}
+    for dev in ("cpu", device):
+        eng = mesh_engine([dev] * MESH_SHARDS, "routed")
+        K.reset_launch_counts()
+        after = eng.step_after_compact(p.copy(), MESH_CAP)
+        res[dev] = (after, dict(K.WAY_SCAN_MULTI_FORMS), launch_counts(K), eng.algos_seen, mesh_state(eng, int(p[6, 0])))
+    (c_after, _m, _l, c_seen, c_state), (g_after, multi, launches, g_seen, g_state) = res["cpu"], res[device]
+    check(c_seen and g_seen, "mesh guard: a sliding-window launch left algos_seen false")
+    check(np.array_equal(c_after, g_after), "mesh guard: the multi-algorithm launch's afters differ from the CPU shards'")
+    mesh_same_state(g_state, c_state, "mesh guard")
+    if device == "cuda":
+        check(sum(multi.values()) == launches["way_scan"] == MESH_SHARDS and launches["slab_apply"] == 0,
+              f"mesh guard: {multi} {dict(launches)}")
+    return {"multi_way_scans": sum(multi.values()), "launches": {f"way_scan_multi/{k}": v for k, v in multi.items()},
+            "sliding_items": int(sliding.sum())}
+
+
+def mesh_metrics(runner) -> dict:
+    """ratelimit.shard.* on /metrics after a stats flush: the per-shard
+    rows sum to the total."""
+    from api_ratelimit_tpu_torch.stats import prometheus
+
+    runner.stats_store.flush()
+    status, body = http_call(runner.server.debug_port, "GET", "/metrics")
+    check(status == 200, f"/metrics answered {status}")
+    _types, families = prometheus.parse_exposition(body.decode(), {})
+    value = lambda name: next(iter(families[name].values()))  # noqa: E731
+    per_shard = [value(f"ratelimit_shard_rows_shard_{d}") for d in range(MESH_SHARDS)]
+    total = value("ratelimit_shard_rows")
+    check(total > 0 and sum(per_shard) == total, f"/metrics: shard rows {per_shard} against {total}")
+    return {"rows": total, "rows_by_shard": per_shard, "launches": value("ratelimit_shard_launches"),
+            "padding_waste_pct": value("ratelimit_shard_padding_waste_pct"), "hot_keys": value("ratelimit_shard_hot_keys")}
+
+
+def mesh_process(K, device: str = "cuda", **env_overrides) -> dict:
+    """(b) Runner(new_settings(env)) with TPU_MESH_DEVICES=4 on the card,
+    HOT_TIER_ENABLED=false, beside the same deployment on CPU shards, both
+    on one fake clock: phase 9's v3 stream answered byte for byte alike;
+    its drain snapshot's four shard files restore into a second Runner
+    byte-identical; then a Runner at the defaults (routed, hot tier on)
+    under 32 client threads, and OBS_CAPTURES /debug/profile captures of
+    it under load (each starting and stopping with the shards quiesced),
+    every one naming the mesh's kernels on the card."""
+    import tempfile
+
+    from api_ratelimit_tpu_torch.persist.snapshot import reconcile_rows
+    from api_ratelimit_tpu_torch.utils import FakeTimeSource, RealTimeSource, install_process_time_source
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as scratch:
+        runtime_root = os.path.join(scratch, "runtime")
+        process_runtime(runtime_root)
+        snap_dir = os.path.join(scratch, "snap")
+        mesh_env = dict(TPU_MESH_DEVICES=MESH_SHARDS, HOT_TIER_ENABLED="false", SLAB_WAYS=MESH_WAYS,
+                        SLAB_SNAPSHOT_INTERVAL_MS=3_600_000, **env_overrides)
+        clock = FakeTimeSource(NOW0)
+        install_process_time_source(clock)
+        try:
+            card, boot_s = process_boot(process_env(runtime_root, SLAB_SNAPSHOT_DIR=snap_dir, **mesh_env), device=device)
+            host, _ = process_boot(process_env(runtime_root, **mesh_env), device="cpu")
+            eng = card.cache.engine
+            check(eng.shard_count == MESH_SHARDS and eng.mesh_engine is not None, "TPU_MESH_DEVICES=4 built no mesh")
+            check([d.type for d in eng.mesh_engine.devices] == [device] * MESH_SHARDS, f"shards on {eng.mesh_engine.devices}")
+            K.reset_launch_counts()
+            stream = process_stream(card, host, clock, MESH_CALLS, 0, 0, PROCESS_KEYS, seed=23)
+            launches = launch_counts(K)
+            steps = sum(eng.mesh_engine.shard_launches)
+            if device == "cuda":
+                check(launches["way_scan"] == launches["slab_apply"] == steps > 0 and launches["sketch_update"] == 0,
+                      f"the mesh Runner's {steps} shard steps launched {dict(launches)}")
+            host.stop()
+            card.stop()
+            files = sorted(os.listdir(snap_dir))
+            want = [f"slab.{i:02d}-of-{MESH_SHARDS:02d}.snap" for i in range(MESH_SHARDS)]
+            check([f for f in files if f.startswith("slab.")] == want, f"the drain snapshot wrote {files}")
+            now = int(clock.unix_now())
+            kept = [reconcile_rows(t, now) for t in eng.export_tables()]
+            again, restore_s = process_boot(process_env(runtime_root, SLAB_SNAPSHOT_DIR=snap_dir, **mesh_env), device=device)
+            restored = again.cache.engine.export_tables()
+            check(all(np.array_equal(a, b) for (a, _s), b in zip(kept, restored)), "the restored shard tables differ from the drained ones")
+            restore_stats = dict(again.snapshotter.restore_stats or {})
+            check(restore_stats.get("restored") == sum(s["restored"] for _t, s in kept) > 0, f"restore_stats {restore_stats}")
+            again.stop()
+        finally:
+            install_process_time_source(RealTimeSource())
+        out["verdicts"] = {"calls": MESH_CALLS, "codes": stream["codes"], "descriptors": stream["descriptors"],
+                           "shard_steps": steps, "launches": {k: launches[k] for k in ("way_scan", "slab_apply")},
+                           "boot_s": boot_s}
+        out["snapshot"] = {"files": want, "restored_rows": restore_stats.get("restored"), "boot_s": restore_s}
+        profile_dir = os.path.join(scratch, "profiles")
+        runner, boot_s = process_boot(process_env(runtime_root, TPU_MESH_DEVICES=MESH_SHARDS, TPU_PROFILE_DIR=profile_dir,
+                                                  **env_overrides), device=device)
+        try:
+            snap = runner.cache.engine.shard_routing_snapshot()
+            check(snap["routed"] and snap["hot_tier"]["enabled"], f"the defaults built {snap}")
+            reqs = process_requests(np.random.default_rng(29), MESH_THREAD_CALLS, PROCESS_KEYS)
+            wall, lat = grpc_load(runner.server.grpc_port, reqs, PROCESS_THREADS)
+            out["threads_32"] = rate_line(wall, lat) | {"boot_s": boot_s}
+            out["metrics"] = mesh_metrics(runner)
+            # the CPU has no kernel to name: there each capture writes its trace
+            kernels = MESH_TRACE_KERNELS if device == "cuda" else ()
+            out["captures"] = obs_device_trace(runner, profile_dir, PROCESS_KEYS, kernels=kernels, label="17 (b)")["captures"]
+        finally:
+            runner.stop()
+    return out
+
+
+def mesh_tool(device: str) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", HOTPATH, "--shard-split", "--shards", str(MESH_SHARDS), "--device", device],
+        cwd=REPO_ROOT, env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def mesh_tool_lines(proc, device: str) -> dict:
+    """(c) hotpath_profile --shard-split: exit 0 and the reference's
+    contract, on `device`."""
+    try:
+        stdout, stderr = proc.communicate(timeout=TOOL_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"hotpath_profile --shard-split exited {proc.returncode}: {stderr[-1500:]}")
+    lines = stdout.splitlines()
+    head = [ln for ln in lines if ln.startswith(f"[shard_split] shards={MESH_SHARDS} launches=")]
+    check(head and f"device={device}" in head[0], f"--shard-split: {lines[:3]}")
+    out = {"summary": head[0]}
+    for stage in ("bucket_ns", "pad_ns", "launch_ns"):
+        row = [ln for ln in lines if ln.strip().startswith(stage)]
+        check(row and "p50=" in row[0] and "p99=" in row[0], f"--shard-split: no {stage} row")
+        out[stage] = {f.split("=")[0]: int(f.split("=")[1]) for f in row[0].split()[1:]}
+    rows = [ln for ln in lines if ln.strip().startswith("shard_rows")]
+    waste = [ln for ln in lines if "padding_waste_pct=" in ln]
+    check(rows and waste, "--shard-split: no shard_rows or padding_waste_pct line")
+    out["shard_rows"] = rows[0].split("shard_rows")[1].strip()
+    out["padding"] = waste[0].strip()
+    return out
+
+
+def mesh_row_launches(rows: list, counts: dict) -> None:
+    """Stamp each kernels row with mesh_launches, its kernel's launches on
+    phase 17's runs (counted from 0 before each): a way scan row by its
+    instantiation and form, the multi-algorithm one only on its own path
+    (not the victim tier's promote, off on a mesh), every other row by its
+    kernel when it has no path of its own. A count lands on the first row
+    it fits; every other row gets 0."""
+    stamped = set()
+    for row in rows:
+        name, path = row["name"], row.get("path")
+        if (name == "way_scan" and path is None) or (name == "way_scan_multi" and path == "multi_algo"):
+            key = f"{name}/{row['form']}"
+        else:
+            key = name if path is None and name not in ("way_scan", "way_scan_multi") else None
+        row["mesh_launches"] = counts.get(key, 0) if key not in stamped else 0
+        stamped.add(key)
+
+
+def phase_mesh(K, device: str = "cuda", **env_overrides) -> dict:
+    """Phase 17 (module docstring)."""
+    t0 = time.perf_counter()
+    tool = mesh_tool(device)
+    try:
+        stream = mesh_stream(MESH_LAUNCHES)
+        cpu = mesh_cpu_replay(stream)
+        t_cpu = time.perf_counter() - t0
+    except BaseException:
+        tool.kill()
+        tool.wait()
+        raise
+    tool_out = mesh_tool_lines(tool, device)
+    arms, afters, tables = {}, {}, {}
+    mesh_counts = collections.Counter()
+    for arm in MESH_ARMS:
+        arms[arm], afters[arm], tables[arm] = mesh_card_arm(K, arm, stream, cpu[arm], device)
+        mesh_counts.update(arms[arm]["launches"])
+    for arm in ("compact", "replicated"):
+        check(all(np.array_equal(a, b) for a, b in zip(afters[arm], afters["routed"])), f"mesh: the {arm} arm's afters differ from routed")
+        check(all(np.array_equal(a, b) for a, b in zip(tables[arm], tables["routed"])), f"mesh: the {arm} arm's tables differ from routed")
+    check(arms["routed"]["shard_launches"] == mesh_predicted_launches(stream), "mesh routed: shard steps against the host routing")
+    check(arms["compact"]["shard_launches"] == arms["replicated"]["shard_launches"] == [MESH_LAUNCHES] * MESH_SHARDS,
+          "mesh: the compact and replicated arms step every shard every launch")
+    check(arms["routed"]["padding_waste_pct"] < arms["compact"]["padding_waste_pct"], "mesh: routing cut no padding")
+    hot = arms["routed_hot"]["hot_tier"]
+    check(hot["promotions"] > 0 and hot["demotions"] == hot["promotions"] and hot["keys"] == 0,
+          f"mesh routed_hot: the drains and the tail left {hot}")
+    packed = mesh_packed(K, stream, device)
+    guard = mesh_guard(K, stream, device)
+    # by kernel and way scan form, as mesh_row_launches reads them
+    mesh_counts.update(packed["launches"])
+    mesh_counts.update(guard["launches"])
+    t_a = time.perf_counter() - t0
+    process = mesh_process(K, device, **env_overrides)
+    out = {
+        "shards": MESH_SHARDS, "rows": MESH_SLOTS, "ways": MESH_WAYS, "batch": MESH_BATCH, "launches": MESH_LAUNCHES,
+        "arms": arms, "step_packed": packed, "guard": guard, "process": process, "tool": tool_out,
+        "kernel_launches": dict(mesh_counts), "cpu_replay_s": t_cpu, "engine_s": t_a, "phase_s": time.perf_counter() - t0,
+    }
+    log(
+        "mesh: " + ", ".join(
+            f"{arm} {a['ms_a_launch']['mean']:.2f} ms a launch, waste {a['padding_waste_pct']}%, steps {a['shard_launches']}"
+            for arm, a in arms.items()
+        ) + f"; hot tier {hot}; process {process['threads_32']['requests_per_s']:.0f}/s at 32 threads"
+        f" ({out['phase_s']:.1f} s, CPU replay {t_cpu:.1f} s)"
+    )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -6601,31 +7119,56 @@ def main() -> int:
     # true in their mangled names (Lb1E)
     log("way scan kernels ptxas, multi-algorithm:", json.dumps([e for e in scan_ptxas if "Lb1E" in e.split(" | ")[0]]))
 
+    # each phase's seconds on the script's clock, the build included in the
+    # first, printed before the report
+    spent, last = {}, [t0]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        spent[name] = round(now - last[0], 1)
+        last[0] = now
+
     errs = phase_parity(M, dev)
+    lap("build+parity")
     engine = phase_engine(M, dev)
     launches = phase_serve(K)
+    lap("engine+serve")
     _decided, decided_launches, decided_scan = phase_decided(M, dev, errs)
     select_errs, select_launches = phase_compare_paths(M, dev)
     phase_windowed(M, dev)
+    lap("decided+compare+windowed")
     algo = phase_algorithms(M, dev)
+    lap("algorithms")
     kernels, standalone = kernel_report(
         M, engine, decided_scan, dev, launches | decided_launches | select_launches,
         errs | select_errs | algo["errs"], algo,
     )
+    lap("kernel_report")
     process = phase_process(K)
+    lap("process")
     observability = phase_observability(K)
+    lap("observability")
     warm = phase_warm_restart(M, K, keep_snapshot=True)
+    lap("warm_restart")
     tiers, promote_row = phase_tiers(M, K)
     kernels.append(promote_row)
+    lap("tiers")
     fleet = phase_fleet(K)
+    lap("fleet")
     cluster = phase_cluster(fleet["b"]["load"]["requests_per_s"])
+    lap("cluster")
     federation = phase_federation(K)
+    lap("federation")
     kept = warm["handoff"].pop("kept")
     try:
         chaos = phase_chaos(K, kept)
     finally:
         os.remove(kept["path"])
         os.rmdir(os.path.dirname(kept["path"]))
+    lap("chaos")
+    mesh = phase_mesh(K)
+    mesh_row_launches(kernels, mesh["kernel_launches"])
+    lap("mesh")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6640,6 +7183,8 @@ def main() -> int:
     log("cluster:", json.dumps(cluster | {"card": smi.stdout.strip()}))
     log("federation:", json.dumps(federation | {"card": smi.stdout.strip()}))
     log("chaos:", json.dumps(chaos | {"card": smi.stdout.strip()}))
+    log("mesh:", json.dumps(mesh | {"card": smi.stdout.strip()}))
+    log("phase seconds:", json.dumps(spent | {"all": round(time.perf_counter() - t0, 1)}))
     log(smi.stdout.strip())
     log("standalone kernels (off every path):", json.dumps({"kernels": standalone}))
     log(json.dumps({"kernels": kernels}))

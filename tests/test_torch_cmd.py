@@ -156,11 +156,38 @@ def test_service_cmd_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_service_cmd_refuses_an_unported_knob(tmp_path):
-    # federation (item 9b) is served now; the multi-device engine is not
-    proc = _service(_service_env(tmp_path, BACKEND_TYPE="memory", TPU_MESH_DEVICES="4"))
+    """No knob is refused as unported any more (item 10, the multi-device
+    engine, was the last). TPU_MESH_DEVICES=4 with BACKEND_TYPE=memory is
+    ignored, as the reference ignores it: the service boots healthy. With
+    BACKEND_TYPE=cuda and no card it exits non-zero for want of a card,
+    naming no ROADMAP item."""
+    env = _service_env(tmp_path, BACKEND_TYPE="memory", TPU_MESH_DEVICES="4")
+    proc = _service(env)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{env['PORT']}/healthcheck", timeout=2) as r:
+                    assert (r.status, r.read()) == (200, b"OK")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert proc.poll() is None, proc.communicate()
+                assert time.monotonic() < deadline, "service_cmd never became healthy"
+                time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if torch.cuda.is_available():
+        return  # a card is present: the mesh would boot on it
+    (tmp_path / "card").mkdir()
+    proc = _service(_service_env(tmp_path / "card", BACKEND_TYPE="cuda", TPU_MESH_DEVICES="4"))
     _out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
-    assert "ROADMAP item 10" in err
+    assert "torch.cuda.is_available() is false" in err
+    assert "ROADMAP item" not in err
 
 
 def test_sidecar_cmd_without_a_card_exits_1(tmp_path):

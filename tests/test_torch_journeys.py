@@ -404,8 +404,9 @@ def _hot_flags(ns):
 
 
 def test_hotkey_flag_after_a_drain_and_the_listener():
-    """The drain listeners feed the mesh hot tier and come with it (ROADMAP
-    item 10); the drain's hot set is held against the sketch's top-K."""
+    """The drain listeners (which on a mesh also feed the hot tier,
+    tests/test_torch_hot_tier.py); the drain's hot set is held against the
+    sketch's top-K."""
     want = _hot_flags(PKGS["jax"])
     got = _hot_flags(PKGS["port"])
     assert got[0] == want[0] == frozenset()  # no drain yet: no hot key

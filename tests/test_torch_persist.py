@@ -10,8 +10,9 @@ the CPU, against the JAX package's.
   TestReconcile, TestSnapshotter, TestSnapshotFaultInjection and
   TestSetMigration, case by case, on the port's modules and the port's
   CPU engine and the port's fault injector (testing/faults.py).
-  TestShardedSnapshot waits
-  for the multi-device engine, and the inspect CLI for the tools.
+  TestShardedSnapshot runs on the port's multi-device engine
+  (parallel/sharded_slab.py) over 8 CPU shards, with a sharded snapshot
+  written by either package restoring into the other's mesh engine.
 * JAX to port and port to JAX: a snapshot of a four-algorithm stream
   written by one package's SlabSnapshotter restores into the other's
   engine bit for bit, and the next batches give the same counters and
@@ -581,6 +582,98 @@ class TestSnapshotter:
         assert np.array_equal(eng2.export_tables()[0], jax_eng.export_tables()[0])
         assert np.array_equal(eng2.lease_registry.export_rows(NOW), jax_eng.lease_registry.export_rows(NOW))
         assert _hit(eng2) == [10]  # floored at the liability's 9
+
+
+class TestShardedSnapshot:
+    """The JAX package's TestShardedSnapshot on the port's mesh engine: one
+    slab.<i>-of-08.snap a shard through the unchanged SlabSnapshotter, and
+    a whole-set reject on one bad shard."""
+
+    @pytest.fixture()
+    def mesh(self):
+        from api_ratelimit_tpu_torch.parallel import make_mesh
+
+        return make_mesh(["cpu"] * 8)
+
+    @staticmethod
+    def _packed(b, now=NOW):
+        packed = np.zeros((7, b), dtype=np.uint32)
+        ids = np.arange(b, dtype=np.uint64)
+        packed[0] = (ids * 0x9E3779B185EBCA87 & 0xFFFFFFFF).astype(np.uint32)
+        packed[1] = ((ids ^ 0x77) * 0xC2B2AE3D27D4EB4F & 0xFFFFFFFF).astype(np.uint32)
+        packed[2] = 1
+        packed[3] = 100
+        packed[4] = 1000
+        packed[6, 0] = np.uint32(now)
+        packed[6, 1] = np.float32(0.8).view(np.uint32)
+        return packed
+
+    def test_per_shard_files_and_warm_continuation(self, tmp_path, mesh):
+        from api_ratelimit_tpu_torch.parallel import ShardedSlabEngine
+
+        ts = FakeTimeSource(NOW)
+        eng = ShardedSlabEngine(mesh=mesh, n_slots_global=8 * 256, ways=128)
+        packed = self._packed(128)
+        first = eng.step_after_compact(packed.copy(), cap=0xFFFF)
+        _snapshotter(eng, tmp_path, ts).snapshot_once()
+        assert sorted(os.listdir(tmp_path)) == [f"slab.{i:02d}-of-08.snap" for i in range(8)]
+
+        eng2 = ShardedSlabEngine(mesh=mesh, n_slots_global=8 * 256, ways=128)
+        assert _snapshotter(eng2, tmp_path, ts).restore()["restored"] == 128
+        second = eng2.step_after_compact(packed.copy(), cap=0xFFFF)
+        np.testing.assert_array_equal(second, first + 1)
+
+    def test_one_bad_shard_rejects_whole_set(self, tmp_path, mesh):
+        from api_ratelimit_tpu_torch.parallel import ShardedSlabEngine
+
+        ts = FakeTimeSource(NOW)
+        eng = ShardedSlabEngine(mesh=mesh, n_slots_global=8 * 256)
+        eng.step_after_compact(self._packed(64), cap=0xFFFF)
+        _snapshotter(eng, tmp_path, ts).snapshot_once()
+        bad = tmp_path / "slab.03-of-08.snap"
+        raw = bytearray(bad.read_bytes())
+        raw[HEADER_SIZE + 4] ^= 0x55
+        bad.write_bytes(bytes(raw))
+
+        eng2 = ShardedSlabEngine(mesh=mesh, n_slots_global=8 * 256)
+        snap2 = _snapshotter(eng2, tmp_path, ts)
+        assert snap2.restore()["restored"] is False
+        assert snap2.load_rejected_total == 1
+        assert eng2.health_snapshot(now=NOW)["live_slots"] == 0  # cold
+
+    @pytest.mark.parametrize("writer", ["jax", "port"])
+    def test_sharded_snapshot_restores_across_packages(self, tmp_path, mesh, writer):
+        """A mesh engine's 8 shard files written by one package's
+        snapshotter restore into the other package's mesh engine (the
+        routed arm), and the next launch gives both the same counters and
+        shard tables."""
+        import jax
+
+        from api_ratelimit_tpu.parallel import ShardedSlabEngine as JaxMeshEngine
+        from api_ratelimit_tpu.parallel import make_mesh as jax_mesh
+        from api_ratelimit_tpu_torch.parallel import ShardedSlabEngine
+
+        assert len(jax.devices()) == 8
+        ts, jts = FakeTimeSource(NOW), JaxClock(NOW)
+        # ways pinned at 128, as the reference's continuation case pins them
+        jeng = JaxMeshEngine(mesh=jax_mesh(), n_slots_global=8 * 256, ways=128, routed=True)
+        peng = ShardedSlabEngine(mesh=mesh, n_slots_global=8 * 256, ways=128, routed=True)
+        packed = self._packed(128)
+        src, dst = (jeng, peng) if writer == "jax" else (peng, jeng)
+        src.step_after_compact(packed.copy(), cap=0xFFFF)
+        if writer == "jax":
+            jax_snapshotter.SlabSnapshotter(src, str(tmp_path), interval_ms=1000, time_source=jts).snapshot_once()
+            restored = _snapshotter(dst, tmp_path, ts).restore()["restored"]
+        else:
+            _snapshotter(src, tmp_path, ts).snapshot_once()
+            restored = jax_snapshotter.SlabSnapshotter(dst, str(tmp_path), interval_ms=1000, time_source=jts).restore()["restored"]
+        assert sorted(os.listdir(tmp_path)) == [f"slab.{i:02d}-of-08.snap" for i in range(8)]
+        assert restored == 128
+        a = src.step_after_compact(packed.copy(), cap=0xFFFF)
+        b = dst.step_after_compact(packed.copy(), cap=0xFFFF)
+        np.testing.assert_array_equal(a, b)
+        for ta, tb in zip(src.export_tables(), dst.export_tables()):
+            np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
 
 
 class TestSnapshotFaultInjection:

@@ -207,7 +207,9 @@ def test_runner_defaults_to_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ({"tpu_mesh_devices": 4}, "10"),
+        # item 10 is ported: TPU_MESH_DEVICES=4 boots the mesh engine on
+        # CPU shards (the case keeps its id)
+        pytest.param({"tpu_mesh_devices": 4}, None, id="override0-10"),
         # item 8's in-process half is ported: LEASE_ENABLED boots (the
         # case keeps its id)
         pytest.param({"lease_enabled": True}, None, id="override1-8"),
@@ -244,6 +246,15 @@ def test_runner_refuses_unported_settings(tmp_path, override, item):
                     assert (runner.lease_table is not None) == settings.lease_enabled
                     assert engine.victim_enabled == settings.victim_tier_enabled
                     assert engine.victim_debug()["enabled"] == settings.victim_tier_enabled
+                    mesh = engine.mesh_engine
+                    assert engine.shard_count == max(1, settings.tpu_mesh_devices)
+                    if mesh is not None:
+                        routed, hot, salt = settings.shard_config()
+                        snap = engine.shard_routing_snapshot()
+                        assert (snap["routed"], snap["hot_tier"]["enabled"]) == (routed, hot)
+                        assert snap["hot_tier"]["salt_ways"] == (salt or settings.tpu_mesh_devices)
+                        assert snap["rows"] == 1 and snap["shards"] == 4
+                        assert [d.type for d in mesh.devices] == ["cpu"] * 4
             finally:
                 runner.stop()
             return

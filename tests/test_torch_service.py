@@ -223,7 +223,7 @@ def test_port_imports_no_jax_and_no_reference():
         "'cmd.service_cmd', 'cmd.client_cmd', 'cmd.config_check_cmd', "
         "'tracing', 'tracing.tracer', 'tracing.propagation', 'tracing.middleware', "
         "'tracing.journeys', 'stats.prometheus', 'utils.provenance', "
-        "'backends.fallback')\n"
+        "'backends.fallback', 'parallel', 'parallel.sharded_slab')\n"
         "missing = [m for m in new if 'api_ratelimit_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules if m.startswith('api_ratelimit_tpu_torch')]))\n"

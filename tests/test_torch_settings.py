@@ -88,6 +88,8 @@ VALIDATORS = (
     # quota federation's and the fault injector's (slice 15)
     "fed_config",
     "fault_rules",
+    # the multi-device engine's (slice 17)
+    "shard_config",
 )
 
 # parsed, but a validator refuses it at boot: the same text from both
@@ -116,6 +118,7 @@ VALIDATOR_ENVS = [
     ("snapshot_stale_negative", {"SLAB_SNAPSHOT_STALE_AFTER_MS": "-1"}),
     ("snapshot_stale_below_interval", {"SLAB_SNAPSHOT_INTERVAL_MS": "10000", "SLAB_SNAPSHOT_STALE_AFTER_MS": "500"}),
     ("shm_ring_rows_small", {"SHM_RING_ROWS": "32"}),
+    ("salt_ways_negative", {"HOT_TIER_SALT_WAYS": "-1"}),
     ("shm_rings_off", {"SHM_RINGS": "false", "SIDECAR_SOCKET": "/run/o.sock"}),
     ("shm_over_tcp", {"SIDECAR_SOCKET": "tcp://owner:7000"}),
     ("shm_control_explicit", {"SHM_CONTROL_SOCK": "/run/ctl.sock"}),
@@ -222,7 +225,9 @@ def test_boot_validators_agree(env):
 # the knob that was refused now boots; a validator's name: the knob boots
 # and that validator answers as the reference's, its value or its error)
 UNPORTED = [
-    ({"TPU_MESH_DEVICES": "4"}, "10"),
+    # item 10: TPU_MESH_DEVICES boots, its shard knobs validated as the
+    # reference's
+    ({"TPU_MESH_DEVICES": "4"}, "shard_config"),
     ({"FRONTEND_PROCS": "2"}, None),  # item 8, the multi-process edge
     ({"SIDECAR_SOCKET": "/run/owner.sock"}, None),  # item 8
     # item 9a: a standby list is accepted

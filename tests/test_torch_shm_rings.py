@@ -20,6 +20,7 @@ the JAX package's.
   SIGTERM tears the fleet down leaving no segment behind.
 """
 
+import collections
 import glob
 import json
 import os
@@ -276,6 +277,27 @@ def _children(pid: int) -> list[int]:
     return out
 
 
+@pytest.mark.parametrize("calls", [24, 43, 60])
+def test_fleet_client_spreads_shared_keys_evenly(calls):
+    """chip_smoke phase 13's eight load processes of 16 threads, each given
+    its first thread's index: whatever number of calls every thread
+    completes, each shared and each concurrency key gets the same number of
+    calls, so the fewest any key gets is the mean, not a third of it."""
+    from api_ratelimit_tpu_torch.tools.fleet_client import thread_stream
+
+    shared, conc = collections.Counter(), collections.Counter()
+    for proc in range(8):
+        for t in range(16):
+            stream = thread_stream((300 + proc) * 1000 + t, calls, 1 << 16, 8, 16, 16, offset=proc * 16 + t)
+            for _, _, key in stream:
+                if key is not None:
+                    (shared if key[0] == "shared" else conc)[key[1]] += 1
+    assert sorted(shared) == sorted(f"s{j}" for j in range(16))
+    assert sorted(conc) == sorted(f"c{j}" for j in range(16))
+    assert len(set(shared.values())) == 1 and len(set(conc.values())) == 1
+    assert shared["s0"] == 128 * len(range(7, calls, 16)) // 16
+
+
 @pytest.mark.mp
 def test_fleet_client_load_is_exact_through_the_rings(tmp_path):
     """chip_smoke phase 13's load at a small size on the CPU: two
@@ -325,7 +347,7 @@ def test_fleet_client_load_is_exact_through_the_rings(tmp_path):
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "api_ratelimit_tpu_torch.tools.fleet_client", "--port",
                  str(runner.server.grpc_port), "--seconds", "2", "--threads", "3", "--seed", str(i + 1),
-                 "--shared-keys", "2", "--shared-every", "4", "--out", out],
+                 "--thread-offset", str(3 * i), "--shared-keys", "2", "--shared-every", "4", "--out", out],
                 cwd=REPO, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
             ))
         for proc in procs:

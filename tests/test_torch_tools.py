@@ -5,7 +5,8 @@ against the JAX package's.
 * hotpath_profile: the JAX package's TestHotpathProfile on the port's tool
   with --device cpu (the default, --legacy, --slab-split, --dispatch and
   --frontend arms, each to the reference's output contract); --shard-split
-  needs the multi-GPU engine (ROADMAP item 10) and exits 2 naming it.
+  profiles the multi-device engine's routed owner on CPU shards, to the
+  reference's contract.
 * snapshot_inspect: the reference's inspector cases (test_persist.py
   TestSnapshotInspectCli, test_lease.py's lease section, test_algorithms.py's
   algorithm mix) on the port's tool, and the two tools' JSON reports equal
@@ -62,12 +63,24 @@ TestJourneyReport = _PLATFORM.TestJourneyReport
 
 class TestHotpathProfile(_PLATFORM.TestHotpathProfile):
     def test_shard_split_stage_table(self):
-        """--shard-split profiles the multi-GPU engine's routed owner, which
-        is not ported yet: it exits 2 naming ROADMAP item 10 and runs no
-        other arm."""
+        """--shard-split profiles the multi-device engine's routed owner
+        (here on 2 CPU shards, --device cpu): the reference's contract, the
+        `[shard_split] shards=2 launches=` line, a p50/p99 row a stage, the
+        per-shard rows and the padding waste, and beside it each shard's
+        launches; no other arm runs."""
         proc = _PLATFORM._run_tool("api_ratelimit_tpu_torch.tools.hotpath_profile", ("--shard-split", "--shards", "2"))
-        assert proc.returncode == 2
-        assert "ROADMAP item 10" in proc.stderr
+        assert proc.returncode == 0, proc.stderr[-500:]
+        lines = proc.stdout.splitlines()
+        summary = [ln for ln in lines if ln.startswith("[shard_split] shards=")]
+        assert summary, proc.stdout[-300:]
+        assert "shards=2" in summary[0] and "launches=6" in summary[0] and "device=cpu" in summary[0]
+        for stage in ("bucket_ns", "pad_ns", "launch_ns"):
+            rows = [ln for ln in lines if ln.strip().startswith(stage)]
+            assert rows and "p50=" in rows[0] and "p99=" in rows[0], (stage, proc.stdout[-300:])
+        shard_rows = [ln for ln in lines if ln.strip().startswith("shard_rows")]
+        assert shard_rows and sum(eval(shard_rows[0].split("shard_rows")[1])) == 6 * 8192
+        assert any(ln.strip() == "shard_launches [6, 6]" for ln in lines)
+        assert any("padding_waste_pct=" in ln for ln in lines)
         assert "[hotpath]" not in proc.stdout and "[slab_split]" not in proc.stdout
 
     def test_slab_split_metrics_agree(self):
@@ -398,6 +411,90 @@ class TestDeviceProfileQuiesce:
             assert not engine._state_lock.locked()
         finally:
             engine.close()
+
+    def test_mesh_engine_quiesce_holds_the_shards_lock(self):
+        """On a mesh the shards launch under the mesh engine's own state
+        lock: launches_quiesced holds it beside the engine's."""
+        from api_ratelimit_tpu_torch.backends.cuda import SlabDeviceEngine
+        from api_ratelimit_tpu_torch.parallel import make_mesh
+        from api_ratelimit_tpu_torch.utils import FakeTimeSource
+
+        engine = SlabDeviceEngine(FakeTimeSource(1000), n_slots=4 * 64, ways=4, buckets=(16,), device="cpu",
+                                  mesh=make_mesh(["cpu"] * 4))
+        try:
+            with engine.launches_quiesced():
+                assert engine._state_lock.locked() and engine.mesh_engine._state_lock.locked()
+            assert not engine._state_lock.locked() and not engine.mesh_engine._state_lock.locked()
+        finally:
+            engine.close()
+
+    def test_mesh_runner_captures_quiesced(self, tmp_path):
+        """A Runner with TPU_MESH_DEVICES=4 and TPU_PROFILE_DIR: GET
+        /debug/profile starts and stops its session with the mesh engine's
+        state lock held, while a client drives calls, and writes one
+        trace."""
+        import contextlib
+        import threading
+
+        from api_ratelimit_tpu_torch.runner import Runner
+        from api_ratelimit_tpu_torch.settings import new_settings
+
+        root = tmp_path / "runtime"
+        (root / "rl" / "config").mkdir(parents=True)
+        (root / "rl" / "config" / "c.yaml").write_text(
+            "domain: d\ndescriptors:\n  - key: k\n    rate_limit: {unit: minute, requests_per_unit: 5}\n"
+        )
+        profile_dir = str(tmp_path / "profiles")
+        env = {
+            "RUNTIME_ROOT": str(root), "RUNTIME_SUBDIRECTORY": "rl", "USE_STATSD": "false", "PORT": "0",
+            "GRPC_PORT": "0", "DEBUG_PORT": "0", "TPU_SLAB_SLOTS": "1024", "SLAB_WAYS": "4",
+            "TPU_BUCKETS": "16", "TPU_PROFILE_DIR": profile_dir, "TPU_MESH_DEVICES": "4",
+        }
+        runner = Runner(new_settings(env), device="cpu")
+        runner.run_background()
+        try:
+            assert runner.wait_ready(30.0)
+            mesh = runner.cache.engine.mesh_engine
+            assert mesh is not None and mesh.shard_count == 4
+            held = []
+            real = mesh.quiesced
+
+            @contextlib.contextmanager
+            def spy():
+                with real():
+                    held.append(mesh._state_lock.locked())
+                    yield
+
+            mesh.quiesced = spy
+            stop = threading.Event()
+            codes = []
+
+            def drive():
+                body = json.dumps({"domain": "d", "descriptors": [{"entries": [{"key": "k", "value": "v"}]}]}).encode()
+                while not stop.is_set():
+                    req = urllib.request.Request(f"http://127.0.0.1:{runner.server.http_port}/json", data=body)
+                    try:
+                        with urllib.request.urlopen(req, timeout=30) as r:
+                            codes.append(r.status)
+                    except urllib.error.HTTPError as e:
+                        codes.append(e.code)
+
+            driver = threading.Thread(target=drive)
+            driver.start()
+            try:
+                url = f"http://127.0.0.1:{runner.server.debug_port}/debug/profile?ms=50"
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    assert r.status == 200
+                    assert json.loads(r.read()) == {"profile_dir": profile_dir, "ms": 50.0}
+            finally:
+                stop.set()
+                driver.join(60)
+            assert held == [True, True]
+            assert len(os.listdir(profile_dir)) == 1
+            assert codes and set(codes) <= {200, 429}
+            assert sum(mesh.shard_launches) > 0
+        finally:
+            runner.stop()
 
     def test_runner_wires_the_quiesce_and_warms_at_boot(self, tmp_path):
         """A Runner with TPU_PROFILE_DIR: its debug server's quiesce is the

@@ -424,9 +424,12 @@ def test_chip_smoke_warm_restart_phase_on_the_cpu(monkeypatch):
     from api_ratelimit_tpu_torch.backends import cuda as cuda_mod
     from api_ratelimit_tpu_torch.ops import slab_kernels as K
 
+    # UNDER_GAP_S is the script's own gap between snapshots: a CPU submit
+    # of 512 rows takes 20-80 ms, so a shorter gap leaves no submit wholly
+    # outside the snapshots on a loaded host
     for name, value in (
         ("WARM_CALLS", 96), ("CRASH_CALLS", 100), ("CRASH_EVERY", 32), ("CRASH_AFTER", 64),
-        ("UNDER_THREADS", 3), ("UNDER_SNAPSHOTS", 2), ("UNDER_GAP_S", 0.05), ("UNDER_BATCH", 512),
+        ("UNDER_THREADS", 3), ("UNDER_SNAPSHOTS", 2), ("UNDER_GAP_S", 0.4), ("UNDER_BATCH", 512),
         ("UNDER_KEYS", 4096), ("REDIS_CALLS", 96), ("PROCESS_CLOCK_EVERY", 32),
     ):
         monkeypatch.setattr(CS, name, value)
