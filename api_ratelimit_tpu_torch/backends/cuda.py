@@ -12,6 +12,13 @@ Every launch is split in two, as in the reference: the LAUNCH packs the
 submitted row blocks into a pinned host operand, uploads it without blocking,
 enqueues the step and a non-blocking readback into pinned memory, and records
 a CUDA event after that readback; the COLLECT waits on that event and slices.
+Under the dispatch loop's `dispatch.batch` span (active while the owner
+thread calls in, the tracer on) both record their phases as its children:
+engine.operand_wait, engine.pack, engine.promote (victim tier on),
+engine.step_enqueue and engine.readback_enqueue a device launch,
+engine.fence_wait and engine.copy; the span gets the launch's
+`device_launches`, `chunk_rows` and `clock_now`. device.step_enqueue_ms
+times the slab step's enqueue alone, always.
 Three arms drive the split (TPU_BATCH_WINDOW, DISPATCH_LOOP):
 
     direct         window 0: each submit launches and collects under the
@@ -110,7 +117,7 @@ from ..models.descriptors import RateLimitRequest
 from ..models.response import DoLimitResponse
 from ..models.units import unit_to_divider
 from ..ops.hashing import fingerprint_many, set_index, split_fingerprints
-from ..tracing import journeys, tag_do_limit_start
+from ..tracing import active_span, journeys, tag_do_limit_start
 from ..ops.sketch import (
     make_sketch,
     sketch_decay,
@@ -183,6 +190,14 @@ class _Item:
     limit: int
     divider: int  # window seconds, algorithm id in bits 28-30
     jitter: int
+
+
+def _owner_batch_span():
+    """The dispatch loop's `dispatch.batch` span when the owner thread
+    activated one around this call (the tracer on), else None: a request
+    span active on a direct-mode caller's thread gets no engine children."""
+    span = active_span()
+    return span if span is not None and span.operation_name == "dispatch.batch" else None
 
 
 def validate_gcra_burst_ratio(ratio) -> float:
@@ -435,13 +450,14 @@ class SlabDeviceEngine:
         # per-bucket ping-pong pairs of operands (_packed_operand)
         self._operand_pool: dict = {}
         self._operand_lock = threading.Lock()
-        self._h_pack = self._h_launch = self._h_readback = None
+        self._h_pack = self._h_launch = self._h_readback = self._h_step = None
         batcher_scope = None
         if scope is not None:
             device_scope = scope.scope("device")
             self._h_pack = device_scope.histogram("pack_ms")
             self._h_launch = device_scope.histogram("launch_ms")
             self._h_readback = device_scope.histogram("readback_ms")
+            self._h_step = device_scope.histogram("step_enqueue_ms")
             batcher_scope = scope.scope("batcher")
         self._block_batcher = bool(block_mode)
         # the native row-block gather (rl_pack_rows) for the pack stage;
@@ -699,8 +715,8 @@ class SlabDeviceEngine:
             _log.info("precompile: the mesh engine's shards take their own rungs")
             return self.precompiled
         # warm launches must not pollute the per-stage histograms
-        saved = self._h_pack, self._h_launch, self._h_readback
-        self._h_pack = self._h_launch = self._h_readback = None
+        saved = self._h_pack, self._h_launch, self._h_readback, self._h_step
+        self._h_pack = self._h_launch = self._h_readback = self._h_step = None
         try:
             self._bind_thread()
             for bucket in self._buckets:
@@ -710,7 +726,7 @@ class SlabDeviceEngine:
                     self._execute_blocks_collect([self._dispatch_packed(op, 0, cap)])
                     self.precompiled[(bucket, name)] = True
         finally:
-            self._h_pack, self._h_launch, self._h_readback = saved
+            self._h_pack, self._h_launch, self._h_readback, self._h_step = saved
         return self.precompiled
 
     @contextlib.contextmanager
@@ -1192,7 +1208,7 @@ class SlabDeviceEngine:
             op.fence.synchronize()
         return op
 
-    def _iter_block_chunks(self, blocks: list[np.ndarray]):
+    def _iter_block_chunks(self, blocks: list[np.ndarray], span=None):
         """Yield (operand, n, cap) per max-bucket chunk of the submitted
         blocks. The common case (the total fits one launch) copies each
         block's columns straight into a pooled operand; an oversized
@@ -1200,10 +1216,19 @@ class SlabDeviceEngine:
         lanes carry hits == 0, the only gate the device reads. The cap uses
         max(limit) + max(hits) over the chunk, so the saturating readback
         stays exact. Several blocks gather through the native codec's
-        rl_pack_rows when it is built."""
+        rl_pack_rows when it is built. With the owner's batch `span` it
+        records engine.operand_wait (the pooled operand's fence) and, once
+        exhausted, engine.pack (`fresh_operands`: chunks allocated outside
+        the pool), and tags the span's `clock_now`."""
+        t0 = time.monotonic_ns() if span is not None else 0
+        fresh = 0
         total = sum(b.shape[1] for b in blocks)
         if total <= self._max_bucket:
             op = self._packed_operand(self._bucket_for(total))
+            if span is not None:
+                t1 = time.monotonic_ns()
+                span.tracer.record_span("engine.operand_wait", span, t0, t1)
+                t0 = t1
             packed = op.array
             if self._pack_rows is not None and len(blocks) > 1:
                 self._pack_rows(blocks, packed, total)
@@ -1223,7 +1248,10 @@ class SlabDeviceEngine:
                 op = _Operand(self._bucket_for(n), self._pin)
                 op.array[:6, :n] = chunk
                 chunks.append((op, n))
+            fresh = len(chunks)
         now = np.uint32(self._time_source.unix_now())
+        if span is not None:
+            span.set_tag("clock_now", int(now))
         for op, n in chunks:
             packed = op.array
             maxv = int(packed[ROW_HITS, :n].max()) + int(packed[ROW_LIMIT, :n].max())
@@ -1231,13 +1259,19 @@ class SlabDeviceEngine:
             packed[6, 0] = now
             packed[6, 2] = self._burst_bits  # GCRA's burst ratio (ops/slab.py)
             yield op, n, cap
+        if span is not None:
+            span.tracer.record_span("engine.pack", span, t0, time.monotonic_ns(),
+                                     {"fresh_operands": fresh})
 
-    def _dispatch_packed(self, op: _Operand, n: int, cap: int) -> _Launch:
+    def _dispatch_packed(self, op: _Operand, n: int, cap: int, span=None) -> _Launch:
         """Enqueue one launch of the packed operand and its non-blocking
         readback; returns the _Launch the collect drains. launch_ms times
         this host-side phase, never the device execution (readback_ms
-        carries the wait). n == 0 (precompile's warmers) reads back the
-        whole padded bucket."""
+        carries the wait), step_enqueue_ms the slab step's enqueue in it.
+        n == 0 (precompile's warmers) reads back the whole padded bucket.
+        With the owner's batch `span` it records engine.promote (victim
+        tier on), engine.step_enqueue, engine.readback_enqueue and the
+        victim drain's engine.fence_wait."""
         t_launch = time.perf_counter() if self._h_launch is not None else 0.0
         if n:  # precompile's warmers are not launches of traffic
             self.launch_sizes.append(n)
@@ -1259,15 +1293,19 @@ class SlabDeviceEngine:
             return _MeshLaunch(token, n)
         dtype = np.uint8 if cap == 0xFF else np.uint16 if cap == 0xFFFF else np.uint32
         victim = self._victim is not None
+        timed = span is not None or self._h_step is not None
         with self._state_lock:
             # the promote pass rides before the step, so a demoted key's
             # launch already sees its restored counter
+            t_promote = time.monotonic_ns() if span is not None else 0
             self._inject_promotes_locked(op.array, n)
+            t_step = time.monotonic_ns() if timed else 0
             outs = slab_step_after(
                 self._state, op.host, ways=self._ways, out_dtype=dtype,
                 sketch=self._sketch, sketch_ways=self._sketch_ways,
                 multi_algo=self._algos_seen, victim=victim,
             )
+            t_read = time.monotonic_ns() if timed else 0
             if victim:
                 # the demote readback rides last (after the sketch); its
                 # padding lanes sort last, so the first n lanes hold every
@@ -1285,16 +1323,24 @@ class SlabDeviceEngine:
             host_out.copy_(wanted, non_blocking=True)
             fence = self._new_fence()
             fence.record()
+            t_end = time.monotonic_ns() if span is not None else 0
             op.fence = fence
             self._pending_health.append(health)
             self._decisions_total += n
             if len(self._pending_health) > 4096:
                 self._drain_health_locked()
+        if self._h_step is not None:
+            self._h_step.record((t_read - t_step) / 1e6)
+        if span is not None:
+            if victim:
+                span.tracer.record_span("engine.promote", span, t_promote, t_step)
+            span.tracer.record_span("engine.step_enqueue", span, t_step, t_read)
+            span.tracer.record_span("engine.readback_enqueue", span, t_read, t_end)
         if victim:
             # the demote drain, outside the state lock and before the next
             # launch can start its promote pass (the reference's order)
             t0 = time.perf_counter()
-            fence.synchronize()
+            self._wait_fence(fence, span)
             t1 = time.perf_counter()
             self._drain_victim(victim_host.numpy())
             self.victim_drain_times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
@@ -1308,16 +1354,30 @@ class SlabDeviceEngine:
         landed."""
         return all(t.fence.query() for t in tokens)
 
-    def _collect_array(self, launch: _Launch) -> np.ndarray:
+    def _wait_fence(self, fence, span) -> int:
+        """fence.synchronize(), engine.fence_wait under the owner's batch
+        `span`. Returns its end, time.monotonic_ns()."""
+        w0 = time.monotonic_ns()
+        fence.synchronize()
+        w1 = time.monotonic_ns()
+        if span is not None:
+            span.tracer.record_span("engine.fence_wait", span, w0, w1)
+        return w1
+
+    def _collect_array(self, launch: _Launch, span=None) -> np.ndarray:
         """Blocking readback of one launch: wait on its fence, then an
         owned uint32 copy of its live items. readback_ms covers the wait
-        for device completion plus the copy."""
+        for device completion plus the copy. With the owner's batch `span`
+        it records engine.fence_wait and engine.copy (a mesh launch's
+        collect records neither)."""
         t0 = time.perf_counter() if self._h_readback is not None else 0.0
         if isinstance(launch, _MeshLaunch):
             out = self._engine.collect_after_compact(launch.token)[: launch.n]
         else:
-            launch.fence.synchronize()
+            w1 = self._wait_fence(launch.fence, span)
             out = launch.host_out[: launch.n].numpy().astype(np.uint32)
+            if span is not None:
+                span.tracer.record_span("engine.copy", span, w1, time.monotonic_ns())
         if self._h_readback is not None:
             self._h_readback.record((time.perf_counter() - t0) * 1e3)
         return out
@@ -1327,25 +1387,37 @@ class SlabDeviceEngine:
 
     def _execute_blocks_launch(self, blocks: list[np.ndarray]) -> list[_Launch]:
         self._bind_thread()
+        span = _owner_batch_span()
         try:
-            if self._h_pack is None:
+            if self._h_pack is None and span is None:
                 return [
                     self._dispatch_packed(op, n, cap)
                     for op, n, cap in self._iter_block_chunks(blocks)
                 ]
             t0 = time.perf_counter()
-            chunks = list(self._iter_block_chunks(blocks))
-            self._h_pack.record((time.perf_counter() - t0) * 1e3)
-            return [self._dispatch_packed(op, n, cap) for op, n, cap in chunks]
+            chunks = list(self._iter_block_chunks(blocks, span))
+            if self._h_pack is not None:
+                self._h_pack.record((time.perf_counter() - t0) * 1e3)
+            if span is not None:
+                span.set_tag("device_launches", len(chunks))
+                span.set_tag("chunk_rows", [n for _, n, _ in chunks])
+            return [self._dispatch_packed(op, n, cap, span) for op, n, cap in chunks]
         except (RuntimeError, ValueError) as e:
             raise CacheError(f"cuda backend failure: {e}") from e
 
     def _execute_blocks_collect(self, tokens: list[_Launch]) -> np.ndarray:
+        span = _owner_batch_span()
         try:
-            outs = [self._collect_array(t) for t in tokens]
+            outs = [self._collect_array(t, span) for t in tokens]
         except (RuntimeError, ValueError) as e:
             raise CacheError(f"cuda backend failure: {e}") from e
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        if len(outs) == 1:
+            return outs[0]
+        t0 = time.monotonic_ns() if span is not None else 0
+        out = np.concatenate(outs)
+        if span is not None:
+            span.tracer.record_span("engine.copy", span, t0, time.monotonic_ns())
+        return out
 
 
 class SlabHealthStats:

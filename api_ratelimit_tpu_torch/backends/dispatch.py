@@ -41,12 +41,43 @@ stats-flush cadence.
 Tracing: the request span's context rides the ring in a fixed-width
 trace-context row beside the frame (trace id hi/lo, span id, flags: four
 uint64 words, the same words a cross-process ring carries in its slot
-record), since contextvars do not cross into the owner thread. The owner opens one `dispatch.batch` span per launch, linked
-(followsFrom) to every request span it coalesced, gives the ring-wait,
-launch and redeem histograms a trace-id exemplar in their slow bucket, and
-hands the owner-side stage timestamps (take, pack, launch, redeem, scatter)
-back on the ticket: the caller merges them into its journey and closes its
-request span with dispatch.{ring_wait,pack,launch,redeem} child spans.
+record), since contextvars do not cross into the owner thread. While the
+global tracer is enabled the owner opens one `dispatch.batch` span per
+launch, linked (followsFrom) to every request span it coalesced (none when
+no frame carried a context: the port departs from the reference there),
+gives the ring-wait, launch and redeem histograms a trace-id exemplar in
+their slow bucket, and hands the owner-side stage timestamps (take, pack,
+launch, redeem, scatter) back on the ticket: the caller merges them into
+its journey and closes its request span with
+dispatch.{ring_wait,pack,launch,redeem} child spans.
+
+The batch span is the public record of the owner's cycle: tags
+`device_launches`, `chunk_rows`, `clock_now` (set by the engine) and
+`owner_cpu_us` (the owner thread's CPU time over the span; on a host whose
+thread CPU clock ticks coarsely, 10 ms in some sandboxes, it reads 0 or a
+tick's multiple, and only sums over many spans mean something). A launch
+that no request span is linked to opens its batch span unsampled, so the
+owner's own record never crowds sampled requests out of a tracer's buffer;
+a profiling session keeps it (RecordingTracer(keep_unsampled=True)). Its
+children are recorded after the fact from time.monotonic_ns() stamps taken
+where the work happens, in cycle order and never overlapping:
+dispatch.wait (the idle wait before the take; with launches in flight, the
+empty take and the wait on the oldest one's readiness), dispatch.linger,
+dispatch.take, the engine's (engine.operand_wait, engine.pack,
+engine.promote, engine.step_enqueue, engine.readback_enqueue,
+engine.fence_wait, engine.copy: backends/cuda.py reads the batch span
+through active_span(), which the owner activates around its calls into the
+engine), dispatch.scatter, and dispatch.turn (from the scatter's end to
+the owner's next stamp, where the span closes: the way back round the
+loop, behind the frontends the scatter woke). Every span's epoch start
+goes through the process's one anchor (tracing/tracer.py epoch_s), the
+clock torch.profiler stamps its timeline in. With the tracer off a cycle
+costs one `enabled` check: no span, stamp list or _PreStamps. Always on,
+like the other histograms: dispatch.cycle_ms (the owner's wall time from
+one take to the next), dispatch.offcpu_ms (that wall time less the owner
+thread's CPU time and less its parking on the work event, _note_cycle) and
+dispatch.wake_ms (an in-process frame's ticket resolve to its submitter
+running again).
 
 DISPATCH_PROFILE=1 (read once, when the loop is built) runs the owner
 thread's loop under the standard library's profile module, whose
@@ -72,7 +103,7 @@ from collections import deque
 import numpy as np
 
 from ..limiter.cache import CacheError, DeadlineExceededError
-from ..tracing import SpanContext, active_span, global_tracer, journeys
+from ..tracing import SpanContext, activate, active_span, global_tracer, journeys
 from ..utils.deadline import current_deadline
 from .overload import BrownoutError, QueueFullError
 
@@ -99,7 +130,7 @@ class _Ticket:
     One ticket per frontend thread, reused across submits (the thread blocks
     on the result, so it never has two outstanding)."""
 
-    __slots__ = ("event", "buf", "n", "error", "fresh", "stage_ns")
+    __slots__ = ("event", "buf", "n", "error", "fresh", "stage_ns", "resolved_ns")
 
     def __init__(self):
         self.event = threading.Event()
@@ -113,6 +144,9 @@ class _Ticket:
         # scatter) in monotonic ns, set before resolve() when journeys or
         # tracing are on
         self.stage_ns: tuple | None = None
+        # the owner's time.monotonic_ns() at resolve(): the submitter's
+        # wake latency (dispatch.wake_ms)
+        self.resolved_ns = 0
 
     def reserve(self, n: int) -> np.ndarray:
         if self.fresh:
@@ -123,6 +157,7 @@ class _Ticket:
         return self.buf
 
     def resolve(self) -> None:
+        self.resolved_ns = time.monotonic_ns()
         self.event.set()
 
     def fail(self, error: BaseException) -> None:
@@ -395,6 +430,13 @@ class DispatchLoop:
         self.overlapped_launches = 0
         self.launches = 0
         self._h_wait = self._h_batch = self._h_launch = self._h_redeem = None
+        self._h_cycle = self._h_offcpu = self._h_wake = None
+        # owner-only: time.monotonic_ns() at its last take that found
+        # frames, the wall and thread CPU ns at its first, the off-CPU ns
+        # recorded so far and the ns parked on the work event since the
+        # first (dispatch.cycle_ms / offcpu_ms)
+        self._cycle_ns = self._first_ns = self._first_cpu_ns = self._offcpu_ns = 0
+        self._parked_ns = 0
         if scope is not None:
             from ..stats.store import DEFAULT_SIZE_BUCKETS
 
@@ -405,6 +447,9 @@ class DispatchLoop:
             )
             self._h_launch = ds.histogram("launch_ms")
             self._h_redeem = ds.histogram("redeem_ms")
+            self._h_cycle = ds.histogram("cycle_ms")
+            self._h_offcpu = ds.histogram("offcpu_ms")
+            self._h_wake = ds.histogram("wake_ms")
             ds.add_stat_generator(DispatchStats(self, ds))
         # the native verdict scatter (rl_scatter_rows) for _redeem; None
         # keeps the numpy slice copies
@@ -527,6 +572,7 @@ class DispatchLoop:
         ticket = ring.ticket
         ticket.error = None
         ticket.stage_ns = None
+        ticket.resolved_ns = 0
         ticket.fresh = not reuse_out
         ticket.event.clear()
         # the trace context rides the frame: the owner links the batch span
@@ -550,6 +596,8 @@ class DispatchLoop:
         self._idle.clear()
         self._work.set()
         out = ticket.redeem()
+        if self._h_wake is not None and ticket.resolved_ns:
+            self._h_wake.record((time.monotonic_ns() - ticket.resolved_ns) / 1e6)
         stages = ticket.stage_ns
         if stages is not None:
             journeys.merge_owner_stages(stages)
@@ -565,21 +613,10 @@ class DispatchLoop:
         if tracer is None or not tracer.enabled:
             return
         take, pack, launch, redeem, scatter = stages
-        now_ns = time.monotonic_ns()
-        wall = time.time()
-
-        def record(name: str, begin_ns: int, end_ns: int) -> None:
-            tracer.record_span(
-                f"dispatch.{name}",
-                span,
-                wall - (now_ns - begin_ns) / 1e9,
-                (end_ns - begin_ns) / 1e9,
-            )
-
-        record("ring_wait", publish_ns, take)
-        record("pack", take, pack)
-        record("launch", pack, launch)
-        record("redeem", launch, scatter)
+        tracer.record_span("dispatch.ring_wait", span, publish_ns, take)
+        tracer.record_span("dispatch.pack", span, take, pack)
+        tracer.record_span("dispatch.launch", span, pack, launch)
+        tracer.record_span("dispatch.redeem", span, launch, scatter)
 
     def flush(self) -> None:
         """Block until everything published so far has been redeemed."""
@@ -701,14 +738,24 @@ class DispatchLoop:
                 for ring in tuple(ext):
                     ring.set_doorbell(False)
                 return
+        t0 = time.monotonic_ns()
         self._work.wait(timeout=timeout)
+        self._parked_ns += time.monotonic_ns() - t0
         if ext:
             for ring in tuple(self._ext_rings):
                 ring.set_doorbell(False)
 
     def _run(self) -> None:
-        inflight: deque = deque()  # (token, frames, n_items, stages, span)
+        # (token, frames, n_items, stages, span, owner CPU ns at its start)
+        inflight: deque = deque()
+        pre = None  # the next batch's stamps before its span opens (tracer on)
+        turning = None  # (batch span, its scatter's end ns): the loop's turn
         while True:
+            if global_tracer().enabled:
+                if pre is None:
+                    pre = _PreStamps()
+            else:
+                pre = None
             if self._detach_pending:
                 self._process_detach()
             if not inflight and not self._closed:
@@ -716,8 +763,17 @@ class DispatchLoop:
                 # take so concurrent submitters share one launch. With a
                 # batch in flight, its execute time IS the coalescing
                 # window: take immediately.
-                self._linger()
+                t0 = time.monotonic_ns() if pre is not None or turning is not None else 0
+                turning = _end_turn(turning, t0)
+                if self._linger() and pre is not None:
+                    pre.add("dispatch.linger", t0, time.monotonic_ns())
+            t0 = time.monotonic_ns() if pre is not None or turning is not None else 0
+            turning = _end_turn(turning, t0)
             frames, pending_free, expired, t_take = self._take()
+            if frames:
+                self._note_cycle()
+                if pre is not None:
+                    pre.add("dispatch.take", t0, time.monotonic_ns())
             if expired:
                 self.deadline_drops += len(expired)
                 if self._overload is not None:
@@ -732,7 +788,8 @@ class DispatchLoop:
                 n_items = sum(count for _, count, _, _ in frames)
                 if self._h_batch is not None:
                     self._h_batch.record(n_items)
-                launched = self._launch_frames(frames, pending_free, t_take, bool(inflight))
+                launched = self._launch_frames(frames, pending_free, t_take, bool(inflight), pre)
+                pre = None
                 if launched is not None:
                     inflight.append(launched)
             elif pending_free:
@@ -740,6 +797,10 @@ class DispatchLoop:
             if inflight and (
                 not frames or len(inflight) >= MAX_INFLIGHT
             ):
+                # the empty take, and any wait below, are the oldest
+                # launch's dispatch.wait: the owner waits on its device work
+                span = None if frames else inflight[0][4]
+                ready = True
                 if (
                     not frames
                     and len(inflight) < MAX_INFLIGHT
@@ -749,18 +810,25 @@ class DispatchLoop:
                     # already parked in an in-flight batch, so no frame
                     # can arrive: block in the redeem directly
                     and sum(len(f[1]) for f in inflight) < self._expect_frames
-                    and not self._await_work_or_ready(inflight[0][0])
                 ):
+                    ready = self._await_work_or_ready(inflight[0][0])
+                if span is not None and t0:
+                    span.tracer.record_span("dispatch.wait", span, t0, time.monotonic_ns())
+                if not ready:
                     # work arrived while the device was still executing:
                     # launch it FIRST (the double-buffer overlap), redeem
                     # after
                     continue
-                self._redeem(*inflight.popleft())
+                turning = self._redeem(*inflight.popleft())
                 self._inflight_count = len(inflight)
                 continue
             if frames:
                 continue
-            # nothing taken, nothing redeemable: idle (or closed)
+            # nothing taken, nothing redeemable: idle (or closed). The empty
+            # take and the parking below are the owner's wait for work
+            # (dispatch.wait, from the take's start stamp t0): the idle and
+            # work events' locks are the frontends' too, so the parking
+            # itself can wait behind them
             if not self._drainable():
                 self._idle.set()
             if self._closed:
@@ -773,9 +841,36 @@ class DispatchLoop:
             self._work.clear()
             # lost-wakeup guard: a publish may have landed between the last
             # take and the clear
-            if self.queue_depth:
-                continue
-            self._wait_work(0.05)
+            if not self.queue_depth:
+                self._wait_work(0.05)
+            if pre is not None:
+                pre.add("dispatch.wait", t0, time.monotonic_ns())
+
+    def _note_cycle(self) -> None:
+        """dispatch.cycle_ms and dispatch.offcpu_ms at a take that found
+        frames: the owner's wall time since the last such take, and what
+        its off-CPU time gained over it: wall less thread CPU time since
+        its first take, less the wall time it spent parked on the work
+        event (its linger, idle and readiness waits, _wait_work), so that
+        what counts is time it wanted the CPU and did not get (the GIL,
+        the scheduler). Its fence waits spin on the CPU (CUDA's default
+        schedule with fewer cards than cores) and count as CPU time. A
+        thread CPU clock that advances in ticks (10 ms in some sandboxes)
+        counts a cycle's CPU whole or not at all, so a cycle records the
+        running total's gain, never below 0: the sum stays exact to a
+        tick."""
+        if self._h_cycle is None:
+            return
+        now, cpu = time.monotonic_ns(), time.thread_time_ns()
+        if self._cycle_ns:
+            self._h_cycle.record((now - self._cycle_ns) / 1e6)
+            off = (now - self._first_ns) - (cpu - self._first_cpu_ns) - self._parked_ns
+            gained = max(0, off - self._offcpu_ns)
+            self._offcpu_ns += gained
+            self._h_offcpu.record(gained / 1e6)
+        else:
+            self._first_ns, self._first_cpu_ns, self._parked_ns = now, cpu, 0
+        self._cycle_ns = now
 
     def _pending_frames(self) -> int:
         return sum(r.tail - r.head for r in self._rings if not r.dead)
@@ -806,39 +901,41 @@ class DispatchLoop:
             delay = min(delay * 2, 1e-3)
         return True
 
-    def _linger(self):
+    def _linger(self) -> bool:
         """Arrival-lull wait: once work is visible, keep collecting until
         the straggler train has visibly ended. Closed-loop producers block
         on their ticket after publishing, so once the pending frame count
         reaches the active-producer count there is nobody left to wait for:
         break with zero added latency (the common saturated case).
         Otherwise a quarter-window with no new publish, the full window, or
-        a max_batch backlog ends the wait."""
+        a max_batch backlog ends the wait. False when there was nothing to
+        linger for."""
         window = self._window
         if window <= 0 or not self.queue_depth:
-            return
+            return False
         deadline = time.monotonic() + window
         lull = window * 0.25
         last = self.queue_depth
         last_change = time.monotonic()
         while not self._closed:
             if self._pending_frames() >= self._expect_frames:
-                return
+                return True
             now = time.monotonic()
             if now >= deadline:
-                return
+                return True
             depth = self.queue_depth
             if depth >= self._max_batch:
-                return
+                return True
             if depth != last:
                 last = depth
                 last_change = now
             elif now - last_change >= lull:
-                return
+                return True
             self._work.clear()
             # a publish may have landed before the clear: re-check via the
             # depth comparison at the top rather than trusting the event
             self._wait_work(min(deadline - now, lull))
+        return True
 
     def _take(self):
         """Drain every live ring. Returns (frames, pending_free, expired,
@@ -926,19 +1023,26 @@ class DispatchLoop:
         for ring, freed in pending_free:
             ring.rows_out += freed
 
-    def _batch_span(self, frames, n_items: int):
+    def _batch_span(self, frames, n_items: int, pre):
         """Open the per-launch `dispatch.batch` span, linked (followsFrom)
-        to every request span this launch coalesced. (None, None) when no
-        frame carried a context: the untraced path builds nothing."""
-        links = [sctx for _, _, _, sctx in frames if sctx is not None]
-        if not links:
-            return None, None
+        to every request span this launch coalesced, backdated to the first
+        of `pre`'s stamps, which become its first children. Returns (span,
+        links): span None when `pre` is (the tracer was off at the cycle's
+        check) or the tracer is off now, links None when no frame carried a
+        context."""
+        links = [sctx for _, _, _, sctx in frames if sctx is not None] or None
         tracer = global_tracer()
-        if not tracer.enabled:
+        if pre is None or not tracer.enabled:  # re-read: it may flip mid-cycle
             return None, links
         span = tracer.start_span(
             "dispatch.batch",
             links=links,
+            start_ns=pre.spans[0][1],
+            # a launch no request span is linked to is the owner's own
+            # record: unsampled, so it never crowds sampled requests out of
+            # a tracer's buffer; a profiling session keeps it
+            # (RecordingTracer(keep_unsampled=True))
+            sampled=links is not None,
             tags={
                 "span.kind": "internal",
                 "component": "dispatch",
@@ -946,17 +1050,20 @@ class DispatchLoop:
                 "batch_frames": len(frames),
             },
         )
+        for name, start_ns, end_ns in pre.spans:
+            span.tracer.record_span(name, span, start_ns, end_ns)
         return span, links
 
-    def _launch_frames(self, frames, pending_free, t_take: float, overlapped: bool):
+    def _launch_frames(self, frames, pending_free, t_take: float, overlapped: bool, pre=None):
         """Launch one batch (fault site first); on failure every ticket of
         the batch fails and None is returned. Arena rows are released as
         soon as the launch callable returns: the pack copied them into the
         padded operand. Returns the in-flight entry (token, frames,
-        n_items, stages, batch_span). `overlapped`: another launch is still
-        in flight."""
+        n_items, stages, batch_span, owner CPU ns at the span's start).
+        `overlapped`: another launch is still in flight. `pre`: the
+        cycle's stamps (_PreStamps) while the tracer is on."""
         n_items = sum(count for _, count, _, _ in frames)
-        span, links = self._batch_span(frames, n_items)
+        span, links = self._batch_span(frames, n_items, pre)
         want_stages = journeys.recording() or links is not None
         take_ns = int(t_take * 1e9) if want_stages else 0
         exemplar = f"{links[0].trace_id:032x}" if links else None
@@ -975,8 +1082,14 @@ class DispatchLoop:
                 return None
         pack_ns = time.monotonic_ns() if want_stages else 0
         t0 = time.perf_counter() if self._h_launch is not None else 0.0
+        blocks = [rows for rows, _, _, _ in frames]
         try:
-            token = self._launch([rows for rows, _, _, _ in frames])
+            if span is not None:
+                # the engine records its phases as children of the span
+                with activate(span):
+                    token = self._launch(blocks)
+            else:
+                token = self._launch(blocks)
         except BaseException as e:  # noqa: BLE001 - propagate to callers
             if span is not None:
                 span.set_error(e)
@@ -1000,16 +1113,25 @@ class DispatchLoop:
         self.launches += 1
         self.overlapped_launches += overlapped
         stages = (take_ns, pack_ns, launch_ns) if want_stages else None
-        return token, frames, n_items, stages, span
+        return token, frames, n_items, stages, span, pre.cpu_ns if pre is not None else 0
 
-    def _redeem(self, token, frames, n_items: int, stages, span) -> None:
+    def _redeem(self, token, frames, n_items: int, stages, span, cpu_ns: int = 0):
         """Blocking readback of one launch, then verdict scatter: each
         parked ticket gets its slice copied into its own buffer (native
         rl_scatter_rows when built) and wakes with the owner's stage
-        timestamps on its ticket."""
+        timestamps on its ticket. With a batch span the engine records the
+        readback's children under it and this the dispatch.scatter child;
+        returns (span, the scatter's end ns, `cpu_ns`) for _end_turn, which
+        closes the span at the owner's next stamp, else None."""
         t0 = time.perf_counter() if self._h_redeem is not None else 0.0
         try:
-            out = np.ascontiguousarray(self._collect(token), dtype=np.uint32)
+            if span is not None:
+                with activate(span):
+                    out = self._collect(token)
+                scatter_ns = time.monotonic_ns()
+            else:
+                out = self._collect(token)
+            out = np.ascontiguousarray(out, dtype=np.uint32)
             redeem_ns = time.monotonic_ns() if stages is not None else 0
             bufs = [t.reserve(count) for _, count, t, _ in frames]
             if self._scatter is not None and len(frames) > 1:
@@ -1028,7 +1150,7 @@ class DispatchLoop:
             for _, _count, ticket, _ in frames:
                 ticket.fail(e)
             self._taken_items -= n_items
-            return
+            return None
         if stages is not None:
             stage_ns = (*stages, redeem_ns, time.monotonic_ns())
             for _, _, ticket, _ in frames:
@@ -1036,6 +1158,9 @@ class DispatchLoop:
         for _, _, ticket, _ in frames:
             ticket.resolve()
         self._taken_items -= n_items
+        if span is not None:
+            end_ns = time.monotonic_ns()
+            span.tracer.record_span("dispatch.scatter", span, scatter_ns, end_ns)
         if self._h_redeem is not None:
             redeem_ms = (time.perf_counter() - t0) * 1e3
             sctx = next((c for _, _, _, c in frames if c is not None), None)
@@ -1043,6 +1168,46 @@ class DispatchLoop:
                 self._h_redeem.record(redeem_ms, exemplar=f"{sctx.trace_id:032x}")
             else:
                 self._h_redeem.record(redeem_ms)
-        if span is not None:
-            span.log_kv(event="redeem.done", batch_items=n_items)
-            span.finish()
+        if span is None:
+            return None
+        span.log_kv(event="redeem.done", batch_items=n_items)
+        return span, end_ns, cpu_ns
+
+
+def _end_turn(turning, now_ns: int) -> None:
+    """Close the batch span of the owner's last redeem (`turning`, from
+    _redeem) at its next stamp: the dispatch.turn child from the scatter's
+    end to `now_ns` (the owner's way back to its next linger or take,
+    behind the frontends its scatter woke when they hold the GIL), and the
+    span with its `owner_cpu_us`. Returns None, the loop's next
+    `turning`."""
+    if turning is not None:
+        span, end_ns, cpu_ns = turning
+        span.tracer.record_span("dispatch.turn", span, end_ns, now_ns)
+        span.set_tag("owner_cpu_us", (time.thread_time_ns() - cpu_ns) // 1000)
+        span.finish(now_ns)
+    return None
+
+
+class _PreStamps:
+    """The owner's time.monotonic_ns() stamps of a cycle before its batch
+    span opens ([name, start_ns, end_ns]: dispatch.wait, dispatch.linger,
+    dispatch.take) and its CPU time at the first, kept only while the
+    tracer is enabled. Idle rounds of the loop fold into one
+    dispatch.wait."""
+
+    __slots__ = ("spans", "cpu_ns")
+
+    def __init__(self):
+        self.spans: list = []
+        self.cpu_ns = time.thread_time_ns()
+
+    def add(self, name: str, start_ns: int, end_ns: int) -> None:
+        spans = self.spans
+        if spans and spans[-1][0] == name:
+            spans[-1][2] = end_ns  # the same phase again: one span
+        elif len(spans) >= 4:
+            # idle rounds of linger and wait: fold into one wait
+            spans[:] = [["dispatch.wait", spans[0][1], start_ns], [name, start_ns, end_ns]]
+        else:
+            spans.append([name, start_ns, end_ns])

@@ -32,6 +32,7 @@ import json
 import logging
 import os
 import queue
+import random
 import socket
 import threading
 import time
@@ -55,6 +56,27 @@ LIGHTSTEP_PORT_ENV = "K_TRACING_LIGHTSTEP_PORT"
 LIGHTSTEP_TOKEN_ENV = "K_TRACING_LIGHTSTEP_TOKEN"
 
 COMPONENT_NAME = "apigw-ratelimit"
+
+# The one anchor pair of this process between time.monotonic_ns(), which
+# every span stamped after the fact is taken on, and the epoch, which
+# torch.profiler stamps its timeline in (kineto's trace_start_ns() plus
+# each event's relative us): a span's epoch start from epoch_s() lies on
+# the device trace.
+EPOCH_ANCHOR_NS = time.time_ns() - time.monotonic_ns()
+
+
+def epoch_s(mono_ns: int) -> float:
+    """Epoch seconds of a time.monotonic_ns() stamp, through the anchor."""
+    return (mono_ns + EPOCH_ANCHOR_NS) / 1e9
+
+
+# Every span id comes from one generator, seeded from the OS and again in a
+# forked child, whose draws hold the GIL. os.urandom releases it around its
+# syscall, and a dispatch owner that lets go of the GIL just after resolving
+# its tickets waits behind every frontend those tickets woke: the recording
+# would move the owner's wait out of the span that records it.
+_ids = random.Random()
+os.register_at_fork(after_in_child=_ids.seed)
 
 
 def _getenv_fallback(env, key: str, fallback_key: str) -> str:
@@ -144,12 +166,17 @@ class Span:
         self.set_tag("sampling.forced", True)
         return self
 
-    def finish(self) -> None:
+    def finish(self, mono_ns: int | None = None) -> None:
+        """Finish now, or at a time.monotonic_ns() stamp already taken."""
         if self._finished:
             return
         self._finished = True
-        self.finish_time = time.time()
-        self.duration = time.monotonic() - self._mono_start
+        if mono_ns is None:
+            self.finish_time = time.time()
+            self.duration = time.monotonic() - self._mono_start
+        else:
+            self.finish_time = epoch_s(mono_ns)
+            self.duration = max(0.0, mono_ns / 1e9 - self._mono_start)
         self.tracer._on_finish(self)
 
     # `with tracer.start_span(...) as span:` finishes the span and marks the
@@ -217,15 +244,10 @@ class Tracer:
     finished spans in `_on_finish`."""
 
     def __init__(self):
-        # Thread-safe id generation without per-span lock contention:
-        # os.urandom is atomic and cheap at this call rate.
         self._component = COMPONENT_NAME
 
     def _new_ids(self) -> tuple[int, int]:
-        raw = os.urandom(24)
-        trace_id = int.from_bytes(raw[:16], "big") or 1
-        span_id = int.from_bytes(raw[16:], "big") or 1
-        return trace_id, span_id
+        return _ids.getrandbits(128) or 1, _ids.getrandbits(64) or 1
 
     def start_span(
         self,
@@ -233,7 +255,13 @@ class Tracer:
         child_of: "Span | SpanContext | None" = None,
         tags: dict | None = None,
         links=None,
+        start_ns: int | None = None,
+        sampled: bool = True,
     ) -> Span:
+        """A span started now, or at a time.monotonic_ns() stamp already
+        taken (`start_ns`, placed on the epoch through the process's
+        anchor). `sampled` is a root span's flag; a child takes its
+        parent's."""
         parent_ctx = (
             child_of.context if isinstance(child_of, Span) else child_of
         )
@@ -246,39 +274,39 @@ class Tracer:
             )
             parent_id = parent_ctx.span_id
         else:
-            context = SpanContext(trace_id=trace_id, span_id=span_id)
+            context = SpanContext(trace_id=trace_id, span_id=span_id, sampled=sampled)
             parent_id = 0
+        if start_ns is None:
+            start_time, mono_start = time.time(), time.monotonic()
+        else:
+            start_time, mono_start = epoch_s(start_ns), start_ns / 1e9
         return Span(
             tracer=self,
             operation_name=operation_name,
             context=context,
             parent_id=parent_id,
-            start_time=time.time(),
+            start_time=start_time,
             tags=dict(tags) if tags else {},
             links=list(links) if links else [],
-            _mono_start=time.monotonic(),
+            _mono_start=mono_start,
         )
 
     def record_span(
         self,
         operation_name: str,
         child_of: "Span | SpanContext | None",
-        start_time: float,
-        duration: float,
+        start_ns: int,
+        end_ns: int,
         tags: dict | None = None,
     ) -> Span:
-        """Record an already-elapsed interval as a finished span — how the
-        dispatch frontend closes its request span with real per-stage child
-        spans (ring_wait/pack/launch/redeem) reconstructed from the owner
-        thread's timestamps after the ticket is redeemed."""
+        """Record an already-elapsed interval between two
+        time.monotonic_ns() stamps as a finished span: the dispatch
+        frontend's request stage spans (ring_wait/pack/launch/redeem) from
+        the owner thread's stamps, and the owner's own cycle spans."""
         if not self.enabled:
             return _NOOP_SPAN
-        span = self.start_span(operation_name, child_of=child_of, tags=tags)
-        span.start_time = start_time
-        span.finish_time = start_time + duration
-        span.duration = max(0.0, duration)
-        span._finished = True
-        self._on_finish(span)
+        span = self.start_span(operation_name, child_of=child_of, tags=tags, start_ns=start_ns)
+        span.finish(end_ns)
         return span
 
     @property
@@ -323,7 +351,7 @@ class _NoopSpan(Span):
     def force_sample(self):
         return self  # never mutate the shared singleton
 
-    def finish(self):
+    def finish(self, mono_ns=None):
         pass
 
     def __exit__(self, exc_type, exc, tb):
@@ -341,7 +369,8 @@ class NoopTracer(Tracer):
     def enabled(self) -> bool:
         return False
 
-    def start_span(self, operation_name, child_of=None, tags=None) -> Span:
+    def start_span(self, operation_name, child_of=None, tags=None, links=None,
+                   start_ns=None, sampled=True) -> Span:
         return _NOOP_SPAN
 
     def _on_finish(self, span: Span) -> None:
@@ -350,17 +379,21 @@ class NoopTracer(Tracer):
 
 class RecordingTracer(Tracer):
     """Keeps the most recent finished spans in memory for inspection —
-    the test double and the /debug/traces source."""
+    the test double and the /debug/traces source. `keep_unsampled` keeps
+    the spans no sampled request asked for too, as a profiling session
+    does: the dispatch owner's cycles that no request span is linked to
+    (backends/dispatch.py) are recorded unsampled."""
 
-    def __init__(self, max_spans: int = 2048):
+    def __init__(self, max_spans: int = 2048, keep_unsampled: bool = False):
         super().__init__()
         self._max_spans = max_spans
+        self.keep_unsampled = keep_unsampled
         self._lock = threading.Lock()
         self._spans: list[Span] = []
 
     def _on_finish(self, span: Span) -> None:
         # honor B3 sampled=0 unless the service force-sampled (slow tail)
-        if not span.context.sampled and not span.forced_sample:
+        if not (span.context.sampled or span.forced_sample or self.keep_unsampled):
             return
         with self._lock:
             self._spans.append(span)

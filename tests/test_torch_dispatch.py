@@ -705,3 +705,224 @@ def test_windowed_engine_matches_the_jax_windowed_engine(arm):
     finally:
         ref.close()
         port.close()
+
+
+# -- the owner's cycle in spans and histograms ---------------------------------
+
+# the children the owner records under each dispatch.batch (backends/
+# dispatch.py); every launch has the second set
+OWNER_SPANS = frozenset({
+    "dispatch.wait", "dispatch.linger", "dispatch.take", "dispatch.scatter", "dispatch.turn",
+    "engine.operand_wait", "engine.pack", "engine.promote", "engine.step_enqueue",
+    "engine.readback_enqueue", "engine.fence_wait", "engine.copy",
+})
+EVERY_LAUNCH = frozenset({
+    "dispatch.take", "engine.pack", "engine.step_enqueue", "engine.readback_enqueue",
+    "engine.fence_wait", "engine.copy", "dispatch.scatter", "dispatch.turn",
+})
+NOW_OWNER = 1_000
+
+
+def _owner_engine(store=None):
+    """A windowed CPU engine whose takes of 4 frontends x 100 rows run
+    past the 256-row bucket (two device launches) or fit one."""
+    return SlabDeviceEngine(
+        FakeTimeSource(NOW_OWNER), n_slots=1 << 12, ways=4, buckets=(64, 256), device="cpu",
+        batch_window_seconds=0.0005, max_batch=256,
+        scope=store.scope("ratelimit") if store is not None else None,
+    )
+
+
+def _frontends(engine, threads=4, blocks=12, rows=100, hold=None):
+    """`threads` closed-loop submitters of `blocks` row blocks each; `hold`
+    (an Event) keeps them going until it is set."""
+
+    def run(i):
+        rng = np.random.default_rng(i)
+        k = 0
+        while k < blocks or (hold is not None and not hold.is_set()):
+            n = rows if k % 3 else rows // 4
+            block = np.zeros((6, n), dtype=np.uint32)
+            block[0] = rng.integers(1, 4000, n)
+            block[2] = 1
+            block[3] = 100
+            block[4] = 60
+            engine.submit_rows(block)
+            k += 1
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    for t in ts:
+        t.start()
+    return ts
+
+
+class TestOwnerCycleSpans:
+    def test_every_launch_records_one_batch_span_with_its_children(self):
+        from api_ratelimit_tpu_torch import tracing
+
+        tracer = tracing.RecordingTracer(1 << 16, keep_unsampled=True)
+        tracing.set_global_tracer(tracer)
+        eng = _owner_engine()
+        try:
+            for t in _frontends(eng):
+                t.join(30)
+        finally:
+            eng.close()
+            tracing.reset_global_tracer()
+        spans = tracer.finished_spans()
+        batches = [s for s in spans if s.operation_name == "dispatch.batch"]
+        assert len(batches) == eng.dispatch_loop.launches > 0
+        children: dict = {}
+        for s in spans:
+            if s.operation_name != "dispatch.batch":
+                assert s.operation_name in OWNER_SPANS
+                children.setdefault(s.parent_id, []).append(s)
+        eps = 2e-6  # the epoch floats' rounding
+        launches = 0
+        for b in batches:
+            # no frontend carried a request span: the owner's own record,
+            # unsampled, and so are its children
+            assert b.links == [] and not b.context.sampled
+            kids = children[b.context.span_id]
+            names = [k.operation_name for k in kids]
+            assert EVERY_LAUNCH <= set(names), names
+            rows = b.tags["chunk_rows"]
+            assert b.tags["device_launches"] == len(rows) == names.count("engine.step_enqueue")
+            assert names.count("engine.readback_enqueue") == names.count("engine.fence_wait") == len(rows)
+            assert sum(rows) == b.tags["batch_items"] and all(0 < n <= 256 for n in rows)
+            assert b.tags["clock_now"] == NOW_OWNER and b.tags["owner_cpu_us"] > 0
+            (pack,) = [k for k in kids if k.operation_name == "engine.pack"]
+            assert pack.tags["fresh_operands"] == (len(rows) if len(rows) > 1 else 0)
+            assert ("engine.operand_wait" in names) == (len(rows) == 1)
+            for k in kids:
+                assert b.start_time - eps <= k.start_time
+                assert k.start_time + k.duration <= b.start_time + b.duration + eps
+            launches += len(rows)
+        assert launches > len(batches)  # some takes ran past the bucket
+        # one owner thread: its children never overlap, whatever their batch
+        kids = sorted((s for s in spans if s.operation_name != "dispatch.batch"), key=lambda s: s.start_time)
+        for a, b in zip(kids, kids[1:]):
+            assert a.start_time + a.duration <= b.start_time + 2 * eps, (a.operation_name, b.operation_name)
+
+    def test_tracer_off_builds_no_span_nor_stamp_list_on_the_owner(self, monkeypatch):
+        from api_ratelimit_tpu_torch.backends import dispatch as dispatch_mod
+        from api_ratelimit_tpu_torch.tracing import tracer as tracer_mod
+
+        built = []
+        span_init = tracer_mod.Span.__init__
+        stamps_init = dispatch_mod._PreStamps.__init__
+
+        def note(init):
+            def wrapped(self, *a, **kw):
+                built.append((type(self).__name__, threading.current_thread().name))
+                init(self, *a, **kw)
+            return wrapped
+
+        monkeypatch.setattr(tracer_mod.Span, "__init__", note(span_init))
+        monkeypatch.setattr(dispatch_mod._PreStamps, "__init__", note(stamps_init))
+        tracer_mod.reset_global_tracer()  # the no-op tracer: off
+        store = Store()
+        eng = _owner_engine(store)
+        try:
+            for t in _frontends(eng):
+                t.join(30)
+        finally:
+            eng.close()
+        assert eng.dispatch_loop.launches > 0
+        assert [b for b in built if b[1] == "cuda-dispatch-owner"] == []
+        # the histograms are always on
+        snap = store.debug_snapshot()
+        assert snap["ratelimit.device.step_enqueue_ms.count"] >= eng.dispatch_loop.launches
+
+    def test_cycle_offcpu_wake_and_step_enqueue_histograms(self):
+        store = Store()
+        eng = _owner_engine(store)
+        try:
+            for t in _frontends(eng, threads=2, blocks=10):
+                t.join(30)
+        finally:
+            eng.close()
+        h = store.metrics_snapshot()["histograms"]
+        launches = eng.dispatch_loop.launches
+        # one device launch a chunk, one cycle between two takes, one wake
+        # an in-process frame
+        assert h["ratelimit.device.step_enqueue_ms"]["count"] == len(eng.launch_sizes) >= launches
+        assert h["ratelimit.dispatch.cycle_ms"]["count"] == launches - 1
+        assert h["ratelimit.dispatch.offcpu_ms"]["count"] == launches - 1
+        assert h["ratelimit.dispatch.offcpu_ms"]["sum"] <= h["ratelimit.dispatch.cycle_ms"]["sum"]
+        assert h["ratelimit.dispatch.wake_ms"]["count"] == 20
+        assert h["ratelimit.device.step_enqueue_ms"]["sum"] <= h["ratelimit.device.launch_ms"]["sum"]
+
+    def test_offcpu_sums_exactly_on_a_coarse_cpu_clock(self, monkeypatch):
+        """A thread CPU clock that advances in 10 ms ticks reads each
+        ~7 ms cycle's CPU as 0 or 10 ms: every cycle records a gain of 0
+        or more, and the sum is the owner's wall less CPU time to a tick."""
+        store = Store()
+        loop = _echo_loop(scope=store.scope("ratelimit"))
+        loop.close()
+        tick = 10_000_000
+        wall = [0]
+        cpu_true = [0]
+
+        def monotonic_ns():
+            return wall[0]
+
+        def thread_time_ns():
+            return cpu_true[0] // tick * tick
+
+        monkeypatch.setattr(time, "monotonic_ns", monotonic_ns)
+        monkeypatch.setattr(time, "thread_time_ns", thread_time_ns)
+        for _ in range(200):
+            wall[0] += 7_000_000
+            cpu_true[0] += 5_000_000  # 2 ms of each cycle off the CPU
+            loop._note_cycle()
+        monkeypatch.undo()
+        h = store.metrics_snapshot()["histograms"]
+        off, cycle = h["ratelimit.dispatch.offcpu_ms"], h["ratelimit.dispatch.cycle_ms"]
+        assert off["count"] == cycle["count"] == 199
+        assert cycle["sum"] == pytest.approx(199 * 7.0)
+        assert abs(off["sum"] - 199 * 2.0) <= tick / 1e6
+        assert off["counts"][0] > 0  # cycles whose tick landed read 0, never below
+
+    def test_unlinked_launches_stay_out_of_a_sampling_tracer(self):
+        """An operator's tracer (sampled spans only) keeps none of the
+        owner's unlinked cycles, so they never push request spans out of
+        its ring; a linked launch's batch span it keeps, as the reference
+        does."""
+        from api_ratelimit_tpu_torch import tracing
+
+        tracer = tracing.RecordingTracer(1 << 12)
+        tracing.set_global_tracer(tracer)
+        eng = _owner_engine()
+        try:
+            for t in _frontends(eng, threads=2, blocks=4):
+                t.join(30)
+            assert tracer.finished_spans() == []
+            with tracer.start_span("request") as span, tracing.activate(span):
+                eng.submit_rows(np.array([[7], [0], [1], [100], [60], [0]], dtype=np.uint32))
+        finally:
+            eng.close()
+            tracing.reset_global_tracer()
+        names = [s.operation_name for s in tracer.finished_spans()]
+        assert names.count("dispatch.batch") == 1 and "request" in names
+        assert "dispatch.turn" in names and "engine.step_enqueue" in names
+
+    def test_offcpu_leaves_out_the_owners_parking(self):
+        """Frontends that pause between blocks leave the owner parked on its
+        work event most of each cycle: that parking is not off-CPU time."""
+        store = Store()
+        eng = _owner_engine(store)
+
+        def run():
+            for i in range(12):
+                eng.submit_rows(np.array([[i + 1], [0], [1], [100], [60], [0]], dtype=np.uint32))
+                time.sleep(0.03)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(30)
+        eng.close()
+        h = store.metrics_snapshot()["histograms"]
+        cycle, off = h["ratelimit.dispatch.cycle_ms"], h["ratelimit.dispatch.offcpu_ms"]
+        assert cycle["count"] == 11 and cycle["sum"] >= 11 * 30.0
+        assert off["sum"] < 0.3 * cycle["sum"], (off["sum"], cycle["sum"])
